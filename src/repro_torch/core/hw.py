@@ -1,0 +1,120 @@
+"""Hardware template for Gemini (paper Sec. III) + technology constants.
+
+Reduced copy of ``src/repro/core/hw.py``: ``Tech``, ``TECH_12NM``,
+``ArchConfig`` (fields, ``n_cores``, ``n_chiplets``, ``label()``) and
+``simba_arch``.  The cost-model geometry (router grid, D2D interface count)
+and the TPU roofline constants stay in the reference until the cost model is
+ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class Tech:
+    """Per-technology energy / area / cost constants (int8 inference)."""
+    name: str
+    # energy, joules
+    e_mac: float            # per 8-bit MAC
+    e_glb_byte: float       # per byte GLB (SRAM) access
+    e_noc_hop_byte: float   # per byte per NoC hop (router+wire)
+    e_d2d_byte: float       # per byte crossing one D2D interface
+    e_dram_byte: float      # per byte of DRAM traffic
+    # area, mm^2
+    a_mac: float            # per MAC unit
+    a_glb_kb: float         # per KB of GLB SRAM
+    a_core_fixed: float     # router + DMA + control + vector unit
+    a_d2d_fixed: float      # per D2D interface (PHY + controller), fixed part
+    a_d2d_per_gbps: float   # per D2D interface, bandwidth-proportional part
+    a_io_die_fixed: float   # per IO chiplet (PCIe, misc analog)
+    a_dram_phy_per_gbps: float  # DDR PHY area per GB/s on the IO die
+    # monetary cost
+    c_silicon_mm2: float    # $ per mm^2 of (yielded) silicon
+    yield_unit: float       # yield of one Area_unit die
+    area_unit_mm2: float    # the unit area for the yield model
+    c_dram_die: float       # $ per DRAM die
+    dram_die_bw: float      # GB/s per DRAM die
+    f_scale: float          # substrate area / total silicon area
+    yield_package: float    # per-die mount yield (compounds with #dies)
+    c_package_mono_mm2: float   # $/mm^2, plain fan-out substrate (monolithic)
+    # chiplet-grade organic substrate tiers: (max_area_mm2, $/mm^2)
+    c_package_tiers: Tuple[Tuple[float, float], ...] = (
+        (1000.0, 0.020), (3000.0, 0.030), (float("inf"), 0.045))
+
+
+TECH_12NM = Tech(
+    name="tsmc12",
+    e_mac=0.25e-12,
+    e_glb_byte=1.2e-12,
+    e_noc_hop_byte=0.8e-12,
+    e_d2d_byte=9.4e-12,
+    e_dram_byte=60e-12,
+    a_mac=3.0e-4,
+    a_glb_kb=1.0e-3,
+    a_core_fixed=0.45,
+    a_d2d_fixed=0.20,
+    a_d2d_per_gbps=0.012,
+    a_io_die_fixed=12.0,
+    a_dram_phy_per_gbps=0.04,
+    c_silicon_mm2=0.09,
+    yield_unit=0.9,
+    area_unit_mm2=40.0,
+    c_dram_die=3.5,
+    dram_die_bw=32.0,
+    f_scale=4.0,
+    yield_package=0.99,
+    c_package_mono_mm2=0.005,
+)
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """One point of the paper's architecture space.
+
+    Printed form follows the paper: (Chiplets, Cores, DRAM_BW, NoC_BW,
+    D2D_BW, GLB/Core, MAC/Core).
+    """
+    x_cores: int
+    y_cores: int
+    xcut: int = 1
+    ycut: int = 1
+    noc_bw: float = 32.0          # GB/s per directed NoC link
+    d2d_bw: float = 16.0          # GB/s per directed D2D interface
+    dram_bw: float = 144.0        # GB/s aggregate
+    glb_kb: int = 2048            # per core
+    macs_per_core: int = 1024
+    freq_ghz: float = 1.0
+    n_dram: int = 2               # DRAM ports (one per IO chiplet by default)
+    tech: Tech = TECH_12NM
+
+    def __post_init__(self):
+        if self.x_cores % self.xcut or self.y_cores % self.ycut:
+            raise ValueError(
+                f"cut ({self.xcut},{self.ycut}) must divide core grid "
+                f"({self.x_cores},{self.y_cores})")
+        if self.n_dram < 1:
+            raise ValueError("need at least one DRAM port")
+
+    @property
+    def n_cores(self) -> int:
+        return self.x_cores * self.y_cores
+
+    @property
+    def n_chiplets(self) -> int:
+        return self.xcut * self.ycut
+
+    def label(self) -> str:
+        return (f"({self.n_chiplets}, {self.n_cores}, {self.dram_bw:g}GB/s, "
+                f"{self.noc_bw:g}GB/s, "
+                f"{'None' if self.n_chiplets == 1 else f'{self.d2d_bw:g}GB/s'}, "
+                f"{self.glb_kb // 1024}MB, {self.macs_per_core})")
+
+
+def simba_arch() -> ArchConfig:
+    """S-Arch: 36 chiplets x 1 core, 72 TOPS (paper Sec. VI-A4)."""
+    return ArchConfig(x_cores=6, y_cores=6, xcut=6, ycut=6,
+                      noc_bw=16.0, d2d_bw=8.0, dram_bw=144.0,
+                      glb_kb=1024, macs_per_core=1024)

@@ -1,0 +1,119 @@
+"""Build and bind the CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
+first use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``
+into ``_build/`` beside this file (listed in ``.gitignore``), then loaded
+with ``ctypes``.  A library's file name carries a digest of its source and
+flags, so an edited source is rebuilt and a stale library never loads.
+:func:`build` compiles several sources at once, one ``nvcc`` process each;
+:func:`load` declares each C entry point's signature once, from
+:data:`SIGNATURES`.
+
+Nothing here runs at import: the CPU tests import every module of the
+package on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("tiled_matmul", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of each source's launch function; every one returns the
+# launch's cudaError_t as an int
+SIGNATURES = {
+    "tiled_matmul": {"tiled_matmul_f32": [_P] * 3 + [_I] * 4 + [_P]},
+    "flash_attention": {"flash_attention_f32": [_P] * 4 + [_I] * 7 + [_P]},
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Dict]:
+    """Compile every named source whose library is missing, all at once.
+
+    Returns ``{name: {"seconds": s, "ptxas": [lines], "cached": bool}}``;
+    raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    info: Dict[str, Dict] = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            info[name] = {"seconds": 0.0, "ptxas": [], "cached": True}
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed: List[str] = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
+                          f"{log}")
+            continue
+        tmp.replace(out)
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        info[name] = {"seconds": secs, "ptxas": ptxas, "cached": False}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return info
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        for symbol, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, symbol)
+            fn.restype, fn.argtypes = _I, argtypes
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        lib.cuda_error_string.argtypes = [_I]
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, kernel: str, code: int) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if code != 0:
+        msg = lib.cuda_error_string(code).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {code} "
+                           f"({msg})")

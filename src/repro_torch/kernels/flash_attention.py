@@ -1,0 +1,56 @@
+"""Flash attention forward: the port of the Pallas ``flash_attention_mha``
+(``src/repro/kernels/flash_attention.py:90``).
+
+``flash_attention_mha(q, k, v, causal)`` launches the CUDA kernel of
+``csrc/flash_attention.cu`` for tensors on the card and runs the plain
+version (:func:`repro_torch.kernels.ref.attention_ref`) for tensors on the
+CPU.  A CUDA tensor never falls back: what the kernel does not take raises.
+``flash_attention_mha.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import attention_ref
+
+MAX_HEAD_DIM = 256
+
+
+def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """q (B, H, Sq, D); k, v (B, H, Sk, D), MHA layout -> (B, H, Sq, D)."""
+    qkv = (q, k, v)
+    if all(x.device.type == "cpu" for x in qkv):
+        return attention_ref(q, k, v, causal=causal)
+    if q.device.type != "cuda" or any(x.device != q.device for x in qkv):
+        raise ValueError("flash_attention_mha: q, k, v must lie on one card")
+    if any(x.dtype != torch.float32 for x in qkv):
+        raise TypeError("flash_attention_mha: the kernel takes float32")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention_mha: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)} are not "
+                         f"(B, H, Sq, D), (B, H, Sk, D) x 2")
+    if not all(x.is_contiguous() for x in qkv):
+        raise ValueError("flash_attention_mha: q, k, v must be contiguous")
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if min(B, H, Sq, Sk, D) < 1 or D > MAX_HEAD_DIM or B * H > 65535 \
+            or max(q.numel(), k.numel()) > 2**31 - 1:
+        raise ValueError(f"flash_attention_mha: B={B} H={H} Sq={Sq} Sk={Sk} "
+                         f"D={D} out of the kernel's range "
+                         f"(D <= {MAX_HEAD_DIM}, B*H <= 65535)")
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.flash_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   out.data_ptr(), B, H, Sq, Sk, D,
+                                   int(causal), q.device.index or 0, stream)
+    _build.check(lib, "flash_attention_mha", code)
+    flash_attention_mha.launches += 1
+    return out
+
+
+flash_attention_mha.launches = 0

@@ -1,0 +1,52 @@
+"""Tiled f32 GEMM: the port of the Pallas ``tiled_matmul``
+(``src/repro/kernels/tiled_matmul.py:51``).
+
+``tiled_matmul(a, b)`` launches the CUDA kernel of ``csrc/tiled_matmul.cu``
+for tensors on the card and runs the plain version
+(:func:`repro_torch.kernels.ref.matmul_ref`) for tensors on the CPU.  A
+CUDA tensor never falls back: what the kernel does not take raises.
+``tiled_matmul.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import matmul_ref
+
+_INT_MAX = 2**31 - 1
+
+
+def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N) -> (M, N), f32 accumulation."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_ref(a, b)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"tiled_matmul: operands on {a.device} and "
+                         f"{b.device}; the kernel takes both on one card")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"tiled_matmul: the kernel takes float32, got "
+                        f"{a.dtype} and {b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"tiled_matmul: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)} are not (M, K) @ (K, N)")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("tiled_matmul: operands must be contiguous")
+    M, K = a.shape
+    N = b.shape[1]
+    if min(M, N, K) < 1 or max(M * K, K * N, M * N) > _INT_MAX \
+            or -(-M // 64) > 65535:
+        raise ValueError(f"tiled_matmul: sizes M={M} K={K} N={N} out of "
+                         f"the kernel's range")
+    out = torch.empty((M, N), device=a.device, dtype=torch.float32)
+    lib = _build.load("tiled_matmul")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    code = lib.tiled_matmul_f32(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                M, N, K, a.device.index or 0, stream)
+    _build.check(lib, "tiled_matmul", code)
+    tiled_matmul.launches += 1
+    return out
+
+
+tiled_matmul.launches = 0

@@ -1,0 +1,132 @@
+"""PyTorch port kernels: the plain versions against the reference Pallas
+kernels (interpret mode on the CPU) and the CPU dispatch of the wrappers.
+The CUDA kernels themselves are held against the plain versions on the card
+by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+
+Inputs are drawn with numpy and handed to both packages.  Tolerances are
+those of ``tests/test_kernels.py``: atol 1e-3 / rtol 1e-4 for the f32 GEMM,
+2e-5 for f32 attention, 2e-2 for bf16 attention and 0.5 / 5e-2 for the
+bf16 GEMM.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_mha
+from repro_torch.kernels.tiled_matmul import tiled_matmul
+
+
+def _randn(rng, shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# plain versions vs the reference Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,K,N,bm,bn,bk", [
+    (64, 64, 64, 32, 32, 32),
+    (100, 300, 50, 64, 64, 64),     # ragged
+    (256, 128, 512, 128, 128, 128),
+])
+def test_matmul_ref_vs_pallas(M, K, N, bm, bn, bk):
+    rng = np.random.default_rng(M + K + N)
+    a, b = _randn(rng, (M, K)), _randn(rng, (K, N))
+    want = np.asarray(jops.matmul(jnp.asarray(a), jnp.asarray(b),
+                                  bm=bm, bn=bn, bk=bk, interpret=True))
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-4)
+
+
+def test_matmul_ref_vs_pallas_bf16():
+    rng = np.random.default_rng(1)
+    a, b = _randn(rng, (128, 128)), _randn(rng, (128, 128))
+    want = jops.matmul(jnp.asarray(a, jnp.bfloat16),
+                       jnp.asarray(b, jnp.bfloat16), bm=64, bn=64, bk=64,
+                       interpret=True)
+    got = ref.matmul_ref(torch.from_numpy(a).bfloat16(),
+                         torch.from_numpy(b).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=0.5, rtol=5e-2)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D", [
+    (1, 2, 2, 64, 64, 32),
+    (2, 4, 2, 96, 96, 64),      # GQA + non-multiple of block
+    (1, 2, 1, 128, 256, 32),    # Sq != Sk
+    (2, 8, 8, 64, 64, 128),     # MHA wide head
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ref_vs_pallas(B, H, KV, Sq, Sk, D, causal):
+    rng = np.random.default_rng(B * 1000 + Sq + Sk + D)
+    q = _randn(rng, (B, Sq, H, D))
+    k = _randn(rng, (B, Sk, KV, D))
+    v = _randn(rng, (B, Sk, KV, D))
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        bq=64, bk=64, interpret=True))
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
+    assert tuple(got.shape) == (B, Sq, H, D)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_attention_ref_dtypes_vs_pallas(dtype, atol):
+    rng = np.random.default_rng(7)
+    q, k, v = (_randn(rng, (1, 2, 64, 32)) for _ in range(3))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = np.asarray(jops.flash_attention(
+        *(jnp.asarray(x.transpose(0, 2, 1, 3), jdt) for x in (q, k, v)),
+        causal=True, bq=32, bk=32, interpret=True), np.float32)
+    got = ref.attention_ref(*(torch.from_numpy(x).to(dtype)
+                              for x in (q, k, v)), causal=True)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().numpy().transpose(0, 2, 1, 3),
+                               want, atol=atol, rtol=atol)
+
+
+def test_attention_ref_equals_reference_oracle():
+    """The port's oracle and the JAX oracle agree on the same inputs."""
+    rng = np.random.default_rng(3)
+    q, k, v = (_randn(rng, (2, 3, 40, 16)) for _ in range(3))
+    for causal in (True, False):
+        want = np.asarray(jref.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v), causal=causal))
+        got = ref.attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=causal).numpy()
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# wrapper dispatch: plain version only for CPU tensors, never a fallback
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(_randn(rng, (8, 8))) for _ in range(2))
+    before = (tiled_matmul.launches, flash_attention_mha.launches)
+    assert torch.equal(tiled_matmul(a, b), ref.matmul_ref(a, b))
+    q = a.reshape(1, 1, 8, 8)
+    assert torch.equal(flash_attention_mha(q, q, q),
+                       ref.attention_ref(q, q, q))
+    assert (tiled_matmul.launches, flash_attention_mha.launches) == before
+
+
+def test_non_cpu_tensors_never_fall_back():
+    """A tensor off the CPU goes to the kernel or raises: here, on the meta
+    device, it raises instead of running the plain version."""
+    a = torch.empty((8, 8), device="meta")
+    with pytest.raises(ValueError, match="one card"):
+        tiled_matmul(a, a)
+    q = torch.empty((1, 1, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="one card"):
+        flash_attention_mha(q, q, q)

@@ -1,0 +1,351 @@
+"""PyTorch port of the realization loop against the JAX reference.
+
+* the committed ``tf-paper`` keep_mappings fixture equals what the
+  reference DSE writes now;
+* graph fingerprints, lowered plans and kernel routes of the port equal the
+  reference's;
+* realized stages: the port on the CPU against the reference program built
+  with ``use_pallas=False`` on forced XLA host devices, on identical
+  numpy-drawn inputs — argument shapes equal, every stage cube within
+  2e-4 of the cube's max (``tests/test_realize.py``'s bound), DCI bytes
+  exactly equal, and the port's DCI billing decision equal to
+  ``NamedSharding.is_equivalent_to`` on every inter-stage cube of the
+  fixture's 37-stage plan;
+* the port's CLI end to end on the CPU, resumed run included;
+* the entry points raise when asked for the card on a machine without one.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.dse import DSEConfig, run_dse
+from repro.core.explore import ResumableSweep as RefSweep
+from repro.core.explore import graph_fingerprint as ref_fingerprint
+from repro.core.hw import ArchConfig as RefArch
+from repro.core.hw import simba_arch as ref_simba
+from repro.core.sa import SAConfig
+from repro.core.workloads import make_workload as ref_workload
+from repro.realize.plan import load_realize_candidates as ref_load
+from repro.realize.program import _route_layers as ref_routes
+from repro_torch.core.explore import graph_fingerprint
+from repro_torch.core.hw import simba_arch
+from repro_torch.core.workloads import make_workload
+from repro_torch.realize.measure import attention_pairs, launch_cost
+from repro_torch.realize.plan import load_realize_candidates, plans_for
+from repro_torch.realize.program import _fit, _route_layers, build_program
+
+REPO = Path(__file__).resolve().parent.parent
+FIXTURE = REPO / "tests" / "data" / "realize" / "tf-paper.simba.ckpt.jsonl"
+SMALL_SPEC = "transformer:n_layers=1,d_model=64,d_ff=128,seq=32,name=tf-t"
+
+
+def _plan_tuple(plan):
+    return ([(st.layers, st.devices, st.parts, st.cgs) for st in plan.stages],
+            plan.batch_unit)
+
+
+# ---------------------------------------------------------------------------
+# the fixture and the plan it lowers to
+# ---------------------------------------------------------------------------
+
+def test_fixture_equals_fresh_reference_dse(tmp_path):
+    cfg = DSEConfig(batch=4, sa=SAConfig(iters=200, seed=0),
+                    keep_mappings=True)
+    ck = tmp_path / "tf-paper.ckpt.jsonl"
+    run_dse([ref_simba()], {"TF": ref_workload("tf-paper")}, cfg,
+            checkpoint=ck)
+    header = lambda p: json.loads(Path(p).read_text().splitlines()[0])
+    assert header(ck) == header(FIXTURE)
+    fresh, fixed = RefSweep.read(ck).as_dict(), RefSweep.read(FIXTURE).as_dict()
+    assert fresh.keys() == fixed.keys() and len(fixed) == 1
+    for key, rec in fixed.items():
+        now = fresh[key]
+        assert rec.keys() == now.keys()
+        assert rec["arch"] == now["arch"] and rec["seed"] == now["seed"]
+        assert rec["workload"] == now["workload"]
+        assert rec["mapping"] == now["mapping"]
+        for f in ("energy_j", "delay_s"):
+            assert rec[f] == pytest.approx(now[f], rel=1e-9)
+
+
+@pytest.mark.parametrize("spec", ["tf-paper", "tf-quick", SMALL_SPEC])
+def test_graph_fingerprint_matches_reference(spec):
+    assert graph_fingerprint(make_workload(spec)) == \
+        ref_fingerprint(ref_workload(spec))
+
+
+def test_unknown_workload_names_what_the_port_has():
+    with pytest.raises(ValueError, match="tf-paper.*transformer:k=v"):
+        make_workload("moe-quick")
+
+
+def test_fixture_plans_and_routes_match_reference():
+    g, rg = make_workload("tf-paper"), ref_workload("tf-paper")
+    (cand, plan), = plans_for(load_realize_candidates(
+        FIXTURE, {"TF": g}, top=0, verbose=False))
+    rcand, = ref_load(FIXTURE, {"TF": rg}, top=0, verbose=False)
+    rplan = rcand.lower()
+    assert cand.key == rcand.key and cand.arch.label() == rcand.arch.label()
+    assert cand.arch.n_cores == 36
+    assert _plan_tuple(plan) == _plan_tuple(rplan)
+    assert len(plan.stages) == 37 and plan.batch_unit == 4
+    tags = []
+    for st, rst in zip(plan.stages, rplan.stages):
+        routes = _route_layers(g, st)
+        assert routes == ref_routes(rg, rst)
+        tags += [r.split(":")[0] for r in routes.values()]
+    assert (tags.count("matmul"), tags.count("flash"),
+            tags.count("add")) == (36, 6, 12)
+    prog = build_program(g, plan, device="cpu")
+    launched = [k for sp in prog.stages for k, _ in sp.launches]
+    assert (launched.count("tiled_matmul"),
+            launched.count("flash_attention_mha")) == (36, 6)
+
+
+def test_corrupt_fixture_mapping_is_refused(tmp_path):
+    rec = [json.loads(line) for line in FIXTURE.read_text().splitlines()]
+    rec[1]["mapping"][0]["lms"]["l0_q"]["cg"][0] = 99
+    bad = tmp_path / "bad.ckpt.jsonl"
+    bad.write_text("".join(json.dumps(r) + "\n" for r in rec))
+    with pytest.raises(ValueError, match="out of range"):
+        load_realize_candidates(bad, {"TF": make_workload("tf-paper")},
+                                verbose=False)
+
+
+@pytest.mark.parametrize("n,shape", [(10, (3, 7)), (12, (2, 2, 3)),
+                                     (50, (4, 5)), (7, (1, 40))])
+def test_fit_has_jnp_resize_semantics(n, shape):
+    x = np.arange(n, dtype=np.float32) * 0.5 - 1.0
+    want = np.resize(x, shape)
+    np.testing.assert_array_equal(_fit(torch.from_numpy(x), shape).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(512, 512), (96, 96), (100, 300),
+                                   (256, 128), (1, 7), (7, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_flops_count_the_pairs_the_mask_keeps(Sq, Sk, causal):
+    q_pos, k_pos = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    kept = int((q_pos >= k_pos).sum()) if causal else Sq * Sk
+    assert attention_pairs(Sq, Sk, causal) == kept
+    flops, nbytes = launch_cost("flash_attention_mha", {
+        "B": 2, "H": 3, "Sq": Sq, "Sk": Sk, "D": 16, "causal": int(causal)})
+    assert flops == 4.0 * 2 * 3 * 16 * kept
+    assert nbytes == 4.0 * 2 * 3 * 16 * (2 * Sq + 2 * Sk)
+
+
+# ---------------------------------------------------------------------------
+# realized stages: port (CPU) vs reference (use_pallas=False), one process
+# with forced host devices
+# ---------------------------------------------------------------------------
+
+_PARITY = textwrap.dedent("""
+    import json
+    import numpy as np
+    import jax
+    from repro.core.bridge import lms_to_plan as ref_lms_to_plan
+    from repro.core.dse import DSEConfig, run_dse
+    from repro.core.explore import mapping_to_jsonable
+    from repro.core.hw import ArchConfig
+    from repro.core.sa import SAConfig
+    from repro.core.tangram import tangram_map
+    from repro.core.workload import LayerGroup
+    from repro.core.workloads import make_workload as ref_workload
+    from repro.core.workloads import transformer
+    from repro.realize.plan import load_realize_candidates as ref_load
+    from repro.realize.program import _stage_mesh, build_program as ref_build
+    from repro.realize.program import cube_spec_for
+    from jax.sharding import NamedSharding
+    from repro_torch.core.bridge import lms_to_plan
+    from repro_torch.core.explore import mapping_from_jsonable
+    from repro_torch.core.workloads import make_workload
+    from repro_torch.realize.plan import load_realize_candidates, plans_for
+    from repro_torch.realize.program import build_program
+
+    arch = ArchConfig(x_cores=4, y_cores=3, xcut=2, ycut=1, noc_bw=32,
+                      d2d_bw=16, dram_bw=64, glb_kb=1024,
+                      macs_per_core=1024)
+    g = transformer(n_layers=1, d_model=64, d_ff=128, seq=32, name="tf-par")
+    pg = make_workload("transformer:n_layers=1,d_model=64,d_ff=128,seq=32,"
+                       "name=tf-par")
+    devs = jax.devices()
+
+
+    def moves(rplan, prog, pg):
+        # per inter-stage cube: does the reference bill it, does the port
+        meshes = [_stage_mesh(st, devs) for st in rplan.stages]
+        stage_of = {n: i for i, sp in enumerate(prog.stages)
+                    for n in sp.stage.layers}
+        ref_m, port_m = [], []
+        for si, sp in enumerate(prog.stages):
+            for name in sp.ext_inputs:
+                pi = stage_of[name]
+                lyr = pg.layers[name]
+                shape = (prog.batch_unit, lyr.H, lyr.W, lyr.K)
+                src = NamedSharding(meshes[pi],
+                                    cube_spec_for(shape, meshes[pi]))
+                dst = NamedSharding(meshes[si],
+                                    cube_spec_for(shape, meshes[si]))
+                ref_m.append(not src.is_equivalent_to(dst, 4))
+                port_m.append(prog.stages[pi].layout(shape)
+                              != sp.layout(shape))
+        return ref_m, port_m
+
+
+    names = tuple(g.topo_order())
+    mappings = {
+        "tangram": tangram_map([LayerGroup(names=names, batch_unit=2)], g,
+                               arch),
+        "per_layer": tangram_map([LayerGroup(names=(n,), batch_unit=2)
+                                  for n in names], g, arch),
+        "dse": run_dse([arch], {"TF": g}, DSEConfig(
+            batch=4, sa=SAConfig(iters=40, seed=0),
+            keep_mappings=True))[0].mappings["TF"],
+    }
+    out = {}
+    for label, mapping in mappings.items():
+        rplan = ref_lms_to_plan(mapping)
+        rprog = ref_build(g, rplan, use_pallas=False)
+        rrun = rprog.execute(seed=0)
+        prog = build_program(pg, lms_to_plan(mapping_from_jsonable(
+            mapping_to_jsonable(mapping))), device="cpu")
+        run = prog.execute(seed=0)
+        errs = {}
+        for name, b in rrun["outputs"].items():
+            a = run["outputs"][name].numpy()
+            b = np.asarray(b)
+            assert a.shape == b.shape, (name, a.shape, b.shape)
+            errs[name] = float(np.abs(a - b).max()
+                               / (np.abs(b).max() + 1e-9))
+        ref_m, port_m = moves(rplan, prog, pg)
+        out[label] = {
+            "n_stages": len(prog.stages),
+            "shapes_equal": [[tuple(s.shape) for s in rsp.arg_structs]
+                             == [tuple(s) for s in sp.arg_shapes]
+                             for rsp, sp in zip(rprog.stages, prog.stages)],
+            "routes_equal": [rsp.routes == sp.routes
+                             for rsp, sp in zip(rprog.stages, prog.stages)],
+            "has_flash": any(r.startswith("flash:") for sp in prog.stages
+                             for r in sp.routes.values()),
+            "max_rel_err": max(errs.values()),
+            "n_cubes": len(errs),
+            "ref_dci": [float(x) for x in rrun["dci_bytes"]],
+            "port_dci": [float(x) for x in run["dci_bytes"]],
+            "ref_moves": ref_m, "port_moves": port_m,
+        }
+
+    # billing decisions on the full tf-paper fixture plan (no execution)
+    ck = "tests/data/realize/tf-paper.simba.ckpt.jsonl"
+    rcand, = ref_load(ck, {"TF": ref_workload("tf-paper")}, verbose=False)
+    pg = make_workload("tf-paper")
+    (_, plan), = plans_for(load_realize_candidates(ck, {"TF": pg},
+                                                   verbose=False))
+    ref_m, port_m = moves(rcand.lower(), build_program(pg, plan, "cpu"), pg)
+    out["fixture"] = {"ref_moves": ref_m, "port_moves": port_m}
+    print(json.dumps(out))
+""")
+
+
+def test_realized_stages_match_reference_program():
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=36"
+    env["PYTHONPATH"] = str(REPO / "src")
+    env.setdefault("JAX_PLATFORMS", "cpu")
+    r = subprocess.run([sys.executable, "-c", _PARITY], capture_output=True,
+                       text=True, timeout=600, env=env, cwd=REPO)
+    assert r.returncode == 0, f"stderr:\n{r.stderr[-3000:]}"
+    rec = json.loads(r.stdout.splitlines()[-1])
+    for label in ("tangram", "per_layer", "dse"):
+        res = rec[label]
+        assert all(res["shapes_equal"]) and all(res["routes_equal"])
+        assert res["max_rel_err"] < 2e-4
+        assert res["port_dci"] == res["ref_dci"]
+        assert res["port_moves"] == res["ref_moves"]
+    assert rec["tangram"]["n_stages"] == 1 and rec["tangram"]["has_flash"]
+    assert rec["dse"]["n_stages"] > 1 and any(rec["dse"]["ref_dci"])
+    # both billing outcomes occur: cubes that move and cubes that stay
+    billed = [m for label in ("per_layer", "dse")
+              for m in rec[label]["ref_moves"]]
+    assert any(billed) and not all(billed)
+    fx = rec["fixture"]
+    assert fx["port_moves"] == fx["ref_moves"] and len(fx["ref_moves"]) > 36
+
+
+# ---------------------------------------------------------------------------
+# CLI end to end (CPU) and the entry points' refusal without a card
+# ---------------------------------------------------------------------------
+
+def _keep_ckpt(tmp_path):
+    archs = [RefArch(x_cores=2, y_cores=2, xcut=xcut, ycut=1, noc_bw=32.0,
+                     d2d_bw=16.0, dram_bw=64.0, glb_kb=512,
+                     macs_per_core=1024) for xcut in (1, 2)]
+    cfg = DSEConfig(batch=4, sa=SAConfig(iters=40, seed=0),
+                    keep_mappings=True)
+    ck = tmp_path / "rt.ckpt.jsonl"
+    run_dse(archs, {"TF": ref_workload(SMALL_SPEC)}, cfg, checkpoint=ck)
+    return ck
+
+
+def test_realize_cli_end_to_end_cpu(tmp_path):
+    ck = _keep_ckpt(tmp_path)
+    out = tmp_path / "realize.jsonl"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO / "src")
+    cmd = [sys.executable, "-m", "repro_torch.launch.realize",
+           "--ckpt", str(ck), "--workload", f"TF={SMALL_SPEC}",
+           "--top", "2", "--device", "cpu", "--out", str(out)]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       env=env)
+    assert r.returncode == 0, f"stderr:\n{r.stderr[-3000:]}"
+    assert "DCI MB" in r.stdout
+    lines = out.read_text().splitlines()
+    assert json.loads(lines[0])["_config"].startswith("realize-torch:v1:TF:")
+    recs = [json.loads(line) for line in lines[1:]]
+    assert len(recs) == 2
+    for rec in recs:
+        assert rec["totals"]["flops"] > 0 and rec["totals"]["wall_s"] > 0
+        assert rec["totals"]["ici_bytes"] == 0
+        assert rec["pred_energy_j"] > 0 and rec["stages"]
+    r2 = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                        env=env)
+    assert r2.returncode == 0, f"stderr:\n{r2.stderr[-3000:]}"
+    assert r2.stdout.count("resumed from") == 2
+    assert len(out.read_text().splitlines()) == 3
+
+
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = make_workload("tf-paper")
+    (_, plan), = plans_for(load_realize_candidates(FIXTURE, {"TF": g},
+                                                   verbose=False))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_program(g, plan)
+    from repro_torch.launch.realize import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--ckpt", str(FIXTURE), "--workload", "TF=tf-paper",
+              "--out", str(tmp_path / "r.jsonl")])
+
+
+def test_ssd_route_is_refused():
+    from repro_torch.core.bridge import MeshPlan, StagePlan
+    from repro_torch.core.workload import Graph, Layer
+    g = Graph("ssd")
+    g.add(Layer(name="l0_ssd", kind="matmul", K=64, H=32, C=64))
+    plan = MeshPlan(stages=[StagePlan(layers=("l0_ssd",), devices=(0,),
+                                      parts={"l0_ssd": (1, 1, 1, 1)},
+                                      cgs={"l0_ssd": (0,)})], batch_unit=1)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        build_program(g, plan, device="cpu")
+
+
+def test_simba_arch_matches_reference():
+    assert simba_arch().label() == ref_simba().label()
+    assert simba_arch().n_cores == ref_simba().n_cores
