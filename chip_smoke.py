@@ -15,18 +15,22 @@ phase prints one JSON line:
 3. ``kernel``: one line per kernel and shape.  Each kernel is held against
    its plain PyTorch version on the same inputs on the card, with TF32 off,
    at the tolerances of ``tests/test_kernels.py`` (GEMM atol 1e-3 /
-   rtol 1e-4, flash 2e-5).  The realization path's shapes also get the
-   kernel's time, the plain version's, one PyTorch library call's
-   (``torch.matmul``, ``scaled_dot_product_attention``) and the least time
-   the card could take (``bound_ms``).
-4. ``path``: the committed ``tf-paper`` keep_mappings checkpoint realized
-   at full width through ``repro_torch.launch.realize`` (one warm-up pass,
-   then the counted pass): stages, kernel launches of the pass, wall, FLOPs
+   rtol 1e-4, flash 2e-5, SSD chunk 1e-4; the chunked SSD ``ssd_forward``
+   at 2e-4).  The realization paths' shapes also get the kernel's time,
+   the plain version's, one PyTorch library call's (``torch.matmul``,
+   ``scaled_dot_product_attention``; none computes the SSD chunk form, so
+   its ``library_ms`` is null) and the least time the card could take
+   (``bound_ms``).
+4. ``path``, once per realization path: a committed keep_mappings
+   checkpoint realized at full width through ``repro_torch.launch.realize``
+   (one warm-up pass, then the counted pass, with every launch count set
+   to 0 just before it): stages, kernel launches of the pass, wall, FLOPs
    and DCI bytes per stage, and the largest difference of every stage cube
    between the kernel route and the plain route given identical stage
-   inputs.
-5. ``kernels``: every kernel with its launches on the path and its numbers
-   summed over one pass of the path.
+   inputs.  The paths are ``tf-paper`` (37 stages; GEMM and flash) and
+   ``mamba2-370m`` (96 stages; GEMM and the SSD chunk kernel).
+5. ``kernels``: every kernel with its launches on the paths and its numbers
+   summed over one pass of each path, and each path's share apart.
 
 Then the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -45,25 +49,48 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-FIXTURE = ROOT / "tests" / "data" / "realize" / "tf-paper.simba.ckpt.jsonl"
-REPORT = ROOT / "results" / "chip_smoke.realize.jsonl"
+FIXTURES = ROOT / "tests" / "data" / "realize"
+REPORTS = ROOT / "results"
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth.  Both kernels compute in plain f32.
+# cores, and HBM3 bandwidth.  All three kernels compute in plain f32.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES_S = 3.35e12
 
 MM_TOL = {"atol": 1e-3, "rtol": 1e-4}
 FLASH_TOL = {"atol": 2e-5, "rtol": 2e-5}
+SSD_TOL = {"atol": 1e-4, "rtol": 1e-4}
+SSD_FORWARD_TOL = {"atol": 2e-4, "rtol": 2e-4}
 # per-stage cube agreement, relative to the cube's max (tests/test_realize.py)
 STAGE_REL_TOL = 2e-4
 
-MM_PATH = [(2048, 512, 512), (2048, 512, 2048), (2048, 2048, 512)]
+MM_PATH = [(2048, 512, 512), (2048, 512, 2048), (2048, 2048, 512),
+           (4096, 1024, 4384), (4096, 2048, 1024)]
 MM_EDGE = [(100, 300, 50), (257, 129, 65), (1000, 77, 3), (64, 64, 64)]
 FLASH_PATH = [(4, 4, 512, 512, 128, True)]
 FLASH_EDGE = [(2, 4, 96, 96, 64, True), (1, 2, 128, 256, 32, False),
               (1, 2, 100, 300, 64, True), (1, 2, 256, 128, 32, True),
               (2, 3, 70, 45, 100, False), (1, 2, 130, 130, 256, True)]
+# (BC, Q, H, P, N): the mamba2-370m path's shape; tests/test_kernels.py's
+# three; ragged chunk lengths; P of 32 and 64; two P tiles, N off 4
+SSD_PATH = [(32, 128, 16, 128, 64)]
+SSD_EDGE = [(2, 16, 2, 8, 4), (4, 64, 4, 32, 16), (1, 128, 8, 64, 32),
+            (2, 96, 4, 64, 64), (3, 70, 2, 32, 16), (2, 70, 3, 130, 50)]
+# ssd_forward, kernel vs plain: (B, L, H, P, N, chunk); a padded last
+# chunk, and the mamba2-370m path's SSD layer (timed: the chunk kernel plus
+# the eager discretization, recurrence and inter-chunk output around it)
+SSD_FORWARD = [(2, 70, 4, 64, 32, 32), (1, 4096, 16, 128, 64, 128)]
+
+# the realization paths: (name, fixture, workload binding, stages,
+# launches of one pass, counted FLOPs of one pass)
+PATHS = [
+    ("tf-paper", "tf-paper.simba.ckpt.jsonl", "TF=tf-paper", 37,
+     {"tiled_matmul": 36, "flash_attention_mha": 6, "ssd_chunk_dual": 0},
+     83_764_445_184),
+    ("mamba2-370m", "mamba2-370m.simba.ckpt.jsonl", "MAMBA=lm:mamba2-370m",
+     96, {"tiled_matmul": 96, "flash_attention_mha": 0, "ssd_chunk_dual": 48},
+     2_694_970_343_424),
+]
 
 
 def emit(obj) -> None:
@@ -104,8 +131,9 @@ def check_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_mha
+    from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
     from repro_torch.kernels.tiled_matmul import tiled_matmul
     from repro_torch.realize.measure import launch_cost
 
@@ -157,6 +185,54 @@ def check_kernels(dev) -> dict:
         if not torch.allclose(got, want, **FLASH_TOL):
             raise AssertionError(
                 f"flash_attention_mha disagrees at {(B, H, Sq, Sk, D)}")
+    for path, (BC, Q, H, P, N) in \
+            [(True, s) for s in SSD_PATH] + [(False, s) for s in SSD_EDGE]:
+        x = randn(BC, Q, H, P)
+        cum = torch.cumsum(-randn(BC, Q, H).abs() * 0.1, dim=1)
+        Bm, Cm = randn(BC, Q, N), randn(BC, Q, N)
+        got = ssd_chunk_dual(x, cum, Bm, Cm)
+        want = ref.ssd_chunk_ref(x, cum, Bm, Cm)
+        torch.cuda.synchronize()
+        shape = {"BC": BC, "Q": Q, "H": H, "P": P, "N": N}
+        line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
+                "shape": shape, "main_path": path, **SSD_TOL,
+                "max_abs_err": max((g - w).abs().max().item()
+                                   for g, w in zip(got, want))}
+        if path:
+            line["bound_ms"], line["bound_by"] = bound(
+                *launch_cost("ssd_chunk_dual", shape))
+            line["ms"] = time_ms(lambda: ssd_chunk_dual(x, cum, Bm, Cm))
+            line["plain_ms"] = time_ms(
+                lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm))
+            line["library_ms"] = None
+            line["library"] = "none: no single PyTorch call computes it"
+            timed[("ssd_chunk_dual", tuple(shape.values()))] = line
+        emit(line)
+        if not all(torch.allclose(g, w, **SSD_TOL)
+                   for g, w in zip(got, want)):
+            raise AssertionError(
+                f"ssd_chunk_dual disagrees at {(BC, Q, H, P, N)}")
+    for path, (B, L, H, P, N, chunk) in zip((False, True), SSD_FORWARD):
+        args = (randn(B, L, H, P), randn(B, L, H).abs() * 0.1,
+                -randn(H).abs(), randn(B, L, 1, N), randn(B, L, 1, N))
+        got, _ = ops.ssd_forward(*args, chunk=chunk)
+        want, _ = ops.ssd_forward(*args, chunk=chunk,
+                                  chunk_dual=ref.ssd_chunk_ref)
+        torch.cuda.synchronize()
+        line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
+                "via": "ops.ssd_forward", "shape": dict(zip(
+                    ("B", "L", "H", "P", "N", "chunk"),
+                    (B, L, H, P, N, chunk))),
+                "main_path": path, **SSD_FORWARD_TOL,
+                "max_abs_err": (got - want).abs().max().item()}
+        if path:
+            line["ms"] = time_ms(lambda: ops.ssd_forward(*args, chunk=chunk))
+            line["plain_ms"] = time_ms(lambda: ops.ssd_forward(
+                *args, chunk=chunk, chunk_dual=ref.ssd_chunk_ref))
+        emit(line)
+        if not torch.allclose(got, want, **SSD_FORWARD_TOL):
+            raise AssertionError(
+                f"ssd_forward disagrees at {(B, L, H, P, N, chunk)}")
     return timed
 
 
@@ -193,44 +269,54 @@ def stage_cube_errors(g, plan, dev) -> dict:
             "stage_rel_tol": STAGE_REL_TOL}, kern
 
 
-def fixture_plan():
-    """The tf-paper graph and the plan of the committed checkpoint."""
-    from repro_torch.core.workloads import make_workload
-    from repro_torch.realize.plan import load_realize_candidates, plans_for
-    g = make_workload("tf-paper")
-    (_, plan), = plans_for(load_realize_candidates(FIXTURE, {"TF": g},
-                                                   verbose=False))
-    return g, plan
-
-
-def run_path(g, plan, dev) -> dict:
-    """Realize the fixture through the CLI entry point; count launches of
-    the measured pass.  Returns the launches and the kernel route's
-    program."""
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, by kernel name (each counts its launches)."""
     from repro_torch.kernels.flash_attention import flash_attention_mha
+    from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
     from repro_torch.kernels.tiled_matmul import tiled_matmul
-    from repro_torch.launch.realize import main as realize_main
+    return {"tiled_matmul": tiled_matmul,
+            "flash_attention_mha": flash_attention_mha,
+            "ssd_chunk_dual": ssd_chunk_dual}
 
-    argv = ["--ckpt", str(FIXTURE), "--workload", "TF=tf-paper", "--top",
-            "1", "--device", "cuda", "--out", str(REPORT), "--force"]
+
+def run_path(path, dev):
+    """Realize one path's fixture through the CLI entry point; count the
+    launches of the measured pass.  Returns the launches and the kernel
+    route's program."""
+    from repro_torch.core.workloads import make_workload
+    from repro_torch.launch.realize import main as realize_main
+    from repro_torch.realize.plan import load_realize_candidates, plans_for
+
+    name, fixture, binding, n_stages, want_launches, want_flops = path
+    fixture = FIXTURES / fixture
+    report = REPORTS / f"chip_smoke.{name}.jsonl"
+    argv = ["--ckpt", str(fixture), "--workload", binding, "--top", "1",
+            "--device", "cuda", "--out", str(report), "--force"]
+    wrappers = kernel_wrappers()
     with contextlib.redirect_stdout(sys.stderr):   # the CLI's own table
         realize_main(argv)                          # warm-up pass
-        tiled_matmul.launches = 0
-        flash_attention_mha.launches = 0
+        for fn in wrappers.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         realize_main(argv)                          # the counted pass
         seconds = time.perf_counter() - t0
-    launches = {"tiled_matmul": tiled_matmul.launches,
-                "flash_attention_mha": flash_attention_mha.launches}
-    rec = [json.loads(line) for line in REPORT.read_text().splitlines()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    rec = [json.loads(line) for line in report.read_text().splitlines()
            if '"_key"' in line][-1]
     stages = rec["stages"]
-    if len(stages) != 37 or launches != {"tiled_matmul": 36,
-                                         "flash_attention_mha": 6}:
-        raise AssertionError(f"path ran {len(stages)} stages with "
+    if len(stages) != n_stages or launches != want_launches:
+        raise AssertionError(f"path {name} ran {len(stages)} stages with "
                              f"launches {launches}")
+    if rec["totals"]["flops"] != want_flops:
+        raise AssertionError(f"path {name} counted "
+                             f"{rec['totals']['flops']} FLOPs, not "
+                             f"{want_flops}")
+    wl_name, spec = binding.split("=", 1)
+    g = make_workload(spec)
+    (_, plan), = plans_for(load_realize_candidates(fixture, {wl_name: g},
+                                                   verbose=False))
     cubes, prog = stage_cube_errors(g, plan, dev)
-    emit({"phase": "path", "workload": "tf-paper", "arch": rec["arch"],
+    emit({"phase": "path", "workload": name, "arch": rec["arch"],
           "batch_unit": rec["batch_unit"], "stages": len(stages),
           "seconds": seconds, "launches": launches,
           "wall_ms": rec["totals"]["wall_s"] * 1e3,
@@ -251,37 +337,53 @@ KERNEL_FILES = {
                      "src/repro/kernels/tiled_matmul.py:51"),
     "flash_attention_mha": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:90"),
+    "ssd_chunk_dual": ("src/repro_torch/kernels/csrc/mamba_ssd.cu",
+                       "src/repro/kernels/mamba_ssd.py:48"),
 }
 
 
-def per_pass_summary(timed: dict, launches: dict, prog) -> list:
-    """Each kernel's numbers summed over one pass of the path: the timed
-    line of every launch's shape, once per launch."""
-    lines = {}
-    for sp in prog.stages:
-        for kernel, shape in sp.launches:
-            lines.setdefault(kernel, []).append(
-                timed[(kernel, tuple(shape.values()))])
+def per_pass_summary(timed: dict, runs: dict) -> list:
+    """Each kernel's numbers summed over one pass of each path (the timed
+    line of every launch's shape, once per launch), and each path's share
+    apart.  ``runs`` maps a path to its (launches, kernel route program)."""
     out = []
     for name, (source, replaces) in KERNEL_FILES.items():
-        ls = lines[name]
-        total = lambda k: sum(ln[k] for ln in ls)
-        out.append({
+        per_path, lines = {}, []
+        for path, (launches, prog) in runs.items():
+            ls = [timed[(kernel, tuple(shape.values()))]
+                  for sp in prog.stages for kernel, shape in sp.launches
+                  if kernel == name]
+            lib = [ln["library_ms"] for ln in ls]
+            per_path[path] = {
+                "launches": launches[name],
+                "ms": sum(ln["ms"] for ln in ls),
+                "plain_ms": sum(ln["plain_ms"] for ln in ls),
+                "bound_ms": sum(ln["bound_ms"] for ln in ls),
+                "library_ms": None if None in lib else sum(lib)}
+            lines += ls
+        total = lambda k: sum(p[k] for p in per_path.values())
+        lib = [ln["library_ms"] for ln in lines]
+        line = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(ln["max_abs_err"] for ln in ls),
+            "replaces": replaces, "launches": total("launches"),
+            "max_abs_err": max(ln["max_abs_err"] for ln in lines),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
-            "bound_by": max(ls, key=lambda ln: ln["bound_ms"])["bound_by"],
-            "library_ms": total("library_ms"),
-            "per": "one pass of the path: sums over its launches"})
+            "bound_by": max(lines, key=lambda ln: ln["bound_ms"])["bound_by"],
+            "library_ms": None if None in lib else sum(lib),
+            "per": "one pass of each path, summed; per_path splits it",
+            "per_path": per_path}
+        if None in lib:
+            line["library"] = "none: no single PyTorch call computes it"
+        out.append(line)
     return out
 
 
 def main() -> int:
-    if not (SRC / "repro_torch").is_dir() or not FIXTURE.exists():
+    if not (SRC / "repro_torch").is_dir() \
+            or not all((FIXTURES / p[1]).exists() for p in PATHS):
         print("chip_smoke.py: run it from the root of a checkout of the "
-              "repository (src/repro_torch and the checkpoint fixture are "
+              "repository (src/repro_torch and the checkpoint fixtures are "
               "missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
@@ -303,10 +405,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source": info})
 
-    g, plan = fixture_plan()
     timed = check_kernels(dev)
-    launches, prog = run_path(g, plan, dev)
-    emit({"kernels": per_pass_summary(timed, launches, prog)})
+    runs = {path[0]: run_path(path, dev) for path in PATHS}
+    emit({"kernels": per_pass_summary(timed, runs)})
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 A keep_mappings DSE checkpoint is lowered into a stage plan
 (:mod:`.realize.plan`), built into per-stage programs
-(:mod:`.realize.program`) whose GEMMs and attention pairs run through
-hand-written CUDA kernels (:mod:`.kernels`), executed on the card, and
+(:mod:`.realize.program`) whose GEMMs, attention pairs and SSD layers run
+through hand-written CUDA kernels (:mod:`.kernels`), executed on the card, and
 measured (:mod:`.realize.measure`).  ``python -m repro_torch.launch.realize``
 drives the loop.
 

@@ -1,8 +1,10 @@
 """Workload registry: the port's part of ``src/repro/core/workloads/__init__.py``.
 
-The port builds the transformer presets (``tf-quick``, ``tf-paper``) and the
-``transformer:k=v,...`` grammar.  Every other kind of the reference
-registry (CNNs, MoE, MLA, ``lm:<config>``) raises, naming what the port has.
+The port builds the transformer presets (``tf-quick``, ``tf-paper``), the
+``transformer:k=v,...`` grammar and the ``lm:<config>[:seq=S,n_layers=L]``
+grammar (:func:`.lm_graph.lm_graph`; routed-MoE configs raise).  Every other
+kind of the reference registry (CNNs, MoE, MLA) raises, naming what the
+port has.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ WORKLOAD_SPECS: Dict[str, Callable[[], Graph]] = {
     "tf-paper": lambda: transformer(),
 }
 
-_GRAMMARS = ("transformer:k=v,...",)
+_GRAMMARS = ("transformer:k=v,...", "lm:<config>[:seq=S,n_layers=L]")
 
 
 def _kwargs(rest: str) -> Dict[str, Union[int, str]]:
@@ -30,16 +32,26 @@ def _kwargs(rest: str) -> Dict[str, Union[int, str]]:
 
 
 def make_workload(spec: str) -> Graph:
-    """Build a workload graph from a preset name or a
-    ``transformer:k=v,...`` spec (builder kwargs, ints except ``name``)."""
+    """Build a workload graph from a preset name, a ``transformer:k=v,...``
+    spec (``transformer()`` keyword arguments, ints except ``name``) or an
+    ``lm:<config>[:seq=S,n_layers=L]`` spec (a registered architecture's
+    layer DAG)."""
     if spec in WORKLOAD_SPECS:
         return WORKLOAD_SPECS[spec]()
     kind, _, rest = spec.partition(":")
     if kind == "transformer" and rest:
         return transformer(**_kwargs(rest))
+    if kind == "lm" and rest:
+        from ...configs import get_config
+        from .lm_graph import lm_graph
+        name, _, params = rest.partition(":")
+        kw2 = {k: int(v) for k, v in
+               (item.partition("=")[::2] for item in
+                filter(None, params.split(",")))}
+        return lm_graph(get_config(name), **kw2)
     raise ValueError(
         f"unknown workload spec {spec!r}; the PyTorch port has the presets "
-        f"{', '.join(sorted(WORKLOAD_SPECS))} and the spec "
+        f"{', '.join(sorted(WORKLOAD_SPECS))} and the specs "
         f"{'; '.join(_GRAMMARS)}")
 
 

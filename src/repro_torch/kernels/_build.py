@@ -26,7 +26,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("tiled_matmul", "flash_attention")
+SOURCES = ("tiled_matmul", "flash_attention", "mamba_ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "tiled_matmul": {"tiled_matmul_f32": [_P] * 3 + [_I] * 4 + [_P]},
     "flash_attention": {"flash_attention_f32": [_P] * 4 + [_I] * 7 + [_P]},
+    "mamba_ssd": {"ssd_chunk_dual_f32": [_P] * 6 + [_I] * 6 + [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -6,6 +6,15 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.realize \
       --ckpt tests/data/realize/tf-paper.simba.ckpt.jsonl \
       --workload TF=tf-paper --top 1 --out results/realize-torch.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.realize \
+      --ckpt tests/data/realize/mamba2-370m.simba.ckpt.jsonl \
+      --workload MAMBA=lm:mamba2-370m --top 1
+
+``--workload`` binds a checkpoint's workload name to a spec that
+:func:`repro_torch.core.workloads.make_workload` resolves: a preset
+(``tf-paper``, ``tf-quick``), ``transformer:k=v,...`` or
+``lm:<config>[:seq=S,n_layers=L]``.  GEMM layers run the tiled GEMM,
+attention pairs flash attention, ``*_ssd`` layers the chunked SSD.
 
 The report is resumable: one JSONL record per realized candidate, keyed by
 the checkpoint's task key; a re-run skips recorded candidates ("resumed
@@ -55,8 +64,9 @@ def main(argv=None) -> None:
                     help="schema-v2 keep_mappings sweep checkpoint")
     ap.add_argument("--workload", action="append", default=[],
                     metavar="NAME=SPEC",
-                    help="workload graph binding (preset name or "
-                    "'transformer:k=v,...'); bare SPEC ok for "
+                    help="workload graph binding (preset name, "
+                    "'transformer:k=v,...' or "
+                    "'lm:<config>[:seq=S,n_layers=L]'); bare SPEC ok for "
                     "single-workload checkpoints")
     ap.add_argument("--top", type=int, default=2,
                     help="realize the K best-EDP mapped records (0 = all)")

@@ -12,6 +12,10 @@ launch's shapes (:func:`launch_cost`):
   ``chip_smoke.py``.  The CUDA kernel skips kv tiles wholly past the causal
   diagonal, so it computes these pairs plus the masked part of each
   diagonal tile; the Pallas kernel computes every pair;
+  2·BC·(T·N + T·H·P + Q·H·N·P) for the SSD chunk kernel, with
+  T = Q(Q+1)/2 the (i, j <= i) pairs its causal decay keeps: the scores
+  C·Bᵀ and the product with x over those pairs, and the chunk state over
+  every row;
 * ``hbm_bytes``: each operand read once plus the result written once;
 * ``dci_bytes`` and ``wall_s``: from the executor
   (:meth:`..realize.program.RealizedProgram.execute`);
@@ -54,6 +58,12 @@ def launch_cost(kernel: str, shape: Dict[str, int]) -> Tuple[float, float]:
         pairs = attention_pairs(Sq, Sk, bool(shape["causal"]))
         return (4.0 * B * H * D * pairs,
                 float(F32_BYTES * B * H * D * (2 * Sq + 2 * Sk)))
+    if kernel == "ssd_chunk_dual":
+        BC, Q, H, P, N = (shape[k] for k in ("BC", "Q", "H", "P", "N"))
+        T = attention_pairs(Q, Q, True)
+        return (2.0 * BC * (T * N + T * H * P + Q * H * N * P),
+                float(F32_BYTES * BC * (2 * Q * H * P + Q * H + 2 * Q * N
+                                        + H * N * P)))
     raise KeyError(f"no cost model for kernel {kernel!r}")
 
 

@@ -5,7 +5,9 @@ eager stage function that runs on the one device:
 
 * ``fc``/``matmul`` layers run the tiled GEMM (:func:`..kernels.ops.matmul`),
   detected (qk, av) score/context pairs run flash attention (the score
-  matrix is never materialized), eltwise layers are adds.  With
+  matrix is never materialized), ``*_ssd`` layers run the chunked SSD
+  (:func:`..kernels.ops.ssd_forward`, one ``ssd_chunk_dual`` launch per
+  layer), eltwise layers are adds.  With
   ``use_kernels=False`` the same program routes through the plain versions
   of :mod:`..kernels.ref` (the parity target).  On a CPU device the kernel
   wrappers run those plain versions too.
@@ -33,6 +35,7 @@ from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.bridge import MeshPlan, StagePlan
 from ..core.workload import Graph, Layer
@@ -97,6 +100,13 @@ def _heads_for(d: int) -> Tuple[int, int]:
         if d % hd == 0:
             return d // hd, hd
     return 1, d
+
+
+def _ssd_dims(lyr: Layer) -> Tuple[int, int, int, int]:
+    """(heads, head dim, chunk, state width N) of an ``*_ssd`` layer's
+    chunked SSD, by the reference's rules."""
+    heads, hd = _heads_for(lyr.K)
+    return heads, hd, min(128, lyr.H), max(16, min(64, lyr.C))
 
 
 def _route_layers(g: Graph, st: StagePlan) -> Dict[str, str]:
@@ -250,6 +260,8 @@ def _stage_fn(g: Graph, st: StagePlan, routes: Dict[str, str],
         t = lambda x: x.transpose(1, 2)
         return t(ref.attention_ref(t(q), t(k), t(v)))
 
+    chunk_dual = ops.ssd_chunk_dual if use_kernels else ref.ssd_chunk_ref
+
     def stage_fn(*args: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         vals: Dict[str, torch.Tensor] = {}
         na, ns = len(ext), len(src)
@@ -282,6 +294,19 @@ def _stage_fn(g: Graph, st: StagePlan, routes: Dict[str, str],
                               _fit(k_src, (bu, S, heads, hd)),
                               _fit(v_src, (bu, S, heads, hd)))
                 out = o.reshape(bu, S, 1, heads * hd)
+                out = _fit(out, shape) if tuple(out.shape) != shape else out
+            elif route == "ssd":
+                heads, hd, chunk, N = _ssd_dims(lyr)
+                S = lyr.H
+                a_in = operand(name)
+                x = _fit(a_in, (bu, S, heads, hd))
+                dt = F.softplus(_fit(a_in, (bu, S, heads)) * 0.1)
+                A = torch.full((heads,), -0.5, device=a_in.device)
+                Bm = _fit(a_in, (bu, S, 1, N)) * 0.1
+                Cm = _fit(a_in * 0.5 + 1.0, (bu, S, 1, N)) * 0.1
+                y, _ = ops.ssd_forward(x, dt, A, Bm, Cm, chunk=chunk,
+                                       chunk_dual=chunk_dual)
+                out = y.reshape(bu, S, 1, heads * hd)
                 out = _fit(out, shape) if tuple(out.shape) != shape else out
             elif route == "matmul":
                 a2 = _fit(operand(name), (bu * lyr.H * lyr.W, max(lyr.C, 1)))
@@ -325,11 +350,6 @@ def build_program(g: Graph, plan: MeshPlan,
     stages: List[StageProgram] = []
     for si, st in enumerate(plan.stages):
         routes = _route_layers(g, st)
-        ssd = [n for n, r in routes.items() if r == "ssd"]
-        if ssd:
-            raise NotImplementedError(
-                f"stage {si} routes {ssd} to the SSD kernel, which the port "
-                f"does not have yet (ROADMAP queue 1, slice 2: the SSD path)")
         in_stage = set(st.layers)
         ext: List[str] = []
         src: List[str] = []
@@ -372,6 +392,11 @@ def build_program(g: Graph, plan: MeshPlan,
                 launches.append(("flash_attention_mha",
                                  {"B": bu, "H": heads, "Sq": S, "Sk": S,
                                   "D": hd, "causal": 1}))   # ops default
+            elif routes[name] == "ssd":
+                heads, hd, chunk, N = _ssd_dims(lyr)
+                launches.append(("ssd_chunk_dual",
+                                 {"BC": bu * -(-lyr.H // chunk), "Q": chunk,
+                                  "H": heads, "P": hd, "N": N}))
             elif routes[name] == "matmul":
                 launches.append(("tiled_matmul",
                                  {"M": bu * lyr.H * lyr.W,

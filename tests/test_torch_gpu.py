@@ -6,16 +6,17 @@ The file imports no JAX, so it runs on the card's machine:
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances are those of ``tests/test_kernels.py``: atol 1e-3 / rtol 1e-4
-for the f32 GEMM, 2e-5 for f32 attention; TF32 is off for the plain
-versions.
+for the f32 GEMM, 2e-5 for f32 attention, 1e-4 for the SSD chunk kernel
+and 2e-4 for the chunked SSD; TF32 is off for the plain versions.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_mha
+from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
 from repro_torch.kernels.tiled_matmul import tiled_matmul
 
 
@@ -33,7 +34,8 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N", [(2048, 512, 512), (2048, 512, 2048),
-                                   (2048, 2048, 512), (100, 300, 50),
+                                   (2048, 2048, 512), (4096, 1024, 4384),
+                                   (4096, 2048, 1024), (100, 300, 50),
                                    (257, 129, 65), (1000, 77, 3)])
 def test_tiled_matmul_kernel_vs_plain(cuda, M, K, N):
     rng = np.random.default_rng(M * K + N)
@@ -69,6 +71,63 @@ def test_flash_attention_kernel_vs_plain(cuda, B, H, Sq, Sk, D, causal):
                                atol=2e-5, rtol=2e-5)
 
 
+def _ssd_inputs(rng, BC, Q, H, P, N, device):
+    """x, cum, Bm, Cm as ``tests/test_kernels.py`` draws them: cum is a
+    running sum of negative log-decays."""
+    x = _randn(rng, (BC, Q, H, P))
+    cum = np.cumsum(-np.abs(_randn(rng, (BC, Q, H))) * 0.1, axis=1)
+    Bm, Cm = _randn(rng, (BC, Q, N)), _randn(rng, (BC, Q, N))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+            for a in (x, cum, Bm, Cm)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BC,Q,H,P,N", [
+    (32, 128, 16, 128, 64),           # the mamba2-370m path's shape
+    (2, 16, 2, 8, 4),                 # tests/test_kernels.py's three
+    (4, 64, 4, 32, 16),
+    (1, 128, 8, 64, 32),
+    (2, 96, 4, 64, 64),               # ragged chunk lengths
+    (3, 70, 2, 32, 16),
+    (2, 70, 3, 130, 50),              # two P tiles, the second 2 wide
+])
+def test_ssd_chunk_kernel_vs_plain(cuda, BC, Q, H, P, N):
+    rng = np.random.default_rng(BC * Q + H + P + N)
+    args = _ssd_inputs(rng, BC, Q, H, P, N, cuda)
+    n0 = ssd_chunk_dual.launches
+    y, s = ssd_chunk_dual(*args)
+    torch.cuda.synchronize()
+    assert ssd_chunk_dual.launches == n0 + 1
+    yr, sr = ref.ssd_chunk_ref(*args)
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, sr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_forward_kernel_vs_plain(cuda):
+    """The chunked SSD at L = 70, chunk 32 (a padded last chunk)."""
+    rng = np.random.default_rng(70)
+    B, L, H, P, N = 2, 70, 4, 64, 32
+    x = _randn(rng, (B, L, H, P))
+    dt = np.abs(_randn(rng, (B, L, H))) * 0.1
+    A = -np.abs(_randn(rng, (H,)))
+    Bm, Cm = _randn(rng, (B, L, 1, N)), _randn(rng, (B, L, 1, N))
+    args = [torch.from_numpy(a).to(cuda) for a in (x, dt, A, Bm, Cm)]
+    n0 = ssd_chunk_dual.launches
+    got, _ = ops.ssd_forward(*args, chunk=32)
+    torch.cuda.synchronize()
+    assert ssd_chunk_dual.launches == n0 + 1
+    want, _ = ops.ssd_forward(*args, chunk=32, chunk_dual=ref.ssd_chunk_ref)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_refuses_bf16(cuda):
+    args = _ssd_inputs(np.random.default_rng(0), 1, 16, 2, 8, 4, cuda)
+    with pytest.raises(TypeError):
+        ssd_chunk_dual(*(a.bfloat16() for a in args))
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_other_dtypes(cuda):
     a = torch.zeros((4, 4), device=cuda, dtype=torch.bfloat16)
@@ -78,12 +137,10 @@ def test_kernels_refuse_other_dtypes(cuda):
         flash_attention_mha(*(a.reshape(1, 1, 4, 4),) * 3)
 
 
-@pytest.mark.gpu
-def test_realized_fixture_kernel_route_vs_plain_route(cuda):
-    """The committed tf-paper plan on the card: one pass launches 36 GEMMs
-    and 6 flash attentions, and every stage cube of the kernel route is
-    within 2e-4 of the cube's max of the plain route given the same stage
-    inputs (``tests/test_realize.py``'s bound)."""
+def _kernel_route_vs_plain_route(cuda, fixture_name, name, spec):
+    """Realize a committed fixture's plan with the kernels; return the
+    launches of one pass and the largest stage-cube difference, relative
+    to the cube's max, from the plain route given the same stage inputs."""
     from pathlib import Path
 
     from repro_torch.core.workloads import make_workload
@@ -91,25 +148,49 @@ def test_realized_fixture_kernel_route_vs_plain_route(cuda):
     from repro_torch.realize.program import (build_program,
                                              draw_stage_arrays,
                                              stage_args_from_numpy)
-    fixture = (Path(__file__).resolve().parent / "data" / "realize"
-               / "tf-paper.simba.ckpt.jsonl")
-    g = make_workload("tf-paper")
-    (_, plan), = plans_for(load_realize_candidates(fixture, {"TF": g},
+    fixture = Path(__file__).resolve().parent / "data" / "realize" \
+        / fixture_name
+    g = make_workload(spec)
+    (_, plan), = plans_for(load_realize_candidates(fixture, {name: g},
                                                    verbose=False))
     kern = build_program(g, plan, device=cuda)
     plain = build_program(g, plan, device=cuda, use_kernels=False)
-    counts = (tiled_matmul.launches, flash_attention_mha.launches)
+    counters = (tiled_matmul, flash_attention_mha, ssd_chunk_dual)
+    counts = [k.launches for k in counters]
     run = kern.execute(seed=0)
-    assert (tiled_matmul.launches - counts[0],
-            flash_attention_mha.launches - counts[1]) == (36, 6)
-    assert len(run["wall_s"]) == 37 and all(w > 0 for w in run["wall_s"])
+    launched = tuple(k.launches - n for k, n in zip(counters, counts))
+    assert len(run["wall_s"]) == len(plan.stages)
+    assert all(w > 0 for w in run["wall_s"])
     args = stage_args_from_numpy(draw_stage_arrays(kern, 0), cuda)
-    outputs = {}
+    outputs, worst = {}, 0.0
     for sk, sp, own in zip(kern.stages, plain.stages, args):
         ext = [outputs[n] for n in sk.ext_inputs]
-        for name, a, b in zip(sk.out_layers, sk.fn(*ext, *own),
+        for cube, a, b in zip(sk.out_layers, sk.fn(*ext, *own),
                               sp.fn(*ext, *own)):
-            assert torch.isfinite(a).all()
-            err = ((a - b).abs().max() / b.abs().max()).item()
-            assert err < 2e-4, (name, err)
-            outputs[name] = a
+            assert torch.isfinite(a).all(), cube
+            worst = max(worst, ((a - b).abs().max() / b.abs().max()).item())
+            outputs[cube] = a
+    return len(plan.stages), launched, worst
+
+
+@pytest.mark.gpu
+def test_realized_fixture_kernel_route_vs_plain_route(cuda):
+    """The committed tf-paper plan on the card: one pass launches 36 GEMMs
+    and 6 flash attentions, and every stage cube of the kernel route is
+    within 2e-4 of the cube's max of the plain route given the same stage
+    inputs (``tests/test_realize.py``'s bound)."""
+    stages, launched, worst = _kernel_route_vs_plain_route(
+        cuda, "tf-paper.simba.ckpt.jsonl", "TF", "tf-paper")
+    assert stages == 37 and launched == (36, 6, 0)
+    assert worst < 2e-4
+
+
+@pytest.mark.gpu
+def test_realized_mamba_fixture_kernel_route_vs_plain_route(cuda):
+    """The committed mamba2-370m plan on the card: 96 stages, one pass
+    launches 96 GEMMs and 48 SSD chunk kernels, every stage cube within
+    2e-4 of the plain route's."""
+    stages, launched, worst = _kernel_route_vs_plain_route(
+        cuda, "mamba2-370m.simba.ckpt.jsonl", "MAMBA", "lm:mamba2-370m")
+    assert stages == 96 and launched == (96, 0, 48)
+    assert worst < 2e-4

@@ -5,8 +5,8 @@ by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 
 Inputs are drawn with numpy and handed to both packages.  Tolerances are
 those of ``tests/test_kernels.py``: atol 1e-3 / rtol 1e-4 for the f32 GEMM,
-2e-5 for f32 attention, 2e-2 for bf16 attention and 0.5 / 5e-2 for the
-bf16 GEMM.
+2e-5 for f32 attention, 2e-2 for bf16 attention, 0.5 / 5e-2 for the
+bf16 GEMM, 1e-4 for the SSD chunk kernel and 2e-4 for the chunked SSD.
 """
 
 import jax.numpy as jnp
@@ -16,8 +16,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.mamba_ssd import ssd_chunk_dual as jssd_chunk_dual
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_mha
+from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
 from repro_torch.kernels.tiled_matmul import tiled_matmul
 
 
@@ -106,6 +108,67 @@ def test_attention_ref_equals_reference_oracle():
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
 
 
+def _ssd_inputs(rng, BC, Q, H, P, N):
+    """x, cum, Bm, Cm as ``tests/test_kernels.py`` draws them: cum is a
+    running sum of negative log-decays."""
+    x = _randn(rng, (BC, Q, H, P))
+    cum = np.cumsum(-np.abs(_randn(rng, (BC, Q, H))) * 0.1,
+                    axis=1).astype(np.float32)
+    return x, cum, _randn(rng, (BC, Q, N)), _randn(rng, (BC, Q, N))
+
+
+@pytest.mark.parametrize("BC,Q,H,P,N", [
+    (2, 16, 2, 8, 4),
+    (4, 64, 4, 32, 16),
+    (1, 128, 8, 64, 32),
+    (2, 128, 16, 128, 64),      # the mamba2-370m path's per-chunk shape
+])
+def test_ssd_chunk_ref_vs_pallas(BC, Q, H, P, N):
+    rng = np.random.default_rng(BC * Q + H + P + N)
+    args = _ssd_inputs(rng, BC, Q, H, P, N)
+    yw, sw = jssd_chunk_dual(*(jnp.asarray(a) for a in args), interpret=True)
+    y, s = ssd_chunk_dual(*(torch.from_numpy(a) for a in args))
+    assert tuple(y.shape) == (BC, Q, H, P) and tuple(s.shape) == (BC, H, N, P)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yw), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sw), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_ssd_chunk_ref_equals_reference_oracle():
+    """The port's oracle and the JAX oracle agree, and neither the port's
+    masked decay nor its output is ever non-finite, also where
+    cum_i - cum_j above the diagonal would overflow exp."""
+    rng = np.random.default_rng(5)
+    x, cum, Bm, Cm = _ssd_inputs(rng, 2, 32, 3, 8, 4)
+    want = jref.ssd_chunk_ref(*(jnp.asarray(a) for a in (x, cum, Bm, Cm)))
+    got = ref.ssd_chunk_ref(*(torch.from_numpy(a) for a in (x, cum, Bm, Cm)))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-4)
+    steep = np.cumsum(np.full((1, 32, 1), -50.0, np.float32), axis=1)
+    y, s = ref.ssd_chunk_ref(*(torch.from_numpy(a) for a in (
+        x[:1, :, :1], steep, Bm[:1], Cm[:1])))
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+
+
+@pytest.mark.parametrize("L,chunk", [(64, 16), (96, 32), (70, 32)])
+def test_ssd_forward_vs_pallas(L, chunk):
+    rng = np.random.default_rng(L + chunk)
+    B, H, P, N = 2, 4, 16, 8
+    x = _randn(rng, (B, L, H, P))
+    dt = np.abs(_randn(rng, (B, L, H))) * 0.1
+    A = -np.abs(_randn(rng, (H,)))
+    Bm, Cm = _randn(rng, (B, L, 1, N)), _randn(rng, (B, L, 1, N))
+    want, _ = jops.ssd_forward(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)),
+                               chunk=chunk, interpret=True)
+    got, none = ops.ssd_forward(*(torch.from_numpy(a)
+                                  for a in (x, dt, A, Bm, Cm)), chunk=chunk)
+    assert none is None and tuple(got.shape) == (B, L, H, P)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=2e-4)
+
+
 # ---------------------------------------------------------------------------
 # wrapper dispatch: plain version only for CPU tensors, never a fallback
 # ---------------------------------------------------------------------------
@@ -130,3 +193,19 @@ def test_non_cpu_tensors_never_fall_back():
     q = torch.empty((1, 1, 8, 8), device="meta")
     with pytest.raises(ValueError, match="one card"):
         flash_attention_mha(q, q, q)
+
+
+def test_ssd_chunk_dual_cpu_dispatch_and_refusals():
+    """CPU tensors run the plain version uncounted; a tensor off the CPU
+    goes to the kernel or raises."""
+    rng = np.random.default_rng(0)
+    args = [torch.from_numpy(a) for a in _ssd_inputs(rng, 2, 16, 2, 8, 4)]
+    n0 = ssd_chunk_dual.launches
+    for a, b in zip(ssd_chunk_dual(*args), ref.ssd_chunk_ref(*args)):
+        assert torch.equal(a, b)
+    assert ssd_chunk_dual.launches == n0
+    meta = [torch.empty(a.shape, device="meta") for a in args]
+    with pytest.raises(ValueError, match="one card"):
+        ssd_chunk_dual(*meta)
+    with pytest.raises(ValueError, match="one card"):
+        ssd_chunk_dual(meta[0], *args[1:])

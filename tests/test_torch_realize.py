@@ -1,7 +1,7 @@
 """PyTorch port of the realization loop against the JAX reference.
 
-* the committed ``tf-paper`` keep_mappings fixture equals what the
-  reference DSE writes now;
+* the committed ``tf-paper`` and ``mamba2-370m`` keep_mappings fixtures
+  equal what the reference DSE writes now;
 * graph fingerprints, lowered plans and kernel routes of the port equal the
   reference's;
 * realized stages: the port on the CPU against the reference program built
@@ -10,11 +10,14 @@
   2e-4 of the cube's max (``tests/test_realize.py``'s bound), DCI bytes
   exactly equal, and the port's DCI billing decision equal to
   ``NamedSharding.is_equivalent_to`` on every inter-stage cube of the
-  fixture's 37-stage plan;
+  fixture's 37-stage plan; the same on a two-layer ``mamba2-370m`` graph
+  at full width, whose ``*_ssd`` stages run the chunked SSD (the
+  reference's plain route runs its Pallas SSD kernel in interpret mode);
 * the port's CLI end to end on the CPU, resumed run included;
 * the entry points raise when asked for the card on a machine without one.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -32,9 +35,12 @@ from repro.core.explore import graph_fingerprint as ref_fingerprint
 from repro.core.hw import ArchConfig as RefArch
 from repro.core.hw import simba_arch as ref_simba
 from repro.core.sa import SAConfig
+from repro.configs import get_config as ref_config
 from repro.core.workloads import make_workload as ref_workload
 from repro.realize.plan import load_realize_candidates as ref_load
 from repro.realize.program import _route_layers as ref_routes
+from repro_torch.configs import get_config
+from repro_torch.configs.archs import ALL as ALL_CONFIGS
 from repro_torch.core.explore import graph_fingerprint
 from repro_torch.core.hw import simba_arch
 from repro_torch.core.workloads import make_workload
@@ -44,6 +50,7 @@ from repro_torch.realize.program import _fit, _route_layers, build_program
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE = REPO / "tests" / "data" / "realize" / "tf-paper.simba.ckpt.jsonl"
+MAMBA_FIXTURE = FIXTURE.with_name("mamba2-370m.simba.ckpt.jsonl")
 SMALL_SPEC = "transformer:n_layers=1,d_model=64,d_ff=128,seq=32,name=tf-t"
 
 
@@ -56,15 +63,14 @@ def _plan_tuple(plan):
 # the fixture and the plan it lowers to
 # ---------------------------------------------------------------------------
 
-def test_fixture_equals_fresh_reference_dse(tmp_path):
+def _assert_fixture_equals_fresh_dse(tmp_path, fixture, name, spec):
     cfg = DSEConfig(batch=4, sa=SAConfig(iters=200, seed=0),
                     keep_mappings=True)
-    ck = tmp_path / "tf-paper.ckpt.jsonl"
-    run_dse([ref_simba()], {"TF": ref_workload("tf-paper")}, cfg,
-            checkpoint=ck)
+    ck = tmp_path / fixture.name
+    run_dse([ref_simba()], {name: ref_workload(spec)}, cfg, checkpoint=ck)
     header = lambda p: json.loads(Path(p).read_text().splitlines()[0])
-    assert header(ck) == header(FIXTURE)
-    fresh, fixed = RefSweep.read(ck).as_dict(), RefSweep.read(FIXTURE).as_dict()
+    assert header(ck) == header(fixture)
+    fresh, fixed = RefSweep.read(ck).as_dict(), RefSweep.read(fixture).as_dict()
     assert fresh.keys() == fixed.keys() and len(fixed) == 1
     for key, rec in fixed.items():
         now = fresh[key]
@@ -76,7 +82,19 @@ def test_fixture_equals_fresh_reference_dse(tmp_path):
             assert rec[f] == pytest.approx(now[f], rel=1e-9)
 
 
-@pytest.mark.parametrize("spec", ["tf-paper", "tf-quick", SMALL_SPEC])
+def test_fixture_equals_fresh_reference_dse(tmp_path):
+    _assert_fixture_equals_fresh_dse(tmp_path, FIXTURE, "TF", "tf-paper")
+
+
+def test_mamba_fixture_equals_fresh_reference_dse(tmp_path):
+    _assert_fixture_equals_fresh_dse(tmp_path, MAMBA_FIXTURE, "MAMBA",
+                                     "lm:mamba2-370m")
+
+
+@pytest.mark.parametrize("spec", [
+    "tf-paper", "tf-quick", SMALL_SPEC, "lm:mamba2-370m",
+    "lm:mamba2-370m:seq=256,n_layers=2", "lm:zamba2-1.2b:seq=128,n_layers=2",
+    "lm:qwen3-0.6b:seq=64,n_layers=2", "lm:whisper-small:seq=32,n_layers=1"])
 def test_graph_fingerprint_matches_reference(spec):
     assert graph_fingerprint(make_workload(spec)) == \
         ref_fingerprint(ref_workload(spec))
@@ -85,6 +103,22 @@ def test_graph_fingerprint_matches_reference(spec):
 def test_unknown_workload_names_what_the_port_has():
     with pytest.raises(ValueError, match="tf-paper.*transformer:k=v"):
         make_workload("moe-quick")
+
+
+def test_routed_moe_lm_spec_names_the_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice 3"):
+        make_workload("lm:granite-moe-3b-a800m:seq=64,n_layers=1")
+
+
+def test_configs_match_reference():
+    """Every field the port keeps has the reference's value."""
+    for cfg in ALL_CONFIGS:
+        rcfg = ref_config(cfg.name)
+        assert get_config(cfg.name) is cfg
+        for f in dataclasses.fields(cfg):
+            assert getattr(cfg, f.name) == getattr(rcfg, f.name), \
+                (cfg.name, f.name)
+        assert cfg.hd == rcfg.hd
 
 
 def test_fixture_plans_and_routes_match_reference():
@@ -110,6 +144,36 @@ def test_fixture_plans_and_routes_match_reference():
             launched.count("flash_attention_mha")) == (36, 6)
 
 
+def test_mamba_fixture_plans_and_routes_match_reference():
+    spec = "lm:mamba2-370m"
+    g, rg = make_workload(spec), ref_workload(spec)
+    (cand, plan), = plans_for(load_realize_candidates(
+        MAMBA_FIXTURE, {"MAMBA": g}, top=0, verbose=False))
+    rcand, = ref_load(MAMBA_FIXTURE, {"MAMBA": rg}, top=0, verbose=False)
+    rplan = rcand.lower()
+    assert cand.key == rcand.key and cand.arch.label() == rcand.arch.label()
+    assert _plan_tuple(plan) == _plan_tuple(rplan)
+    assert len(plan.stages) == 96 and plan.batch_unit == 1
+    tags = []
+    for st, rst in zip(plan.stages, rplan.stages):
+        routes = _route_layers(g, st)
+        assert routes == ref_routes(rg, rst)
+        tags += [r.split(":")[0] for r in routes.values()]
+    assert (tags.count("matmul"), tags.count("ssd"), tags.count("add"),
+            tags.count("flash")) == (96, 48, 48, 0)
+    prog = build_program(g, plan, device="cpu")
+    launched = [(k, tuple(s.items())) for sp in prog.stages
+                for k, s in sp.launches]
+    mm = lambda M, K, N: ("tiled_matmul", (("M", M), ("K", K), ("N", N)))
+    ssd = ("ssd_chunk_dual", (("BC", 32), ("Q", 128), ("H", 16), ("P", 128),
+                              ("N", 64)))
+    kinds = (mm(4096, 1024, 4384), mm(4096, 2048, 1024), ssd)
+    assert set(launched) == set(kinds)
+    assert [launched.count(x) for x in kinds] == [48, 48, 48]
+    flops = sum(launch_cost(k, dict(s))[0] for k, s in launched)
+    assert flops == 2_694_970_343_424
+
+
 def test_corrupt_fixture_mapping_is_refused(tmp_path):
     rec = [json.loads(line) for line in FIXTURE.read_text().splitlines()]
     rec[1]["mapping"][0]["lms"]["l0_q"]["cg"][0] = 99
@@ -127,6 +191,18 @@ def test_fit_has_jnp_resize_semantics(n, shape):
     want = np.resize(x, shape)
     np.testing.assert_array_equal(_fit(torch.from_numpy(x), shape).numpy(),
                                   want)
+
+
+def test_ssd_cost_counts_the_pairs_the_decay_keeps():
+    flops, nbytes = launch_cost("ssd_chunk_dual", {
+        "BC": 32, "Q": 128, "H": 16, "P": 128, "N": 64})
+    assert (flops, nbytes) == (2_189_688_832, 86_245_376)
+    # a brute count of the kept (i, j <= i) pairs at a ragged chunk
+    BC, Q, H, P, N = 3, 70, 2, 32, 16
+    kept = int((np.arange(Q)[:, None] >= np.arange(Q)[None, :]).sum())
+    flops, _ = launch_cost("ssd_chunk_dual", {"BC": BC, "Q": Q, "H": H,
+                                              "P": P, "N": N})
+    assert flops == 2 * BC * (kept * N + kept * H * P + Q * H * N * P)
 
 
 @pytest.mark.parametrize("Sq,Sk", [(512, 512), (96, 96), (100, 300),
@@ -201,7 +277,7 @@ _PARITY = textwrap.dedent("""
 
 
     names = tuple(g.topo_order())
-    mappings = {
+    tf_mappings = {
         "tangram": tangram_map([LayerGroup(names=names, batch_unit=2)], g,
                                arch),
         "per_layer": tangram_map([LayerGroup(names=(n,), batch_unit=2)
@@ -210,8 +286,15 @@ _PARITY = textwrap.dedent("""
             batch=4, sa=SAConfig(iters=40, seed=0),
             keep_mappings=True))[0].mappings["TF"],
     }
+    cases = [(label, g, pg, m) for label, m in tf_mappings.items()]
+    # full-width mamba2-370m, two layers: the ssd route
+    mspec = "lm:mamba2-370m:seq=256,n_layers=2"
+    gm = ref_workload(mspec)
+    cases.append(("mamba", gm, make_workload(mspec), run_dse(
+        [arch], {"M": gm}, DSEConfig(batch=4, sa=SAConfig(iters=40, seed=0),
+                                     keep_mappings=True))[0].mappings["M"]))
     out = {}
-    for label, mapping in mappings.items():
+    for label, g, pg, mapping in cases:
         rplan = ref_lms_to_plan(mapping)
         rprog = ref_build(g, rplan, use_pallas=False)
         rrun = rprog.execute(seed=0)
@@ -235,6 +318,8 @@ _PARITY = textwrap.dedent("""
                              for rsp, sp in zip(rprog.stages, prog.stages)],
             "has_flash": any(r.startswith("flash:") for sp in prog.stages
                              for r in sp.routes.values()),
+            "n_ssd": sum(r == "ssd" for sp in prog.stages
+                         for r in sp.routes.values()),
             "max_rel_err": max(errs.values()),
             "n_cubes": len(errs),
             "ref_dci": [float(x) for x in rrun["dci_bytes"]],
@@ -263,7 +348,7 @@ def test_realized_stages_match_reference_program():
                        text=True, timeout=600, env=env, cwd=REPO)
     assert r.returncode == 0, f"stderr:\n{r.stderr[-3000:]}"
     rec = json.loads(r.stdout.splitlines()[-1])
-    for label in ("tangram", "per_layer", "dse"):
+    for label in ("tangram", "per_layer", "dse", "mamba"):
         res = rec[label]
         assert all(res["shapes_equal"]) and all(res["routes_equal"])
         assert res["max_rel_err"] < 2e-4
@@ -271,6 +356,8 @@ def test_realized_stages_match_reference_program():
         assert res["port_moves"] == res["ref_moves"]
     assert rec["tangram"]["n_stages"] == 1 and rec["tangram"]["has_flash"]
     assert rec["dse"]["n_stages"] > 1 and any(rec["dse"]["ref_dci"])
+    assert rec["mamba"]["n_stages"] > 1 and rec["mamba"]["n_ssd"] == 2
+    assert rec["mamba"]["n_cubes"] == 6
     # both billing outcomes occur: cubes that move and cubes that stay
     billed = [m for label in ("per_layer", "dse")
               for m in rec[label]["ref_moves"]]
@@ -334,7 +421,34 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
               "--out", str(tmp_path / "r.jsonl")])
 
 
-def test_ssd_route_is_refused():
+def test_mamba_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = make_workload("lm:mamba2-370m")
+    (_, plan), = plans_for(load_realize_candidates(MAMBA_FIXTURE,
+                                                   {"MAMBA": g},
+                                                   verbose=False))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_program(g, plan)
+    from repro_torch.launch.realize import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--ckpt", str(MAMBA_FIXTURE), "--workload",
+              "MAMBA=lm:mamba2-370m", "--out", str(tmp_path / "r.jsonl")])
+
+
+def test_mamba_fixture_cli_counts_on_the_cpu(tmp_path):
+    """``--device cpu --no-exec``: the plan's kernel work, counted."""
+    from repro_torch.launch.realize import main
+    out = tmp_path / "r.jsonl"
+    main(["--ckpt", str(MAMBA_FIXTURE), "--workload", "MAMBA=lm:mamba2-370m",
+          "--device", "cpu", "--no-exec", "--out", str(out)])
+    rec = json.loads(out.read_text().splitlines()[-1])
+    assert len(rec["stages"]) == 96 and rec["batch_unit"] == 1
+    assert rec["totals"]["flops"] == 2_694_970_343_424
+
+
+def test_one_layer_ssd_plan_builds_and_runs():
+    """The one-layer SSD plan builds on the CPU, lists one
+    ``ssd_chunk_dual`` launch of its shape, and runs."""
     from repro_torch.core.bridge import MeshPlan, StagePlan
     from repro_torch.core.workload import Graph, Layer
     g = Graph("ssd")
@@ -342,8 +456,14 @@ def test_ssd_route_is_refused():
     plan = MeshPlan(stages=[StagePlan(layers=("l0_ssd",), devices=(0,),
                                       parts={"l0_ssd": (1, 1, 1, 1)},
                                       cgs={"l0_ssd": (0,)})], batch_unit=1)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        build_program(g, plan, device="cpu")
+    prog = build_program(g, plan, device="cpu")
+    sp, = prog.stages
+    assert sp.routes == {"l0_ssd": "ssd"}
+    # K = 64 -> 1 head of 64; S = 32 -> one chunk of 32; N = min(64, C)
+    assert sp.launches == [("ssd_chunk_dual",
+                            {"BC": 1, "Q": 32, "H": 1, "P": 64, "N": 64})]
+    out = prog.execute(seed=0)["outputs"]["l0_ssd"]
+    assert tuple(out.shape) == (1, 32, 1, 64) and torch.isfinite(out).all()
 
 
 def test_simba_arch_matches_reference():
