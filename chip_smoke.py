@@ -11,16 +11,27 @@ phase prints one JSON line:
 1. ``env``: the card's name and power limit from ``nvidia-smi``, torch and
    CUDA versions.
 2. ``build``: the CUDA kernels compiled from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once), with seconds and ptxas lines.
+   (one ``nvcc`` per source, all at once), with seconds and ptxas lines
+   (registers, spills).  Then ``sass``: the tensor-core ``HMMA``
+   instructions in each built library's SASS, by kernel function, where
+   the toolkit has ``cuobjdump``.
 3. ``kernel``: one line per kernel and shape.  Each kernel is held against
    its plain PyTorch version on the same inputs on the card, with TF32 off,
    at the tolerances of ``tests/test_kernels.py`` (GEMM atol 1e-3 /
    rtol 1e-4, flash 2e-5, SSD chunk 1e-4; the chunked SSD ``ssd_forward``
-   at 2e-4).  The realization paths' shapes also get the kernel's time,
-   the plain version's, one PyTorch library call's (``torch.matmul``,
-   ``scaled_dot_product_attention``; none computes the SSD chunk form, so
-   its ``library_ms`` is null) and the least time the card could take
-   (``bound_ms``).
+   at 2e-4).  GEMM and flash lines name the kernel configuration the
+   launch took (``route``: tile or head-dim template, copy width); the
+   edge shapes drive each of them.  The realization paths' shapes also get
+   the kernel's time, the plain version's, one PyTorch library call's
+   (``torch.matmul``, ``scaled_dot_product_attention``; none computes the
+   SSD chunk form, so its ``library_ms`` is null), each as device time
+   (``time_ms``), the kernel's time also as the host issues it
+   (``host_issued_ms``: above ``ms`` where the wrapper's host time per
+   call exceeds the kernel's), and the least time the card could take:
+   ``bound_ms`` at the f32 FMA peak (kept so that rows compare across
+   versions), ``bound_3xtf32_ms`` at a third of the TF32 tensor-core
+   peak, the rate of the arithmetic the GEMM and flash kernels now use
+   (``arith``).
 4. ``path``, once per realization path: a committed keep_mappings
    checkpoint realized at full width through ``repro_torch.launch.realize``
    (one warm-up pass, then the counted pass, with every launch count set
@@ -30,7 +41,8 @@ phase prints one JSON line:
    inputs.  The paths are ``tf-paper`` (37 stages; GEMM and flash) and
    ``mamba2-370m`` (96 stages; GEMM and the SSD chunk kernel).
 5. ``kernels``: every kernel with its launches on the paths and its numbers
-   summed over one pass of each path, and each path's share apart.
+   summed over one pass of each path, and each path's share apart (both
+   bounds, ``arith``).
 
 Then the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -53,24 +65,49 @@ FIXTURES = ROOT / "tests" / "data" / "realize"
 REPORTS = ROOT / "results"
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth.  All three kernels compute in plain f32.
+# cores, dense TF32 on the tensor cores, and HBM3 bandwidth.  The GEMM and
+# flash kernels multiply in 3xTF32 (three TF32 products per f32 product, f32
+# accuracy), the SSD chunk kernel in f32 FMAs.
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES_S = 3.35e12
+ARITH = {"tiled_matmul": "3xTF32 mma.sync",
+         "flash_attention_mha": "3xTF32 mma.sync",
+         "ssd_chunk_dual": "f32 FMA"}
 
 MM_TOL = {"atol": 1e-3, "rtol": 1e-4}
 FLASH_TOL = {"atol": 2e-5, "rtol": 2e-5}
 SSD_TOL = {"atol": 1e-4, "rtol": 1e-4}
 SSD_FORWARD_TOL = {"atol": 2e-4, "rtol": 2e-4}
+# cycles of the sleep kernel ahead of a device timing: 5 ms at 2 GHz, more
+# than the host takes to queue 20 calls of any function timed that way
+SLEEP_CYCLES = 10_000_000
 # per-stage cube agreement, relative to the cube's max (tests/test_realize.py)
 STAGE_REL_TOL = 2e-4
 
 MM_PATH = [(2048, 512, 512), (2048, 512, 2048), (2048, 2048, 512),
            (4096, 1024, 4384), (4096, 2048, 1024)]
-MM_EDGE = [(100, 300, 50), (257, 129, 65), (1000, 77, 3), (64, 64, 64)]
+# (M, K, N, A one float into its storage): ragged shapes; both tile
+# configurations with 16-byte copies (the path's shapes) and with 4-byte
+# copies (K or N % 4 != 0, or A not 16-byte aligned)
+MM_EDGE = [(100, 300, 50, False), (257, 129, 65, False),
+           (1000, 77, 3, False), (64, 64, 64, False),
+           (2048, 130, 2050, False), (512, 256, 512, True),
+           (2048, 512, 2048, True)]
 FLASH_PATH = [(4, 4, 512, 512, 128, True)]
-FLASH_EDGE = [(2, 4, 96, 96, 64, True), (1, 2, 128, 256, 32, False),
-              (1, 2, 100, 300, 64, True), (1, 2, 256, 128, 32, True),
-              (2, 3, 70, 45, 100, False), (1, 2, 130, 130, 256, True)]
+# (B, H, Sq, Sk, D, causal, q one float into its storage): every head-dim
+# template (32, 64, 128, 256), Sq != Sk causal both ways, 4-byte copies
+# (D % 4 != 0, q not 16-byte aligned)
+FLASH_EDGE = [(2, 4, 96, 96, 64, True, False),
+              (1, 2, 128, 256, 32, False, False),
+              (1, 2, 100, 300, 64, True, False),
+              (1, 2, 256, 128, 32, True, False),
+              (2, 3, 70, 45, 100, False, False),
+              (1, 2, 130, 130, 256, True, False),
+              (1, 2, 96, 200, 256, True, False),
+              (2, 2, 192, 100, 128, True, False),
+              (1, 3, 80, 90, 33, True, False),
+              (1, 2, 64, 96, 64, True, True)]
 # (BC, Q, H, P, N): the mamba2-370m path's shape; tests/test_kernels.py's
 # three; ragged chunk lengths; P of 32 and 64; two P tiles, N off 4
 SSD_PATH = [(32, 128, 16, 128, 64)]
@@ -104,13 +141,20 @@ def nvidia_smi() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Mean milliseconds per call on the card, after warm-up."""
+def time_ms(fn, reps: int = 20, device: bool = True) -> float:
+    """Mean milliseconds per call on the card, after warm-up.  With
+    ``device`` the stream first runs a sleep kernel (``SLEEP_CYCLES``, a
+    few ms) while the host queues every call, so the events bracket the
+    calls' device work and not the host's pace of launching them; without
+    it the calls run as the host issues them."""
     import torch
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if device:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -119,11 +163,22 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms the card could take, what bounds it)."""
+def bounds(flops: float, nbytes: float) -> dict:
+    """The least ms the card could take at the f32 FMA peak and what bounds
+    it there, and the least ms at the 3xTF32 rate."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, \
-        "operations" if t_ops >= t_bytes else "bytes"
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_3xtf32_ms": max(flops / PEAK_3XTF32_FLOPS, t_bytes) * 1e3}
+
+
+def on_card(randn, shape, offset: bool):
+    """randn of ``shape``, contiguous; with ``offset`` a view one float into
+    its storage (data pointer 4- but not 16-byte aligned)."""
+    n = 1
+    for d in shape:
+        n *= d
+    return randn(n + int(offset))[int(offset):].view(*shape)
 
 
 def check_kernels(dev) -> dict:
@@ -131,7 +186,8 @@ def check_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention, ops, ref
+    from repro_torch.kernels import tiled_matmul as mm
     from repro_torch.kernels.flash_attention import flash_attention_mha
     from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
     from repro_torch.kernels.tiled_matmul import tiled_matmul
@@ -140,41 +196,50 @@ def check_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(*s, device=dev, generator=gen)
     timed = {}
-    for path, (M, K, N) in [(True, s) for s in MM_PATH] \
+    for path, (M, K, N, offset) in [(True, (*s, False)) for s in MM_PATH] \
             + [(False, s) for s in MM_EDGE]:
-        a, b = randn(M, K), randn(K, N)
+        a, b = on_card(randn, (M, K), offset), randn(K, N)
         got, want = tiled_matmul(a, b), ref.matmul_ref(a, b)
         torch.cuda.synchronize()
         line = {"phase": "kernel", "kernel": "tiled_matmul",
-                "shape": {"M": M, "K": K, "N": N}, "main_path": path,
-                **MM_TOL, "max_abs_err": (got - want).abs().max().item()}
+                "shape": {"M": M, "K": K, "N": N}, "a_offset": int(offset),
+                "route": mm.kernel_route(a, b), "arith": ARITH["tiled_matmul"],
+                "main_path": path, **MM_TOL,
+                "max_abs_err": (got - want).abs().max().item()}
         if path:
-            flops, nbytes = launch_cost("tiled_matmul",
-                                        {"M": M, "K": K, "N": N})
-            line["bound_ms"], line["bound_by"] = bound(flops, nbytes)
+            line.update(bounds(*launch_cost("tiled_matmul",
+                                            {"M": M, "K": K, "N": N})))
             line["ms"] = time_ms(lambda: tiled_matmul(a, b))
+            line["host_issued_ms"] = time_ms(lambda: tiled_matmul(a, b),
+                                             device=False)
             line["plain_ms"] = time_ms(lambda: ref.matmul_ref(a, b))
             line["library_ms"] = time_ms(lambda: torch.matmul(a, b))
             timed[("tiled_matmul", (M, K, N))] = line
         emit(line)
         if not torch.allclose(got, want, **MM_TOL):
             raise AssertionError(f"tiled_matmul disagrees at {(M, K, N)}")
-    for path, (B, H, Sq, Sk, D, causal) in \
-            [(True, s) for s in FLASH_PATH] + [(False, s) for s in FLASH_EDGE]:
-        q, k, v = randn(B, H, Sq, D), randn(B, H, Sk, D), randn(B, H, Sk, D)
+    for path, (B, H, Sq, Sk, D, causal, offset) in \
+            [(True, (*s, False)) for s in FLASH_PATH] \
+            + [(False, s) for s in FLASH_EDGE]:
+        q = on_card(randn, (B, H, Sq, D), offset)
+        k, v = randn(B, H, Sk, D), randn(B, H, Sk, D)
         got = flash_attention_mha(q, k, v, causal=causal)
         want = ref.attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         line = {"phase": "kernel", "kernel": "flash_attention_mha",
                 "shape": {"B": B, "H": H, "Sq": Sq, "Sk": Sk, "D": D},
-                "causal": causal, "main_path": path, **FLASH_TOL,
-                "max_abs_err": (got - want).abs().max().item()}
+                "causal": causal, "q_offset": int(offset),
+                "route": flash_attention.kernel_route(q, k, v),
+                "arith": ARITH["flash_attention_mha"], "main_path": path,
+                **FLASH_TOL, "max_abs_err": (got - want).abs().max().item()}
         if path:
             shape = {**line["shape"], "causal": int(causal)}
-            line["bound_ms"], line["bound_by"] = bound(
-                *launch_cost("flash_attention_mha", shape))
+            line.update(bounds(*launch_cost("flash_attention_mha", shape)))
             line["ms"] = time_ms(
                 lambda: flash_attention_mha(q, k, v, causal=causal))
+            line["host_issued_ms"] = time_ms(
+                lambda: flash_attention_mha(q, k, v, causal=causal),
+                device=False)
             line["plain_ms"] = time_ms(
                 lambda: ref.attention_ref(q, k, v, causal=causal))
             line["library_ms"] = time_ms(
@@ -195,12 +260,12 @@ def check_kernels(dev) -> dict:
         torch.cuda.synchronize()
         shape = {"BC": BC, "Q": Q, "H": H, "P": P, "N": N}
         line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
-                "shape": shape, "main_path": path, **SSD_TOL,
+                "shape": shape, "arith": ARITH["ssd_chunk_dual"],
+                "main_path": path, **SSD_TOL,
                 "max_abs_err": max((g - w).abs().max().item()
                                    for g, w in zip(got, want))}
         if path:
-            line["bound_ms"], line["bound_by"] = bound(
-                *launch_cost("ssd_chunk_dual", shape))
+            line.update(bounds(*launch_cost("ssd_chunk_dual", shape)))
             line["ms"] = time_ms(lambda: ssd_chunk_dual(x, cum, Bm, Cm))
             line["plain_ms"] = time_ms(
                 lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm))
@@ -226,9 +291,12 @@ def check_kernels(dev) -> dict:
                 "main_path": path, **SSD_FORWARD_TOL,
                 "max_abs_err": (got - want).abs().max().item()}
         if path:
-            line["ms"] = time_ms(lambda: ops.ssd_forward(*args, chunk=chunk))
+            # as the host issues it: the recurrence is host-bound
+            line["ms"] = time_ms(lambda: ops.ssd_forward(*args, chunk=chunk),
+                                 device=False)
             line["plain_ms"] = time_ms(lambda: ops.ssd_forward(
-                *args, chunk=chunk, chunk_dual=ref.ssd_chunk_ref))
+                *args, chunk=chunk, chunk_dual=ref.ssd_chunk_ref),
+                device=False)
         emit(line)
         if not torch.allclose(got, want, **SSD_FORWARD_TOL):
             raise AssertionError(
@@ -359,6 +427,7 @@ def per_pass_summary(timed: dict, runs: dict) -> list:
                 "ms": sum(ln["ms"] for ln in ls),
                 "plain_ms": sum(ln["plain_ms"] for ln in ls),
                 "bound_ms": sum(ln["bound_ms"] for ln in ls),
+                "bound_3xtf32_ms": sum(ln["bound_3xtf32_ms"] for ln in ls),
                 "library_ms": None if None in lib else sum(lib)}
             lines += ls
         total = lambda k: sum(p[k] for p in per_path.values())
@@ -370,6 +439,7 @@ def per_pass_summary(timed: dict, runs: dict) -> list:
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": max(lines, key=lambda ln: ln["bound_ms"])["bound_by"],
+            "bound_3xtf32_ms": total("bound_3xtf32_ms"), "arith": ARITH[name],
             "library_ms": None if None in lib else sum(lib),
             "per": "one pass of each path, summed; per_path splits it",
             "per_path": per_path}
@@ -404,6 +474,16 @@ def main() -> int:
     info = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source": info})
+    hmma = {name: _build.hmma_counts(name) for name in _build.SOURCES}
+    if None in hmma.values():
+        emit({"phase": "sass", "HMMA": None,
+              "note": "the toolkit has no cuobjdump"})
+    else:
+        emit({"phase": "sass", "HMMA": hmma})
+        for name in ("tiled_matmul", "flash_attention"):
+            if not hmma[name] or 0 in hmma[name].values():
+                raise AssertionError(f"{name}: a kernel without tensor-core "
+                                     f"instructions: {hmma[name]}")
 
     timed = check_kernels(dev)
     runs = {path[0]: run_path(path, dev) for path in PATHS}

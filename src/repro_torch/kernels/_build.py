@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``
 into ``_build/`` beside this file (listed in ``.gitignore``), then loaded
-with ``ctypes``.  A library's file name carries a digest of its source and
-flags, so an edited source is rebuilt and a stale library never loads.
+with ``ctypes``.  A library's file name carries a digest of its source, of
+every shared header ``csrc/*.cuh`` and of the flags, so an edited source or
+header is rebuilt and a stale library never loads.
 :func:`build` compiles several sources at once, one ``nvcc`` process each;
 :func:`load` declares each C entry point's signature once, from
 :data:`SIGNATURES`.
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -37,6 +38,12 @@ SIGNATURES = {
     "tiled_matmul": {"tiled_matmul_f32": [_P] * 3 + [_I] * 4 + [_P]},
     "flash_attention": {"flash_attention_f32": [_P] * 4 + [_I] * 7 + [_P]},
     "mamba_ssd": {"ssd_chunk_dual_f32": [_P] * 6 + [_I] * 6 + [_P]},
+}
+# argument types of the functions that name the configuration a launch
+# takes; each returns a C string
+ROUTES = {
+    "tiled_matmul": {"tiled_matmul_route": [_I] * 3 + [_P] * 2 + [_I]},
+    "flash_attention": {"flash_attention_route": [_I] + [_P] * 3},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -54,9 +61,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    """The library of ``csrc/<name>.cu``, named by a digest of the source,
+    every ``csrc/*.cuh`` it may include, and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Dict]:
@@ -106,10 +117,46 @@ def load(name: str) -> ctypes.CDLL:
         for symbol, argtypes in SIGNATURES[name].items():
             fn = getattr(lib, symbol)
             fn.restype, fn.argtypes = _I, argtypes
+        for symbol, argtypes in ROUTES.get(name, {}).items():
+            fn = getattr(lib, symbol)
+            fn.restype, fn.argtypes = ctypes.c_char_p, argtypes
         lib.cuda_error_string.restype = ctypes.c_char_p
         lib.cuda_error_string.argtypes = [_I]
         _LIBS[name] = lib
     return lib
+
+
+def _cuobjdump() -> Optional[str]:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    nvcc = Path(_nvcc())
+    path = nvcc.with_name("cuobjdump")
+    return str(path) if path.exists() else None
+
+
+def hmma_counts(name: str) -> Optional[Dict[str, int]]:
+    """Tensor-core ``HMMA`` instructions in the built library's SASS, by
+    kernel function (mangled name); None where the toolkit has no
+    ``cuobjdump``.  Builds the library first if it is missing."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    path = lib_path(name)
+    if not path.exists():
+        build([name])
+    sass = subprocess.run([tool, "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def check(lib: ctypes.CDLL, kernel: str, code: int) -> None:

@@ -1,4 +1,4 @@
-// Flash attention forward, f32, for Hopper (sm_90a).
+// Flash attention forward, f32, for Hopper (sm_90a), on the tensor cores.
 // q (B, H, Sq, D), k and v (B, H, Sk, D), contiguous -> o (B, H, Sq, D).
 //
 // Replaces the Pallas kernel `_flash_kernel` driven by `flash_attention_mha`
@@ -10,189 +10,405 @@
 // acc / max(l, 1e-30).
 //
 // What bounds it: at the realization path's shape (B, H, S, D) =
-// (4, 4, 512, 128) each key/value row is used by every query row of the
-// block, so the kernel does about 2 * S FLOP per byte of q, k, v and o,
-// far above the card's f32 balance point (about 20 FLOP per byte): it is
-// bound by f32 operations, and by shared-memory bandwidth feeding them.
-// Tensor cores are not used: f32 parity with the reference at 2e-5 rules
-// out TF32.
+// (4, 4, 512, 128), causal, a launch does 1.08 GFLOP on 4.2 MB, about 250
+// FLOP per byte: it is bound by operations.  Both products (S = Q K^T and
+// O = P V) run on the tensor cores in 3xTF32 (tf32x3.cuh): one TF32 product
+// would be off by about 1e-3 against the 2e-5 tolerance, three are off by
+// about 2e-6.  The ops bound is then 1.08 GFLOP over 165 TFLOP/s, 6.5 us.
+// The kernel runs about 8x that (PERF.md): mma.sync reaches only part of
+// the tensor-core rate (wgmma, the full-rate path, is later work), the
+// TF32 splits and the softmax cost ALU instructions beside each product,
+// and the causal mask leaves the heaviest query tiles 8x the work of the
+// lightest.
 //
-// Design: one block per (64-query tile, head, batch), 256 threads; four
-// threads own one query row.  The q tile stays in shared memory; k and v
-// tiles of 64 rows stream through shared memory in a loop inside the block
-// (the Pallas kv grid axis).  Each thread computes 16 of its row's 64
-// scores with 16-byte shared loads, the row max and row sum are combined
-// across the row's four threads with warp shuffles, and the running max,
-// denominator and the thread's quarter of the output row (DMAX / 4
-// values) stay in registers across the kv loop.  The probabilities go
-// through shared memory so each thread can apply the whole row to its
-// columns of v.  The score matrix never reaches device memory.  With
-// `causal`, kv tiles that lie wholly past the block's last query are
-// skipped: every score in them is masked, and exp(-1e30 - m) is exactly 0
-// in f32 once the first tile (which always holds k_pos = 0) has set a
-// finite running max, so skipping changes no bit of the result.  Head dims
-// up to 256 are taken; a head dim below the template's DMAX is zero-padded
-// in shared memory, which leaves the dot products unchanged.
+// Design (the FA2 shape): one block per (32-query tile, batch * head),
+// 8 warps: 2 row warps of 16 query rows, each in 4 kv groups that take
+// their own 16 keys of every 64-key kv tile (so a warp's online softmax
+// covers only its keys; the groups' (max, sum, output) are merged at the
+// end through shared memory, in a fixed order).  The q tile is copied
+// once and split into its TF32 parts in shared memory; k and v tiles are
+// double-buffered with cp.async, the next tile's copy in flight while the
+// current one is used (the Pallas kv grid axis becomes a loop inside the
+// block).  Per kv tile a warp computes its 16 x 16 scores with m16n8k8
+// 3xTF32 products (k rows of the tile as B fragments), runs the online
+// softmax on the score fragments in registers (row max and sum over the 4
+// threads of a row group with __shfl_xor_sync; exponentials as exp2 of
+// log2-scaled scores), and multiplies the probabilities by v straight
+// from the score registers: the score fragment holds columns (2t, 2t + 1)
+// where the A fragment of the next product wants (t, t + 4), so inside
+// each k8 step the kv index is permuted the same way on both sides
+// (logical k = t is column 2t, k = t + 4 is 2t + 1): a0..a3 = c0, c2, c1,
+// c3 and the B fragment reads v rows 2t and 2t + 1.  The sum over kv does
+// not depend on that order.  The output (16 x DMAX per warp) stays in
+// registers across the kv loop; the score matrix never reaches shared or
+// device memory.  A masked score keeps the finite -1e30 in the running
+// max and gets probability 0, so with `causal` the kv tiles that lie
+// wholly past the block's last query are skipped, and so is a warp's part
+// of a tile that is masked for all its 16 rows: its probabilities would
+// all be 0 and its max would not move, so skipping changes no bit of the
+// result.  32-query blocks (256 at the path
+// shape) are scheduled heaviest first (the q-tile index runs backwards
+// on the grid's slow axis), so the light ones fill in behind the heavy
+// ones.  Head dims up to 256 are taken through four templates (32, 64,
+// 128, 256; 256 with 32-row kv tiles to stay within 227 KB of shared
+// memory); a head dim below the template's DMAX is zero-filled in shared
+// memory, which leaves the dot products unchanged.  Rows are copied 16
+// bytes at a time where D % 4 == 0 and every pointer is 16-byte aligned,
+// else 4 bytes at a time (a second instantiation of the same kernel).
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 256;            // four threads per query row
-constexpr int SC = BKV / 4;             // scores per thread per kv tile
+using namespace tf32x3;
+
+constexpr int BQ = 32;                  // query rows a block
+constexpr int ROW_WARPS = BQ / 16;      // 16 query rows each
+constexpr int KV_GROUPS = 4;            // warps of a row, each taking its
+                                        // own part of every kv tile
+constexpr int THREADS = 32 * ROW_WARPS * KV_GROUPS;
 constexpr float NEG_INF = -1.0e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DMAX>
-struct Smem {
-  static constexpr int LD = DMAX + 4;   // q/k/v row stride (floats)
-  static constexpr int LDP = BKV + 4;   // probability row stride
+struct Cfg {
+  static constexpr int BKV = DMAX > 128 ? 32 : 64;
+  static constexpr int PART = BKV / KV_GROUPS;    // keys a warp takes
+  // row stride in floats, 4 mod 32: the A and B fragment reads of q, k
+  // (row g, column t) and v (row 2t, column g) hit 32 different banks,
+  // and rows stay 16-byte aligned
+  static constexpr int LD = DMAX + 4;
   static constexpr size_t bytes =
-      sizeof(float) * (size_t(BQ) * LD + 2 * size_t(BKV) * LD +
-                       size_t(BQ) * LDP);
+      sizeof(float) * (2 * size_t(BQ) * LD + 4 * size_t(BKV) * LD);
 };
 
-// First output column of a thread's accumulator entries c..c+3 (c a
-// multiple of 4): the row's four threads take 4-column chunks in turn, so
-// their 16-byte reads of a v row fall in different shared-memory banks.
-__device__ __forceinline__ int col4(int j, int c) { return 4 * j + 4 * c; }
+// Rows r0 .. r0 + ROWS - 1 of a (n_rows, D) matrix into a (ROWS, LD) tile,
+// zero past n_rows and past D.  Issues cp.async copies; no wait.
+template <int DMAX, int ROWS, bool VEC>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int n_rows, int D) {
+  constexpr int LD = Cfg<DMAX>::LD;
+  constexpr int W = VEC ? 4 : 1;        // floats a copy
+  constexpr int CH = DMAX / W;          // copies a row
+  static_assert(ROWS * CH % THREADS == 0, "copies split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    const int r = idx / CH, c = (idx % CH) * W;
+    const bool in = r0 + r < n_rows && c < D;
+    const float* from = in ? src + size_t(r0 + r) * D + c : src;
+    if constexpr (VEC) {
+      cp_async16(dst + r * LD + c, from, in);
+    } else {
+      cp_async4(dst + r * LD + c, from, in);
+    }
+  }
+}
 
-template <int DMAX>
+// 2^x; exactly 0 for x <= -1e30.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int DMAX, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
-          int D, int causal, float scale) {
-  using S = Smem<DMAX>;
-  constexpr int CW = DMAX / 4;          // output columns per thread
+          int D, int causal, float scale_log2) {
+  using C = Cfg<DMAX>;
+  constexpr int BKV = C::BKV;
+  constexpr int LD = C::LD;
+  constexpr int G = KV_GROUPS;
+  constexpr int NS = C::PART / 8;       // n8 tiles of a warp's scores
+  constexpr int NO = DMAX / 8;          // n8 tiles of a warp's output
+  // k8 steps a score fragment sums in the tensor core (tf32x3.cuh)
+  constexpr int KC = DMAX >= 64 ? 8 : 4;
+  static_assert(DMAX % (8 * KC) == 0, "whole score chunks");
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * S::LD;
-  float* Vs = Ks + BKV * S::LD;
-  float* Ps = Vs + BKV * S::LD;
+  float* Qs = smem;                     // [BQ][LD], q then its hi parts
+  float* Ql = Qs + BQ * LD;             // [BQ][LD], q's lo parts
+  float* Ks = Ql + BQ * LD;             // [2][BKV][LD]
+  float* Vs = Ks + 2 * BKV * LD;        // [2][BKV][LD]
 
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heavy tiles first
+  const size_t bh = blockIdx.x;
   const float* qb = q + bh * Sq * D;
   const float* kb = k + bh * Sk * D;
   const float* vb = v + bh * Sk * D;
   float* ob = o + bh * Sq * D;
 
-  const int t = threadIdx.x;
-  const int r = t >> 2;                 // query row within the tile
-  const int j = t & 3;                  // quarter of the row
-  const int qpos = q0 + r;
-
-  for (int idx = t; idx < BQ * DMAX; idx += THREADS) {
-    const int rr = idx / DMAX, dd = idx % DMAX;
-    Qs[rr * S::LD + dd] = (q0 + rr < Sq && dd < D)
-        ? qb[(size_t)(q0 + rr) * D + dd] : 0.f;
-  }
-
-  float acc[CW];
-#pragma unroll
-  for (int c = 0; c < CW; ++c) acc[c] = 0.f;
-  float m_i = NEG_INF;
-  float l_i = 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp % ROW_WARPS;      // which 16 rows of the tile
+  const int grp = warp / ROW_WARPS;     // which part of each kv tile
+  const int wr = rw * 16;
+  const int row0 = q0 + wr + g;         // query rows of c0/c1 and c2/c3
+  const int row1 = row0 + 8;
 
   const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();                    // previous tile fully consumed
-    for (int idx = t; idx < BKV * DMAX; idx += THREADS) {
-      const int rr = idx / DMAX, dd = idx % DMAX;
-      const bool in = k0 + rr < Sk && dd < D;
-      const size_t g = (size_t)(k0 + rr) * D + dd;
-      Ks[rr * S::LD + dd] = in ? kb[g] : 0.f;
-      Vs[rr * S::LD + dd] = in ? vb[g] : 0.f;
-    }
-    __syncthreads();
+  const int n_kv = (kv_end + BKV - 1) / BKV;
 
-    // scores of kv columns j, j + 4, ..., j + 60 for query row r
-    float s[SC];
-#pragma unroll
-    for (int c = 0; c < SC; ++c) s[c] = 0.f;
-    for (int d = 0; d < DMAX; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(&Qs[r * S::LD + d]);
-#pragma unroll
-      for (int c = 0; c < SC; ++c) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(&Ks[(j + 4 * c) * S::LD + d]);
-        s[c] = fmaf(qv.x, kv.x, s[c]);
-        s[c] = fmaf(qv.y, kv.y, s[c]);
-        s[c] = fmaf(qv.z, kv.z, s[c]);
-        s[c] = fmaf(qv.w, kv.w, s[c]);
-      }
-    }
-
-    float mx = NEG_INF;
-#pragma unroll
-    for (int c = 0; c < SC; ++c) {
-      const int kpos = k0 + j + 4 * c;
-      const bool keep = kpos < Sk && (!causal || qpos >= kpos);
-      s[c] = keep ? s[c] * scale : NEG_INF;
-      mx = fmaxf(mx, s[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = expf(m_i - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int c = 0; c < SC; ++c) {
-      const float p = expf(s[c] - m_new);
-      psum += p;
-      Ps[r * S::LDP + j + 4 * c] = p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l_i = l_i * corr + psum;
-    m_i = m_new;
-    __syncthreads();                    // the row's probabilities are in Ps
-
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc[c] *= corr;
-    for (int kk = 0; kk < BKV; kk += 4) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&Ps[r * S::LDP + kk]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = &Vs[(kk + u) * S::LD];
-#pragma unroll
-        for (int c = 0; c < CW; c += 4) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(vrow + col4(j, c));
-          acc[c + 0] = fmaf(pv[u], vv.x, acc[c + 0]);
-          acc[c + 1] = fmaf(pv[u], vv.y, acc[c + 1]);
-          acc[c + 2] = fmaf(pv[u], vv.z, acc[c + 2]);
-          acc[c + 3] = fmaf(pv[u], vv.w, acc[c + 3]);
-        }
-      }
-    }
+  load_rows<DMAX, BQ, VEC>(Qs, qb, q0, Sq, D);
+  cp_async_commit();
+  load_rows<DMAX, BKV, VEC>(Ks, kb, 0, Sk, D);
+  load_rows<DMAX, BKV, VEC>(Vs, vb, 0, Sk, D);
+  cp_async_commit();
+  // the q tile is split into its TF32 parts once, not once per kv tile
+  cp_async_wait<1>();
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BQ * DMAX; idx += THREADS) {
+    float* x = Qs + (idx / DMAX) * LD + idx % DMAX;
+    uint32_t hi, lo;
+    split(*x, hi, lo);
+    *x = __uint_as_float(hi);
+    Ql[x - Qs] = __uint_as_float(lo);
   }
 
-  if (qpos < Sq) {
-    const float denom = fmaxf(l_i, 1e-30f);
+  float acc[NO][4];
 #pragma unroll
-    for (int c = 0; c < CW; ++c) {
-      const int d = col4(j, c & ~3) + (c & 3);
-      if (d < D) ob[(size_t)qpos * D + d] = acc[c] / denom;
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // running max (log2 units) and denominator of rows row0 and row1
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int k0 = it * BKV;
+    if (it + 1 < n_kv) {                // next tile into the other buffer
+      const int nb = (it + 1) & 1;
+      load_rows<DMAX, BKV, VEC>(Ks + nb * BKV * LD, kb, k0 + BKV, Sk, D);
+      load_rows<DMAX, BKV, VEC>(Vs + nb * BKV * LD, vb, k0 + BKV, Sk, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                    // this tile (and the split q
+                                        // tile) is in shared memory
+
+    // the warp's keys kh .. kh + PART - 1; a part wholly masked for the
+    // warp's 16 rows changes nothing (all its probabilities are 0) and is
+    // skipped
+    const int kh = k0 + grp * C::PART;
+    if (kh < Sk && !(causal && kh > q0 + wr + 15)) {
+      const float* Kt = Ks + (it & 1) * BKV * LD + grp * C::PART * LD;
+      const float* Vt = Vs + (it & 1) * BKV * LD + grp * C::PART * LD;
+
+      // s = q k^T, 16 rows x PART keys, summed in fragments of KC k8 steps
+      float s[NS][4], d[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = d[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DMAX; kk += 8) {
+        const int qa = (wr + g) * LD + kk + t;
+        const uint32_t ahi[4] = {
+            __float_as_uint(Qs[qa]), __float_as_uint(Qs[qa + 8 * LD]),
+            __float_as_uint(Qs[qa + 4]), __float_as_uint(Qs[qa + 8 * LD + 4])};
+        const uint32_t alo[4] = {
+            __float_as_uint(Ql[qa]), __float_as_uint(Ql[qa + 8 * LD]),
+            __float_as_uint(Ql[qa + 4]), __float_as_uint(Ql[qa + 8 * LD + 4])};
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const float* kr = Kt + (n * 8 + g) * LD + kk + t;
+          uint32_t bhi[2], blo[2];
+          split(kr[0], bhi[0], blo[0]);
+          split(kr[4], bhi[1], blo[1]);
+          mma3(d[n], ahi, alo, bhi, blo);
+          if ((kk / 8) % KC == KC - 1) drain(s[n], d[n]);
+        }
+      }
+
+      // online softmax on the fragments, in log2 units: rows row0
+      // (s[n][0..1]) and row1 (s[n][2..3]), keys kh + 8n + 2t + {0, 1}
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = kh + n * 8 + 2 * t + e;
+          const bool in = kpos < Sk;
+          s[n][e] = in && (!causal || row0 >= kpos) ? s[n][e] * scale_log2
+                                                    : NEG_INF;
+          s[n][2 + e] = in && (!causal || row1 >= kpos)
+              ? s[n][2 + e] * scale_log2 : NEG_INF;
+          mx0 = fmaxf(mx0, s[n][e]);
+          mx1 = fmaxf(mx1, s[n][2 + e]);
+        }
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float corr0 = exp2_approx(m0 - mn0);
+      const float corr1 = exp2_approx(m1 - mn1);
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[n][e] = s[n][e] > NEG_INF ? exp2_approx(s[n][e] - mn0) : 0.f;
+          s[n][2 + e] =
+              s[n][2 + e] > NEG_INF ? exp2_approx(s[n][2 + e] - mn1) : 0.f;
+          ps0 += s[n][e];
+          ps1 += s[n][2 + e];
+        }
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {
+        ps0 += __shfl_xor_sync(0xffffffffu, ps0, sh);
+        ps1 += __shfl_xor_sync(0xffffffffu, ps1, sh);
+      }
+      l0 = l0 * corr0 + ps0;
+      l1 = l1 * corr1 + ps1;
+      m0 = mn0;
+      m1 = mn1;
+
+      // acc += p v with p taken from the score registers: k8 step n
+      // covers keys kh + 8n .. kh + 8n + 7, logical k = t is key
+      // kh + 8n + 2t and k = t + 4 is key kh + 8n + 2t + 1
+      uint32_t phi[NS][4], plo[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        split(s[n][0], phi[n][0], plo[n][0]);
+        split(s[n][2], phi[n][1], plo[n][1]);
+        split(s[n][1], phi[n][2], plo[n][2]);
+        split(s[n][3], phi[n][3], plo[n][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const float* vr = Vt + (n * 8 + 2 * t) * LD + j * 8 + g;
+          uint32_t bhi[2], blo[2];
+          split(vr[0], bhi[0], blo[0]);
+          split(vr[LD], bhi[1], blo[1]);
+          mma3(pv, phi[n], plo[n], bhi, blo);
+        }
+        acc[j][0] = acc[j][0] * corr0 + pv[0];
+        acc[j][1] = acc[j][1] * corr0 + pv[1];
+        acc[j][2] = acc[j][2] * corr1 + pv[2];
+        acc[j][3] = acc[j][3] * corr1 + pv[3];
+      }
+    }
+    __syncthreads();                    // the buffer may now be refilled
+  }
+
+  // The G parts of each row meet: groups 1 .. G - 1 leave their max, sum
+  // and output in the (now free) kv buffers, group 0 merges and writes.
+  constexpr int XACC = ROW_WARPS * NO * 4 * 32;  // floats a group leaves
+  constexpr int XML = ROW_WARPS * 4 * 32;
+  static_assert((G - 1) * (XACC + XML) <= 4 * BKV * LD,
+                "the exchange fits in the kv buffers");
+  float* xacc = Ks;                     // [G - 1][ROW_WARPS][NO][4][32]
+  float* xml = Ks + (G - 1) * XACC;     // [G - 1][ROW_WARPS][4][32]
+  if (grp > 0) {
+    float* xa = xacc + (grp - 1) * XACC + rw * NO * 4 * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xa[(j * 4 + e) * 32] = acc[j][e];
+    float* xm = xml + (grp - 1) * XML + rw * 4 * 32 + lane;
+    xm[0] = m0;
+    xm[32] = m1;
+    xm[64] = l0;
+    xm[96] = l1;
+  }
+  __syncthreads();
+  if (grp > 0) return;
+  // group 0 holds key 0, so m0 and m1 are finite: a weight is exactly 0
+  // where another part saw only masked keys
+  float M0 = m0, M1 = m1;
+#pragma unroll
+  for (int p = 0; p < G - 1; ++p) {
+    const float* xm = xml + p * XML + rw * 4 * 32 + lane;
+    M0 = fmaxf(M0, xm[0]);
+    M1 = fmaxf(M1, xm[32]);
+  }
+  float w0[G], w1[G];
+  w0[0] = exp2_approx(m0 - M0);
+  w1[0] = exp2_approx(m1 - M1);
+  float L0 = l0 * w0[0], L1 = l1 * w1[0];
+#pragma unroll
+  for (int p = 0; p < G - 1; ++p) {
+    const float* xm = xml + p * XML + rw * 4 * 32 + lane;
+    w0[p + 1] = exp2_approx(xm[0] - M0);
+    w1[p + 1] = exp2_approx(xm[32] - M1);
+    L0 += xm[64] * w0[p + 1];
+    L1 += xm[96] * w1[p + 1];
+  }
+  const float d0 = fmaxf(L0, 1e-30f), d1 = fmaxf(L1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    float r[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r[e] = acc[j][e] * (e < 2 ? w0[0] : w1[0]);
+#pragma unroll
+    for (int p = 0; p < G - 1; ++p) {
+      const float* xa = xacc + p * XACC + (rw * NO + j) * 4 * 32 + lane;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        r[e] += xa[e * 32] * (e < 2 ? w0[p + 1] : w1[p + 1]);
+    }
+    const int col = j * 8 + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (col + e >= D) continue;
+      if (row0 < Sq) ob[size_t(row0) * D + col + e] = r[e] / d0;
+      if (row1 < Sq) ob[size_t(row1) * D + col + e] = r[2 + e] / d1;
     }
   }
 }
 
-template <int DMAX>
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+bool vec_copies(int D, const void* q, const void* k, const void* v,
+                const void* o) {
+  return D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+         aligned16(o);
+}
+
+int head_dim_template(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 0;
+}
+
+template <int DMAX, bool VEC>
 int launch(const float* q, const float* k, const float* v, float* o, int BH,
            int Sq, int Sk, int D, int causal, cudaStream_t stream) {
-  const size_t bytes = Smem<DMAX>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, BH);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  flash_fwd<DMAX><<<grid, THREADS, bytes, stream>>>(q, k, v, o, Sq, Sk, D,
-                                                    causal, scale);
+  constexpr size_t bytes = Cfg<DMAX>::bytes;
+  // once per instantiation (the process drives one card)
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd<DMAX, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(flash_fwd<DMAX, VEC>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                int(cudaSharedmemCarveoutMaxShared));
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(BH, (Sq + BQ - 1) / BQ);
+  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
+  flash_fwd<DMAX, VEC><<<grid, THREADS, bytes, stream>>>(
+      q, k, v, o, Sq, Sk, D, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DMAX>
+int launch_d(bool vec, const float* q, const float* k, const float* v,
+           float* o, int BH, int Sq, int Sk, int D, int causal,
+           cudaStream_t stream) {
+  return vec
+      ? launch<DMAX, true>(q, k, v, o, BH, Sq, Sk, D, causal, stream)
+      : launch<DMAX, false>(q, k, v, o, BH, Sq, Sk, D, causal, stream);
 }
 
 }  // namespace
@@ -200,7 +416,8 @@ int launch(const float* q, const float* k, const float* v, float* o, int BH,
 extern "C" {
 
 // Launches on `stream` (a cudaStream_t from the caller) and returns the
-// launch's cudaError_t: 0 when the kernel was accepted.  1 <= D <= 256.
+// launch's cudaError_t: 0 when the kernel was accepted.  1 <= D <= 256,
+// B * H <= 2^31 - 1, ceil(Sq / 32) <= 65535.
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* o, int B, int H, int Sq, int Sk, int D,
                         int causal, int device, void* stream) {
@@ -208,11 +425,31 @@ int flash_attention_f32(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
-  if (D <= 32) return launch<32>(q, k, v, o, BH, Sq, Sk, D, causal, st);
-  if (D <= 64) return launch<64>(q, k, v, o, BH, Sq, Sk, D, causal, st);
-  if (D <= 128) return launch<128>(q, k, v, o, BH, Sq, Sk, D, causal, st);
-  if (D <= 256) return launch<256>(q, k, v, o, BH, Sq, Sk, D, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = vec_copies(D, q, k, v, o);
+  switch (head_dim_template(D)) {
+    case 32: return launch_d<32>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+    case 64: return launch_d<64>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+    case 128:
+      return launch_d<128>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+    case 256:
+      return launch_d<256>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The configuration flash_attention_f32 launches for these arguments (o
+// taken as 16-byte aligned), e.g. "D128 kv64 cp.async16"; "" when D is out
+// of range.
+const char* flash_attention_route(int D, const void* q, const void* k,
+                                  const void* v) {
+  const bool vec = vec_copies(D, q, k, v, nullptr);
+  switch (head_dim_template(D)) {
+    case 32: return vec ? "D32 kv64 cp.async16" : "D32 kv64 cp.async4";
+    case 64: return vec ? "D64 kv64 cp.async16" : "D64 kv64 cp.async4";
+    case 128: return vec ? "D128 kv64 cp.async16" : "D128 kv64 cp.async4";
+    case 256: return vec ? "D256 kv32 cp.async16" : "D256 kv32 cp.async4";
+    default: return "";
+  }
 }
 
 const char* cuda_error_string(int code) {

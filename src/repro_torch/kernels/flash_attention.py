@@ -2,10 +2,13 @@
 (``src/repro/kernels/flash_attention.py:90``).
 
 ``flash_attention_mha(q, k, v, causal)`` launches the CUDA kernel of
-``csrc/flash_attention.cu`` for tensors on the card and runs the plain
-version (:func:`repro_torch.kernels.ref.attention_ref`) for tensors on the
-CPU.  A CUDA tensor never falls back: what the kernel does not take raises.
-``flash_attention_mha.launches`` counts kernel launches.
+``csrc/flash_attention.cu`` (3xTF32 on the tensor cores, f32 accuracy) for
+tensors on the card and runs the plain version
+(:func:`repro_torch.kernels.ref.attention_ref`) for tensors on the CPU.  A
+CUDA tensor never falls back: what the kernel does not take raises.
+``flash_attention_mha.launches`` counts kernel launches;
+:func:`kernel_route` names the head-dim template and copy width a launch
+takes.
 """
 
 from __future__ import annotations
@@ -37,11 +40,11 @@ def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_mha: q, k, v must be contiguous")
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
-    if min(B, H, Sq, Sk, D) < 1 or D > MAX_HEAD_DIM or B * H > 65535 \
-            or max(q.numel(), k.numel()) > 2**31 - 1:
+    if min(B, H, Sq, Sk, D) < 1 or D > MAX_HEAD_DIM \
+            or -(-Sq // 32) > 65535 or max(q.numel(), k.numel()) > 2**31 - 1:
         raise ValueError(f"flash_attention_mha: B={B} H={H} Sq={Sq} Sk={Sk} "
                          f"D={D} out of the kernel's range "
-                         f"(D <= {MAX_HEAD_DIM}, B*H <= 65535)")
+                         f"(D <= {MAX_HEAD_DIM}, Sq <= 32 * 65535)")
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -54,3 +57,13 @@ def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_mha.launches = 0
+
+
+def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel configuration ``flash_attention_mha(q, k, v)`` launches
+    for these CUDA tensors, e.g. ``"D128 kv64 cp.async16"``: the head-dim
+    template, its kv tile, and the copy width (16 bytes where D % 4 == 0
+    and q, k, v are 16-byte aligned, else 4)."""
+    lib = _build.load("flash_attention")
+    return lib.flash_attention_route(q.shape[3], q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr()).decode()

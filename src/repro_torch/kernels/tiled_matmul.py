@@ -2,10 +2,11 @@
 (``src/repro/kernels/tiled_matmul.py:51``).
 
 ``tiled_matmul(a, b)`` launches the CUDA kernel of ``csrc/tiled_matmul.cu``
-for tensors on the card and runs the plain version
-(:func:`repro_torch.kernels.ref.matmul_ref`) for tensors on the CPU.  A
-CUDA tensor never falls back: what the kernel does not take raises.
-``tiled_matmul.launches`` counts kernel launches.
+(3xTF32 on the tensor cores, f32 accuracy) for tensors on the card and runs
+the plain version (:func:`repro_torch.kernels.ref.matmul_ref`) for tensors
+on the CPU.  A CUDA tensor never falls back: what the kernel does not take
+raises.  ``tiled_matmul.launches`` counts kernel launches;
+:func:`kernel_route` names the tile and copy configuration a launch takes.
 """
 
 from __future__ import annotations
@@ -50,3 +51,14 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 tiled_matmul.launches = 0
+
+
+def kernel_route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel configuration ``tiled_matmul(a, b)`` launches for these
+    CUDA operands, e.g. ``"128x128 cp.async16"``: the block tile (chosen
+    from M and N) and the copy width (16 bytes where K % 4 == 0,
+    N % 4 == 0 and both operands are 16-byte aligned, else 4)."""
+    M, K = a.shape
+    lib = _build.load("tiled_matmul")
+    return lib.tiled_matmul_route(M, b.shape[1], K, a.data_ptr(),
+                                  b.data_ptr(), a.device.index or 0).decode()

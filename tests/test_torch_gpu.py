@@ -7,14 +7,16 @@ The file imports no JAX, so it runs on the card's machine:
 
 Tolerances are those of ``tests/test_kernels.py``: atol 1e-3 / rtol 1e-4
 for the f32 GEMM, 2e-5 for f32 attention, 1e-4 for the SSD chunk kernel
-and 2e-4 for the chunked SSD; TF32 is off for the plain versions.
+and 2e-4 for the chunked SSD; TF32 is off for the plain versions.  The
+GEMM and flash kernels compute in 3xTF32 on the tensor cores; each of
+their tile or head-dim configurations and copy widths is driven here.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention, ops, ref, tiled_matmul as mm
 from repro_torch.kernels.flash_attention import flash_attention_mha
 from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
 from repro_torch.kernels.tiled_matmul import tiled_matmul
@@ -47,6 +49,76 @@ def test_tiled_matmul_kernel_vs_plain(cuda, M, K, N):
     assert tiled_matmul.launches == n0 + 1
     torch.testing.assert_close(got, ref.matmul_ref(a, b),
                                atol=1e-3, rtol=1e-4)
+
+
+def _on_card(rng, shape, device, offset=False):
+    """A contiguous f32 tensor on the card; with ``offset`` a view one float
+    into its storage, so its data pointer is 4 but not 16-byte aligned."""
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(_randn(rng, (n + int(offset),))).to(device)
+    return flat[int(offset):].view(shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,offset,route", [
+    (2048, 512, 512, False, "64x64 cp.async16"),    # 64 big tiles: small
+    (2048, 512, 2048, False, "128x128 cp.async16"),
+    (1000, 77, 3, False, "64x64 cp.async4"),        # K, N % 4 != 0
+    (2048, 130, 2050, False, "128x128 cp.async4"),
+    (512, 256, 512, True, "64x64 cp.async4"),       # A a float off 16 B
+    (2048, 512, 2048, True, "128x128 cp.async4"),
+])
+def test_tiled_matmul_routes_vs_plain(cuda, M, K, N, offset, route):
+    """Each tile configuration and copy width of the GEMM kernel against
+    the plain version; the route is the one the kernel reports."""
+    rng = np.random.default_rng(M + K + N + offset)
+    a = _on_card(rng, (M, K), cuda, offset)
+    b = _on_card(rng, (K, N), cuda)
+    assert a.is_contiguous()
+    assert mm.kernel_route(a, b) == route
+    got = tiled_matmul(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.matmul_ref(a, b),
+                               atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,offset,route", [
+    (1, 2, 128, 256, 32, True, False, "D32 kv64 cp.async16"),
+    (2, 2, 192, 100, 64, True, False, "D64 kv64 cp.async16"),   # Sq > Sk
+    (4, 4, 512, 512, 128, True, False, "D128 kv64 cp.async16"),
+    (1, 2, 96, 200, 256, True, False, "D256 kv32 cp.async16"),  # Sq < Sk
+    (2, 2, 130, 70, 256, False, False, "D256 kv32 cp.async16"),
+    (1, 3, 80, 90, 33, True, False, "D64 kv64 cp.async4"),      # D % 4 != 0
+    (1, 2, 64, 96, 64, True, True, "D64 kv64 cp.async4"),       # offset q
+    (1, 2, 100, 100, 128, False, True, "D128 kv64 cp.async4"),
+])
+def test_flash_attention_routes_vs_plain(cuda, B, H, Sq, Sk, D, causal,
+                                         offset, route):
+    """Each head-dim template and copy width of the flash kernel against
+    the plain version; the route is the one the kernel reports."""
+    rng = np.random.default_rng(B * H + Sq + Sk + D)
+    q = _on_card(rng, (B, H, Sq, D), cuda, offset)
+    k = _on_card(rng, (B, H, Sk, D), cuda)
+    v = _on_card(rng, (B, H, Sk, D), cuda)
+    assert flash_attention.kernel_route(q, k, v) == route
+    got = flash_attention_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=causal),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_gemm_and_flash_kernels_are_deterministic(cuda):
+    """No split-K, no atomics, a fixed merge order: two launches on the same
+    inputs agree to the bit."""
+    rng = np.random.default_rng(5)
+    a = _on_card(rng, (2048, 512), cuda)
+    b = _on_card(rng, (512, 2048), cuda)
+    assert torch.equal(tiled_matmul(a, b), tiled_matmul(a, b))
+    q, k, v = (_on_card(rng, (4, 4, 512, 128), cuda) for _ in range(3))
+    assert torch.equal(flash_attention_mha(q, k, v, causal=True),
+                       flash_attention_mha(q, k, v, causal=True))
 
 
 @pytest.mark.gpu

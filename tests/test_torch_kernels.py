@@ -1,13 +1,18 @@
 """PyTorch port kernels: the plain versions against the reference Pallas
-kernels (interpret mode on the CPU) and the CPU dispatch of the wrappers.
-The CUDA kernels themselves are held against the plain versions on the card
-by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+kernels (interpret mode on the CPU), the CPU dispatch of the wrappers, the
+3xTF32 arithmetic of the GEMM and flash kernels emulated on the CPU, and
+the build's library naming.  The CUDA kernels themselves are held against
+the plain versions on the card by ``tests/test_torch_gpu.py`` and
+``chip_smoke.py``.
 
 Inputs are drawn with numpy and handed to both packages.  Tolerances are
 those of ``tests/test_kernels.py``: atol 1e-3 / rtol 1e-4 for the f32 GEMM,
 2e-5 for f32 attention, 2e-2 for bf16 attention, 0.5 / 5e-2 for the
 bf16 GEMM, 1e-4 for the SSD chunk kernel and 2e-4 for the chunked SSD.
 """
+
+import math
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +22,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.mamba_ssd import ssd_chunk_dual as jssd_chunk_dual
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_mha
 from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
 from repro_torch.kernels.tiled_matmul import tiled_matmul
@@ -209,3 +214,154 @@ def test_ssd_chunk_dual_cpu_dispatch_and_refusals():
         ssd_chunk_dual(*meta)
     with pytest.raises(ValueError, match="one card"):
         ssd_chunk_dual(meta[0], *args[1:])
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32: why the tensor-core kernels split every operand in two
+# ---------------------------------------------------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as the kernels' ``split`` rounds the high part
+    (and as ``cvt.rna.tf32.f32`` does): to nearest, ties away from zero.
+    Adding half a TF32 ulp to the bit pattern rounds the magnitude; the mask
+    clears the low 13 mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _cut(x: torch.Tensor) -> torch.Tensor:
+    """f32 cut to TF32, the low 13 mantissa bits dropped, as the tensor
+    core reads an operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    """The kernels' split (``csrc/tf32x3.cuh``) as the tensor core sees it:
+    hi = tf32(x), lo = x - hi (exact) cut to TF32."""
+    hi = _tf32(x)
+    return hi, _cut(x - hi)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, products: int):
+    """a @ b on TF32 tensor cores with f32 accumulators, emulated: one
+    product of the rounded operands, or the kernels' three, lo.hi + hi.lo +
+    hi.hi.  A product of two TF32 values is exact in f32, so f32 matmuls of
+    the parts emulate it."""
+    (ahi, alo), (bhi, blo) = _split(a), _split(b)
+    if products == 1:
+        return ahi @ bhi
+    return (alo @ bhi + ahi @ blo) + ahi @ bhi
+
+
+def test_tf32_split_emulation():
+    """Ties round away from zero, below a tie rounds down, and the two
+    parts the tensor core reads give back x to about 2^-21 of its size."""
+    x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 3.0],
+                     dtype=torch.float32)
+    assert _tf32(x).tolist() == [1 + 2**-10, -(1 + 2**-10), 1.0, 3.0]
+    y = torch.from_numpy(_randn(np.random.default_rng(0), (4096,)))
+    hi, lo = _split(y)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((hi + lo - y).abs() <= y.abs() * 2.0**-21).all()
+    assert ((hi - y).abs() > y.abs() * 2.0**-13).any()
+
+
+@pytest.mark.parametrize("K", [512, 1024, 2048])
+def test_3xtf32_gemm_meets_the_f32_tolerance_and_one_product_does_not(K):
+    """At the realization paths' contraction lengths, the GEMM kernel's
+    3xTF32 product stays within the f32 reference's tolerance (atol 1e-3 /
+    rtol 1e-4) of the plain f32 product; one TF32 product misses it."""
+    rng = np.random.default_rng(K)
+    a = torch.from_numpy(_randn(rng, (256, K)))
+    b = torch.from_numpy(_randn(rng, (K, 256)))
+    want = ref.matmul_ref(a, b)
+    torch.testing.assert_close(_mm_tf32(a, b, 3), want, atol=1e-3,
+                               rtol=1e-4)
+    assert not torch.allclose(_mm_tf32(a, b, 1), want, atol=1e-3, rtol=1e-4)
+
+
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32 rounded toward zero."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mm_3xtf32_steps(a: torch.Tensor, b: torch.Tensor, in_tensor_core):
+    """a @ b as the GEMM kernel issues it: k8 steps of three TF32 products,
+    each ``mma`` adding its exact products to its accumulator with one
+    rounding toward zero (the tensor core's).  ``in_tensor_core``: the
+    running sum stays in the mma accumulator; else each step's three
+    products go into a zeroed fragment that is added to the sum in f32,
+    rounded to nearest (``tf32x3::mma3``)."""
+    (ahi, alo), (bhi, blo) = _split(a), _split(b)
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k in range(0, a.shape[1], 8):
+        ks = slice(k, k + 8)
+        d = acc if in_tensor_core else torch.zeros_like(acc)
+        for x, y in ((alo, bhi), (ahi, blo), (ahi, bhi)):
+            d = _round_toward_zero(d.double()
+                                   + x[:, ks].double() @ y[ks].double())
+        acc = d if in_tensor_core else acc + d
+    return acc
+
+
+def test_tensor_core_accumulation_drifts_so_each_step_is_added_in_f32():
+    """At K = 2048 a 3xTF32 sum kept inside the tensor core's accumulator,
+    which rounds toward zero, drifts past the GEMM tolerance (the kernel did
+    so on the card, by 3.7e-3); added step by step in f32 it does not."""
+    rng = np.random.default_rng(2048)
+    a = torch.from_numpy(_randn(rng, (256, 2048)))
+    b = torch.from_numpy(_randn(rng, (2048, 256)))
+    want = ref.matmul_ref(a, b)
+    torch.testing.assert_close(_mm_3xtf32_steps(a, b, False), want,
+                               atol=1e-3, rtol=1e-4)
+    assert not torch.allclose(_mm_3xtf32_steps(a, b, True), want,
+                              atol=1e-3, rtol=1e-4)
+
+
+def test_3xtf32_attention_meets_the_f32_tolerance_and_one_product_does_not():
+    """At the tf-paper path's shape (4, 4, 512, 128), causal, attention
+    with both products in 3xTF32 (the flash kernel's arithmetic: scores
+    scaled after the product, -1e30 masking, unnormalized probabilities
+    times v, divided by their sum) stays within 2e-5 of the plain version;
+    with one TF32 product each it does not."""
+    rng = np.random.default_rng(512)
+    q, k, v = (torch.from_numpy(_randn(rng, (4, 4, 512, 128)))
+               for _ in range(3))
+    want = ref.attention_ref(q, k, v, causal=True)
+    keep = torch.ones(512, 512, dtype=torch.bool).tril()
+
+    def emulated(products):
+        s = _mm_tf32(q, k.transpose(-1, -2), products) \
+            * (1.0 / math.sqrt(128))
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+        p = (s - s.amax(-1, keepdim=True)).exp()
+        return _mm_tf32(p, v, products) / p.sum(-1, keepdim=True)
+
+    torch.testing.assert_close(emulated(3), want, atol=2e-5, rtol=2e-5)
+    assert not torch.allclose(emulated(1), want, atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the build: a library's name digests everything it is compiled from
+# ---------------------------------------------------------------------------
+
+def test_lib_path_digests_the_shared_headers(tmp_path, monkeypatch):
+    """Editing a shared header (``csrc/*.cuh``) renames every library, so a
+    library built from the old header never loads; editing one source's
+    ``.cu`` renames that source's library only.  No ``nvcc`` needed."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.lib_path(n) for n in _build.SOURCES}
+    assert before == {n: _build.lib_path(n) for n in _build.SOURCES}
+    header = csrc / "tf32x3.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.lib_path(n) for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+    src = csrc / "mamba_ssd.cu"
+    src.write_text(src.read_text() + "\n")
+    assert _build.lib_path("mamba_ssd") != after["mamba_ssd"]
+    assert _build.lib_path("tiled_matmul") == after["tiled_matmul"]
