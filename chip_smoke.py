@@ -19,8 +19,8 @@ phase prints one JSON line:
    its plain PyTorch version on the same inputs on the card, with TF32 off,
    at the tolerances of ``tests/test_kernels.py`` (GEMM atol 1e-3 /
    rtol 1e-4, flash 2e-5, SSD chunk 1e-4; the chunked SSD ``ssd_forward``
-   at 2e-4).  GEMM and flash lines name the kernel configuration the
-   launch took (``route``: tile or head-dim template, copy width); the
+   at 2e-4).  Each kernel line names the kernel configuration the launch
+   took (``route``: tile, head-dim template or P tile, copy width); the
    edge shapes drive each of them.  The realization paths' shapes also get
    the kernel's time, the plain version's, one PyTorch library call's
    (``torch.matmul``, ``scaled_dot_product_attention``; none computes the
@@ -30,7 +30,7 @@ phase prints one JSON line:
    call exceeds the kernel's), and the least time the card could take:
    ``bound_ms`` at the f32 FMA peak (kept so that rows compare across
    versions), ``bound_3xtf32_ms`` at a third of the TF32 tensor-core
-   peak, the rate of the arithmetic the GEMM and flash kernels now use
+   peak, the rate of the arithmetic the three kernels now use
    (``arith``).
 4. ``path``, once per realization path: a committed keep_mappings
    checkpoint realized at full width through ``repro_torch.launch.realize``
@@ -40,6 +40,12 @@ phase prints one JSON line:
    between the kernel route and the plain route given identical stage
    inputs.  The paths are ``tf-paper`` (37 stages; GEMM and flash) and
    ``mamba2-370m`` (96 stages; GEMM and the SSD chunk kernel).
+   Then ``profile`` (not gated): the timed ``ops.ssd_forward`` call at the
+   ``mamba2-370m`` SSD layer's shape once more, under ``torch.profiler``:
+   the device time of its kernels, the device's idle share over its
+   host-issued wall, and kernel launches and device time split between
+   the chunk kernel, the inter-chunk recurrence loop and the rest of the
+   eager glue.
 5. ``kernels``: every kernel with its launches on the paths and its numbers
    summed over one pass of each path, and each path's share apart (both
    bounds, ``arith``).
@@ -65,15 +71,15 @@ FIXTURES = ROOT / "tests" / "data" / "realize"
 REPORTS = ROOT / "results"
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, dense TF32 on the tensor cores, and HBM3 bandwidth.  The GEMM and
-# flash kernels multiply in 3xTF32 (three TF32 products per f32 product, f32
-# accuracy), the SSD chunk kernel in f32 FMAs.
+# cores, dense TF32 on the tensor cores, and HBM3 bandwidth.  All three
+# kernels multiply in 3xTF32 (three TF32 products per f32 product, f32
+# accuracy).
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES_S = 3.35e12
 ARITH = {"tiled_matmul": "3xTF32 mma.sync",
          "flash_attention_mha": "3xTF32 mma.sync",
-         "ssd_chunk_dual": "f32 FMA"}
+         "ssd_chunk_dual": "3xTF32 mma.sync"}
 
 MM_TOL = {"atol": 1e-3, "rtol": 1e-4}
 FLASH_TOL = {"atol": 2e-5, "rtol": 2e-5}
@@ -108,11 +114,18 @@ FLASH_EDGE = [(2, 4, 96, 96, 64, True, False),
               (2, 2, 192, 100, 128, True, False),
               (1, 3, 80, 90, 33, True, False),
               (1, 2, 64, 96, 64, True, True)]
-# (BC, Q, H, P, N): the mamba2-370m path's shape; tests/test_kernels.py's
-# three; ragged chunk lengths; P of 32 and 64; two P tiles, N off 4
-SSD_PATH = [(32, 128, 16, 128, 64)]
-SSD_EDGE = [(2, 16, 2, 8, 4), (4, 64, 4, 32, 16), (1, 128, 8, 64, 32),
-            (2, 96, 4, 64, 64), (3, 70, 2, 32, 16), (2, 70, 3, 130, 50)]
+# (BC, Q, H, P, N, x one float into its storage): the mamba2-370m path's
+# shape; tests/test_kernels.py's three; ragged chunk lengths; P of 32 and
+# 64; two P tiles with N off 4; then, each at an odd number of (chunk,
+# head) blocks: 4-byte copies (x not 16-byte aligned), Q of 70 and 100,
+# N % 8 != 0 and P = 130
+SSD_PATH = [(32, 128, 16, 128, 64, False)]
+SSD_EDGE = [(2, 16, 2, 8, 4, False), (4, 64, 4, 32, 16, False),
+            (1, 128, 8, 64, 32, False), (2, 96, 4, 64, 64, False),
+            (3, 70, 2, 32, 16, False), (2, 70, 3, 130, 50, False),
+            (3, 70, 3, 64, 16, True), (1, 100, 5, 64, 64, False),
+            (3, 100, 1, 32, 12, False), (1, 128, 3, 130, 20, False),
+            (1, 70, 7, 60, 50, True)]
 # ssd_forward, kernel vs plain: (B, L, H, P, N, chunk); a padded last
 # chunk, and the mamba2-370m path's SSD layer (timed: the chunk kernel plus
 # the eager discretization, recurrence and inter-chunk output around it)
@@ -181,12 +194,14 @@ def on_card(randn, shape, offset: bool):
     return randn(n + int(offset))[int(offset):].view(*shape)
 
 
-def check_kernels(dev) -> dict:
-    """Kernel vs plain version at the path's and at ragged shapes."""
+def check_kernels(dev):
+    """Kernel vs plain version at the path's and at ragged shapes.  Returns
+    the timed lines by (kernel, shape), and the inputs, chunk and timed
+    line of ``ops.ssd_forward`` at the ``mamba2-370m`` layer's shape."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention, ops, ref
+    from repro_torch.kernels import flash_attention, mamba_ssd, ops, ref
     from repro_torch.kernels import tiled_matmul as mm
     from repro_torch.kernels.flash_attention import flash_attention_mha
     from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
@@ -250,9 +265,9 @@ def check_kernels(dev) -> dict:
         if not torch.allclose(got, want, **FLASH_TOL):
             raise AssertionError(
                 f"flash_attention_mha disagrees at {(B, H, Sq, Sk, D)}")
-    for path, (BC, Q, H, P, N) in \
+    for path, (BC, Q, H, P, N, offset) in \
             [(True, s) for s in SSD_PATH] + [(False, s) for s in SSD_EDGE]:
-        x = randn(BC, Q, H, P)
+        x = on_card(randn, (BC, Q, H, P), offset)
         cum = torch.cumsum(-randn(BC, Q, H).abs() * 0.1, dim=1)
         Bm, Cm = randn(BC, Q, N), randn(BC, Q, N)
         got = ssd_chunk_dual(x, cum, Bm, Cm)
@@ -260,13 +275,17 @@ def check_kernels(dev) -> dict:
         torch.cuda.synchronize()
         shape = {"BC": BC, "Q": Q, "H": H, "P": P, "N": N}
         line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
-                "shape": shape, "arith": ARITH["ssd_chunk_dual"],
+                "shape": shape, "x_offset": int(offset),
+                "route": mamba_ssd.kernel_route(x, Bm, Cm),
+                "arith": ARITH["ssd_chunk_dual"],
                 "main_path": path, **SSD_TOL,
                 "max_abs_err": max((g - w).abs().max().item()
                                    for g, w in zip(got, want))}
         if path:
             line.update(bounds(*launch_cost("ssd_chunk_dual", shape)))
             line["ms"] = time_ms(lambda: ssd_chunk_dual(x, cum, Bm, Cm))
+            line["host_issued_ms"] = time_ms(
+                lambda: ssd_chunk_dual(x, cum, Bm, Cm), device=False)
             line["plain_ms"] = time_ms(
                 lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm))
             line["library_ms"] = None
@@ -301,7 +320,86 @@ def check_kernels(dev) -> dict:
         if not torch.allclose(got, want, **SSD_FORWARD_TOL):
             raise AssertionError(
                 f"ssd_forward disagrees at {(B, L, H, P, N, chunk)}")
-    return timed
+        if path:
+            layer = (args, chunk, line)
+    return timed, layer
+
+
+def profile_ssd_forward(args, chunk: int, timed_line: dict) -> dict:
+    """One ``ops.ssd_forward`` call under ``torch.profiler``: the device
+    time of all its kernels and copies; the device's idle share over the
+    call's wall as the host issues it without the profiler (``ms`` of the
+    timed line); the profiled wall (ended by a synchronize), which the
+    profiler stretches; and the kernel launches and their device time in
+    three groups, by the host time of each launch: the chunk kernel; the
+    recurrence, launched after it up to the end of the ``torch.stack`` of
+    the states (``ops.py``: the zero state, the loop over chunks, the
+    stack), with the share of the profiled wall that its launches span;
+    and the rest of the glue (discretization, cumsum, casts, the
+    inter-chunk output).  Kernels are matched to their launches by the
+    trace's correlation ids.  The chrome trace goes to ``results/``.  It
+    runs after the paths: launches that follow a profiler session in the
+    same process were slower (the ``mamba2-370m`` pass took 205-249 ms
+    after it against 124-147 ms without; NVIDIA H100 80GB HBM3, 700 W)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    ops.ssd_forward(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ops.ssd_forward(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    REPORTS.mkdir(parents=True, exist_ok=True)
+    trace = REPORTS / "chip_smoke.ssd_forward.trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    corr = lambda e: (e.get("args") or {}).get("correlation")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events
+              if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
+    launch_ts = {corr(e): e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and corr(e) is not None}
+    chunk_k = [e for e in kernels if "ssd_chunk" in e.get("name", "")]
+    line = {"phase": "profile", "via": "ops.ssd_forward",
+            "shape": timed_line["shape"], "gated": False,
+            "trace": str(trace.relative_to(ROOT)),
+            "host_issued_ms": timed_line["ms"], "profiled_wall_ms": wall_ms,
+            "device_ms": sum(e["dur"] for e in kernels + copies) / 1e3}
+    line["idle_share"] = 1.0 - line["device_ms"] / line["host_issued_ms"]
+    if len(chunk_k) != 1 or corr(chunk_k[0]) not in launch_ts:
+        line["split"] = None
+        line["note"] = (f"{len(kernels)} device kernels in the trace, "
+                        f"{len(chunk_k)} of them the chunk kernel; no split")
+        return line
+    start = launch_ts[corr(chunk_k[0])]
+    stacks = [e["ts"] + e["dur"] for e in events
+              if e.get("cat") == "cpu_op" and e.get("name") == "aten::stack"
+              and e["ts"] > start]
+    end = min(stacks) if stacks else float("inf")
+    groups = {"chunk_kernel": [], "recurrence": [], "glue": []}
+    for e in kernels:
+        ts = launch_ts.get(corr(e))
+        key = ("chunk_kernel" if e is chunk_k[0] else
+               "recurrence" if ts is not None and start < ts <= end else
+               "glue")
+        groups[key].append(e)
+    line["split"] = {k: {"launches": len(v),
+                         "device_ms": sum(e["dur"] for e in v) / 1e3}
+                     for k, v in groups.items()}
+    line["split"]["recurrence"]["profiled_wall_share"] = \
+        None if not stacks else (end - start) / 1e3 / wall_ms
+    names = {}
+    for e in groups["glue"]:
+        short = e["name"][:60]
+        names[short] = names.get(short, 0) + 1
+    line["glue_kernels"] = dict(sorted(names.items(),
+                                       key=lambda kv: -kv[1])[:8])
+    return line
 
 
 def stage_cube_errors(g, plan, dev) -> dict:
@@ -480,13 +578,14 @@ def main() -> int:
               "note": "the toolkit has no cuobjdump"})
     else:
         emit({"phase": "sass", "HMMA": hmma})
-        for name in ("tiled_matmul", "flash_attention"):
+        for name in _build.SOURCES:
             if not hmma[name] or 0 in hmma[name].values():
                 raise AssertionError(f"{name}: a kernel without tensor-core "
                                      f"instructions: {hmma[name]}")
 
-    timed = check_kernels(dev)
+    timed, layer = check_kernels(dev)
     runs = {path[0]: run_path(path, dev) for path in PATHS}
+    emit(profile_ssd_forward(*layer))
     emit({"kernels": per_pass_summary(timed, runs)})
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,7 @@ SIGNATURES = {
 ROUTES = {
     "tiled_matmul": {"tiled_matmul_route": [_I] * 3 + [_P] * 2 + [_I]},
     "flash_attention": {"flash_attention_route": [_I] + [_P] * 3},
+    "mamba_ssd": {"ssd_chunk_dual_route": [_I] * 2 + [_P] * 3},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

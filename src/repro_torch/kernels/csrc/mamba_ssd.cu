@@ -1,4 +1,5 @@
-// Mamba-2 SSD per-chunk quadratic form, f32, for Hopper (sm_90a).
+// Mamba-2 SSD per-chunk quadratic form, f32 accuracy, for Hopper (sm_90a),
+// on the tensor cores.
 // x (BC, Q, H, P), cum (BC, Q, H), B and C (BC, Q, N), contiguous ->
 // y (BC, Q, H, P) and the chunk state S (BC, H, N, P).
 //
@@ -9,227 +10,365 @@
 //   S[n, :]  = sum_j B[j, n] exp(cum_{Q-1} - cum_j) x[j, h, :]
 // with n_groups = 1 (B and C shared by every head).  Above the diagonal
 // (j > i) cum_i - cum_j is positive and its exp may overflow, so the
-// kernel selects 0 there and never forms that exp (the Pallas body computes
+// kernel selects 0 there and never uses that exp (the Pallas body computes
 // exp everywhere and selects afterwards; both give the same values where
 // the mask keeps them).  The chunk state uses the chunk's last row,
 // padded rows included, as the reference does: rows the caller padded carry
 // dt = 0 and x = 0 and add nothing.
 //
 // What bounds it: at the realization path's shape (BC, Q, H, P, N) =
-// (32, 128, 16, 128, 64) one launch does about 2.2 GFLOP on 86 MB, about
-// 25 FLOP per byte, above the card's f32 balance point (67 TFLOP/s over
-// 3.35 TB/s, about 20 FLOP per byte): it is bound by f32 operations, and by
-// shared-memory bandwidth feeding them.  Tensor cores are not used: the
-// 1e-4 parity with the f32 reference rules out TF32.
+// (32, 128, 16, 128, 64) one launch does 2.2 GFLOP (C B^T counted once a
+// chunk) on 84 MB.  In 3xTF32 (495 / 3 = 165 TFLOP/s) that is 13 us of
+// operations against 25 us of bytes at 3.35 TB/s: it is bound by bytes.
+// All three products run on the tensor cores in 3xTF32 (tf32x3.cuh): one
+// TF32 product would be off by about 7e-2 (y) against the 1e-4 tolerance,
+// three are off by about 4e-5 (tests/test_torch_kernels.py emulates both).
 //
-// Design: one block per (chunk, head, 128-column tile of P), 256 threads.
-// The chunk's C and B rows (Q x N), the head's x tile (Q x 128) and its
-// cum column are staged in shared memory once.  The masked weight matrix
-// W = (C B^T) .* L is computed in registers (8 x 8 per thread, 16-byte
-// shared loads) and kept in shared memory, transposed, so that y = W x is a
-// second register-tiled product reading W and x with 16-byte loads; its
-// loop stops at the thread's last row (W is zero past the diagonal).  The
-// state is a third register-tiled product over the chunk's rows.  The
-// Q x Q decay matrix never reaches device memory.  At Q = 128 the block
-// takes 201 KB of dynamic shared memory (opted in above the 48 KB
-// default), so one block runs per SM.  Taken: 1 <= Q <= 128, 1 <= N <= 64,
-// any P (tiled by 128 over the grid), BC * H < 2^31.
+// Design (flash attention with a decay mask in place of the softmax: C
+// plays q, B plays k, x plays v).  One block per (chunk, head) and
+// 128-column tile of P (one tile at the path's P = 128), 16 warps: the
+// chunk's rows fall in 8 strips of 16 (Q padded to a multiple of 16), and
+// each strip has two warps, one per 64-column half of the tile.  C, B
+// (Q x 64 each) and the x tile (Q x 128) are copied to shared memory with
+// cp.async, C and B in a first group and x in a second, so that the first
+// score tiles are computed while x is still in flight.  Per 16-wide j tile
+// up to its diagonal (strip w has w + 1 of them) the scores C B^T are
+// computed once for both warps of the strip: in round r the strip's two
+// warps take tiles 2r and 2r + 1, each computes its 16 x 16 scores with
+// m16n8k8 3xTF32 products over the state width (C rows as A, B rows as B
+// fragments; one fragment started at zero, N <= 64 is at most 8 k8
+// steps), multiplies them in registers by exp(cum_i - cum_j) where j <= i
+// and selects 0 elsewhere, and leaves the masked tile W (1 KB) in a
+// double-buffered exchange slot; after a barrier of the two warps
+// (bar.sync, one id a strip) each multiplies both tiles by its half of x.
+// The score fragment holds columns (2t, 2t + 1) where the A fragment of
+// the second product wants (t, t + 4), so inside each k8 step the j index
+// is permuted the same way on both sides (a0..a3 = c0, c2, c1, c3; the B
+// fragment reads x rows 2t and 2t + 1).  The output strip (16 x 64 a warp)
+// stays in registers until the store.  The state S = (d .* B)^T x,
+// d_j = exp(cum_{Q-1} - cum_j), is one more 3xTF32 product over all QP
+// rows (padded rows carry d = 0 and x = 0), with the same j permutation
+// (it keeps the shared reads free of bank conflicts); its 16-row tiles go
+// to the warps of strips 0 .. 3, whose causal strips are the lightest,
+// each warp its half of the columns.  Each product sums at most a few k8
+// steps in a fragment and adds it to an f32 accumulator (the tensor
+// core's accumulation rounds toward zero; tf32x3.cuh).
+//
+// Shared memory is 167 KB at Q = 128 (C, B, x, the W exchange), so one
+// block (16 warps) runs on an SM, at 128 registers a thread, no spill.
+// What bounds it in practice is shared-memory traffic: with the x tile
+// split into its TF32 parts once and both parts kept in shared memory (so
+// every x fragment is two reads and no split), the kernel is slower, not
+// faster (benchmarks/port_kernel_variants.py, "x split once"; PERF.md).
+// Tried in development and not kept, none of them faster: one block of 8
+// warps per (chunk, head, 64-column half), two blocks an SM, each
+// computing its own scores; a block looping over several heads of a
+// chunk, C and B copied once and the next head's x copied while the
+// current one is computed; S handed out piece by piece to whichever warp
+// is free.
+// Rows are copied 16 bytes at a time where N % 4 == 0, P % 4 == 0 and x,
+// B and C are 16-byte aligned, else 4 bytes at a time (a second
+// instantiation).
+// Taken: 1 <= Q <= 128, 1 <= N <= 64, any P (tiled by 128 over the grid),
+// BC * H < 2^31.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int QMAX = 128;               // chunk length
-constexpr int NMAX = 64;                // state width
-constexpr int PT = 128;                 // head-dim columns per block
-constexpr int LDN = NMAX + 4;           // C / B row stride (floats)
-constexpr int LDX = PT + 4;             // x tile row stride
+using namespace tf32x3;
 
-// Floats of dynamic shared memory for QP (Q rounded up to 16) rows:
-// C, B, W^T, the x tile, cum and the end-of-chunk decays.
-size_t smem_floats(int QP) {
-  return size_t(QP) * (2 * LDN + (QP + 4) + LDX + 2);
+constexpr int STRIPS = 8;               // 16-row strips of the chunk
+constexpr int WARPS = 2 * STRIPS;       // two warps a strip
+constexpr int THREADS = 32 * WARPS;
+constexpr int QMAX = 16 * STRIPS;       // chunk length
+constexpr int NMAX = 64;                // state width
+constexpr int PT = 128;                 // head-dim columns a block
+constexpr int PH = PT / 2;              // head-dim columns a warp
+constexpr int NO = PH / 8;              // n8 tiles of a warp's output
+// the W exchange: per strip two rounds (double buffer) of two 16 x 16
+// tiles, each as 32 lanes x 8 floats in fragment order
+constexpr int EXF = STRIPS * 2 * 2 * 256;
+// row strides in floats, 4 mod 32: the fragment reads (row g, column t of
+// C and B; rows 2t and 2t + 1, column g of B and x) hit 32 different
+// banks, and rows stay 16-byte aligned
+constexpr int LDN = NMAX + 4;
+constexpr int LDX = PT + 4;
+
+// Dynamic shared memory for QP (Q rounded up to 16) rows: C, B, the x
+// tile, cum, the end-of-chunk decays and the W exchange.
+size_t smem_bytes(int QP) {
+  return sizeof(float) * (size_t(QP) * (2 * LDN + LDX + 2) + EXF);
 }
 
-// Columns p .. p + 3 of an output row, those below pw: one 16-byte store
-// where the row is aligned and all four are in, else one store each.
-__device__ __forceinline__ void store4(float* row, int p, int pw, bool vec,
-                                       float v0, float v1, float v2,
-                                       float v3) {
-  if (vec && p + 3 < pw) {
-    *reinterpret_cast<float4*>(row + p) = make_float4(v0, v1, v2, v3);
+// Rows 0 .. QP - 1 of a (rows, cols) matrix with row stride `ld` into a
+// (QP, LD) tile, columns 0 .. CMAX - 1, zero at r >= rows or c >= cols.
+// Issues cp.async copies; no wait.
+template <int CMAX, int LD, bool VEC>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          size_t ld, int rows, int cols,
+                                          int QP) {
+  constexpr int W = VEC ? 4 : 1;        // floats a copy
+  constexpr int CH = CMAX / W;          // copies a row
+  for (int idx = threadIdx.x; idx < QP * CH; idx += THREADS) {
+    const int r = idx / CH, c = (idx % CH) * W;
+    const bool in = r < rows && c < cols;
+    const float* from = in ? src + r * ld + c : src;
+    if constexpr (VEC) {
+      cp_async16(dst + r * LD + c, from, in);
+    } else {
+      cp_async4(dst + r * LD + c, from, in);
+    }
+  }
+}
+
+// s = C[i0 .. i0 + 15] . B[j0 .. j0 + 15]^T over the state width, 3xTF32:
+// s[n] holds columns j0 + 8n .. j0 + 8n + 7, summed in one fragment
+// started at zero over the NK <= 8 k8 steps.
+__device__ __forceinline__ void score_tile(float (&s)[2][4], const float* Cs,
+                                           const float* Bs, int i0, int j0,
+                                           int NK, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int k = 0; k < NMAX / 8; ++k) {
+    if (k >= NK) break;
+    const float* cr = Cs + (i0 + g) * LDN + 8 * k + t;
+    uint32_t ahi[4], alo[4];
+    split(cr[0], ahi[0], alo[0]);
+    split(cr[8 * LDN], ahi[1], alo[1]);
+    split(cr[4], ahi[2], alo[2]);
+    split(cr[8 * LDN + 4], ahi[3], alo[3]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float* br = Bs + (j0 + 8 * n + g) * LDN + 8 * k + t;
+      uint32_t bhi[2], blo[2];
+      split(br[0], bhi[0], blo[0]);
+      split(br[4], bhi[1], blo[1]);
+      mma3(s[n], ahi, alo, bhi, blo);
+    }
+  }
+}
+
+// Columns col, col + 1 of an output row, those below pw: one 8-byte store
+// where the row allows it and both are in, else one store each.
+__device__ __forceinline__ void store2(float* row, int col, int pw, bool vec,
+                                       float v0, float v1) {
+  if (vec && col + 1 < pw) {
+    *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
     return;
   }
-  if (p < pw) row[p] = v0;
-  if (p + 1 < pw) row[p + 1] = v1;
-  if (p + 2 < pw) row[p + 2] = v2;
-  if (p + 3 < pw) row[p + 3] = v3;
+  if (col < pw) row[col] = v0;
+  if (col + 1 < pw) row[col + 1] = v1;
 }
 
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_chunk(const float* __restrict__ x, const float* __restrict__ cum,
           const float* __restrict__ Bm, const float* __restrict__ Cm,
           float* __restrict__ y, float* __restrict__ state, int H, int Q,
           int P, int N, int QP) {
   extern __shared__ __align__(16) float smem[];
-  const int LDW = QP + 4;
   float* Cs = smem;                     // [QP][LDN], zero past Q and N
   float* Bs = Cs + QP * LDN;            // [QP][LDN]
-  float* Wt = Bs + QP * LDN;            // [QP][LDW], Wt[j][i] = W[i][j]
-  float* Xs = Wt + QP * LDW;            // [QP][LDX], x[c, j, h, p0 + p]
-  float* cs = Xs + QP * LDX;            // [QP], cum[c, j, h]
+  float* Xs = Bs + QP * LDN;            // [QP][LDX], x[c, j, h, p0 + p]
+  float* cs = Xs + QP * LDX;            // [QP], cum[c, j, h], 0 past Q
   float* ds = cs + QP;                  // [QP], exp(cum[Q-1] - cum[j])
+  float* ex = ds + QP;                  // [STRIPS][2 rounds][2][256]
 
   const int c = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int p0 = blockIdx.y * PT;
   const int pw = min(PT, P - p0);       // valid columns of this tile
-  const int t = threadIdx.x;
-  const int ty = t >> 4, tx = t & 15;
-  const bool vec = (P & 3) == 0;        // 16-byte aligned rows of y and S
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strip = warp >> 1, half = warp & 1;
+  const int pc = half * PH;             // the warp's columns of the tile
+  const int g = lane >> 2, t = lane & 3;
+  const size_t row0 = size_t(c) * Q;    // the chunk's first row
+  const size_t ldx = size_t(H) * P;     // row stride of x and y
 
-  for (int idx = t; idx < QP * NMAX; idx += THREADS) {
-    const int r = idx / NMAX, n = idx % NMAX;
-    const bool in = r < Q && n < N;
-    const size_t g = (size_t(c) * Q + r) * N + n;
-    Cs[r * LDN + n] = in ? Cm[g] : 0.f;
-    Bs[r * LDN + n] = in ? Bm[g] : 0.f;
-  }
-  for (int idx = t; idx < QP * PT; idx += THREADS) {
-    const int r = idx / PT, p = idx % PT;
-    Xs[r * LDX + p] = (r < Q && p < pw)
-        ? x[((size_t(c) * Q + r) * H + h) * P + p0 + p] : 0.f;
-  }
-  for (int r = t; r < QP; r += THREADS)
-    cs[r] = r < Q ? cum[(size_t(c) * Q + r) * H + h] : 0.f;
-  __syncthreads();
-  const float last = cs[Q - 1];
-  for (int r = t; r < QP; r += THREADS)
-    ds[r] = r < Q ? expf(last - cs[r]) : 0.f;
-
-  // W[i][j] = (C_i . B_j) exp(cum_i - cum_j) for j <= i < Q, else 0.
-  // Thread rows i0 .. i0 + 7, columns tx + 16 b: neighbouring threads read
-  // neighbouring B rows, whose 16-byte words fall in distinct banks.
-  const int NP = (N + 3) & ~3;
+  load_tile<NMAX, LDN, VEC>(Cs, Cm + row0 * N, N, Q, N, QP);
+  load_tile<NMAX, LDN, VEC>(Bs, Bm + row0 * N, N, Q, N, QP);
+  cp_async_commit();
+  load_tile<PT, LDX, VEC>(Xs, x + (row0 * H + h) * P + p0, ldx, Q, pw, QP);
+  cp_async_commit();
+  for (int r = threadIdx.x; r < QP; r += THREADS)
+    cs[r] = r < Q ? cum[(row0 + r) * H + h] : 0.f;
+  cp_async_wait<1>();
+  __syncthreads();                      // C, B and cum are in
   {
-    const int i0 = ty * 8;
-    if (i0 < QP) {
-      float acc[8][8];
+    const float last = cs[Q - 1];
+    for (int r = threadIdx.x; r < QP; r += THREADS)
+      ds[r] = r < Q ? expf(last - cs[r]) : 0.f;
+  }
+
+  const int NK = (N + 7) / 8;           // k8 steps over the state width
+  const int i0 = strip * 16;            // the warp's rows
+  const bool has_rows = i0 < Q;
+  const bool vec2 = (P & 1) == 0;       // 8-byte aligned pairs of y and S
+  float s[2][4];
+  if (has_rows && half <= strip)       // the first round's tile, while
+    score_tile(s, Cs, Bs, i0, 16 * half, NK, g, t);   // x is in flight
+  cp_async_wait<0>();
+  __syncthreads();                      // x and the decays are in
+
+  if (has_rows) {
+    const int ia = i0 + g, ib = ia + 8;   // rows of c0/c1 and c2/c3
+    const float ca = cs[ia], cb = cs[ib];
+    float acc[NO][4];
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
+    for (int o = 0; o < NO; ++o)
 #pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-      for (int n = 0; n < NP; n += 4) {
-        float4 cv[8];
+      for (int e = 0; e < 4; ++e) acc[o][e] = 0.f;
+    for (int r = 0; 2 * r <= strip; ++r) {
+      const int km = 2 * r + half;      // the j tile this warp scores
+      // the slot of round r; its last reader passed this round's barrier
+      // before the round r + 2 write
+      float* buf = ex + strip * 1024 + (r & 1) * 512;
+      if (km <= strip) {
+        if (r > 0) score_tile(s, Cs, Bs, i0, 16 * km, NK, g, t);
+        // W = s .* exp(cum_i - cum_j) where j <= i, else 0: that exp is
+        // selected away, never multiplied.  __expf (ex2.approx, relative
+        // error about 2^-21 here) is faster than expf
+        // (benchmarks/port_kernel_variants.py, "expf mask").
+        float w[2][4];
 #pragma unroll
-        for (int a = 0; a < 8; ++a)
-          cv[a] = *reinterpret_cast<const float4*>(&Cs[(i0 + a) * LDN + n]);
+        for (int n = 0; n < 2; ++n) {
+          const int j = 16 * km + 8 * n + 2 * t;
+          const float cj0 = cs[j], cj1 = cs[j + 1];
+          w[n][0] = j <= ia ? s[n][0] * __expf(ca - cj0) : 0.f;
+          w[n][1] = j + 1 <= ia ? s[n][1] * __expf(ca - cj1) : 0.f;
+          w[n][2] = j <= ib ? s[n][2] * __expf(cb - cj0) : 0.f;
+          w[n][3] = j + 1 <= ib ? s[n][3] * __expf(cb - cj1) : 0.f;
+        }
+        float4* dst =
+            reinterpret_cast<float4*>(buf + half * 256 + lane * 8);
+        dst[0] = make_float4(w[0][0], w[0][1], w[0][2], w[0][3]);
+        dst[1] = make_float4(w[1][0], w[1][1], w[1][2], w[1][3]);
+      }
+      // both of the strip's warps (barrier 0 is __syncthreads)
+      asm volatile("bar.sync %0, 64;\n" :: "r"(1 + strip) : "memory");
 #pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          const int j = tx + 16 * b;
-          if (j >= QP) continue;
-          const float4 bv = *reinterpret_cast<const float4*>(&Bs[j * LDN + n]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k = 2 * r + hh;
+        if (k > strip) break;
+        const float4* src =
+            reinterpret_cast<const float4*>(buf + hh * 256 + lane * 8);
+        const float4 u0 = src[0], u1 = src[1];
+        // the A fragments of y += W x, j permuted: a0..a3 = c0, c2, c1, c3
+        uint32_t whi[2][4], wlo[2][4];
+        split(u0.x, whi[0][0], wlo[0][0]);
+        split(u0.z, whi[0][1], wlo[0][1]);
+        split(u0.y, whi[0][2], wlo[0][2]);
+        split(u0.w, whi[0][3], wlo[0][3]);
+        split(u1.x, whi[1][0], wlo[1][0]);
+        split(u1.z, whi[1][1], wlo[1][1]);
+        split(u1.y, whi[1][2], wlo[1][2]);
+        split(u1.w, whi[1][3], wlo[1][3]);
+        // k8 step n covers j = 16k + 8n .. 16k + 8n + 7: logical k = t is
+        // row 16k + 8n + 2t of x, k = t + 4 the row after it
 #pragma unroll
-          for (int a = 0; a < 8; ++a) {
-            acc[a][b] = fmaf(cv[a].x, bv.x, acc[a][b]);
-            acc[a][b] = fmaf(cv[a].y, bv.y, acc[a][b]);
-            acc[a][b] = fmaf(cv[a].z, bv.z, acc[a][b]);
-            acc[a][b] = fmaf(cv[a].w, bv.w, acc[a][b]);
+        for (int o = 0; o < NO; ++o) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const float* xr =
+                Xs + (16 * k + 8 * n + 2 * t) * LDX + pc + 8 * o + g;
+            uint32_t bhi[2], blo[2];
+            split(xr[0], bhi[0], blo[0]);
+            split(xr[LDX], bhi[1], blo[1]);
+            mma3(d, whi[n], wlo[n], bhi, blo);
           }
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int j = tx + 16 * b;
-        if (j >= QP) continue;
-#pragma unroll
-        for (int a = 0; a < 8; ++a) {
-          const int i = i0 + a;
-          Wt[j * LDW + i] =
-              (j <= i && i < Q) ? acc[a][b] * expf(cs[i] - cs[j]) : 0.f;
+          drain(acc[o], d);
         }
       }
     }
-  }
-  __syncthreads();
-
-  // y[i][p] = sum_j W[i][j] x[j][p]: rows i0 .. i0 + 7, columns
-  // tx * 4 + {0, 64} + 0..3.
-  {
-    const int i0 = ty * 8;
-    if (i0 < Q) {
-      float acc[8][8];
+    float* yb = y + (row0 * H + h) * P + p0;
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[a][k] = 0.f;
-      const int jend = min(Q, i0 + 8);
-      for (int j = 0; j < jend; ++j) {
-        const float4 w0 = *reinterpret_cast<const float4*>(&Wt[j * LDW + i0]);
-        const float4 w1 =
-            *reinterpret_cast<const float4*>(&Wt[j * LDW + i0 + 4]);
-        const float4 x0 =
-            *reinterpret_cast<const float4*>(&Xs[j * LDX + tx * 4]);
-        const float4 x1 =
-            *reinterpret_cast<const float4*>(&Xs[j * LDX + 64 + tx * 4]);
-        const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-        for (int a = 0; a < 8; ++a)
-#pragma unroll
-          for (int k = 0; k < 8; ++k) acc[a][k] = fmaf(w[a], xv[k], acc[a][k]);
-      }
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const int i = i0 + a;
-        if (i >= Q) continue;
-        float* yr = y + ((size_t(c) * Q + i) * H + h) * P + p0;
-#pragma unroll
-        for (int b = 0; b < 2; ++b)
-          store4(yr, tx * 4 + 64 * b, pw, vec, acc[a][4 * b],
-                 acc[a][4 * b + 1], acc[a][4 * b + 2], acc[a][4 * b + 3]);
-      }
+    for (int o = 0; o < NO; ++o) {
+      const int col = pc + 8 * o + 2 * t;
+      if (ia < Q) store2(yb + ia * ldx, col, pw, vec2, acc[o][0], acc[o][1]);
+      if (ib < Q) store2(yb + ib * ldx, col, pw, vec2, acc[o][2], acc[o][3]);
     }
   }
 
-  // S[n][p] = sum_j B[j][n] ds[j] x[j][p]: rows n0 .. n0 + 3, the same
-  // columns as y.
-  {
-    const int n0 = ty * 4;
-    if (n0 < N) {
-      float acc[4][8];
+  // S[n][p] = sum_j (ds[j] B[j][n]) x[j][p]: the warps of strip w take
+  // rows 16w .. 16w + 15 of S (N <= 64: strips 0 .. 3), each its half of
+  // the columns, over all QP rows j.  k8 step kk: logical k = t is row
+  // kk + 2t, k = t + 4 the row after it.
+  const int n0 = strip * 16;
+  if (n0 < N) {
+    float sacc[NO][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+    for (int o = 0; o < NO; ++o)
 #pragma unroll
-        for (int k = 0; k < 8; ++k) acc[a][k] = 0.f;
-      for (int j = 0; j < Q; ++j) {
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[j * LDN + n0]);
-        const float d = ds[j];
-        const float4 x0 =
-            *reinterpret_cast<const float4*>(&Xs[j * LDX + tx * 4]);
-        const float4 x1 =
-            *reinterpret_cast<const float4*>(&Xs[j * LDX + 64 + tx * 4]);
-        const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
-        const float xv[8] = {x0.x * d, x0.y * d, x0.z * d, x0.w * d,
-                             x1.x * d, x1.y * d, x1.z * d, x1.w * d};
+      for (int e = 0; e < 4; ++e) sacc[o][e] = 0.f;
+    for (int kk = 0; kk < QP; kk += 8) {
+      const int ja = kk + 2 * t;
+      const float da = ds[ja], db = ds[ja + 1];
+      const float* ba = Bs + ja * LDN + n0 + g;
+      uint32_t ahi[4], alo[4];
+      split(ba[0] * da, ahi[0], alo[0]);
+      split(ba[8] * da, ahi[1], alo[1]);
+      split(ba[LDN] * db, ahi[2], alo[2]);
+      split(ba[LDN + 8] * db, ahi[3], alo[3]);
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int k = 0; k < 8; ++k) acc[a][k] = fmaf(bb[a], xv[k], acc[a][k]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int n = n0 + a;
-        if (n >= N) continue;
-        float* sr = state + ((size_t(c) * H + h) * N + n) * P + p0;
-#pragma unroll
-        for (int b = 0; b < 2; ++b)
-          store4(sr, tx * 4 + 64 * b, pw, vec, acc[a][4 * b],
-                 acc[a][4 * b + 1], acc[a][4 * b + 2], acc[a][4 * b + 3]);
+      for (int o = 0; o < NO; ++o) {
+        const float* xr = Xs + ja * LDX + pc + 8 * o + g;
+        uint32_t bhi[2], blo[2];
+        split(xr[0], bhi[0], blo[0]);
+        split(xr[LDX], bhi[1], blo[1]);
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(d, ahi, alo, bhi, blo);
+        drain(sacc[o], d);
       }
     }
+    const int na = n0 + g, nb = na + 8;
+    float* sb = state + (size_t(c) * H + h) * N * P + p0;
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      const int col = pc + 8 * o + 2 * t;
+      if (na < N)
+        store2(sb + size_t(na) * P, col, pw, vec2, sacc[o][0], sacc[o][1]);
+      if (nb < N)
+        store2(sb + size_t(nb) * P, col, pw, vec2, sacc[o][2], sacc[o][3]);
+    }
   }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+bool vec_copies(int P, int N, const void* x, const void* Bm, const void* Cm) {
+  return P % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(Bm) &&
+         aligned16(Cm);
+}
+
+template <bool VEC>
+int launch(const float* x, const float* cum, const float* Bm, const float* Cm,
+           float* y, float* state, int BC, int Q, int H, int P, int N,
+           cudaStream_t stream) {
+  // once per instantiation (the process drives one card)
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_chunk<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes(QMAX)));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(ssd_chunk<VEC>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                int(cudaSharedmemCarveoutMaxShared));
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int QP = (Q + 15) / 16 * 16;
+  const dim3 grid(BC * H, (P + PT - 1) / PT);
+  ssd_chunk<VEC><<<grid, THREADS, smem_bytes(QP), stream>>>(
+      x, cum, Bm, Cm, y, state, H, Q, P, N, QP);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -238,7 +377,8 @@ extern "C" {
 
 // Launches on `stream` (a cudaStream_t from the caller) and returns the
 // launch's cudaError_t: 0 when the kernel was accepted.  1 <= Q <= 128,
-// 1 <= N <= 64, P >= 1, 1 <= BC * H < 2^31.
+// 1 <= N <= 64, 1 <= P <= 128 * 65535, 1 <= BC * H < 2^31; y and state
+// 8-byte aligned (fresh allocations).
 int ssd_chunk_dual_f32(const float* x, const float* cum, const float* Bm,
                        const float* Cm, float* y, float* state, int BC, int Q,
                        int H, int P, int N, int device, void* stream) {
@@ -248,16 +388,17 @@ int ssd_chunk_dual_f32(const float* x, const float* cum, const float* Bm,
       static_cast<long long>(BC) * H > 0x7fffffffLL ||
       (P + PT - 1) / PT > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int QP = (Q + 15) / 16 * 16;
-  const size_t bytes = smem_floats(QP) * sizeof(float);
-  err = cudaFuncSetAttribute(ssd_chunk,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BC * H, (P + PT - 1) / PT);
-  ssd_chunk<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, cum, Bm, Cm, y, state, H, Q, P, N, QP);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return vec_copies(P, N, x, Bm, Cm)
+      ? launch<true>(x, cum, Bm, Cm, y, state, BC, Q, H, P, N, st)
+      : launch<false>(x, cum, Bm, Cm, y, state, BC, Q, H, P, N, st);
+}
+
+// The configuration ssd_chunk_dual_f32 launches for these arguments:
+// "P128 cp.async16" or "P128 cp.async4".
+const char* ssd_chunk_dual_route(int P, int N, const void* x, const void* Bm,
+                                 const void* Cm) {
+  return vec_copies(P, N, x, Bm, Cm) ? "P128 cp.async16" : "P128 cp.async4";
 }
 
 const char* cuda_error_string(int code) {

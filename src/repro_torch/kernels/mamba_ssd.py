@@ -2,10 +2,12 @@
 ``ssd_chunk_dual`` (``src/repro/kernels/mamba_ssd.py:48``).
 
 ``ssd_chunk_dual(x, cum, Bm, Cm)`` launches the CUDA kernel of
-``csrc/mamba_ssd.cu`` for tensors on the card and runs the plain version
+``csrc/mamba_ssd.cu`` (3xTF32 on the tensor cores, f32 accuracy) for
+tensors on the card and runs the plain version
 (:func:`repro_torch.kernels.ref.ssd_chunk_ref`) for tensors on the CPU.  A
 CUDA tensor never falls back: what the kernel does not take raises.
-``ssd_chunk_dual.launches`` counts kernel launches.
+``ssd_chunk_dual.launches`` counts kernel launches; :func:`kernel_route`
+names the P tile and copy width a launch takes.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from .ref import ssd_chunk_ref
 
 MAX_CHUNK = 128
 MAX_STATE = 64
+P_TILE = 128                # head-dim columns a block of the kernel takes
 
 
 def ssd_chunk_dual(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
@@ -47,7 +50,7 @@ def ssd_chunk_dual(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
     BC, Q, H, P = x.shape
     N = Bm.shape[2]
     if min(BC, Q, H, P, N) < 1 or Q > MAX_CHUNK or N > MAX_STATE \
-            or BC * H > 2**31 - 1 or -(-P // 128) > 65535:
+            or BC * H > 2**31 - 1 or -(-P // P_TILE) > 65535:
         raise ValueError(f"ssd_chunk_dual: BC={BC} Q={Q} H={H} P={P} N={N} "
                          f"out of the kernel's range (Q <= {MAX_CHUNK}, "
                          f"N <= {MAX_STATE}, BC*H < 2^31)")
@@ -65,3 +68,13 @@ def ssd_chunk_dual(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
 
 
 ssd_chunk_dual.launches = 0
+
+
+def kernel_route(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor) -> str:
+    """The kernel configuration ``ssd_chunk_dual(x, cum, Bm, Cm)`` launches
+    for these CUDA tensors, e.g. ``"P128 cp.async16"``: the P tile and the
+    copy width (16 bytes where P % 4 == 0, N % 4 == 0 and x, Bm, Cm are
+    16-byte aligned, else 4)."""
+    lib = _build.load("mamba_ssd")
+    return lib.ssd_chunk_dual_route(x.shape[3], Bm.shape[2], x.data_ptr(),
+                                    Bm.data_ptr(), Cm.data_ptr()).decode()

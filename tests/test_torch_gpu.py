@@ -8,15 +8,16 @@ The file imports no JAX, so it runs on the card's machine:
 Tolerances are those of ``tests/test_kernels.py``: atol 1e-3 / rtol 1e-4
 for the f32 GEMM, 2e-5 for f32 attention, 1e-4 for the SSD chunk kernel
 and 2e-4 for the chunked SSD; TF32 is off for the plain versions.  The
-GEMM and flash kernels compute in 3xTF32 on the tensor cores; each of
-their tile or head-dim configurations and copy widths is driven here.
+three kernels compute in 3xTF32 on the tensor cores; each of their tile
+or head-dim configurations and copy widths is driven here.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention, ops, ref, tiled_matmul as mm
+from repro_torch.kernels import flash_attention, mamba_ssd, ops, ref
+from repro_torch.kernels import tiled_matmul as mm
 from repro_torch.kernels.flash_attention import flash_attention_mha
 from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
 from repro_torch.kernels.tiled_matmul import tiled_matmul
@@ -143,34 +144,64 @@ def test_flash_attention_kernel_vs_plain(cuda, B, H, Sq, Sk, D, causal):
                                atol=2e-5, rtol=2e-5)
 
 
-def _ssd_inputs(rng, BC, Q, H, P, N, device):
+def _ssd_inputs(rng, BC, Q, H, P, N, device, offset=False):
     """x, cum, Bm, Cm as ``tests/test_kernels.py`` draws them: cum is a
-    running sum of negative log-decays."""
+    running sum of negative log-decays.  With ``offset`` x is a view one
+    float into its storage (4- but not 16-byte aligned)."""
     x = _randn(rng, (BC, Q, H, P))
     cum = np.cumsum(-np.abs(_randn(rng, (BC, Q, H))) * 0.1, axis=1)
     Bm, Cm = _randn(rng, (BC, Q, N)), _randn(rng, (BC, Q, N))
-    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-            for a in (x, cum, Bm, Cm)]
+    xs = torch.zeros(x.size + int(offset), device=device)
+    xs[int(offset):] = torch.from_numpy(x.ravel()).to(device)
+    return [xs[int(offset):].view(x.shape)] + [
+        torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+        for a in (cum, Bm, Cm)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("BC,Q,H,P,N", [
-    (32, 128, 16, 128, 64),           # the mamba2-370m path's shape
-    (2, 16, 2, 8, 4),                 # tests/test_kernels.py's three
-    (4, 64, 4, 32, 16),
-    (1, 128, 8, 64, 32),
-    (2, 96, 4, 64, 64),               # ragged chunk lengths
-    (3, 70, 2, 32, 16),
-    (2, 70, 3, 130, 50),              # two P tiles, the second 2 wide
+@pytest.mark.parametrize("BC,Q,H,P,N,offset,route", [
+    (32, 128, 16, 128, 64, False, "P128 cp.async16"),   # the mamba2-370m
+    (2, 16, 2, 8, 4, False, "P128 cp.async16"),         # path's shape;
+    (4, 64, 4, 32, 16, False, "P128 cp.async16"),       # tests/test_kernels
+    (1, 128, 8, 64, 32, False, "P128 cp.async16"),      # .py's three
+    (2, 96, 4, 64, 64, False, "P128 cp.async16"),       # ragged chunks
+    (3, 70, 2, 32, 16, False, "P128 cp.async16"),
+    (2, 70, 3, 130, 50, False, "P128 cp.async4"),       # two P tiles
+    # an odd number of (chunk, head) blocks, BC * H:
+    (3, 70, 3, 64, 16, True, "P128 cp.async4"),         # x a float off 16 B
+    (1, 100, 5, 64, 64, False, "P128 cp.async16"),      # Q % 16 != 0
+    (3, 100, 1, 32, 12, False, "P128 cp.async16"),      # N % 8 != 0
+    (1, 128, 3, 130, 20, False, "P128 cp.async4"),      # P = 130
+    (1, 70, 7, 60, 50, True, "P128 cp.async4"),
 ])
-def test_ssd_chunk_kernel_vs_plain(cuda, BC, Q, H, P, N):
+def test_ssd_chunk_kernel_vs_plain(cuda, BC, Q, H, P, N, offset, route):
+    """Each copy width of the SSD chunk kernel against the plain version,
+    at ragged Q, N and P; the route is the one the kernel reports."""
     rng = np.random.default_rng(BC * Q + H + P + N)
-    args = _ssd_inputs(rng, BC, Q, H, P, N, cuda)
+    args = _ssd_inputs(rng, BC, Q, H, P, N, cuda, offset)
+    assert all(a.is_contiguous() for a in args)
+    assert mamba_ssd.kernel_route(args[0], args[2], args[3]) == route
     n0 = ssd_chunk_dual.launches
     y, s = ssd_chunk_dual(*args)
     torch.cuda.synchronize()
     assert ssd_chunk_dual.launches == n0 + 1
     yr, sr = ref.ssd_chunk_ref(*args)
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, sr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_chunk_kernel_steep_decay_stays_finite(cuda):
+    """cum falling by 50 a row: exp(cum_i - cum_j) above the diagonal would
+    overflow; the kernel selects 0 there, so y and S are finite and equal
+    to the plain version."""
+    rng = np.random.default_rng(9)
+    x, _, Bm, Cm = _ssd_inputs(rng, 2, 128, 4, 64, 64, cuda)
+    cum = torch.cumsum(torch.full((2, 128, 4), -50.0, device=cuda), dim=1)
+    y, s = ssd_chunk_dual(x, cum, Bm, Cm)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    yr, sr = ref.ssd_chunk_ref(x, cum, Bm, Cm)
     torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(s, sr, atol=1e-4, rtol=1e-4)
 

@@ -1,7 +1,7 @@
 """PyTorch port kernels: the plain versions against the reference Pallas
 kernels (interpret mode on the CPU), the CPU dispatch of the wrappers, the
-3xTF32 arithmetic of the GEMM and flash kernels emulated on the CPU, and
-the build's library naming.  The CUDA kernels themselves are held against
+3xTF32 arithmetic of the three CUDA kernels emulated on the CPU, and the
+build's library naming.  The CUDA kernels themselves are held against
 the plain versions on the card by ``tests/test_torch_gpu.py`` and
 ``chip_smoke.py``.
 
@@ -342,6 +342,63 @@ def test_3xtf32_attention_meets_the_f32_tolerance_and_one_product_does_not():
 
     torch.testing.assert_close(emulated(3), want, atol=2e-5, rtol=2e-5)
     assert not torch.allclose(emulated(1), want, atol=2e-5, rtol=2e-5)
+
+
+def _ssd_chunk_tf32(x, cum, Bm, Cm, products: int):
+    """The SSD chunk kernel's arithmetic, emulated: scores C Bᵀ, the masked
+    W = scores ⊙ exp(cum_i - cum_j) selected to 0 above the diagonal (a
+    select, as the kernel does, not a product with a 0/1 mask), y = W x,
+    and S = (d ⊙ B)ᵀ x with d_j = exp(cum_last - cum_j), each product in
+    one or three TF32 products."""
+    Q = x.shape[1]
+    keep = torch.ones(Q, Q, dtype=torch.bool).tril()
+    scores = _mm_tf32(Cm, Bm.transpose(1, 2), products)[:, None]
+    ch = cum.transpose(1, 2)                                # (BC, H, Q)
+    decay = (ch[..., :, None] - ch[..., None, :]).exp()     # inf above
+    W = torch.where(keep, scores * decay, torch.zeros(()))
+    y = _mm_tf32(W, x.permute(0, 2, 1, 3), products).permute(0, 2, 1, 3)
+    d = (ch[..., -1:] - ch).exp()                           # (BC, H, Q)
+    dB = d[..., None] * Bm[:, None]                         # (BC, H, Q, N)
+    S = _mm_tf32(dB.transpose(-1, -2), x.permute(0, 2, 1, 3), products)
+    return y, S
+
+
+def test_3xtf32_ssd_chunk_meets_the_f32_tolerance_and_one_product_does_not():
+    """At the mamba2-370m path's per-chunk shape (BC cut to 2), the SSD
+    chunk kernel's three products in 3xTF32 stay within 1e-4 of the plain
+    version (y about 4e-5 with |y| up to ~140, S about 3e-6); with one TF32
+    product each they miss it by far (y about 7e-2, S about 6e-3)."""
+    rng = np.random.default_rng(128)
+    x, cum, Bm, Cm = (torch.from_numpy(a)
+                      for a in _ssd_inputs(rng, 2, 128, 16, 128, 64))
+    want = ref.ssd_chunk_ref(x, cum, Bm, Cm)
+    got3 = _ssd_chunk_tf32(x, cum, Bm, Cm, 3)
+    got1 = _ssd_chunk_tf32(x, cum, Bm, Cm, 1)
+    for g3, g1, w in zip(got3, got1, want):
+        torch.testing.assert_close(g3, w, atol=1e-4, rtol=1e-4)
+        assert not torch.allclose(g1, w, atol=1e-4, rtol=1e-4)
+    assert (got1[0] - want[0]).abs().max() > 1e-2
+
+
+def test_ssd_chunk_mask_is_a_select_so_a_steep_decay_stays_finite():
+    """With cum falling by 50 a row, exp(cum_i - cum_j) above the diagonal
+    overflows to inf.  The kernel selects 0 there, so y and S stay finite
+    and equal to the plain version; a product with a 0/1 mask would turn
+    each inf into nan."""
+    rng = np.random.default_rng(6)
+    x, _, Bm, Cm = (torch.from_numpy(a)
+                    for a in _ssd_inputs(rng, 1, 32, 2, 8, 4))
+    cum = torch.cumsum(torch.full((1, 32, 2), -50.0), dim=1)
+    y, S = _ssd_chunk_tf32(x, cum, Bm, Cm, 3)
+    assert torch.isfinite(y).all() and torch.isfinite(S).all()
+    yr, sr = ref.ssd_chunk_ref(x, cum, Bm, Cm)
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(S, sr, atol=1e-4, rtol=1e-4)
+    ch = cum.transpose(1, 2)
+    decay = (ch[..., :, None] - ch[..., None, :]).exp()
+    assert torch.isinf(decay).any()
+    keep = torch.ones(32, 32).tril()
+    assert torch.isnan(decay * keep).any()
 
 
 # ---------------------------------------------------------------------------
