@@ -9,8 +9,9 @@ CUDA toolkit:
 Each variant is ``src/repro_torch/kernels/csrc`` with substitutions in
 the shared header ``tf32x3.cuh`` or in one kernel's source, built with the
 port's nvcc flags into ``results/kernel_variants/`` and called through the
-same C entry points, at the realization paths' shapes, timed as
-``chip_smoke.py`` times kernels (device time).  For the three kernels:
+same C entry points (the f32 ones), at the realization paths' shapes,
+timed as ``chip_smoke.py`` times kernels (device time).  For the three
+kernels:
 
 * ``as built``: the sources as they are;
 * ``cvt split``: the TF32 split through two ``cvt.rna.tf32.f32``
@@ -59,21 +60,28 @@ VARIANTS = {"as built": None, "cvt split": (SPLIT, CVT_SPLIT),
             "1 product": (THREE, "  mma(d, ahi, bhi);")}
 SOURCES = ("tiled_matmul", "flash_attention", "mamba_ssd")
 EXPF = [(f"s[n][{e}] * __expf(", f"s[n][{e}] * expf(") for e in range(4)]
+# the x-split-once variant applies to the f32 instance (a bf16 x tile is
+# exact in TF32 and has no lo part to keep); the bf16 instance still
+# compiles from the same source
 SPLIT_X = [
     ("constexpr int EXF = STRIPS * 2 * 2 * 256;",
      "constexpr int EXF = STRIPS * 2 * 256;"),
-    ("(size_t(QP) * (2 * LDN + LDX + 2) + EXF)",
-     "(size_t(QP) * (2 * LDN + 2 * LDX + 2) + EXF)"),
-    ("  float* cs = Xs + QP * LDX;",
-     "  float* Xl = Xs + QP * LDX;\n  float* cs = Xl + QP * LDX;"),
+    ("         sizeof(float) * (2 * size_t(QP) + EXF);",
+     "         sizeof(float) * (size_t(QP) * Ld<T>::X + 2 * size_t(QP)"
+     " + EXF);"),
+    ("  float* cs = reinterpret_cast<float*>(Xs + QP * LDX);",
+     "  float* Xl = reinterpret_cast<float*>(Xs + QP * LDX);\n"
+     "  float* cs = Xl + QP * LDX;"),
     ("  __syncthreads();                      // x and the decays are in\n",
      "  __syncthreads();\n"
-     "  for (int idx = threadIdx.x; idx < QP * PT; idx += THREADS) {\n"
-     "    float* xp = Xs + (idx / PT) * LDX + idx % PT;\n"
-     "    uint32_t hi, lo;\n"
-     "    split(*xp, hi, lo);\n"
-     "    *xp = __uint_as_float(hi);\n"
-     "    Xl[xp - Xs] = __uint_as_float(lo);\n"
+     "  if constexpr (!EX) {\n"
+     "    for (int idx = threadIdx.x; idx < QP * PT; idx += THREADS) {\n"
+     "      T* xp = Xs + (idx / PT) * LDX + idx % PT;\n"
+     "      uint32_t hi, lo;\n"
+     "      split(*xp, hi, lo);\n"
+     "      *xp = __uint_as_float(hi);\n"
+     "      Xl[xp - Xs] = __uint_as_float(lo);\n"
+     "    }\n"
      "  }\n"
      "  __syncthreads();\n"),
     ("      float* buf = ex + strip * 1024 + (r & 1) * 512;",
@@ -83,18 +91,28 @@ SPLIT_X = [
      "        if (hh == 1 || k + 1 > strip)\n"
      "          asm volatile(\"bar.sync %0, 64;\" :: \"r\"(1 + strip)"
      " : \"memory\");"),
-    ("            split(xr[0], bhi[0], blo[0]);\n"
-     "            split(xr[LDX], bhi[1], blo[1]);",
-     "            bhi[0] = __float_as_uint(xr[0]);\n"
-     "            bhi[1] = __float_as_uint(xr[LDX]);\n"
-     "            blo[0] = __float_as_uint(Xl[xr - Xs]);\n"
-     "            blo[1] = __float_as_uint(Xl[xr - Xs + LDX]);"),
-    ("        split(xr[0], bhi[0], blo[0]);\n"
-     "        split(xr[LDX], bhi[1], blo[1]);",
-     "        bhi[0] = __float_as_uint(xr[0]);\n"
-     "        bhi[1] = __float_as_uint(xr[LDX]);\n"
-     "        blo[0] = __float_as_uint(Xl[xr - Xs]);\n"
-     "        blo[1] = __float_as_uint(Xl[xr - Xs + LDX]);"),
+    ("            split_t(xr[0], bhi[0], blo[0]);\n"
+     "            split_t(xr[LDX], bhi[1], blo[1]);",
+     "            if constexpr (EX) {\n"
+     "              split_t(xr[0], bhi[0], blo[0]);\n"
+     "              split_t(xr[LDX], bhi[1], blo[1]);\n"
+     "            } else {\n"
+     "              bhi[0] = __float_as_uint(xr[0]);\n"
+     "              bhi[1] = __float_as_uint(xr[LDX]);\n"
+     "              blo[0] = __float_as_uint(Xl[xr - Xs]);\n"
+     "              blo[1] = __float_as_uint(Xl[xr - Xs + LDX]);\n"
+     "            }"),
+    ("        split_t(xr[0], bhi[0], blo[0]);\n"
+     "        split_t(xr[LDX], bhi[1], blo[1]);",
+     "        if constexpr (EX) {\n"
+     "          split_t(xr[0], bhi[0], blo[0]);\n"
+     "          split_t(xr[LDX], bhi[1], blo[1]);\n"
+     "        } else {\n"
+     "          bhi[0] = __float_as_uint(xr[0]);\n"
+     "          bhi[1] = __float_as_uint(xr[LDX]);\n"
+     "          blo[0] = __float_as_uint(Xl[xr - Xs]);\n"
+     "          blo[1] = __float_as_uint(Xl[xr - Xs + LDX]);\n"
+     "        }"),
 ]
 SSD_VARIANTS = {"expf mask": EXPF, "x split once": SPLIT_X}
 

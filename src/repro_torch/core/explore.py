@@ -2,7 +2,8 @@
 fingerprints and the resumable JSON-lines sweep file.
 
 Reduced copy of ``src/repro/core/explore.py``: ``_TECHS``/``_ARCH_FIELDS``,
-``arch_from_dict``, ``graph_fingerprint``, ``mapping_from_jsonable`` and a
+``register_tech`` (``:235``), ``arch_from_dict``, ``graph_fingerprint``,
+``mapping_from_jsonable`` and a
 ``ResumableSweep`` limited to the config header, ``read``, ``add`` and
 ``as_dict``.  Legacy-schema migration, heartbeats and shard merging stay in
 the reference.
@@ -25,6 +26,13 @@ _ARCH_FIELDS = ("x_cores", "y_cores", "xcut", "ycut", "noc_bw", "d2d_bw",
                 "dram_bw", "glb_kb", "macs_per_core", "freq_ghz", "n_dram")
 
 
+def register_tech(tech) -> None:
+    """Make a non-default :class:`Tech` (a calibrated one, say) resolvable
+    from checkpoint records, which name their tech only; an unknown name
+    is refused rather than silently given the wrong constants."""
+    _TECHS[tech.name] = tech
+
+
 def arch_from_dict(d: Dict[str, Any]) -> ArchConfig:
     kw = {f: d[f] for f in _ARCH_FIELDS}
     tech_name = d.get("tech", "")
@@ -32,7 +40,7 @@ def arch_from_dict(d: Dict[str, Any]) -> ArchConfig:
     if tech is None:
         raise ValueError(
             f"unknown tech {tech_name!r} in checkpoint record; the port "
-            f"knows {sorted(_TECHS)}")
+            f"knows {sorted(_TECHS)} (register_tech() adds one)")
     return ArchConfig(**kw, tech=tech)
 
 

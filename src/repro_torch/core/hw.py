@@ -1,15 +1,20 @@
 """Hardware template for Gemini (paper Sec. III) + technology constants.
 
 Reduced copy of ``src/repro/core/hw.py``: ``Tech``, ``TECH_12NM``,
-``ArchConfig`` (fields, ``n_cores``, ``n_chiplets``, ``label()``) and
-``simba_arch``.  The cost-model geometry (router grid, D2D interface count)
-and the TPU roofline constants stay in the reference until the cost model is
-ported.
+``ArchConfig`` (fields, ``n_cores``, ``n_chiplets``, ``label()``, and the
+geometry the cost model reads, ``:148-210``: ``core_glb_bytes``,
+``replace``, ``grid_w``/``grid_h``, ``core_node``, ``core_xy``,
+``dram_node``, ``chiplet_of_core``, ``node_chiplet``) and ``simba_arch``.
+The D2D interface count of the cost/area model, the other paper
+architectures and the TPU roofline constants stay in the reference until
+the search slice needs them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Tuple
 
 
@@ -106,11 +111,69 @@ class ArchConfig:
     def n_chiplets(self) -> int:
         return self.xcut * self.ycut
 
+    @property
+    def core_glb_bytes(self) -> int:
+        return self.glb_kb * 1024
+
     def label(self) -> str:
         return (f"({self.n_chiplets}, {self.n_cores}, {self.dram_bw:g}GB/s, "
                 f"{self.noc_bw:g}GB/s, "
                 f"{'None' if self.n_chiplets == 1 else f'{self.d2d_bw:g}GB/s'}, "
                 f"{self.glb_kb // 1024}MB, {self.macs_per_core})")
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    # -- grid geometry --------------------------------------------------------
+    # Router-node grid: columns 0 and x_cores+1 are the west/east IO chiplets,
+    # columns 1..x_cores hold the cores.  Node id = y * (x_cores+2) + x.
+    @property
+    def grid_w(self) -> int:
+        return self.x_cores + 2
+
+    @property
+    def grid_h(self) -> int:
+        return self.y_cores
+
+    def core_node(self, core_id: int) -> int:
+        """Router node of a core (cores are row-major over (y, x))."""
+        y, x = divmod(core_id, self.x_cores)
+        return y * self.grid_w + (x + 1)
+
+    def core_xy(self, core_id: int) -> Tuple[int, int]:
+        y, x = divmod(core_id, self.x_cores)
+        return x, y
+
+    def dram_node(self, dram_id: int) -> int:
+        """Router node of a DRAM port (1-based id; spread over both IO dies)."""
+        d = dram_id - 1
+        side = d % 2                     # 0 -> west, 1 -> east
+        row = (d // 2) * max(1, self.y_cores // max(1, (self.n_dram + 1) // 2))
+        row = min(row, self.y_cores - 1)
+        x = 0 if side == 0 else self.grid_w - 1
+        return row * self.grid_w + x
+
+    @cached_property
+    def chiplet_of_core(self) -> Tuple[int, ...]:
+        """Chiplet index of every core (row-major chiplet grid)."""
+        cw = self.x_cores // self.xcut
+        ch = self.y_cores // self.ycut
+        out = []
+        for cid in range(self.n_cores):
+            x, y = self.core_xy(cid)
+            out.append((y // ch) * self.xcut + (x // cw))
+        return tuple(out)
+
+    def node_chiplet(self, node: int) -> int:
+        """Chiplet of a router node: -1 west IO die, -2 east IO die."""
+        y, x = divmod(node, self.grid_w)
+        if x == 0:
+            return -1
+        if x == self.grid_w - 1:
+            return -2
+        cw = self.x_cores // self.xcut
+        ch = self.y_cores // self.ycut
+        return (y // ch) * self.xcut + ((x - 1) // cw)
 
 
 def simba_arch() -> ArchConfig:

@@ -1,7 +1,11 @@
 """Workload IR: DNN layers as a DAG with 4-D ofmap cubes (paper Sec. IV).
 
-Reduced copy of ``src/repro/core/workload.py``: ``Layer``, ``Graph`` and
-``LayerGroup`` with the same class names, field order and defaults.  The
+Reduced copy of ``src/repro/core/workload.py``: ``Layer`` (with the
+per-sample sizes the cost model reads), ``Graph`` (with ``edge_mult`` and
+``is_scaled``), ``LayerGroup``, ``dense_twin`` (``:250``) and
+``edge_volume`` (``:285``), with the same class names, field order and
+defaults.  Expected-traffic scales of 1.0 leave every size the exact int
+of the dense model, as in the reference.  The
 checkpoint header's graph fingerprint hashes ``repr(Layer)``
 (:func:`repro_torch.core.explore.graph_fingerprint`), so the dataclass
 fields, their order, defaults and ``repr`` flags must stay as they are in
@@ -10,7 +14,7 @@ the reference for a port-built graph to match a reference checkpoint.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Sequence, Tuple, Union
 
 LayerKind = str  # conv | fc | pool | eltwise | matmul | depthwise
@@ -49,9 +53,63 @@ class Layer:
                 f"(traffic_scale={self.traffic_scale}, "
                 f"weight_traffic_scale={self.weight_traffic_scale})")
 
+    # -- sizes per sample, in elements ---------------------------------------
     @property
     def has_weight(self) -> bool:
         return self.kind in ("conv", "fc", "depthwise")
+
+    @property
+    def is_scaled(self) -> bool:
+        return self.traffic_scale != 1.0 or self.weight_traffic_scale != 1.0
+
+    @property
+    def ofmap_elems(self) -> int:
+        return self.K * self.H * self.W
+
+    @property
+    def ifmap_elems(self) -> int:
+        if self.kind in ("eltwise",):
+            return self.ofmap_elems * self.n_inputs
+        if self.kind == "pool":
+            return self.K * self.H * self.stride * self.W * self.stride
+        if self.kind == "depthwise":
+            return self.K * self.H * self.stride * self.W * self.stride
+        if self.kind == "matmul":
+            # ifmap = (H x C) activations; "weight-side" = (C x K) activations
+            return self.H * self.C + self.C * self.K
+        return self.C * self.H * self.stride * self.W * self.stride
+
+    @property
+    def weight_elems(self) -> int:
+        if self.kind == "conv":
+            return self.K * (self.C // self.groups) * self.R * self.S
+        if self.kind == "fc":
+            return self.K * self.C
+        if self.kind == "depthwise":
+            return self.K * self.R * self.S
+        return 0
+
+    def macs(self, batch: int = 1) -> int:
+        """Multiply-accumulates per ``batch`` samples (dense)."""
+        if self.kind in ("conv",):
+            m = self.K * self.H * self.W * (self.C // self.groups) * self.R * self.S
+        elif self.kind == "fc":
+            m = self.K * self.H * self.W * self.C
+        elif self.kind == "matmul":
+            m = self.H * self.K * self.C
+        elif self.kind == "depthwise":
+            m = self.K * self.H * self.W * self.R * self.S
+        elif self.kind == "pool":
+            m = self.K * self.H * self.W * self.stride * self.stride
+        else:  # eltwise
+            m = self.ofmap_elems * self.n_inputs
+        return m * batch
+
+    def ofmap_bytes(self, batch: int = 1) -> int:
+        return self.ofmap_elems * self.bytes_per_elem * batch
+
+    def weight_bytes(self) -> int:
+        return self.weight_elems * self.bytes_per_elem
 
 
 @dataclass
@@ -94,6 +152,16 @@ class Graph:
     def succs(self, name: str) -> List[str]:
         return [d for s, d in self.edges if s == name]
 
+    def edge_mult(self, src: str, dst: str) -> float:
+        """Expected-traffic multiplicity of one edge (1.0 == dense)."""
+        return self.edge_mults.get((src, dst), 1.0)
+
+    @property
+    def is_scaled(self) -> bool:
+        """True when any expected-traffic scale or multiplicity != 1.0."""
+        return bool(self.edge_mults) \
+            or any(l.is_scaled for l in self.layers.values())
+
     def topo_order(self) -> List[str]:
         indeg = {n: 0 for n in self.layers}
         for _, d in self.edges:
@@ -124,6 +192,24 @@ class Graph:
                 raise ValueError(f"edge {s}->{d}: multiplicity {m} <= 0")
 
 
+def dense_twin(g: Graph) -> Graph:
+    """The same DAG with every expected-traffic scale/multiplicity reset to
+    1.0.  Returns ``g`` itself when it is already dense (no copy, so
+    dense-path callers stay bit-identical and allocation-free).  The
+    measured report recovers per-axis expected-traffic factors from this
+    twin's predictions (:mod:`repro_torch.realize.measure`)."""
+    if not g.is_scaled:
+        return g
+    out = Graph(g.name)
+    out.layers = {
+        n: (replace(l, traffic_scale=1.0, weight_traffic_scale=1.0)
+            if l.is_scaled else l)
+        for n, l in g.layers.items()}
+    out.edges = list(g.edges)
+    out.input_layers = list(g.input_layers)
+    return out
+
+
 @dataclass(frozen=True)
 class LayerGroup:
     """A contiguous-in-topo-order set of layers pipelined together."""
@@ -132,3 +218,15 @@ class LayerGroup:
 
     def __len__(self) -> int:
         return len(self.names)
+
+
+def edge_volume(g: Graph, src: str, dst: str,
+                batch: int = 1) -> Union[int, float]:
+    """Expected bytes of feature map flowing src->dst per ``batch`` samples:
+    the producer's dense ofmap, scaled by its ``traffic_scale`` and the
+    edge's multiplicity.  Dense graphs return the exact int of the
+    static-volume model."""
+    l = g.layers[src]
+    v = l.ofmap_bytes(batch)
+    m = l.traffic_scale * g.edge_mult(src, dst)
+    return v if m == 1.0 else v * m

@@ -32,20 +32,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# argument types of each source's launch function; every one returns the
-# launch's cudaError_t as an int
+_MM = [_P] * 3 + [_I] * 4 + [_P]
+_FLASH = [_P] * 4 + [_I] * 7 + [_P]
+_SSD = [_P] * 6 + [_I] * 6 + [_P]
+# argument types of each source's launch functions, one per element type
+# (f32, bf16); every one returns the launch's cudaError_t as an int
 SIGNATURES = {
-    "tiled_matmul": {"tiled_matmul_f32": [_P] * 3 + [_I] * 4 + [_P]},
-    "flash_attention": {"flash_attention_f32": [_P] * 4 + [_I] * 7 + [_P]},
-    "mamba_ssd": {"ssd_chunk_dual_f32": [_P] * 6 + [_I] * 6 + [_P]},
+    "tiled_matmul": {"tiled_matmul_f32": _MM, "tiled_matmul_bf16": _MM},
+    "flash_attention": {"flash_attention_f32": _FLASH,
+                        "flash_attention_bf16": _FLASH},
+    "mamba_ssd": {"ssd_chunk_dual_f32": _SSD, "ssd_chunk_dual_bf16": _SSD},
 }
 # argument types of the functions that name the configuration a launch
-# takes; each returns a C string
+# takes (the last argument the operands' bytes an element); each returns a
+# C string
 ROUTES = {
-    "tiled_matmul": {"tiled_matmul_route": [_I] * 3 + [_P] * 2 + [_I]},
-    "flash_attention": {"flash_attention_route": [_I] + [_P] * 3},
-    "mamba_ssd": {"ssd_chunk_dual_route": [_I] * 2 + [_P] * 3},
+    "tiled_matmul": {"tiled_matmul_route": [_I] * 3 + [_P] * 2 + [_I] * 2},
+    "flash_attention": {"flash_attention_route": [_I] + [_P] * 3 + [_I]},
+    "mamba_ssd": {"ssd_chunk_dual_route": [_I] * 2 + [_P] * 3 + [_I]},
 }
+# the suffix of a launch function's name, by operand dtype name
+DTYPE_SUFFIX = {"float32": "f32", "bfloat16": "bf16"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -158,6 +165,18 @@ def hmma_counts(name: str) -> Optional[Dict[str, int]]:
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def dtype_suffix(kernel: str, tensors) -> str:
+    """The launch-function suffix (``"f32"``, ``"bf16"``) for these
+    operands; raises ``TypeError`` unless all are float32 or all bfloat16
+    (the kernels compute in f32 either way, as the reference's do)."""
+    names = {str(t.dtype).rsplit(".", 1)[-1] for t in tensors}
+    if len(names) != 1 or next(iter(names)) not in DTYPE_SUFFIX:
+        raise TypeError(f"{kernel}: the kernel takes float32 or bfloat16 "
+                        f"operands, all of one type; got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    return DTYPE_SUFFIX[names.pop()]
 
 
 def check(lib: ctypes.CDLL, kernel: str, code: int) -> None:

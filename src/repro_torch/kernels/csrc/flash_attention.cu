@@ -1,5 +1,7 @@
-// Flash attention forward, f32, for Hopper (sm_90a), on the tensor cores.
-// q (B, H, Sq, D), k and v (B, H, Sk, D), contiguous -> o (B, H, Sq, D).
+// Flash attention forward for Hopper (sm_90a), on the tensor cores, f32
+// or bf16 operands, f32 arithmetic.
+// q (B, H, Sq, D), k and v (B, H, Sk, D), contiguous -> o (B, H, Sq, D)
+// of q's type.
 //
 // Replaces the Pallas kernel `_flash_kernel` driven by `flash_attention_mha`
 // (src/repro/kernels/flash_attention.py:90) and follows its numerics
@@ -55,6 +57,16 @@
 // memory, which leaves the dot products unchanged.  Rows are copied 16
 // bytes at a time where D % 4 == 0 and every pointer is 16-byte aligned,
 // else 4 bytes at a time (a second instantiation of the same kernel).
+//
+// bf16 (tf32x3.cuh): the same kernel with T = __nv_bfloat16, as the
+// reference casts each block to f32.  The k and v tiles hold bf16 (row
+// stride DMAX + 8), copied 8 elements at a time where D % 8 == 0 and the
+// pointers are 16-byte aligned, else one element a plain load; q is
+// staged as bf16 in the space of its lo parts and widened once into the
+// f32 q tile.  q and k are exact in TF32, so S = Q K^T takes one product
+// per k8 step; P is computed in f32 and keeps its split, so P V takes two
+// (v's lo part is zero).  P is never rounded to bf16.  The output is
+// rounded to bf16 once, at the store.
 
 #include <cuda_runtime.h>
 
@@ -72,38 +84,40 @@ constexpr int THREADS = 32 * ROW_WARPS * KV_GROUPS;
 constexpr float NEG_INF = -1.0e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DMAX>
+template <int DMAX, class T>
 struct Cfg {
   static constexpr int BKV = DMAX > 128 ? 32 : 64;
   static constexpr int PART = BKV / KV_GROUPS;    // keys a warp takes
-  // row stride in floats, 4 mod 32: the A and B fragment reads of q, k
-  // (row g, column t) and v (row 2t, column g) hit 32 different banks,
-  // and rows stay 16-byte aligned
+  // row stride of the f32 q tiles in floats, 4 mod 32: the A and B
+  // fragment reads of q, k (row g, column t) and v (row 2t, column g) hit
+  // 32 different banks, and rows stay 16-byte aligned
   static constexpr int LD = DMAX + 4;
+  // row stride of the k and v tiles (and the staged bf16 q) in elements
+  // of T: LD for f32; 16 bytes of pad for bf16, rows 16-byte aligned
+  static constexpr int LDT = DMAX + int(16 / sizeof(T));
+  static constexpr size_t q_bytes = sizeof(float) * 2 * size_t(BQ) * LD;
   static constexpr size_t bytes =
-      sizeof(float) * (2 * size_t(BQ) * LD + 4 * size_t(BKV) * LD);
+      q_bytes + sizeof(T) * 4 * size_t(BKV) * LDT;
 };
 
-// Rows r0 .. r0 + ROWS - 1 of a (n_rows, D) matrix into a (ROWS, LD) tile,
-// zero past n_rows and past D.  Issues cp.async copies; no wait.
-template <int DMAX, int ROWS, bool VEC>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int n_rows, int D) {
-  constexpr int LD = Cfg<DMAX>::LD;
-  constexpr int W = VEC ? 4 : 1;        // floats a copy
+// Rows r0 .. r0 + ROWS - 1 of a (n_rows, D) matrix into a (ROWS, LDT)
+// tile, zero past n_rows and past D.  Issues cp.async copies (or, for
+// bf16 one element at a time, plain loads); no wait.
+template <int DMAX, class T, int ROWS, bool VEC>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0,
+                                          int n_rows, int D) {
+  constexpr int LD = Cfg<DMAX, T>::LDT;
+  constexpr int W = kCopyElems<T, VEC>; // elements a copy
   constexpr int CH = DMAX / W;          // copies a row
-  static_assert(ROWS * CH % THREADS == 0, "copies split evenly");
+  constexpr int TOTAL = ROWS * CH;
 #pragma unroll
-  for (int i = 0; i < ROWS * CH / THREADS; ++i) {
+  for (int i = 0; i < (TOTAL + THREADS - 1) / THREADS; ++i) {
     const int idx = threadIdx.x + i * THREADS;
+    if (TOTAL % THREADS != 0 && idx >= TOTAL) break;
     const int r = idx / CH, c = (idx % CH) * W;
     const bool in = r0 + r < n_rows && c < D;
-    const float* from = in ? src + size_t(r0 + r) * D + c : src;
-    if constexpr (VEC) {
-      cp_async16(dst + r * LD + c, from, in);
-    } else {
-      cp_async4(dst + r * LD + c, from, in);
-    }
+    const T* from = in ? src + size_t(r0 + r) * D + c : src;
+    copy_elems<T, VEC>(dst + r * LD + c, from, in);
   }
 }
 
@@ -114,14 +128,16 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-template <int DMAX, bool VEC>
+template <int DMAX, class T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
-          int D, int causal, float scale_log2) {
-  using C = Cfg<DMAX>;
+flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int D,
+          int causal, float scale_log2) {
+  using C = Cfg<DMAX, T>;
+  constexpr bool EX = kTf32Exact<T>;
   constexpr int BKV = C::BKV;
   constexpr int LD = C::LD;
+  constexpr int LDT = C::LDT;
   constexpr int G = KV_GROUPS;
   constexpr int NS = C::PART / 8;       // n8 tiles of a warp's scores
   constexpr int NO = DMAX / 8;          // n8 tiles of a warp's output
@@ -130,16 +146,17 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   static_assert(DMAX % (8 * KC) == 0, "whole score chunks");
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                     // [BQ][LD], q then its hi parts
-  float* Ql = Qs + BQ * LD;             // [BQ][LD], q's lo parts
-  float* Ks = Ql + BQ * LD;             // [2][BKV][LD]
-  float* Vs = Ks + 2 * BKV * LD;        // [2][BKV][LD]
+  float* Ql = Qs + BQ * LD;             // [BQ][LD], q's lo parts (bf16:
+                                        // q staged as [BQ][LDT] of T)
+  T* Ks = reinterpret_cast<T*>(Ql + BQ * LD);   // [2][BKV][LDT]
+  T* Vs = Ks + 2 * BKV * LDT;                   // [2][BKV][LDT]
 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heavy tiles first
   const size_t bh = blockIdx.x;
-  const float* qb = q + bh * Sq * D;
-  const float* kb = k + bh * Sk * D;
-  const float* vb = v + bh * Sk * D;
-  float* ob = o + bh * Sq * D;
+  const T* qb = q + bh * Sq * D;
+  const T* kb = k + bh * Sk * D;
+  const T* vb = v + bh * Sk * D;
+  T* ob = o + bh * Sq * D;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -152,20 +169,26 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int n_kv = (kv_end + BKV - 1) / BKV;
 
-  load_rows<DMAX, BQ, VEC>(Qs, qb, q0, Sq, D);
+  T* Qt = reinterpret_cast<T*>(EX ? Ql : Qs);   // where q lands
+  load_rows<DMAX, T, BQ, VEC>(Qt, qb, q0, Sq, D);
   cp_async_commit();
-  load_rows<DMAX, BKV, VEC>(Ks, kb, 0, Sk, D);
-  load_rows<DMAX, BKV, VEC>(Vs, vb, 0, Sk, D);
+  load_rows<DMAX, T, BKV, VEC>(Ks, kb, 0, Sk, D);
+  load_rows<DMAX, T, BKV, VEC>(Vs, vb, 0, Sk, D);
   cp_async_commit();
   // the q tile is split into its TF32 parts once, not once per kv tile
+  // (bf16: widened into Qs; its lo parts are zero and never read)
   cp_async_wait<1>();
   __syncthreads();
   for (int idx = threadIdx.x; idx < BQ * DMAX; idx += THREADS) {
-    float* x = Qs + (idx / DMAX) * LD + idx % DMAX;
-    uint32_t hi, lo;
-    split(*x, hi, lo);
-    *x = __uint_as_float(hi);
-    Ql[x - Qs] = __uint_as_float(lo);
+    const int r = idx / DMAX, c = idx % DMAX;
+    if constexpr (EX) {
+      Qs[r * LD + c] = to_f32(Qt[r * LDT + c]);
+    } else {
+      uint32_t hi, lo;
+      split(Qs[r * LD + c], hi, lo);
+      Qs[r * LD + c] = __uint_as_float(hi);
+      Ql[r * LD + c] = __uint_as_float(lo);
+    }
   }
 
   float acc[NO][4];
@@ -180,8 +203,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = it * BKV;
     if (it + 1 < n_kv) {                // next tile into the other buffer
       const int nb = (it + 1) & 1;
-      load_rows<DMAX, BKV, VEC>(Ks + nb * BKV * LD, kb, k0 + BKV, Sk, D);
-      load_rows<DMAX, BKV, VEC>(Vs + nb * BKV * LD, vb, k0 + BKV, Sk, D);
+      load_rows<DMAX, T, BKV, VEC>(Ks + nb * BKV * LDT, kb, k0 + BKV, Sk, D);
+      load_rows<DMAX, T, BKV, VEC>(Vs + nb * BKV * LDT, vb, k0 + BKV, Sk, D);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -195,8 +218,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     // skipped
     const int kh = k0 + grp * C::PART;
     if (kh < Sk && !(causal && kh > q0 + wr + 15)) {
-      const float* Kt = Ks + (it & 1) * BKV * LD + grp * C::PART * LD;
-      const float* Vt = Vs + (it & 1) * BKV * LD + grp * C::PART * LD;
+      const T* Kt = Ks + (it & 1) * BKV * LDT + grp * C::PART * LDT;
+      const T* Vt = Vs + (it & 1) * BKV * LDT + grp * C::PART * LDT;
 
       // s = q k^T, 16 rows x PART keys, summed in fragments of KC k8 steps
       float s[NS][4], d[NS][4];
@@ -210,16 +233,20 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
         const uint32_t ahi[4] = {
             __float_as_uint(Qs[qa]), __float_as_uint(Qs[qa + 8 * LD]),
             __float_as_uint(Qs[qa + 4]), __float_as_uint(Qs[qa + 8 * LD + 4])};
-        const uint32_t alo[4] = {
-            __float_as_uint(Ql[qa]), __float_as_uint(Ql[qa + 8 * LD]),
-            __float_as_uint(Ql[qa + 4]), __float_as_uint(Ql[qa + 8 * LD + 4])};
+        uint32_t alo[4] = {0u, 0u, 0u, 0u};
+        if constexpr (!EX) {
+          alo[0] = __float_as_uint(Ql[qa]);
+          alo[1] = __float_as_uint(Ql[qa + 8 * LD]);
+          alo[2] = __float_as_uint(Ql[qa + 4]);
+          alo[3] = __float_as_uint(Ql[qa + 8 * LD + 4]);
+        }
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          const float* kr = Kt + (n * 8 + g) * LD + kk + t;
+          const T* kr = Kt + (n * 8 + g) * LDT + kk + t;
           uint32_t bhi[2], blo[2];
-          split(kr[0], bhi[0], blo[0]);
-          split(kr[4], bhi[1], blo[1]);
-          mma3(d[n], ahi, alo, bhi, blo);
+          split_t(kr[0], bhi[0], blo[0]);
+          split_t(kr[4], bhi[1], blo[1]);
+          mmax<EX, EX>(d[n], ahi, alo, bhi, blo);
           if ((kk / 8) % KC == KC - 1) drain(s[n], d[n]);
         }
       }
@@ -285,11 +312,11 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
         float pv[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          const float* vr = Vt + (n * 8 + 2 * t) * LD + j * 8 + g;
+          const T* vr = Vt + (n * 8 + 2 * t) * LDT + j * 8 + g;
           uint32_t bhi[2], blo[2];
-          split(vr[0], bhi[0], blo[0]);
-          split(vr[LD], bhi[1], blo[1]);
-          mma3(pv, phi[n], plo[n], bhi, blo);
+          split_t(vr[0], bhi[0], blo[0]);
+          split_t(vr[LDT], bhi[1], blo[1]);
+          mmax<false, EX>(pv, phi[n], plo[n], bhi, blo);
         }
         acc[j][0] = acc[j][0] * corr0 + pv[0];
         acc[j][1] = acc[j][1] * corr0 + pv[1];
@@ -301,13 +328,14 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // The G parts of each row meet: groups 1 .. G - 1 leave their max, sum
-  // and output in the (now free) kv buffers, group 0 merges and writes.
+  // and output in the (now free) q and kv buffers, group 0 merges and
+  // writes.
   constexpr int XACC = ROW_WARPS * NO * 4 * 32;  // floats a group leaves
   constexpr int XML = ROW_WARPS * 4 * 32;
-  static_assert((G - 1) * (XACC + XML) <= 4 * BKV * LD,
-                "the exchange fits in the kv buffers");
-  float* xacc = Ks;                     // [G - 1][ROW_WARPS][NO][4][32]
-  float* xml = Ks + (G - 1) * XACC;     // [G - 1][ROW_WARPS][4][32]
+  static_assert((G - 1) * (XACC + XML) * sizeof(float) <= C::bytes,
+                "the exchange fits in the q and kv buffers");
+  float* xacc = smem;                   // [G - 1][ROW_WARPS][NO][4][32]
+  float* xml = smem + (G - 1) * XACC;   // [G - 1][ROW_WARPS][4][32]
   if (grp > 0) {
     float* xa = xacc + (grp - 1) * XACC + rw * NO * 4 * 32 + lane;
 #pragma unroll
@@ -360,8 +388,9 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       if (col + e >= D) continue;
-      if (row0 < Sq) ob[size_t(row0) * D + col + e] = r[e] / d0;
-      if (row1 < Sq) ob[size_t(row1) * D + col + e] = r[2 + e] / d1;
+      if (row0 < Sq) ob[size_t(row0) * D + col + e] = from_f32<T>(r[e] / d0);
+      if (row1 < Sq)
+        ob[size_t(row1) * D + col + e] = from_f32<T>(r[2 + e] / d1);
     }
   }
 }
@@ -370,79 +399,111 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-bool vec_copies(int D, const void* q, const void* k, const void* v,
-                const void* o) {
-  return D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-         aligned16(o);
+// 16-byte copies where D is a multiple of the copy's elements (4 f32,
+// 8 bf16) and every pointer is 16-byte aligned.
+bool vec_copies(int D, int elem_bytes, const void* q, const void* k,
+                const void* v, const void* o) {
+  return D % (16 / elem_bytes) == 0 && aligned16(q) && aligned16(k) &&
+         aligned16(v) && aligned16(o);
 }
 
 int head_dim_template(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 0;
 }
 
-template <int DMAX, bool VEC>
-int launch(const float* q, const float* k, const float* v, float* o, int BH,
+template <int DMAX, class T, bool VEC>
+int launch(const void* q, const void* k, const void* v, void* o, int BH,
            int Sq, int Sk, int D, int causal, cudaStream_t stream) {
-  constexpr size_t bytes = Cfg<DMAX>::bytes;
+  constexpr size_t bytes = Cfg<DMAX, T>::bytes;
   // once per instantiation (the process drives one card)
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<DMAX, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd<DMAX, T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(flash_fwd<DMAX, VEC>,
+    return cudaFuncSetAttribute(flash_fwd<DMAX, T, VEC>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 int(cudaSharedmemCarveoutMaxShared));
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(BH, (Sq + BQ - 1) / BQ);
   const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
-  flash_fwd<DMAX, VEC><<<grid, THREADS, bytes, stream>>>(
-      q, k, v, o, Sq, Sk, D, causal, scale_log2);
+  flash_fwd<DMAX, T, VEC><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, D, causal,
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DMAX>
-int launch_d(bool vec, const float* q, const float* k, const float* v,
-           float* o, int BH, int Sq, int Sk, int D, int causal,
-           cudaStream_t stream) {
+template <int DMAX, class T>
+int launch_d(bool vec, const void* q, const void* k, const void* v, void* o,
+             int BH, int Sq, int Sk, int D, int causal, cudaStream_t stream) {
   return vec
-      ? launch<DMAX, true>(q, k, v, o, BH, Sq, Sk, D, causal, stream)
-      : launch<DMAX, false>(q, k, v, o, BH, Sq, Sk, D, causal, stream);
+      ? launch<DMAX, T, true>(q, k, v, o, BH, Sq, Sk, D, causal, stream)
+      : launch<DMAX, T, false>(q, k, v, o, BH, Sq, Sk, D, causal, stream);
+}
+
+template <class T>
+int launch_t(const void* q, const void* k, const void* v, void* o, int B,
+             int H, int Sq, int Sk, int D, int causal, int device,
+             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int BH = B * H;
+  const bool vec = vec_copies(D, sizeof(T), q, k, v, o);
+  switch (head_dim_template(D)) {
+    case 32:
+      return launch_d<32, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+    case 64:
+      return launch_d<64, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+    case 128:
+      return launch_d<128, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+    case 256:
+      return launch_d<256, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` (a cudaStream_t from the caller) and returns the
+// Launch on `stream` (a cudaStream_t from the caller) and return the
 // launch's cudaError_t: 0 when the kernel was accepted.  1 <= D <= 256,
-// B * H <= 2^31 - 1, ceil(Sq / 32) <= 65535.
-int flash_attention_f32(const float* q, const float* k, const float* v,
-                        float* o, int B, int H, int Sq, int Sk, int D,
-                        int causal, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int BH = B * H;
-  const bool vec = vec_copies(D, q, k, v, o);
-  switch (head_dim_template(D)) {
-    case 32: return launch_d<32>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
-    case 64: return launch_d<64>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
-    case 128:
-      return launch_d<128>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
-    case 256:
-      return launch_d<256>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// B * H <= 2^31 - 1, ceil(Sq / 32) <= 65535.  q, k, v and o all f32, or
+// all bf16 (f32 arithmetic either way).
+int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
+                        int B, int H, int Sq, int Sk, int D, int causal,
+                        int device, void* stream) {
+  return launch_t<float>(q, k, v, o, B, H, Sq, Sk, D, causal, device, stream);
 }
 
-// The configuration flash_attention_f32 launches for these arguments (o
-// taken as 16-byte aligned), e.g. "D128 kv64 cp.async16"; "" when D is out
-// of range.
+int flash_attention_bf16(const void* q, const void* k, const void* v,
+                         void* o, int B, int H, int Sq, int Sk, int D,
+                         int causal, int device, void* stream) {
+  return launch_t<__nv_bfloat16>(q, k, v, o, B, H, Sq, Sk, D, causal,
+                                 device, stream);
+}
+
+// The configuration a launch takes for these arguments of `elem_bytes`
+// bytes an element (o taken as 16-byte aligned), e.g. "D128 kv64
+// cp.async16"; bf16 routes end in " bf16", and their one-element copies
+// are plain loads ("ld2"); "" when D is out of range.
 const char* flash_attention_route(int D, const void* q, const void* k,
-                                  const void* v) {
-  const bool vec = vec_copies(D, q, k, v, nullptr);
+                                  const void* v, int elem_bytes) {
+  const bool vec = vec_copies(D, elem_bytes, q, k, v, nullptr);
+  if (elem_bytes == 2) {
+    switch (head_dim_template(D)) {
+      case 32: return vec ? "D32 kv64 cp.async16 bf16" : "D32 kv64 ld2 bf16";
+      case 64: return vec ? "D64 kv64 cp.async16 bf16" : "D64 kv64 ld2 bf16";
+      case 128:
+        return vec ? "D128 kv64 cp.async16 bf16" : "D128 kv64 ld2 bf16";
+      case 256:
+        return vec ? "D256 kv32 cp.async16 bf16" : "D256 kv32 ld2 bf16";
+      default: return "";
+    }
+  }
   switch (head_dim_template(D)) {
     case 32: return vec ? "D32 kv64 cp.async16" : "D32 kv64 cp.async4";
     case 64: return vec ? "D64 kv64 cp.async16" : "D64 kv64 cp.async4";

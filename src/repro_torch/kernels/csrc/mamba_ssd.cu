@@ -1,7 +1,7 @@
 // Mamba-2 SSD per-chunk quadratic form, f32 accuracy, for Hopper (sm_90a),
-// on the tensor cores.
-// x (BC, Q, H, P), cum (BC, Q, H), B and C (BC, Q, N), contiguous ->
-// y (BC, Q, H, P) and the chunk state S (BC, H, N, P).
+// on the tensor cores, f32 or bf16 inputs.
+// x (BC, Q, H, P), cum (BC, Q, H), B and C (BC, Q, N), contiguous, all of
+// one type -> y (BC, Q, H, P) and the chunk state S (BC, H, N, P), f32.
 //
 // Replaces the Pallas kernel `_ssd_kernel` driven by `ssd_chunk_dual`
 // (src/repro/kernels/mamba_ssd.py:48, body at :25).  For each chunk c and
@@ -71,6 +71,16 @@
 // instantiation).
 // Taken: 1 <= Q <= 128, 1 <= N <= 64, any P (tiled by 128 over the grid),
 // BC * H < 2^31.
+//
+// bf16 (tf32x3.cuh): the same kernel with T = __nv_bfloat16, as the
+// reference casts each block to f32 and returns f32.  C, B and x tiles
+// hold bf16 (row strides NMAX + 8 and PT + 8), copied 8 elements at a
+// time where N % 8 == 0, P % 8 == 0 and the pointers are 16-byte
+// aligned, else one element a plain load; cum is widened as it is read.
+// C and B are exact in TF32, so C B^T takes one product per k8 step; W
+// and B scaled by the decays are computed in f32 and keep their split,
+// x's lo part is zero, so W x and (d .* B)^T x take two.  W is never
+// rounded to bf16.  y and S are f32, as in the reference.
 
 #include <cuda_runtime.h>
 
@@ -91,45 +101,51 @@ constexpr int NO = PH / 8;              // n8 tiles of a warp's output
 // the W exchange: per strip two rounds (double buffer) of two 16 x 16
 // tiles, each as 32 lanes x 8 floats in fragment order
 constexpr int EXF = STRIPS * 2 * 2 * 256;
-// row strides in floats, 4 mod 32: the fragment reads (row g, column t of
-// C and B; rows 2t and 2t + 1, column g of B and x) hit 32 different
-// banks, and rows stay 16-byte aligned
-constexpr int LDN = NMAX + 4;
-constexpr int LDX = PT + 4;
+
+// Row strides in elements of T.  f32: 4 mod 32 words, so the fragment
+// reads (row g, column t of C and B; rows 2t and 2t + 1, column g of B and
+// x) hit 32 different banks; bf16: 16 bytes of pad.  Rows stay 16-byte
+// aligned either way.
+template <class T>
+struct Ld {
+  static constexpr int N = NMAX + int(16 / sizeof(T));
+  static constexpr int X = PT + int(16 / sizeof(T));
+};
 
 // Dynamic shared memory for QP (Q rounded up to 16) rows: C, B, the x
-// tile, cum, the end-of-chunk decays and the W exchange.
+// tile (of T), cum, the end-of-chunk decays and the W exchange (f32).
+template <class T>
 size_t smem_bytes(int QP) {
-  return sizeof(float) * (size_t(QP) * (2 * LDN + LDX + 2) + EXF);
+  return sizeof(T) * size_t(QP) * (2 * Ld<T>::N + Ld<T>::X) +
+         sizeof(float) * (2 * size_t(QP) + EXF);
 }
 
 // Rows 0 .. QP - 1 of a (rows, cols) matrix with row stride `ld` into a
 // (QP, LD) tile, columns 0 .. CMAX - 1, zero at r >= rows or c >= cols.
-// Issues cp.async copies; no wait.
-template <int CMAX, int LD, bool VEC>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          size_t ld, int rows, int cols,
-                                          int QP) {
-  constexpr int W = VEC ? 4 : 1;        // floats a copy
+// Issues cp.async copies (or, for bf16 one element at a time, plain
+// loads); no wait.
+template <class T, int CMAX, int LD, bool VEC>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, size_t ld,
+                                          int rows, int cols, int QP) {
+  constexpr int W = kCopyElems<T, VEC>; // elements a copy
   constexpr int CH = CMAX / W;          // copies a row
   for (int idx = threadIdx.x; idx < QP * CH; idx += THREADS) {
     const int r = idx / CH, c = (idx % CH) * W;
     const bool in = r < rows && c < cols;
-    const float* from = in ? src + r * ld + c : src;
-    if constexpr (VEC) {
-      cp_async16(dst + r * LD + c, from, in);
-    } else {
-      cp_async4(dst + r * LD + c, from, in);
-    }
+    const T* from = in ? src + r * ld + c : src;
+    copy_elems<T, VEC>(dst + r * LD + c, from, in);
   }
 }
 
-// s = C[i0 .. i0 + 15] . B[j0 .. j0 + 15]^T over the state width, 3xTF32:
-// s[n] holds columns j0 + 8n .. j0 + 8n + 7, summed in one fragment
-// started at zero over the NK <= 8 k8 steps.
-__device__ __forceinline__ void score_tile(float (&s)[2][4], const float* Cs,
-                                           const float* Bs, int i0, int j0,
+// s = C[i0 .. i0 + 15] . B[j0 .. j0 + 15]^T over the state width, 3xTF32
+// (one product for bf16): s[n] holds columns j0 + 8n .. j0 + 8n + 7,
+// summed in one fragment started at zero over the NK <= 8 k8 steps.
+template <class T>
+__device__ __forceinline__ void score_tile(float (&s)[2][4], const T* Cs,
+                                           const T* Bs, int i0, int j0,
                                            int NK, int g, int t) {
+  constexpr int LDN = Ld<T>::N;
+  constexpr bool EX = kTf32Exact<T>;
 #pragma unroll
   for (int n = 0; n < 2; ++n)
 #pragma unroll
@@ -137,19 +153,19 @@ __device__ __forceinline__ void score_tile(float (&s)[2][4], const float* Cs,
 #pragma unroll
   for (int k = 0; k < NMAX / 8; ++k) {
     if (k >= NK) break;
-    const float* cr = Cs + (i0 + g) * LDN + 8 * k + t;
+    const T* cr = Cs + (i0 + g) * LDN + 8 * k + t;
     uint32_t ahi[4], alo[4];
-    split(cr[0], ahi[0], alo[0]);
-    split(cr[8 * LDN], ahi[1], alo[1]);
-    split(cr[4], ahi[2], alo[2]);
-    split(cr[8 * LDN + 4], ahi[3], alo[3]);
+    split_t(cr[0], ahi[0], alo[0]);
+    split_t(cr[8 * LDN], ahi[1], alo[1]);
+    split_t(cr[4], ahi[2], alo[2]);
+    split_t(cr[8 * LDN + 4], ahi[3], alo[3]);
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
-      const float* br = Bs + (j0 + 8 * n + g) * LDN + 8 * k + t;
+      const T* br = Bs + (j0 + 8 * n + g) * LDN + 8 * k + t;
       uint32_t bhi[2], blo[2];
-      split(br[0], bhi[0], blo[0]);
-      split(br[4], bhi[1], blo[1]);
-      mma3(s[n], ahi, alo, bhi, blo);
+      split_t(br[0], bhi[0], blo[0]);
+      split_t(br[4], bhi[1], blo[1]);
+      mmax<EX, EX>(s[n], ahi, alo, bhi, blo);
     }
   }
 }
@@ -166,17 +182,21 @@ __device__ __forceinline__ void store2(float* row, int col, int pw, bool vec,
   if (col + 1 < pw) row[col + 1] = v1;
 }
 
-template <bool VEC>
+template <class T, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
-ssd_chunk(const float* __restrict__ x, const float* __restrict__ cum,
-          const float* __restrict__ Bm, const float* __restrict__ Cm,
+ssd_chunk(const T* __restrict__ x, const T* __restrict__ cum,
+          const T* __restrict__ Bm, const T* __restrict__ Cm,
           float* __restrict__ y, float* __restrict__ state, int H, int Q,
           int P, int N, int QP) {
-  extern __shared__ __align__(16) float smem[];
-  float* Cs = smem;                     // [QP][LDN], zero past Q and N
-  float* Bs = Cs + QP * LDN;            // [QP][LDN]
-  float* Xs = Bs + QP * LDN;            // [QP][LDX], x[c, j, h, p0 + p]
-  float* cs = Xs + QP * LDX;            // [QP], cum[c, j, h], 0 past Q
+  constexpr int LDN = Ld<T>::N;
+  constexpr int LDX = Ld<T>::X;
+  constexpr bool EX = kTf32Exact<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Cs = reinterpret_cast<T*>(smem_raw);   // [QP][LDN], zero past Q, N
+  T* Bs = Cs + QP * LDN;                // [QP][LDN]
+  T* Xs = Bs + QP * LDN;                // [QP][LDX], x[c, j, h, p0 + p]
+  // [QP], cum[c, j, h], 0 past Q (QP % 16 == 0: 16-byte aligned)
+  float* cs = reinterpret_cast<float*>(Xs + QP * LDX);
   float* ds = cs + QP;                  // [QP], exp(cum[Q-1] - cum[j])
   float* ex = ds + QP;                  // [STRIPS][2 rounds][2][256]
 
@@ -191,13 +211,14 @@ ssd_chunk(const float* __restrict__ x, const float* __restrict__ cum,
   const size_t row0 = size_t(c) * Q;    // the chunk's first row
   const size_t ldx = size_t(H) * P;     // row stride of x and y
 
-  load_tile<NMAX, LDN, VEC>(Cs, Cm + row0 * N, N, Q, N, QP);
-  load_tile<NMAX, LDN, VEC>(Bs, Bm + row0 * N, N, Q, N, QP);
+  load_tile<T, NMAX, LDN, VEC>(Cs, Cm + row0 * N, N, Q, N, QP);
+  load_tile<T, NMAX, LDN, VEC>(Bs, Bm + row0 * N, N, Q, N, QP);
   cp_async_commit();
-  load_tile<PT, LDX, VEC>(Xs, x + (row0 * H + h) * P + p0, ldx, Q, pw, QP);
+  load_tile<T, PT, LDX, VEC>(Xs, x + (row0 * H + h) * P + p0, ldx, Q, pw,
+                             QP);
   cp_async_commit();
   for (int r = threadIdx.x; r < QP; r += THREADS)
-    cs[r] = r < Q ? cum[(row0 + r) * H + h] : 0.f;
+    cs[r] = r < Q ? to_f32(cum[(row0 + r) * H + h]) : 0.f;
   cp_async_wait<1>();
   __syncthreads();                      // C, B and cum are in
   {
@@ -276,12 +297,12 @@ ssd_chunk(const float* __restrict__ x, const float* __restrict__ cum,
           float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
           for (int n = 0; n < 2; ++n) {
-            const float* xr =
+            const T* xr =
                 Xs + (16 * k + 8 * n + 2 * t) * LDX + pc + 8 * o + g;
             uint32_t bhi[2], blo[2];
-            split(xr[0], bhi[0], blo[0]);
-            split(xr[LDX], bhi[1], blo[1]);
-            mma3(d, whi[n], wlo[n], bhi, blo);
+            split_t(xr[0], bhi[0], blo[0]);
+            split_t(xr[LDX], bhi[1], blo[1]);
+            mmax<false, EX>(d, whi[n], wlo[n], bhi, blo);
           }
           drain(acc[o], d);
         }
@@ -310,20 +331,20 @@ ssd_chunk(const float* __restrict__ x, const float* __restrict__ cum,
     for (int kk = 0; kk < QP; kk += 8) {
       const int ja = kk + 2 * t;
       const float da = ds[ja], db = ds[ja + 1];
-      const float* ba = Bs + ja * LDN + n0 + g;
+      const T* ba = Bs + ja * LDN + n0 + g;
       uint32_t ahi[4], alo[4];
-      split(ba[0] * da, ahi[0], alo[0]);
-      split(ba[8] * da, ahi[1], alo[1]);
-      split(ba[LDN] * db, ahi[2], alo[2]);
-      split(ba[LDN + 8] * db, ahi[3], alo[3]);
+      split(to_f32(ba[0]) * da, ahi[0], alo[0]);
+      split(to_f32(ba[8]) * da, ahi[1], alo[1]);
+      split(to_f32(ba[LDN]) * db, ahi[2], alo[2]);
+      split(to_f32(ba[LDN + 8]) * db, ahi[3], alo[3]);
 #pragma unroll
       for (int o = 0; o < NO; ++o) {
-        const float* xr = Xs + ja * LDX + pc + 8 * o + g;
+        const T* xr = Xs + ja * LDX + pc + 8 * o + g;
         uint32_t bhi[2], blo[2];
-        split(xr[0], bhi[0], blo[0]);
-        split(xr[LDX], bhi[1], blo[1]);
+        split_t(xr[0], bhi[0], blo[0]);
+        split_t(xr[LDX], bhi[1], blo[1]);
         float d[4] = {0.f, 0.f, 0.f, 0.f};
-        mma3(d, ahi, alo, bhi, blo);
+        mmax<false, EX>(d, ahi, alo, bhi, blo);
         drain(sacc[o], d);
       }
     }
@@ -344,44 +365,43 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-bool vec_copies(int P, int N, const void* x, const void* Bm, const void* Cm) {
-  return P % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(Bm) &&
+// 16-byte copies where P and N are multiples of the copy's elements (4
+// f32, 8 bf16) and x, B and C are 16-byte aligned.
+bool vec_copies(int P, int N, int elem_bytes, const void* x, const void* Bm,
+                const void* Cm) {
+  const int w = 16 / elem_bytes;
+  return P % w == 0 && N % w == 0 && aligned16(x) && aligned16(Bm) &&
          aligned16(Cm);
 }
 
-template <bool VEC>
-int launch(const float* x, const float* cum, const float* Bm, const float* Cm,
+template <class T, bool VEC>
+int launch(const void* x, const void* cum, const void* Bm, const void* Cm,
            float* y, float* state, int BC, int Q, int H, int P, int N,
            cudaStream_t stream) {
   // once per instantiation (the process drives one card)
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        ssd_chunk<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes(QMAX)));
+        ssd_chunk<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes<T>(QMAX)));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(ssd_chunk<VEC>,
+    return cudaFuncSetAttribute(ssd_chunk<T, VEC>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 int(cudaSharedmemCarveoutMaxShared));
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int QP = (Q + 15) / 16 * 16;
   const dim3 grid(BC * H, (P + PT - 1) / PT);
-  ssd_chunk<VEC><<<grid, THREADS, smem_bytes(QP), stream>>>(
-      x, cum, Bm, Cm, y, state, H, Q, P, N, QP);
+  ssd_chunk<T, VEC><<<grid, THREADS, smem_bytes<T>(QP), stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(cum),
+      static_cast<const T*>(Bm), static_cast<const T*>(Cm), y, state, H, Q,
+      P, N, QP);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches on `stream` (a cudaStream_t from the caller) and returns the
-// launch's cudaError_t: 0 when the kernel was accepted.  1 <= Q <= 128,
-// 1 <= N <= 64, 1 <= P <= 128 * 65535, 1 <= BC * H < 2^31; y and state
-// 8-byte aligned (fresh allocations).
-int ssd_chunk_dual_f32(const float* x, const float* cum, const float* Bm,
-                       const float* Cm, float* y, float* state, int BC, int Q,
-                       int H, int P, int N, int device, void* stream) {
+template <class T>
+int launch_t(const void* x, const void* cum, const void* Bm, const void* Cm,
+             float* y, float* state, int BC, int Q, int H, int P, int N,
+             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (BC < 1 || H < 1 || P < 1 || Q < 1 || Q > QMAX || N < 1 || N > NMAX ||
@@ -389,16 +409,43 @@ int ssd_chunk_dual_f32(const float* x, const float* cum, const float* Bm,
       (P + PT - 1) / PT > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return vec_copies(P, N, x, Bm, Cm)
-      ? launch<true>(x, cum, Bm, Cm, y, state, BC, Q, H, P, N, st)
-      : launch<false>(x, cum, Bm, Cm, y, state, BC, Q, H, P, N, st);
+  return vec_copies(P, N, sizeof(T), x, Bm, Cm)
+      ? launch<T, true>(x, cum, Bm, Cm, y, state, BC, Q, H, P, N, st)
+      : launch<T, false>(x, cum, Bm, Cm, y, state, BC, Q, H, P, N, st);
 }
 
-// The configuration ssd_chunk_dual_f32 launches for these arguments:
-// "P128 cp.async16" or "P128 cp.async4".
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream` (a cudaStream_t from the caller) and return the
+// launch's cudaError_t: 0 when the kernel was accepted.  1 <= Q <= 128,
+// 1 <= N <= 64, 1 <= P <= 128 * 65535, 1 <= BC * H < 2^31; y and state
+// f32, 8-byte aligned (fresh allocations).  x, cum, B and C all f32, or
+// all bf16.
+int ssd_chunk_dual_f32(const void* x, const void* cum, const void* Bm,
+                       const void* Cm, float* y, float* state, int BC, int Q,
+                       int H, int P, int N, int device, void* stream) {
+  return launch_t<float>(x, cum, Bm, Cm, y, state, BC, Q, H, P, N, device,
+                         stream);
+}
+
+int ssd_chunk_dual_bf16(const void* x, const void* cum, const void* Bm,
+                        const void* Cm, float* y, float* state, int BC,
+                        int Q, int H, int P, int N, int device,
+                        void* stream) {
+  return launch_t<__nv_bfloat16>(x, cum, Bm, Cm, y, state, BC, Q, H, P, N,
+                                 device, stream);
+}
+
+// The configuration a launch takes for these arguments of `elem_bytes`
+// bytes an element: "P128 cp.async16" or "P128 cp.async4"; bf16 routes
+// end in " bf16", and their one-element copies are plain loads ("ld2").
 const char* ssd_chunk_dual_route(int P, int N, const void* x, const void* Bm,
-                                 const void* Cm) {
-  return vec_copies(P, N, x, Bm, Cm) ? "P128 cp.async16" : "P128 cp.async4";
+                                 const void* Cm, int elem_bytes) {
+  const bool vec = vec_copies(P, N, elem_bytes, x, Bm, Cm);
+  if (elem_bytes == 2) return vec ? "P128 cp.async16 bf16" : "P128 ld2 bf16";
+  return vec ? "P128 cp.async16" : "P128 cp.async4";
 }
 
 const char* cuda_error_string(int code) {

@@ -1,5 +1,5 @@
 // 3xTF32 tensor-core products and cp.async staging for sm_80 and later
-// (built for sm_90a), shared by tiled_matmul.cu and flash_attention.cu.
+// (built for sm_90a), shared by the three kernels under csrc/.
 //
 // Why three products.  A TF32 operand keeps 10 of f32's 23 mantissa bits,
 // so one TF32 product misses the f32 references' tolerances (GEMM atol
@@ -29,7 +29,9 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace tf32x3 {
 
@@ -54,6 +56,44 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// bf16 operands.  The reference kernels take bf16 and compute in f32
+// (src/repro/kernels/*.py cast each block with .astype(float32)); so do
+// these, templated on the element type T: shared-memory tiles hold T, and
+// an element is widened to f32 where a fragment is read (to_f32).  A
+// bf16 value has 8 significant bits, so widened it is exact in TF32:
+// split() gives hi = x and lo = 0, and a product of two such operands is
+// one TF32 product (mmax<true, true>), exact like the f32 path's three.
+// An operand computed in f32 inside a kernel (softmax probabilities, the
+// decay-masked scores, B scaled by the decays) keeps its split; its
+// partner's lo product is dropped (two products).
+template <class T>
+constexpr bool kTf32Exact = std::is_same<T, __nv_bfloat16>::value;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <class T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// hi and lo of an element of type T (lo = 0 where T is exact in TF32).
+template <class T>
+__device__ __forceinline__ void split_t(T x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kTf32Exact<T>) {
+    hi = __float_as_uint(to_f32(x));
+    lo = 0u;
+  } else {
+    split(x, hi, lo);
+  }
+}
+
 // d += a . b in 3xTF32: the two small terms first, then hi . hi.
 //
 // The tensor core rounds its accumulation toward zero, so a long sum kept
@@ -70,6 +110,23 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
   mma(d, alo, bhi);
   mma(d, ahi, blo);
   mma(d, ahi, bhi);
+}
+
+// d += a . b where a (A_EXACT) or b (B_EXACT) is exact in TF32: the
+// products of a zero lo part are left out; with neither, mma3 (so the f32
+// kernels issue exactly mma3's products).
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mmax(float (&d)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4],
+                                     const uint32_t (&bhi)[2],
+                                     const uint32_t (&blo)[2]) {
+  if constexpr (!A_EXACT && !B_EXACT) {
+    mma3(d, ahi, alo, bhi, blo);
+  } else {
+    if constexpr (!A_EXACT) mma(d, alo, bhi);
+    if constexpr (!B_EXACT) mma(d, ahi, blo);
+    mma(d, ahi, bhi);
+  }
 }
 
 // acc += d, f32 adds (round to nearest); d is zeroed for the next sum.
@@ -101,6 +158,26 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0)
                : "memory");
+}
+
+// Elements of T one copy moves: 16 bytes with VEC, else one element.
+template <class T, bool VEC>
+constexpr int kCopyElems = VEC ? int(16 / sizeof(T)) : 1;
+
+// One copy of kCopyElems<T, VEC> elements global -> shared, zeros when
+// !in: 16 bytes by cp.async (both addresses 16-byte aligned), one f32 by
+// a 4-byte cp.async, or one bf16 by a plain load and store (cp.async has
+// no 2-byte size; the barrier that makes the asynchronous copies visible
+// makes the store visible too).
+template <class T, bool VEC>
+__device__ __forceinline__ void copy_elems(T* dst, const T* src, bool in) {
+  if constexpr (VEC) {
+    cp_async16(dst, src, in);
+  } else if constexpr (sizeof(T) == 4) {
+    cp_async4(dst, src, in);
+  } else {
+    *dst = in ? *src : from_f32<T>(0.f);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,5 +1,7 @@
-// Tiled f32 GEMM for Hopper (sm_90a) on the tensor cores:
-// C (M, N) = A (M, K) @ B (K, N), all row-major and contiguous.
+// Tiled GEMM for Hopper (sm_90a) on the tensor cores, f32 or bf16
+// operands, f32 arithmetic:
+// C (M, N) = A (M, K) @ B (K, N), all row-major and contiguous, C of the
+// operands' type.
 //
 // Replaces the Pallas kernel `_mm_kernel` driven by `tiled_matmul`
 // (src/repro/kernels/tiled_matmul.py:51): an output tile per grid cell, the
@@ -41,6 +43,15 @@
 // no shape needs to be a tile multiple.  No split-K and no atomics: each
 // output is one accumulator summed in a fixed order, so the result is
 // deterministic.
+//
+// bf16 (tf32x3.cuh): the same kernel with T = __nv_bfloat16.  Tiles hold
+// bf16 (row strides BK + 8 and BN + 8, so rows stay 16-byte aligned), a
+// 16-byte copy moves 8 elements (K % 8 == 0, N % 8 == 0, aligned), else
+// one element a plain load; each element is widened to f32 at the
+// fragment read, and since both operands are then exact in TF32 each
+// (m16, n8) pair takes one product, not three.  The f32 accumulator is
+// rounded to bf16 once, at the store, as the reference's
+// `acc.astype(o_ref.dtype)`.
 
 #include <cuda_runtime.h>
 
@@ -50,130 +61,151 @@ namespace {
 
 using namespace tf32x3;
 
-template <int BM_, int BN_, int WM_, int WN_, int STAGES_>
+template <class T_, int BM_, int BN_, int WM_, int WN_, int STAGES_>
 struct Tile {
+  using T = T_;
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
   static constexpr int STAGES = STAGES_;
   static constexpr int BK = 32;
   static constexpr int THREADS = 32 * WM * WN;
-  static constexpr int LDA = BK + 4;    // 4 mod 32
-  static constexpr int LDB = BN + 8;    // 8 mod 32
+  // f32: 4 mod 32 words; bf16: 16 bytes of pad, rows 16-byte aligned
+  static constexpr int LDA = BK + int(16 / sizeof(T));
+  static constexpr int LDB = BN + 8;    // f32: 8 mod 32 words
   static constexpr int MT = BM / WM / 16;   // m16 tiles a warp
   static constexpr int NT = BN / WN / 8;    // n8 tiles a warp
-  static constexpr int A_FLOATS = BM * LDA;
-  static constexpr int B_FLOATS = BK * LDB;
+  static constexpr int A_ELEMS = BM * LDA;
+  static constexpr int B_ELEMS = BK * LDB;
   static constexpr size_t bytes =
-      sizeof(float) * STAGES * size_t(A_FLOATS + B_FLOATS);
+      sizeof(T) * STAGES * size_t(A_ELEMS + B_ELEMS);
 };
 
-using Big = Tile<128, 128, 2, 4, 3>;
-using Small = Tile<64, 64, 2, 2, 3>;
+template <class T>
+using Big = Tile<T, 128, 128, 2, 4, 3>;
+template <class T>
+using Small = Tile<T, 64, 64, 2, 2, 3>;
 
 // One BK step of A (rows m0.., columns k0..) and B (rows k0.., columns
-// n0..) into a stage, zeros past the edges.  Issues cp.async; no wait.
-template <class T, bool VEC>
-__device__ __forceinline__ void load_stage(float* As, float* Bs,
-                                           const float* A, const float* B,
-                                           int M, int N, int K, int m0,
-                                           int n0, int k0) {
-  constexpr int W = VEC ? 4 : 1;        // floats a copy
-  constexpr int ACH = T::BK / W;        // copies an A row
-  constexpr int BCH = T::BN / W;        // copies a B row
-  static_assert(T::BM * ACH % T::THREADS == 0, "A copies split evenly");
-  static_assert(T::BK * BCH % T::THREADS == 0, "B copies split evenly");
+// n0..) into a stage, zeros past the edges.  Issues cp.async (bf16 one
+// element at a time: plain loads); no wait.
+template <class Tl, bool VEC>
+__device__ __forceinline__ void load_stage(typename Tl::T* As,
+                                           typename Tl::T* Bs,
+                                           const typename Tl::T* A,
+                                           const typename Tl::T* B, int M,
+                                           int N, int K, int m0, int n0,
+                                           int k0) {
+  using T = typename Tl::T;
+  constexpr int W = kCopyElems<T, VEC>; // elements a copy
+  constexpr int ACH = Tl::BK / W;       // copies an A row
+  constexpr int BCH = Tl::BN / W;       // copies a B row
+  static_assert(Tl::BM * ACH % Tl::THREADS == 0, "A copies split evenly");
+  static_assert(Tl::BK * BCH % Tl::THREADS == 0, "B copies split evenly");
 #pragma unroll
-  for (int i = 0; i < T::BM * ACH / T::THREADS; ++i) {
-    const int idx = threadIdx.x + i * T::THREADS;
+  for (int i = 0; i < Tl::BM * ACH / Tl::THREADS; ++i) {
+    const int idx = threadIdx.x + i * Tl::THREADS;
     const int r = idx / ACH, c = (idx % ACH) * W;
     const bool in = m0 + r < M && k0 + c < K;
-    const float* from = in ? A + size_t(m0 + r) * K + k0 + c : A;
-    if constexpr (VEC) {
-      cp_async16(As + r * T::LDA + c, from, in);
-    } else {
-      cp_async4(As + r * T::LDA + c, from, in);
-    }
+    const T* from = in ? A + size_t(m0 + r) * K + k0 + c : A;
+    copy_elems<T, VEC>(As + r * Tl::LDA + c, from, in);
   }
 #pragma unroll
-  for (int i = 0; i < T::BK * BCH / T::THREADS; ++i) {
-    const int idx = threadIdx.x + i * T::THREADS;
+  for (int i = 0; i < Tl::BK * BCH / Tl::THREADS; ++i) {
+    const int idx = threadIdx.x + i * Tl::THREADS;
     const int r = idx / BCH, c = (idx % BCH) * W;
     const bool in = k0 + r < K && n0 + c < N;
-    const float* from = in ? B + size_t(k0 + r) * N + n0 + c : B;
-    if constexpr (VEC) {
-      cp_async16(Bs + r * T::LDB + c, from, in);
-    } else {
-      cp_async4(Bs + r * T::LDB + c, from, in);
-    }
+    const T* from = in ? B + size_t(k0 + r) * N + n0 + c : B;
+    copy_elems<T, VEC>(Bs + r * Tl::LDB + c, from, in);
   }
 }
 
+// Columns col and col + 1 of an output row: one paired store (VEC: N is a
+// multiple of the copy width, so both are in when col is).
 template <class T, bool VEC>
-__global__ void __launch_bounds__(T::THREADS, T::BM == 128 ? 2 : 1)
-gemm_3xtf32(const float* __restrict__ A, const float* __restrict__ B,
-            float* __restrict__ C, int M, int N, int K) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                                  // [STAGES][BM][LDA]
-  float* Bs = smem + T::STAGES * T::A_FLOATS;        // [STAGES][BK][LDB]
+__device__ __forceinline__ void store_pair(T* out, int col, int N, float v0,
+                                           float v1) {
+  if constexpr (VEC) {
+    if (col >= N) return;
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
+    }
+  } else {
+    if (col < N) out[0] = from_f32<T>(v0);
+    if (col + 1 < N) out[1] = from_f32<T>(v1);
+  }
+}
 
-  const int m0 = blockIdx.y * T::BM;
-  const int n0 = blockIdx.x * T::BN;
+template <class Tl, bool VEC>
+__global__ void __launch_bounds__(Tl::THREADS, Tl::BM == 128 ? 2 : 1)
+gemm_3xtf32(const typename Tl::T* __restrict__ A,
+            const typename Tl::T* __restrict__ B,
+            typename Tl::T* __restrict__ C, int M, int N, int K) {
+  using T = typename Tl::T;
+  constexpr bool EX = kTf32Exact<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(smem_raw);            // [STAGES][BM][LDA]
+  T* Bs = As + Tl::STAGES * Tl::A_ELEMS;             // [STAGES][BK][LDB]
+
+  const int m0 = blockIdx.y * Tl::BM;
+  const int n0 = blockIdx.x * Tl::BN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp / T::WN) * (T::BM / T::WM);   // warp's first row
-  const int wn = (warp % T::WN) * (T::BN / T::WN);   // and column
+  const int wm = (warp / Tl::WN) * (Tl::BM / Tl::WM);   // warp's first row
+  const int wn = (warp % Tl::WN) * (Tl::BN / Tl::WN);   // and column
 
-  float acc[T::MT][T::NT][4];
+  float acc[Tl::MT][Tl::NT][4];
 #pragma unroll
-  for (int i = 0; i < T::MT; ++i)
+  for (int i = 0; i < Tl::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < T::NT; ++j)
+    for (int j = 0; j < Tl::NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  const int KT = (K + T::BK - 1) / T::BK;
+  const int KT = (K + Tl::BK - 1) / Tl::BK;
 #pragma unroll
-  for (int s = 0; s < T::STAGES - 1; ++s) {
+  for (int s = 0; s < Tl::STAGES - 1; ++s) {
     if (s < KT)
-      load_stage<T, VEC>(As + s * T::A_FLOATS, Bs + s * T::B_FLOATS, A, B,
-                         M, N, K, m0, n0, s * T::BK);
+      load_stage<Tl, VEC>(As + s * Tl::A_ELEMS, Bs + s * Tl::B_ELEMS, A, B,
+                          M, N, K, m0, n0, s * Tl::BK);
     cp_async_commit();
   }
 
   for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<T::STAGES - 2>();     // step kt has landed
+    cp_async_wait<Tl::STAGES - 2>();    // step kt has landed
     __syncthreads();                    // ... for every thread, and step
                                         // kt - 1's stage is free
-    const int nk = kt + T::STAGES - 1;
+    const int nk = kt + Tl::STAGES - 1;
     if (nk < KT) {
-      const int ns = nk % T::STAGES;
-      load_stage<T, VEC>(As + ns * T::A_FLOATS, Bs + ns * T::B_FLOATS, A, B,
-                         M, N, K, m0, n0, nk * T::BK);
+      const int ns = nk % Tl::STAGES;
+      load_stage<Tl, VEC>(As + ns * Tl::A_ELEMS, Bs + ns * Tl::B_ELEMS, A, B,
+                          M, N, K, m0, n0, nk * Tl::BK);
     }
     cp_async_commit();
 
-    const float* as = As + (kt % T::STAGES) * T::A_FLOATS;
-    const float* bs = Bs + (kt % T::STAGES) * T::B_FLOATS;
+    const T* as = As + (kt % Tl::STAGES) * Tl::A_ELEMS;
+    const T* bs = Bs + (kt % Tl::STAGES) * Tl::B_ELEMS;
 #pragma unroll
-    for (int kk = 0; kk < T::BK; kk += 8) {
-      uint32_t bhi[T::NT][2], blo[T::NT][2];
+    for (int kk = 0; kk < Tl::BK; kk += 8) {
+      uint32_t bhi[Tl::NT][2], blo[Tl::NT][2];
 #pragma unroll
-      for (int j = 0; j < T::NT; ++j) {
-        const float* bp = bs + (kk + t) * T::LDB + wn + j * 8 + g;
-        split(bp[0], bhi[j][0], blo[j][0]);
-        split(bp[4 * T::LDB], bhi[j][1], blo[j][1]);
+      for (int j = 0; j < Tl::NT; ++j) {
+        const T* bp = bs + (kk + t) * Tl::LDB + wn + j * 8 + g;
+        split_t(bp[0], bhi[j][0], blo[j][0]);
+        split_t(bp[4 * Tl::LDB], bhi[j][1], blo[j][1]);
       }
 #pragma unroll
-      for (int i = 0; i < T::MT; ++i) {
-        const float* ap = as + (wm + i * 16 + g) * T::LDA + kk + t;
+      for (int i = 0; i < Tl::MT; ++i) {
+        const T* ap = as + (wm + i * 16 + g) * Tl::LDA + kk + t;
         uint32_t ahi[4], alo[4];
-        split(ap[0], ahi[0], alo[0]);
-        split(ap[8 * T::LDA], ahi[1], alo[1]);
-        split(ap[4], ahi[2], alo[2]);
-        split(ap[8 * T::LDA + 4], ahi[3], alo[3]);
+        split_t(ap[0], ahi[0], alo[0]);
+        split_t(ap[8 * Tl::LDA], ahi[1], alo[1]);
+        split_t(ap[4], ahi[2], alo[2]);
+        split_t(ap[8 * Tl::LDA + 4], ahi[3], alo[3]);
 #pragma unroll
-        for (int j = 0; j < T::NT; ++j) {
+        for (int j = 0; j < Tl::NT; ++j) {
           float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma3(d, ahi, alo, bhi[j], blo[j]);
+          mmax<EX, EX>(d, ahi, alo, bhi[j], blo[j]);
           drain(acc[i][j], d);
         }
       }
@@ -181,23 +213,16 @@ gemm_3xtf32(const float* __restrict__ A, const float* __restrict__ B,
   }
 
 #pragma unroll
-  for (int i = 0; i < T::MT; ++i)
+  for (int i = 0; i < Tl::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < T::NT; ++j) {
+    for (int j = 0; j < Tl::NT; ++j) {
       const int col = n0 + wn + j * 8 + 2 * t;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + wm + i * 16 + g + 8 * h;
         if (row >= M) continue;
-        float* out = C + size_t(row) * N + col;
-        if constexpr (VEC) {            // N % 4 == 0: col + 1 < N too
-          if (col < N)
-            *reinterpret_cast<float2*>(out) =
-                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        } else {
-          if (col < N) out[0] = acc[i][j][2 * h];
-          if (col + 1 < N) out[1] = acc[i][j][2 * h + 1];
-        }
+        store_pair<T, VEC>(C + size_t(row) * N + col, col, N,
+                           acc[i][j][2 * h], acc[i][j][2 * h + 1]);
       }
     }
 }
@@ -218,62 +243,85 @@ int sm_count(int device) {
 
 // The big tile where its grid gives every SM a block, else the small one.
 bool big_tiles(int M, int N, int device) {
-  const long blocks = long((M + Big::BM - 1) / Big::BM) *
-                      ((N + Big::BN - 1) / Big::BN);
+  const long blocks = long((M + 127) / 128) * ((N + 127) / 128);
   return blocks >= sm_count(device);
 }
 
-bool vec_copies(int N, int K, const void* a, const void* b, const void* c) {
-  return K % 4 == 0 && N % 4 == 0 && aligned16(a) && aligned16(b) &&
+// 16-byte copies where K and N are multiples of the copy's elements
+// (4 f32, 8 bf16) and every pointer is 16-byte aligned.
+bool vec_copies(int N, int K, int elem_bytes, const void* a, const void* b,
+                const void* c) {
+  const int w = 16 / elem_bytes;
+  return K % w == 0 && N % w == 0 && aligned16(a) && aligned16(b) &&
          aligned16(c);
 }
 
-template <class T, bool VEC>
-int launch(const float* a, const float* b, float* c, int M, int N, int K,
+template <class Tl, bool VEC>
+int launch(const void* a, const void* b, void* c, int M, int N, int K,
            cudaStream_t stream) {
+  using T = typename Tl::T;
   // once per instantiation (the process drives one card)
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        gemm_3xtf32<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(T::bytes));
+        gemm_3xtf32<Tl, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Tl::bytes));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(gemm_3xtf32<T, VEC>,
+    return cudaFuncSetAttribute(gemm_3xtf32<Tl, VEC>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 int(cudaSharedmemCarveoutMaxShared));
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
-  gemm_3xtf32<T, VEC><<<grid, T::THREADS, T::bytes, stream>>>(a, b, c, M, N,
-                                                               K);
+  const dim3 grid((N + Tl::BN - 1) / Tl::BN, (M + Tl::BM - 1) / Tl::BM);
+  gemm_3xtf32<Tl, VEC><<<grid, Tl::THREADS, Tl::bytes, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
+      M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch_t(const void* a, const void* b, void* c, int M, int N, int K,
+             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool big = big_tiles(M, N, device);
+  if (vec_copies(N, K, sizeof(T), a, b, c))
+    return big ? launch<Big<T>, true>(a, b, c, M, N, K, st)
+               : launch<Small<T>, true>(a, b, c, M, N, K, st);
+  return big ? launch<Big<T>, false>(a, b, c, M, N, K, st)
+             : launch<Small<T>, false>(a, b, c, M, N, K, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` (a cudaStream_t from the caller) and returns the
-// launch's cudaError_t: 0 when the kernel was accepted.
-int tiled_matmul_f32(const float* a, const float* b, float* c, int M, int N,
+// Launch on `stream` (a cudaStream_t from the caller) and return the
+// launch's cudaError_t: 0 when the kernel was accepted.  f32 operands and
+// output, or bf16 operands and output (f32 arithmetic either way).
+int tiled_matmul_f32(const void* a, const void* b, void* c, int M, int N,
                      int K, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool big = big_tiles(M, N, device);
-  if (vec_copies(N, K, a, b, c))
-    return big ? launch<Big, true>(a, b, c, M, N, K, st)
-               : launch<Small, true>(a, b, c, M, N, K, st);
-  return big ? launch<Big, false>(a, b, c, M, N, K, st)
-             : launch<Small, false>(a, b, c, M, N, K, st);
+  return launch_t<float>(a, b, c, M, N, K, device, stream);
 }
 
-// The configuration tiled_matmul_f32 launches for these operands (the
-// output taken as 16-byte aligned), e.g. "128x128 cp.async16".
+int tiled_matmul_bf16(const void* a, const void* b, void* c, int M, int N,
+                      int K, int device, void* stream) {
+  return launch_t<__nv_bfloat16>(a, b, c, M, N, K, device, stream);
+}
+
+// The configuration a launch takes for these operands of `elem_bytes`
+// bytes an element (the output taken as 16-byte aligned), e.g.
+// "128x128 cp.async16"; bf16 routes end in " bf16", and their one-element
+// copies are plain loads ("ld2").
 const char* tiled_matmul_route(int M, int N, int K, const void* a,
-                               const void* b, int device) {
+                               const void* b, int device, int elem_bytes) {
   const bool big = big_tiles(M, N, device);
-  if (vec_copies(N, K, a, b, nullptr))
-    return big ? "128x128 cp.async16" : "64x64 cp.async16";
+  const bool vec = vec_copies(N, K, elem_bytes, a, b, nullptr);
+  if (elem_bytes == 2) {
+    if (vec) return big ? "128x128 cp.async16 bf16" : "64x64 cp.async16 bf16";
+    return big ? "128x128 ld2 bf16" : "64x64 ld2 bf16";
+  }
+  if (vec) return big ? "128x128 cp.async16" : "64x64 cp.async16";
   return big ? "128x128 cp.async4" : "64x64 cp.async4";
 }
 

@@ -2,7 +2,8 @@
 (``src/repro/kernels/flash_attention.py:90``).
 
 ``flash_attention_mha(q, k, v, causal)`` launches the CUDA kernel of
-``csrc/flash_attention.cu`` (3xTF32 on the tensor cores, f32 accuracy) for
+``csrc/flash_attention.cu`` (3xTF32 on the tensor cores, f32 accuracy; f32
+or bf16 operands, the output of their type, as the reference) for
 tensors on the card and runs the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`) for tensors on the CPU.  A
 CUDA tensor never falls back: what the kernel does not take raises.
@@ -23,14 +24,14 @@ MAX_HEAD_DIM = 256
 
 def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True) -> torch.Tensor:
-    """q (B, H, Sq, D); k, v (B, H, Sk, D), MHA layout -> (B, H, Sq, D)."""
+    """q (B, H, Sq, D); k, v (B, H, Sk, D), MHA layout -> (B, H, Sq, D)
+    of q's type."""
     qkv = (q, k, v)
     if all(x.device.type == "cpu" for x in qkv):
         return attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda" or any(x.device != q.device for x in qkv):
         raise ValueError("flash_attention_mha: q, k, v must lie on one card")
-    if any(x.dtype != torch.float32 for x in qkv):
-        raise TypeError("flash_attention_mha: the kernel takes float32")
+    suffix = _build.dtype_suffix("flash_attention_mha", qkv)
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention_mha: shapes {tuple(q.shape)}, "
@@ -48,9 +49,9 @@ def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.flash_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), B, H, Sq, Sk, D,
-                                   int(causal), q.device.index or 0, stream)
+    launch = getattr(lib, f"flash_attention_{suffix}")
+    code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, H, Sq, Sk, D, int(causal), q.device.index or 0, stream)
     _build.check(lib, "flash_attention_mha", code)
     flash_attention_mha.launches += 1
     return out
@@ -62,8 +63,10 @@ flash_attention_mha.launches = 0
 def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel configuration ``flash_attention_mha(q, k, v)`` launches
     for these CUDA tensors, e.g. ``"D128 kv64 cp.async16"``: the head-dim
-    template, its kv tile, and the copy width (16 bytes where D % 4 == 0
-    and q, k, v are 16-byte aligned, else 4)."""
+    template, its kv tile, and the copy width (16 bytes where D is a
+    multiple of 4 f32 or 8 bf16 elements and q, k, v are 16-byte aligned,
+    else one element: ``cp.async4`` for f32, ``ld2`` for bf16, whose routes
+    end in `` bf16``)."""
     lib = _build.load("flash_attention")
     return lib.flash_attention_route(q.shape[3], q.data_ptr(), k.data_ptr(),
-                                     v.data_ptr()).decode()
+                                     v.data_ptr(), q.element_size()).decode()

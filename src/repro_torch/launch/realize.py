@@ -1,5 +1,6 @@
 """Realization driver: DSE checkpoint -> stage programs on the card ->
-measured report (port of ``src/repro/launch/realize.py``).
+measured-vs-predicted report -> Tech overlay (port of
+``src/repro/launch/realize.py``).
 
 Usage:
 
@@ -8,7 +9,7 @@ Usage:
       --workload TF=tf-paper --top 1 --out results/realize-torch.jsonl
   PYTHONPATH=src python -m repro_torch.launch.realize \
       --ckpt tests/data/realize/mamba2-370m.simba.ckpt.jsonl \
-      --workload MAMBA=lm:mamba2-370m --top 1
+      --workload MAMBA=lm:mamba2-370m --top 1 --calibrate
 
 ``--workload`` binds a checkpoint's workload name to a spec that
 :func:`repro_torch.core.workloads.make_workload` resolves: a preset
@@ -19,10 +20,14 @@ attention pairs flash attention, ``*_ssd`` layers the chunked SSD.
 The report is resumable: one JSONL record per realized candidate, keyed by
 the checkpoint's task key; a re-run skips recorded candidates ("resumed
 from"), ``--force`` re-measures.  Its fingerprint prefix is
-``realize-torch:v1:``, so a torch report never resumes a JAX one.
-``--device`` defaults to ``cuda`` and fails without a card; ``--device cpu``
-runs the plain versions on the CPU.  Calibration (``--calibrate``) waits for
-the cost-model slice of the port.
+``realize-torch:v2:``, so a torch report never resumes a JAX one, nor one
+written before the predicted side was ported (whose ``pred_*`` are 0 and
+must never feed a fit).  ``--calibrate`` fits the Tech overlay from every
+record in the report, resumed ones included, and writes it to
+``--overlay-out`` (default: the report's path with the suffix
+``.overlay.json``); its ``source`` starts with ``repro_torch:`` and names
+the device.  ``--device`` defaults to ``cuda`` and fails without a card;
+``--device cpu`` runs the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -31,7 +36,10 @@ import argparse
 import time
 from pathlib import Path
 
+import torch
+
 from ..core.explore import ResumableSweep
+from ..realize.calibrate import fit_overlay, save_overlay
 from ..realize.measure import measure_candidate
 from ..realize.plan import (checkpoint_workload_fingerprints, graph_from_spec,
                             load_realize_candidates, plans_for)
@@ -42,18 +50,24 @@ from .cli import resolve_workloads, workload_bindings
 def _print_report(rep) -> None:
     print(f"[realize] {rep.arch_label} x {rep.workload} "
           f"(batch_unit={rep.batch_unit}, {len(rep.stages)} stages)")
-    # measured columns only: the predicted ones come with the cost model
-    print(f"  {'stage':5s} {'devs':>4s} {'route':14s} {'GFLOP':>8s} "
-          f"{'HBM MB':>8s} {'ICI MB':>8s} {'DCI MB':>8s} {'wall ms':>8s}")
+    print(f"  {'stage':5s} {'devs':>4s} {'route':14s} "
+          f"{'GFLOP m/p':>16s} {'HBM m/p MB':>16s} "
+          f"{'ICI/NoC m/p MB':>16s} {'DCI/D2D m/p MB':>16s} {'wall ms':>8s}")
     for st in rep.stages:
         # flash-scores is the fused half of a flash pair — not a kernel
         kernels = sorted({r.split(":")[0] for r in st.routes.values()}
                          - {"add", "jnp", "flash-scores"})
         route = "+".join(kernels) if kernels else "add"
         print(f"  {st.index:5d} {st.n_devices:4d} {route:14s} "
-              f"{st.flops/1e9:8.2f} {st.hbm_bytes/1e6:8.2f} "
-              f"{st.ici_bytes/1e6:8.2f} {st.dci_bytes/1e6:8.2f} "
+              f"{st.flops/1e9:7.2f}/{st.pred_flops/1e9:<8.2f} "
+              f"{st.hbm_bytes/1e6:7.2f}/{st.pred_dram_bytes/1e6:<8.2f} "
+              f"{st.ici_bytes/1e6:7.2f}/{st.pred_noc_bytes/1e6:<8.2f} "
+              f"{st.dci_bytes/1e6:7.2f}/{st.pred_d2d_bytes/1e6:<8.2f} "
               f"{st.wall_s*1e3:8.3f}")
+    rs = rep.ratio_summary()
+    if rs:
+        print("  measured/predicted geomean: "
+              + "  ".join(f"{k}={v:.3g}" for k, v in sorted(rs.items())))
 
 
 def main(argv=None) -> None:
@@ -75,6 +89,10 @@ def main(argv=None) -> None:
                     "'cpu' (the plain versions)")
     ap.add_argument("--out", default="results/realize-torch.jsonl",
                     help="resumable measured report (JSONL)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="fit + write the Tech overlay from all records")
+    ap.add_argument("--overlay-out", default=None,
+                    help="overlay path (default: <out>.overlay.json)")
     ap.add_argument("--no-exec", action="store_true",
                     help="count kernel work only; skip execution")
     ap.add_argument("--force", action="store_true")
@@ -101,7 +119,7 @@ def main(argv=None) -> None:
           f"device: {device}")
 
     fps = checkpoint_workload_fingerprints(ckpt)
-    fp = ("realize-torch:v1:"
+    fp = ("realize-torch:v2:"
           + ",".join(f"{n}:{fps.get(n, '?')}" for n in wl_names)
           + f":device={device.type}:exec={int(not args.no_exec)}")
     out = Path(args.out)
@@ -121,6 +139,19 @@ def main(argv=None) -> None:
         sweep.add(cand.key, rep.to_record())
     print(f"[realize] report -> {out} ({len(sweep)} records, "
           f"{time.time() - t0:.1f}s)")
+
+    if args.calibrate:
+        name = torch.cuda.get_device_name(device) \
+            if device.type == "cuda" else "cpu"
+        overlay = fit_overlay(list(sweep.as_dict().values()),
+                              source=f"repro_torch:{ckpt.name}|"
+                                     f"device={name}")
+        op = Path(args.overlay_out) if args.overlay_out \
+            else out.with_suffix(".overlay.json")
+        save_overlay(overlay, op)
+        print(f"[realize] Tech overlay (from {overlay.n_stages} stages): "
+              f"f_d2d={overlay.f_d2d:.3g} f_noc={overlay.f_noc:.3g} "
+              f"f_dram={overlay.f_dram:.3g} -> {op}")
 
 
 if __name__ == "__main__":

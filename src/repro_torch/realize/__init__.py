@@ -1,2 +1,2 @@
 """Realization loop on one card: checkpoint -> plan -> stage programs ->
-execution and the measured side of the report."""
+execution -> measured-vs-predicted report -> Tech overlay."""

@@ -1,8 +1,23 @@
-"""Measured side of the realization report (realization stage 3).
+"""Measured-vs-predicted report (realization stage 3).
 
-Port of the measured half of ``src/repro/realize/measure.py``;
-``StageReport`` and ``RealizationReport`` keep the reference's field names
-and record layout.  The reference reads FLOPs and HBM bytes from compiled
+Port of ``src/repro/realize/measure.py``; ``StageReport`` and
+``RealizationReport`` keep the reference's field names and record layout.
+
+**Predicted side** (``:166-228`` of the reference): one
+:func:`repro_torch.core.evaluator.evaluator_for` per candidate, and per
+stage ``traffic_summary(group, lms, group.batch_unit)`` of the stage's
+(group, LMS) — one pipeline pass, weight loads unamortized, the exact
+call the reference makes — into the seven ``pred_*`` fields.  It is host
+numpy, float64, and equals the reference's to the bit; it runs before the
+stages execute, outside their timed CUDA events, and
+``RealizationReport.predict_s`` records its host seconds.  A scaled
+(expected-traffic) graph would have its measured side multiplied by the
+per-axis factor ``pred_scaled / pred_dense`` of a
+:func:`repro_torch.core.workload.dense_twin` evaluation, as in the
+reference (``expected_scale``); no graph the port builds is scaled yet, so
+the twin is the graph itself and no factor is applied.
+
+**Measured side.**  The reference reads FLOPs and HBM bytes from compiled
 HLO; the port has no HLO, so it counts them per kernel launch from the
 launch's shapes (:func:`launch_cost`):
 
@@ -19,20 +34,36 @@ launch's shapes (:func:`launch_cost`):
 * ``hbm_bytes``: each operand read once plus the result written once;
 * ``dci_bytes`` and ``wall_s``: from the executor
   (:meth:`..realize.program.RealizedProgram.execute`);
-* ``ici_bytes``: 0.  A stage's logical grid lives on one card, which runs
-  no collectives, so no intra-stage traffic is measured.
+* ``ici_bytes``: 0.
 
-The predicted per-stage fields (``pred_*``) stay 0 until the cost model is
-ported (ROADMAP queue 1, slice 3), and the measured/predicted ratios
-(``ratios``, ``ratio_summary``) come with it; the candidate-level
-``pred_energy_j`` and ``pred_delay_s`` come from the checkpoint record.
+**Where the measured side counts differently from the reference's HLO
+walk**, and what calibration makes of it:
+
+* ``ici_bytes`` stays 0: a stage's logical grid lives on one card, which
+  runs no collectives.  The reshards of the logical grid are not counted
+  as ICI; that would be a model of traffic, not a measurement.  So no
+  stage has a ``noc_bytes`` ratio, and the fitted ``f_noc`` stays 1.0 by
+  ``fit_overlay``'s rule for an axis with no evidence.
+* ``hbm_bytes`` counts each kernel operand once, not the compiled
+  program's HBM bytes with its eager glue, so the fitted ``f_dram`` is on
+  the port's own scale.  An overlay the port fits names ``repro_torch:``
+  and the device in its ``source``.
+* ``flops`` counts only the pairs the masks keep; no factor is fitted from
+  FLOPs, so the difference shows only in ``ratio_summary``.
+* ``dci_bytes`` equals the reference's, so ``f_d2d``, the factor the paper
+  calibrates, compares between the two packages.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Tuple
 
+import numpy as np
+
+from ..core.evaluator import evaluator_for
+from ..core.workload import dense_twin
 from .plan import RealizeCandidate
 from .program import RealizedProgram
 
@@ -84,7 +115,7 @@ class StageReport:
     arg_bytes: float = 0.0
     compile_s: float = 0.0             # eager: nothing is compiled
     wall_s: float = 0.0
-    # predicted (analytical, one pass): not ported yet, stays 0
+    # predicted (analytical, one pass)
     pred_flops: float = 0.0
     pred_dram_bytes: float = 0.0
     pred_noc_bytes: float = 0.0
@@ -92,6 +123,21 @@ class StageReport:
     pred_delay_s: float = 0.0
     pred_energy_j: float = 0.0
     pred_glb_overflow: float = 0.0
+    # expected-traffic factors applied to the measured side (scaled graphs
+    # only; empty for dense graphs — see module docstring)
+    expected_scale: Dict[str, float] = field(default_factory=dict)
+
+    def ratios(self) -> Dict[str, float]:
+        """measured / predicted per axis; only well-defined pairs appear."""
+        out: Dict[str, float] = {}
+        for key, meas, pred in (
+                ("flops", self.flops, self.pred_flops),
+                ("dram_bytes", self.hbm_bytes, self.pred_dram_bytes),
+                ("noc_bytes", self.ici_bytes, self.pred_noc_bytes),
+                ("d2d_bytes", self.dci_bytes, self.pred_d2d_bytes)):
+            if pred > 0 and meas > 0:
+                out[key] = meas / pred
+        return out
 
     def to_record(self) -> Dict[str, Any]:
         d = {k: getattr(self, k) for k in (
@@ -102,6 +148,9 @@ class StageReport:
         d["layers"] = list(self.layers)
         d["routes"] = dict(self.routes)
         d["coll_by_kind"] = dict(self.coll_by_kind)
+        d["ratios"] = self.ratios()
+        if self.expected_scale:        # dense records keep their shape
+            d["expected_scale"] = dict(self.expected_scale)
         return d
 
 
@@ -116,6 +165,7 @@ class RealizationReport:
     stages: List[StageReport]
     pred_energy_j: float = 0.0         # checkpoint's analytical prediction
     pred_delay_s: float = 0.0
+    predict_s: float = 0.0             # host seconds of the predicted side
 
     def totals(self) -> Dict[str, float]:
         t: Dict[str, float] = {}
@@ -125,35 +175,82 @@ class RealizationReport:
             t[f] = sum(getattr(s, f) for s in self.stages)
         return t
 
+    def ratio_summary(self) -> Dict[str, float]:
+        """Geometric-mean measured/predicted ratio per traffic axis."""
+        acc: Dict[str, List[float]] = {}
+        for s in self.stages:
+            for k, v in s.ratios().items():
+                acc.setdefault(k, []).append(v)
+        return {k: float(np.exp(np.mean(np.log(v))))
+                for k, v in acc.items()}
+
     def to_record(self) -> Dict[str, Any]:
         return {"workload": self.workload, "arch": self.arch_label,
                 "tech": self.tech, "batch_unit": self.batch_unit,
                 "pred_energy_j": self.pred_energy_j,
                 "pred_delay_s": self.pred_delay_s,
+                "predict_s": self.predict_s,
                 "totals": self.totals(),
+                "ratio_summary": self.ratio_summary(),
                 "stages": [s.to_record() for s in self.stages]}
 
 
 def measure_candidate(cand: RealizeCandidate, prog: RealizedProgram,
                       execute: bool = True, seed: int = 0
                       ) -> RealizationReport:
-    """Count one candidate's kernel work per stage and, with ``execute``,
-    run it once for wall time and DCI bytes."""
+    """Predict and count one candidate's work per stage and, with
+    ``execute``, run it once for wall time and DCI bytes.
+
+    The predicted side re-runs the analytical evaluator on the candidate's
+    own (arch, graph, LMS), the code path the DSE scored it with, so the
+    diff isolates model-vs-measurement error, not drift."""
+    t0 = time.perf_counter()
+    ev = evaluator_for(cand.arch, cand.graph)
+    twin = dense_twin(cand.graph)
+    ev_dense = ev if twin is cand.graph else evaluator_for(cand.arch, twin)
+    # total_batch = batch_unit: ONE pipeline pass, with weight loads
+    # unamortized — what the realized stage executes
+    preds = [ev.traffic_summary(grp, lms, grp.batch_unit)
+             for grp, lms in cand.mapping]
+    denses = None if ev_dense is ev else [
+        ev_dense.traffic_summary(grp, lms, grp.batch_unit)
+        for grp, lms in cand.mapping]
+    predict_s = time.perf_counter() - t0
     reports: List[StageReport] = []
-    for sp in prog.stages:
+    for i, (sp, pred) in enumerate(zip(prog.stages, preds)):
         costs = [launch_cost(k, s) for k, s in sp.launches]
+        meas = {"flops": sum(c[0] for c in costs),
+                "hbm_bytes": sum(c[1] for c in costs), "ici_bytes": 0.0}
+        esc: Dict[str, float] = {}
+        if denses is not None:
+            dense = denses[i]
+            esc = {k: (pred[k] / dense[k]) if dense[k] > 0 else 1.0
+                   for k in ("flops", "dram_bytes", "noc_bytes",
+                             "d2d_bytes")}
+            meas["flops"] *= esc["flops"]
+            meas["hbm_bytes"] *= esc["dram_bytes"]
+            meas["ici_bytes"] *= esc["noc_bytes"]
         reports.append(StageReport(
             index=sp.index, layers=sp.stage.layers, n_devices=sp.n_devices,
             routes=dict(sp.routes),
-            flops=sum(c[0] for c in costs),
-            hbm_bytes=sum(c[1] for c in costs)))
+            flops=meas["flops"], hbm_bytes=meas["hbm_bytes"],
+            ici_bytes=meas["ici_bytes"],
+            pred_flops=pred["flops"],
+            pred_dram_bytes=pred["dram_bytes"],
+            pred_noc_bytes=pred["noc_bytes"],
+            pred_d2d_bytes=pred["d2d_bytes"],
+            pred_delay_s=pred["delay_s"],
+            pred_energy_j=pred["energy_j"],
+            pred_glb_overflow=pred["glb_overflow_bytes"],
+            expected_scale=esc))
     if execute:
         run = prog.execute(seed=seed)
         for sr, wall, dci in zip(reports, run["wall_s"], run["dci_bytes"]):
             sr.wall_s = wall
-            sr.dci_bytes = float(dci)
+            sr.dci_bytes = float(dci) * sr.expected_scale.get("d2d_bytes",
+                                                              1.0)
     return RealizationReport(
         key=cand.key, workload=cand.workload, arch_label=cand.arch.label(),
         tech=cand.arch.tech.name, batch_unit=prog.batch_unit,
         stages=reports, pred_energy_j=cand.energy_j,
-        pred_delay_s=cand.delay_s)
+        pred_delay_s=cand.delay_s, predict_s=predict_s)

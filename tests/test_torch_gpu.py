@@ -7,9 +7,12 @@ The file imports no JAX, so it runs on the card's machine:
 
 Tolerances are those of ``tests/test_kernels.py``: atol 1e-3 / rtol 1e-4
 for the f32 GEMM, 2e-5 for f32 attention, 1e-4 for the SSD chunk kernel
-and 2e-4 for the chunked SSD; TF32 is off for the plain versions.  The
-three kernels compute in 3xTF32 on the tensor cores; each of their tile
-or head-dim configurations and copy widths is driven here.
+and 2e-4 for the chunked SSD; for bf16 operands, GEMM atol 0.5 / rtol
+5e-2 and attention 2e-2 against the plain version on the upcast inputs
+(the SSD kernel returns f32 and keeps 1e-4).  TF32 is off for the plain
+versions.  The three kernels compute in 3xTF32 on the tensor cores; each
+of their tile or head-dim configurations and copy widths is driven here,
+for f32 and for bf16.
 """
 
 import numpy as np
@@ -224,20 +227,116 @@ def test_ssd_forward_kernel_vs_plain(cuda):
     torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
 
 
-@pytest.mark.gpu
-def test_ssd_kernel_refuses_bf16(cuda):
-    args = _ssd_inputs(np.random.default_rng(0), 1, 16, 2, 8, 4, cuda)
-    with pytest.raises(TypeError):
-        ssd_chunk_dual(*(a.bfloat16() for a in args))
+# bf16: the kernels take bf16 operands and compute in f32, as the
+# reference's do; each is held against its plain version on the upcast
+# inputs at the reference's bf16 tolerances (tests/test_kernels.py: GEMM
+# atol 0.5 / rtol 5e-2, flash 2e-2).  The reference has no bf16 SSD test;
+# the SSD kernel returns f32 and a bf16 input is exact in f32, so it is
+# held to its f32 tolerance (1e-4).
+MM_BF16_TOL = {"atol": 0.5, "rtol": 5e-2}
+FLASH_BF16_TOL = {"atol": 2e-2, "rtol": 2e-2}
+SSD_BF16_TOL = {"atol": 1e-4, "rtol": 1e-4}
 
 
 @pytest.mark.gpu
-def test_kernels_refuse_other_dtypes(cuda):
-    a = torch.zeros((4, 4), device=cuda, dtype=torch.bfloat16)
+@pytest.mark.parametrize("M,K,N,route", [
+    (2048, 512, 512, "64x64 cp.async16 bf16"),      # the paths' shapes
+    (2048, 512, 2048, "128x128 cp.async16 bf16"),
+    (4096, 1024, 4384, "128x128 cp.async16 bf16"),
+    (128, 128, 128, "64x64 cp.async16 bf16"),       # tests/test_kernels.py
+    (257, 129, 65, "64x64 ld2 bf16"),               # odd K, odd N
+    (2048, 131, 2048, "128x128 ld2 bf16"),          # odd K
+    (1000, 64, 77, "64x64 ld2 bf16"),               # odd N
+    (512, 260, 512, "64x64 ld2 bf16"),              # K % 8 == 4
+])
+def test_tiled_matmul_bf16_vs_plain(cuda, M, K, N, route):
+    """bf16 operands launch the kernel (the counter moves), return bf16,
+    and agree with the plain f32 product of the upcast operands."""
+    rng = np.random.default_rng(M + 3 * K + N)
+    a = torch.from_numpy(_randn(rng, (M, K))).to(cuda).bfloat16()
+    b = torch.from_numpy(_randn(rng, (K, N))).to(cuda).bfloat16()
+    assert mm.kernel_route(a, b) == route
+    n0 = tiled_matmul.launches
+    got = tiled_matmul(a, b)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    torch.testing.assert_close(got.float(),
+                               ref.matmul_ref(a.float(), b.float()),
+                               **MM_BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,route", [
+    (4, 4, 512, 512, 128, True, "D128 kv64 cp.async16 bf16"),  # the path
+    (1, 2, 64, 64, 32, True, "D32 kv64 cp.async16 bf16"),  # test_kernels
+    (2, 2, 100, 70, 40, True, "D64 kv64 cp.async16 bf16"),     # D = 40
+    (1, 3, 80, 90, 36, False, "D64 kv64 ld2 bf16"),            # D % 8 == 4
+    (1, 2, 70, 70, 33, True, "D64 kv64 ld2 bf16"),             # odd D
+    (1, 2, 96, 200, 256, True, "D256 kv32 cp.async16 bf16"),
+])
+def test_flash_attention_bf16_vs_plain(cuda, B, H, Sq, Sk, D, causal, route):
+    rng = np.random.default_rng(B + H + Sq + 7 * D)
+    q, k, v = (torch.from_numpy(_randn(rng, (B, H, S, D))).to(cuda)
+               .bfloat16() for S in (Sq, Sk, Sk))
+    assert flash_attention.kernel_route(q, k, v) == route
+    n0 = flash_attention_mha.launches
+    got = flash_attention_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_mha.launches == n0 + 1
+    assert got.dtype == torch.bfloat16
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.testing.assert_close(got.float(), want, **FLASH_BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BC,Q,H,P,N,route", [
+    (32, 128, 16, 128, 64, "P128 cp.async16 bf16"),   # the mamba2-370m path
+    (2, 16, 2, 8, 4, "P128 ld2 bf16"),                # N % 8 != 0
+    (1, 100, 5, 64, 64, "P128 cp.async16 bf16"),      # Q % 16 != 0
+    (1, 128, 3, 130, 24, "P128 ld2 bf16"),            # P = 130
+    (3, 70, 3, 60, 50, "P128 ld2 bf16"),
+])
+def test_ssd_chunk_kernel_bf16_vs_plain(cuda, BC, Q, H, P, N, route):
+    """bf16 inputs launch the kernel and give f32 outputs, equal to the
+    plain version on the upcast inputs."""
+    rng = np.random.default_rng(BC * Q + H + P + 2 * N)
+    args = [a.bfloat16() for a in _ssd_inputs(rng, BC, Q, H, P, N, cuda)]
+    assert mamba_ssd.kernel_route(args[0], args[2], args[3]) == route
+    n0 = ssd_chunk_dual.launches
+    y, s = ssd_chunk_dual(*args)
+    torch.cuda.synchronize()
+    assert ssd_chunk_dual.launches == n0 + 1
+    assert y.dtype == s.dtype == torch.float32
+    yr, sr = ref.ssd_chunk_ref(*(a.float() for a in args))
+    torch.testing.assert_close(y, yr, **SSD_BF16_TOL)
+    torch.testing.assert_close(s, sr, **SSD_BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [
+    (torch.float64, torch.float64), (torch.float16, torch.float16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_kernels_refuse_other_and_mixed_dtypes(cuda, dtypes):
+    """Only all-f32 or all-bf16 operands launch; float64, float16 and a
+    mix raise ``TypeError`` without launching."""
+    first, rest = dtypes
+    counters = (tiled_matmul, flash_attention_mha, ssd_chunk_dual)
+    n0 = [c.launches for c in counters]
+    a = torch.zeros((4, 4), device=cuda, dtype=first)
+    b = torch.zeros((4, 4), device=cuda, dtype=rest)
     with pytest.raises(TypeError):
-        tiled_matmul(a, a)
+        tiled_matmul(a, b)
+    q = a.reshape(1, 1, 4, 4)
+    kv = b.reshape(1, 1, 4, 4)
     with pytest.raises(TypeError):
-        flash_attention_mha(*(a.reshape(1, 1, 4, 4),) * 3)
+        flash_attention_mha(q, kv, kv)
+    x = torch.zeros((1, 16, 2, 8), device=cuda, dtype=first)
+    rest3 = [torch.zeros(sh, device=cuda, dtype=rest)
+             for sh in ((1, 16, 2), (1, 16, 4), (1, 16, 4))]
+    with pytest.raises(TypeError):
+        ssd_chunk_dual(x, *rest3)
+    assert [c.launches for c in counters] == n0
 
 
 def _kernel_route_vs_plain_route(cuda, fixture_name, name, spec):

@@ -402,6 +402,52 @@ def test_ssd_chunk_mask_is_a_select_so_a_steep_decay_stays_finite():
 
 
 # ---------------------------------------------------------------------------
+# bf16 operands: exact in TF32, so their lo products are left out
+# ---------------------------------------------------------------------------
+
+def test_bf16_operands_split_with_a_zero_lo_part():
+    """A bf16 value widened to f32 has 8 significant bits, so the kernels'
+    split gives hi = x and lo = 0: the products of its lo part are zero,
+    and one TF32 product of two bf16-born operands equals the three of the
+    f32 path (``tf32x3::mmax``)."""
+    rng = np.random.default_rng(16)
+    a = torch.from_numpy(_randn(rng, (64, 512))).bfloat16().float()
+    b = torch.from_numpy(_randn(rng, (512, 64))).bfloat16().float()
+    hi, lo = _split(a)
+    assert torch.equal(hi, a) and not lo.any()
+    assert torch.equal(_mm_tf32(a, b, 1), _mm_tf32(a, b, 3))
+
+
+def test_bf16_partner_keeps_the_f32_operands_split():
+    """P V in flash, W x and (d .* B)^T x in SSD: the f32-computed operand
+    keeps its split and only the bf16-born partner's lo product is left
+    out (two products), which equals the three; dropping the f32 operand's
+    lo part too would not meet the f32 attention tolerance (2e-5)."""
+    rng = np.random.default_rng(17)
+    p = torch.softmax(torch.from_numpy(_randn(rng, (64, 512))) * 3, dim=-1)
+    v = torch.from_numpy(_randn(rng, (512, 64))).bfloat16().float()
+    (phi, plo), (vhi, _) = _split(p), _split(v)
+    two = plo @ vhi + phi @ vhi
+    assert torch.equal(two, _mm_tf32(p, v, 3))
+    want = p.double() @ v.double()
+    assert (two.double() - want).abs().max() < 2e-5
+    assert (_mm_tf32(p, v, 1).double() - want).abs().max() > 2e-5
+
+
+def test_dtype_suffix_takes_f32_or_bf16_all_of_one_type():
+    """The wrappers' type check on the card: all float32 or all bfloat16
+    pick the launch function; anything else raises ``TypeError``."""
+    f, h = torch.zeros(2), torch.zeros(2, dtype=torch.bfloat16)
+    assert _build.dtype_suffix("k", (f, f)) == "f32"
+    assert _build.dtype_suffix("k", (h, h, h)) == "bf16"
+    for bad in ((f, h), (h, f), (f.double(),), (f.half(), f.half())):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            _build.dtype_suffix("k", bad)
+    for name, fns in _build.SIGNATURES.items():
+        assert {fn.rsplit("_", 1)[1] for fn in fns} == {"f32", "bf16"}
+
+
+# ---------------------------------------------------------------------------
 # the build: a library's name digests everything it is compiled from
 # ---------------------------------------------------------------------------
 

@@ -382,30 +382,49 @@ def _keep_ckpt(tmp_path):
 
 
 def test_realize_cli_end_to_end_cpu(tmp_path):
+    """``--device cpu --calibrate``: a report with the predicted side and
+    the ratios, and an overlay fitted from it; the re-run resumes every
+    record and fits the same overlay from disk."""
     ck = _keep_ckpt(tmp_path)
     out = tmp_path / "realize.jsonl"
+    overlay = tmp_path / "realize.overlay.json"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO / "src")
     cmd = [sys.executable, "-m", "repro_torch.launch.realize",
            "--ckpt", str(ck), "--workload", f"TF={SMALL_SPEC}",
-           "--top", "2", "--device", "cpu", "--out", str(out)]
+           "--top", "2", "--device", "cpu", "--out", str(out),
+           "--calibrate"]
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                        env=env)
     assert r.returncode == 0, f"stderr:\n{r.stderr[-3000:]}"
-    assert "DCI MB" in r.stdout
+    assert "DCI/D2D m/p MB" in r.stdout
+    assert "measured/predicted geomean" in r.stdout
     lines = out.read_text().splitlines()
-    assert json.loads(lines[0])["_config"].startswith("realize-torch:v1:TF:")
+    assert json.loads(lines[0])["_config"].startswith("realize-torch:v2:TF:")
     recs = [json.loads(line) for line in lines[1:]]
     assert len(recs) == 2
     for rec in recs:
         assert rec["totals"]["flops"] > 0 and rec["totals"]["wall_s"] > 0
         assert rec["totals"]["ici_bytes"] == 0
         assert rec["pred_energy_j"] > 0 and rec["stages"]
+        assert rec["totals"]["pred_flops"] > 0
+        assert rec["totals"]["pred_dram_bytes"] > 0
+        assert rec["predict_s"] > 0
+        assert 0.2 < rec["ratio_summary"]["flops"] < 20
+        assert "noc_bytes" not in rec["ratio_summary"]
+        assert all(st["ratios"] for st in rec["stages"])
+    first = json.loads(overlay.read_text())
+    assert first["n_stages"] == sum(len(rec["stages"]) for rec in recs) > 0
+    assert first["source"].startswith("repro_torch:rt.ckpt.jsonl|")
+    assert first["source"].endswith("device=cpu")
+    assert first["f_noc"] == 1.0
+    overlay.unlink()
     r2 = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                         env=env)
     assert r2.returncode == 0, f"stderr:\n{r2.stderr[-3000:]}"
     assert r2.stdout.count("resumed from") == 2
     assert len(out.read_text().splitlines()) == 3
+    assert json.loads(overlay.read_text()) == first
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
@@ -444,6 +463,12 @@ def test_mamba_fixture_cli_counts_on_the_cpu(tmp_path):
     rec = json.loads(out.read_text().splitlines()[-1])
     assert len(rec["stages"]) == 96 and rec["batch_unit"] == 1
     assert rec["totals"]["flops"] == 2_694_970_343_424
+    # the predicted side, and the reference's sanity band on each stage's
+    # measured/predicted FLOPs (tests/test_realize.py)
+    assert all(st["pred_flops"] > 0 for st in rec["stages"])
+    for st in rec["stages"]:
+        assert 0.2 < st["ratios"]["flops"] < 20, st["index"]
+    assert 0.2 < rec["ratio_summary"]["flops"] < 20
 
 
 def test_one_layer_ssd_plan_builds_and_runs():
