@@ -54,14 +54,34 @@ phase prints one JSON line:
    not finite, or an identity overlay that does not return its input
    Tech fails the run.  The paths are ``tf-paper`` (37 stages; GEMM and
    flash) and ``mamba2-370m`` (96 stages; GEMM and the SSD chunk kernel).
+   Then ``loop``: the port's own DSE closes the paper's loop on
+   ``tf-paper`` (``repro_torch.examples.realize_demo.close_loop``).  First
+   the port's ``run_dse`` on ``simba_arch()`` must write the committed
+   ``tf-paper`` fixture again (header equal; the record's arch, seed,
+   workload and mapping equal; energy and delay within rel 1e-9).  Then a
+   sweep of five 72-TOPS candidates of 36 cores (``LOOP_CANDIDATES``),
+   exhaustive inside ``close_loop`` and once more with ``screen_keep=0.6``
+   (the batched T-Map screen), whose survivors must score exactly as in
+   the exhaustive sweep; the two best-EDP records realized on the card
+   through the kernels and measured, each pass launching exactly its
+   plan's kernels, every kernel stage predicted, every ratio finite, every
+   stage cube within ``STAGE_REL_TOL`` of the plain route's; the fitted
+   overlay; the identity-overlay second pass, bit-identical to the
+   baseline in the same order; and the calibrated pass.  The line carries
+   the DSE host seconds of each pass (host time of the machine the card
+   sits in) and the phase's own seconds, the candidates and their
+   objectives, the winner, per realized candidate its stages, launches,
+   pass wall and ``ratio_summary``, the overlay, the calibrated objectives
+   and whether the ranking changed.
    Then ``profile`` (not gated): the timed ``ops.ssd_forward`` call at the
    ``mamba2-370m`` SSD layer's shape once more, under ``torch.profiler``:
    the device time of its kernels, the device's idle share over its
    host-issued wall, and kernel launches and device time split between
    the chunk kernel, the inter-chunk recurrence loop and the rest of the
    eager glue.
-5. ``kernels``: every kernel with its launches on the paths and its numbers
-   summed over one pass of each path, and each path's share apart (both
+5. ``kernels``: every kernel with its launches on the paths and the loop,
+   its numbers summed over one pass of each path and of each realized loop
+   candidate (``loop#1``, ``loop#2``), and each one's share apart (both
    bounds, ``arith``); under ``bf16`` the same launches' sums with bf16
    operands.
 
@@ -188,6 +208,15 @@ PATHS = [
 # the predicted totals are host float64 sums; a numpy that groups its
 # pairwise sums differently may move the last bits
 PRED_REL_TOL = 1e-9
+# the loop phase: the fixtures' DSE settings, and five 72-TOPS candidates
+# of 36 cores (names of repro_torch.core.hw presets and their replacements)
+LOOP_WORKLOAD = ("TF", "tf-paper")
+LOOP_CANDIDATES = [("simba_arch", {}), ("gemini_arch_72t", {}),
+                   ("gemini_arch_72t", {"xcut": 3, "ycut": 2}),
+                   ("gemini_arch_72t", {"d2d_bw": 8.0}),
+                   ("simba_arch", {"glb_kb": 2048})]
+LOOP_TOP = 2
+LOOP_SCREEN_KEEP = 0.6
 
 
 def emit(obj) -> None:
@@ -718,6 +747,159 @@ def run_path(path, dev):
     return launches, prog
 
 
+def loop_config():
+    from repro_torch.core.dse import DSEConfig
+    from repro_torch.core.sa import SAConfig
+    return DSEConfig(batch=4, sa=SAConfig(iters=200, seed=0),
+                     keep_mappings=True)
+
+
+def check_fixture_dse() -> dict:
+    """The port's DSE writes the committed ``tf-paper`` fixture again:
+    header equal, the one record's arch, seed, workload and mapping equal,
+    energy and delay within rel 1e-9 (the bound the CPU tests hold the
+    reference's fresh DSE to)."""
+    import math
+
+    from repro_torch.core.dse import run_dse
+    from repro_torch.core.explore import ResumableSweep
+    from repro_torch.core.hw import simba_arch
+    from repro_torch.core.workloads import make_workload
+    name, spec = LOOP_WORKLOAD
+    fixture = FIXTURES / "tf-paper.simba.ckpt.jsonl"
+    ck = REPORTS / "chip_smoke.loop.fixture.ckpt.jsonl"
+    ck.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    run_dse([simba_arch()], {name: make_workload(spec)}, loop_config(),
+            checkpoint=ck)
+    seconds = time.perf_counter() - t0
+    header = lambda p: json.loads(Path(p).read_text().splitlines()[0])
+    fresh = ResumableSweep.read(ck).as_dict()
+    fixed = ResumableSweep.read(fixture).as_dict()
+    if header(ck) != header(fixture) or fresh.keys() != fixed.keys() \
+            or len(fixed) != 1:
+        raise AssertionError(f"the port's DSE wrote {header(ck)} with keys "
+                             f"{list(fresh)}, not the fixture's")
+    (key, want), = fixed.items()
+    got = fresh[key]
+    same = {f: got[f] == want[f]
+            for f in ("arch", "seed", "workload", "mapping")}
+    rel = {f: abs(got[f] - want[f]) / abs(want[f])
+           for f in ("energy_j", "delay_s")}
+    if not all(same.values()) or not all(
+            math.isclose(got[f], want[f], rel_tol=1e-9) for f in rel):
+        raise AssertionError(f"the port's DSE record differs from the "
+                             f"fixture's: {same}, {rel}")
+    return {"header": header(ck)["_config"], "equal": same, "rel_err": rel,
+            "byte_identical": ck.read_bytes() == fixture.read_bytes(),
+            "seconds": seconds}
+
+
+def run_loop(dev, timed: dict):
+    """The ``loop`` phase: the port's DSE writes the fixture again, then
+    ``close_loop`` on the five candidates with the launch counts set to 0
+    just before it; the screened sweep; the gates.  Returns the line and
+    each realized candidate's (launches, kernel route program)."""
+    import collections
+    import math
+
+    from repro_torch.core import hw
+    from repro_torch.core.dse import run_dse
+    from repro_torch.core.explore import candidate_key
+    from repro_torch.core.workloads import make_workload
+    from repro_torch.examples.realize_demo import close_loop
+
+    t_phase = time.perf_counter()
+    REPORTS.mkdir(parents=True, exist_ok=True)
+    fixture = check_fixture_dse()
+    name, spec = LOOP_WORKLOAD
+    workloads = {name: make_workload(spec)}
+    cands = [getattr(hw, preset)().replace(**kw)
+             for preset, kw in LOOP_CANDIDATES]
+    cfg = loop_config()
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    with contextlib.redirect_stdout(sys.stderr):    # the demo's own lines
+        res = close_loop(workloads, cands, cfg, device=dev, top=LOOP_TOP,
+                         ckpt=REPORTS / "chip_smoke.loop.ckpt.jsonl",
+                         out=REPORTS / "chip_smoke.loop.realize.jsonl")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    t0 = time.perf_counter()
+    screened = run_dse(cands, workloads, cfg, screen_keep=LOOP_SCREEN_KEEP)
+    screen_s = time.perf_counter() - t0
+    base = {candidate_key(p.arch): p for p in res.baseline}
+    if not screened or any(p.objective != base[candidate_key(p.arch)].objective
+                           for p in screened):
+        raise AssertionError("the screened sweep scored a survivor "
+                             "differently from the exhaustive sweep")
+    summed = collections.Counter()
+    realized, runs = [], {}
+    for rank, r in enumerate(res.realized, 1):
+        rep, prog = r.report, r.program
+        plan_launches = collections.Counter(
+            {k: 0 for k in wrappers})
+        plan_launches.update(k for sp in prog.stages for k, _ in sp.launches)
+        summed.update(r.launches)
+        stages = [s.to_record() for s in rep.stages]
+        unpredicted = [s["index"] for s in stages
+                       if s["flops"] > 0 and s["pred_flops"] <= 0]
+        ratios = [v for s in stages for v in s["ratios"].values()] \
+            + list(rep.ratio_summary().values())
+        if r.launches != dict(plan_launches) or unpredicted \
+                or not all(math.isfinite(v) and v > 0 for v in ratios):
+            raise AssertionError(
+                f"loop candidate {rep.arch_label}: launched {r.launches}, "
+                f"the plan has {dict(plan_launches)}; stages {unpredicted} "
+                f"unpredicted; ratios {rep.ratio_summary()}")
+        untimed = {(k, tuple(s.values())) for sp in prog.stages
+                   for k, s in sp.launches} - set(timed)
+        if untimed:
+            raise AssertionError(f"loop candidate {rep.arch_label} launches "
+                                 f"at shapes no kernel line timed: {untimed}")
+        cubes, _ = stage_cube_errors(prog.graph, prog.plan, dev)
+        if cubes["stage_max_rel_err"] > STAGE_REL_TOL:
+            raise AssertionError(f"loop candidate {rep.arch_label}: stage "
+                                 f"cube {cubes['stage_worst_cube']} differs "
+                                 f"by {cubes['stage_max_rel_err']}")
+        realized.append({
+            "rank": rank, "arch": rep.arch_label,
+            "key": candidate_key(r.candidate.arch),
+            "batch_unit": rep.batch_unit, "stages": len(rep.stages),
+            "launches": r.launches, "wall_ms": rep.totals()["wall_s"] * 1e3,
+            "seconds": r.seconds, "predict_s": rep.predict_s,
+            "ratio_summary": rep.ratio_summary(), **cubes})
+        runs[f"loop#{rank}"] = (r.launches, prog)
+    if dict(summed) != launches:
+        raise AssertionError(f"the loop launched {launches}, its realized "
+                             f"passes {dict(summed)}")
+    if [p.objective for p in res.identity] \
+            != [p.objective for p in res.baseline]:
+        raise AssertionError("the identity pass is not the baseline")
+    line = {
+        "phase": "loop", "workload": spec, "fixture": fixture,
+        "dse_s": {"exhaustive": res.dse_s["baseline"], "screened": screen_s,
+                  "identity": res.dse_s["identity"],
+                  "calibrated": res.dse_s["calibrated"]},
+        "dse_s_clock": "host seconds on the machine that holds the card",
+        "candidates": [{"arch": p.arch.label(), "key": candidate_key(p.arch),
+                        "objective": p.objective, "mc": p.mc,
+                        "energy_j": p.energy_j, "delay_s": p.delay_s}
+                       for p in res.baseline],
+        "winner": res.baseline[0].arch.label(),
+        "screened": {"screen_keep": LOOP_SCREEN_KEEP,
+                     "survivors": [candidate_key(p.arch) for p in screened],
+                     "equal_to_exhaustive": True},
+        "launches": launches, "realized": realized,
+        "overlay": res.overlay.to_dict(),
+        "identity_bit_identical": True,
+        "calibrated": [{"key": k, "baseline": b, "calibrated": c}
+                       for k, (b, c) in res.rows.items()],
+        "ranking_changed": res.ranking_changed,
+        "seconds": time.perf_counter() - t_phase}
+    return line, runs
+
+
 KERNEL_FILES = {
     "tiled_matmul": ("src/repro_torch/kernels/csrc/tiled_matmul.cu",
                      "src/repro/kernels/tiled_matmul.py:51"),
@@ -729,11 +911,12 @@ KERNEL_FILES = {
 
 
 def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
-    """Each kernel's numbers summed over one pass of each path (the timed
-    line of every launch's shape, once per launch), and each path's share
-    apart; under ``bf16`` the same sums for bf16 operands at the same
-    shapes (the paths themselves run f32).  ``runs`` maps a path to its
-    (launches, kernel route program)."""
+    """Each kernel's numbers summed over one pass of each path and of each
+    realized loop candidate (the timed line of every launch's shape, once
+    per launch), and each one's share apart; under ``bf16`` the same sums
+    for bf16 operands at the same shapes (the paths and the loop run f32).
+    ``runs`` maps a path or loop candidate to its (launches, kernel route
+    program)."""
     out = []
     for name, (source, replaces) in KERNEL_FILES.items():
         per_path, lines, lines16 = {}, [], []
@@ -763,7 +946,8 @@ def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
             "bound_by": max(lines, key=lambda ln: ln["bound_ms"])["bound_by"],
             "bound_3xtf32_ms": total("bound_3xtf32_ms"), "arith": ARITH[name],
             "library_ms": None if None in lib else sum(lib),
-            "per": "one pass of each path, summed; per_path splits it",
+            "per": "one pass of each path and of each realized loop "
+                   "candidate, summed; per_path splits it",
             "per_path": per_path}
         if None in lib:
             line["library"] = "none: no single PyTorch call computes it"
@@ -779,8 +963,9 @@ def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
             "bound_by": max(lines16,
                             key=lambda ln: ln["bound_ms"])["bound_by"],
             "library_ms": None if None in lib16 else sum(lib16),
-            "per": "the launches of one pass of each path, at their shapes, "
-                   "with bf16 operands (not run on the paths)"}
+            "per": "the launches of one pass of each path and loop "
+                   "candidate, at their shapes, with bf16 operands (not run "
+                   "on the paths)"}
         out.append(line)
     return out
 
@@ -824,6 +1009,9 @@ def main() -> int:
     timed, layer = check_kernels(dev)
     timed_bf16 = check_bf16(dev)
     runs = {path[0]: run_path(path, dev) for path in PATHS}
+    loop_line, loop_runs = run_loop(dev, timed)
+    emit(loop_line)
+    runs.update(loop_runs)
     emit(profile_ssd_forward(*layer))
     emit({"kernels": per_pass_summary(timed, timed_bf16, runs)})
     print(smi)

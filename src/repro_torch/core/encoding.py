@@ -4,9 +4,12 @@ Reduced copy of ``src/repro/core/encoding.py``: ``split_points`` (``:34``),
 ``MS`` (with its cached hash and ``geo``) and ``LMS`` (with ``cores_used``,
 ``cache_key`` and ``validate``), ``Region`` (``:283``),
 ``parse_regions_arrays`` (``:310``), ``parse_regions`` (``:335``) and
-``ifmap_region`` (``:343``), plus the ``Mapping`` alias of
-``src/repro/core/sa.py``.  The batched LMS packing and the random
-generators stay in the reference until the search slice.
+``ifmap_region`` (``:343``), the search's generators ``_divisors_upto``,
+``factor_parts``, ``default_fd`` and ``random_lms`` (``:371-466``), the
+space-size bounds (``:470-495``), plus the ``Mapping`` alias of
+``src/repro/core/sa.py``.  The batched LMS packing (``LMSBatch``,
+``pack_lms_batch``, ``RoutingTables``) belongs to the batched engine and
+stays in the reference.
 
 An ``LMS`` (LP spatial Mapping Scheme) of a layer group holds one ``MS`` per
 layer: ``MS = (Part, CG, FD)``.
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -54,6 +57,10 @@ class MS:
     part: Part
     cg: Tuple[int, ...]
     fd: FD
+
+    @property
+    def nc(self) -> int:
+        return len(self.cg)
 
     def __post_init__(self):
         ph, pw, pb, pk = self.part
@@ -207,3 +214,137 @@ def ifmap_region(layer: Layer, r: Region, in_K: int) -> Region:
     return Region(min(r.h0 * s, h_in - 1), min(r.h1 * s + layer.R - 1, h_in),
                   min(r.w0 * s, w_in - 1), min(r.w1 * s + layer.S - 1, w_in),
                   r.b0, r.b1, 0, in_K)
+
+
+# ---------------------------------------------------------------------------
+# Generators: random LMS + valid Part enumeration
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=8192)
+def _divisors_upto(n: int, cap: int) -> Tuple[int, ...]:
+    return tuple(d for d in range(1, min(n, cap) + 1) if n % d == 0)
+
+
+def factor_parts(n: int, dims: Tuple[int, int, int, int],
+                 rng: np.random.Generator) -> Part:
+    """Random 4-way factorization of ``n`` respecting per-dim caps.  The
+    draws (a permutation, then one index per axis) are the reference's, in
+    its order: the SA trajectory of a seed depends on it."""
+    for _ in range(64):
+        rem = n
+        out = []
+        caps = list(dims)
+        order = rng.permutation(4)
+        ok = True
+        for i, axis in enumerate(order):
+            if i == 3:
+                f = rem
+            else:
+                divs = _divisors_upto(rem, caps[axis])
+                if not divs:
+                    ok = False
+                    break
+                f = divs[int(rng.integers(len(divs)))]
+            if f > caps[axis]:
+                ok = False
+                break
+            out.append((axis, f))
+            rem //= f
+        if ok and rem == 1:
+            part = [1, 1, 1, 1]
+            for axis, f in out:
+                part[axis] = f
+            return tuple(part)  # type: ignore[return-value]
+    # fall back: all on the largest dim that fits
+    for axis in np.argsort(dims)[::-1]:
+        if dims[axis] >= n:
+            part = [1, 1, 1, 1]
+            part[axis] = n
+            return tuple(part)  # type: ignore[return-value]
+    raise ValueError(f"cannot split {n} parts over dims {dims}")
+
+
+def default_fd(layer: Layer, g: Graph, group: LayerGroup,
+               n_dram: int, rng: Optional[np.random.Generator] = None) -> FD:
+    """Structurally-valid FD: explicit endpoints where the paper requires."""
+    in_group = set(group.names)
+    preds = g.preds(layer.name)
+    succs = g.succs(layer.name)
+    pick = (lambda: int(rng.integers(0, n_dram + 1))) if rng is not None \
+        else (lambda: 0)
+    if_ = -1
+    if not preds or not any(p in in_group for p in preds):
+        if_ = pick()            # DNN input or fed from a previous group
+    wgt = pick() if layer.has_weight else -1
+    of = -1
+    if not succs or not all(s in in_group for s in succs):
+        of = pick()             # DNN output or consumed by a later group
+    return (if_, wgt, of)
+
+
+def random_lms(group: LayerGroup, g: Graph, n_cores: int, n_dram: int,
+               rng: np.random.Generator) -> LMS:
+    """Uniform-ish random point of the optimization space (for tests/SA)."""
+    n = len(group.names)
+    if n_cores < n:
+        raise ValueError("fewer cores than layers")
+    # random composition of cores over layers, each >= 1, total <= n_cores
+    sizes = np.ones(n, dtype=int)
+    budget = n_cores - n
+    extra = rng.multinomial(budget, np.ones(n) / n) if budget \
+        else np.zeros(n, int)
+    sizes = sizes + extra
+    perm = rng.permutation(n_cores)
+    ms: Dict[str, MS] = {}
+    off = 0
+    for name, nc in zip(group.names, sizes):
+        lyr = g.layers[name]
+        dims = (lyr.H, lyr.W, group.batch_unit, lyr.K)
+        # shrink nc until it factorizes over the dims
+        nc = int(nc)
+        while nc > 1:
+            try:
+                part = factor_parts(nc, dims, rng)
+                break
+            except ValueError:
+                nc -= 1
+        else:
+            part = (1, 1, 1, 1)
+        cg = tuple(int(c) for c in perm[off:off + nc])
+        off += nc
+        ms[name] = MS(part=part, cg=cg,
+                      fd=default_fd(lyr, g, group, n_dram, rng))
+    return LMS(ms=ms)
+
+
+# ---------------------------------------------------------------------------
+# Optimization-space size (paper Sec. IV-B)
+# ---------------------------------------------------------------------------
+
+def _binom(x: int, y: int) -> int:
+    from math import comb
+    if y < 0 or y > x:
+        return 0
+    return comb(x, y)
+
+
+def space_size_lower_bound(n_layers: int, n_cores: int) -> int:
+    """Paper's conservative lower bound:
+    m! * sum_i C(N,i)*C(M-N-1,N-i-1)*4^(N-i)."""
+    from math import factorial
+    N, M = n_layers, n_cores
+    total = 0
+    for i in range(N):
+        total += _binom(N, i) * _binom(M - N - 1, N - i - 1) * 4 ** (N - i)
+    return factorial(M) * total
+
+
+def tangram_space_upper_bound(n_layers: int, n_cores: int) -> int:
+    """Tangram heuristic upper bound: N * part(M) (integer partitions)."""
+    # partition function via Euler recurrence
+    M = n_cores
+    p = [1] + [0] * M
+    for i in range(1, M + 1):
+        for j in range(i, M + 1):
+            p[j] += p[j - i]
+    return n_layers * p[M]

@@ -1,13 +1,15 @@
 """Delay + energy evaluation of a mapped DNN (paper Sec. V-B2, SET-style).
 
 Reduced copy of the scalar path of ``src/repro/core/evaluator.py``:
-``GroupEval``, ``EvalResult``, ``_pipeline_depth``, ``Evaluator`` with
-``eval_group`` (``:221``), ``traffic_summary`` (``:540``) and ``evaluate``
-(``:563``), ``CachedEvaluator.eval_group`` and ``evaluator_for``
-(``:687``).  The arithmetic is the reference's, float64 and in the same
-order, so every ``GroupEval`` equals the reference's scalar one.  The
-batched and fused (jitted) paths stay in the reference until the search
-slice needs them; the port's copy records no metrics.
+``analysis_signature`` (``:43``), ``GroupEval``, ``EvalResult`` (with
+``cost``, ``:93``), ``_pipeline_depth``, ``Evaluator`` with ``eval_group``
+(``:221``), the bandwidth-vectorized ``eval_mapping_archs`` (``:481``),
+``traffic_summary`` (``:540``) and ``evaluate`` (``:563``),
+``CachedEvaluator.eval_group`` and ``evaluator_for`` (``:687``).  The
+arithmetic is the reference's, float64 and in the same order, so every
+``GroupEval`` equals the reference's scalar one.  The batched and fused
+(jitted) paths belong to the fused-evaluator item of the port's roadmap;
+the port's copy records no metrics.
 
 A mapped DNN is a sequence of (LayerGroup, LMS).  Per group we take the
 ``GroupAnalysis`` traffic and compute
@@ -38,6 +40,19 @@ from .hw import ArchConfig
 from .workload import Graph, LayerGroup
 
 
+def analysis_signature(arch: ArchConfig) -> Tuple:
+    """The ArchConfig fields the traffic/compute ANALYSIS depends on.
+
+    Everything except the three bandwidths (``noc_bw``, ``d2d_bw``,
+    ``dram_bw``), which enter only the delay math of ``eval_group``.
+    Candidates sharing a signature share ``partition_graph``,
+    ``tangram_map`` and every ``GroupAnalysis`` bit-for-bit — the
+    batched T-Map screening path exploits exactly this.
+    """
+    return (arch.x_cores, arch.y_cores, arch.xcut, arch.ycut, arch.glb_kb,
+            arch.macs_per_core, arch.freq_ghz, arch.n_dram, arch.tech)
+
+
 @dataclass
 class GroupEval:
     delay_s: float
@@ -60,6 +75,9 @@ class EvalResult:
     @property
     def edp(self) -> float:
         return self.delay_s * self.energy_j
+
+    def cost(self, beta: float = 1.0, gamma: float = 1.0) -> float:
+        return (self.energy_j ** beta) * (self.delay_s ** gamma)
 
 
 def _pipeline_depth(g: Graph, group: LayerGroup) -> int:
@@ -158,6 +176,70 @@ class Evaluator:
                        energy_breakdown=e)
         return ge, an
 
+
+    # ------------------------------------------------------------------
+    def eval_mapping_archs(self, mapping: Sequence[Tuple[LayerGroup, LMS]],
+                           total_batch: int, archs: Sequence[ArchConfig]
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """(energy (C,), delay (C,)) of ONE mapping under C archs that share
+        this evaluator's :func:`analysis_signature` (i.e. differ only in the
+        noc/d2d/dram bandwidths).
+
+        The analysis — and therefore the energy — is computed once; only
+        the per-candidate delay terms are re-derived, vectorized over the
+        bandwidth columns.  Each column is bit-identical to evaluating the
+        mapping under that arch with its own scalar evaluator: traffic
+        maxima are reduced BEFORE the bandwidth division, which is exact
+        because the numerators are non-negative byte counts and float
+        division by a positive constant is monotone non-decreasing, so
+        ``max_i fl(a_i / c) == fl(max_i a_i / c)`` bit-for-bit.
+
+        The per-group terms are summed as :meth:`evaluate` sums them, with
+        the built-in ``sum`` over Python floats in group order.  The
+        reference adds them into a numpy array instead, which on Python
+        3.12, whose ``sum`` of floats is compensated, differs from its own
+        scalar path in the last bit.
+        """
+        sig = analysis_signature(self.arch)
+        for arch in archs:
+            if analysis_signature(arch) != sig:
+                raise ValueError(
+                    f"arch {arch.label()} does not share the analysis "
+                    f"signature of {self.arch.label()}; only bandwidth "
+                    "fields may differ")
+        C = len(archs)
+        noc_div = np.array([a.noc_bw * 1e9 for a in archs])
+        d2d_div = np.array([a.d2d_bw * 1e9 for a in archs])
+        dram_port_div = np.array([a.dram_bw / a.n_dram * 1e9 for a in archs])
+        dram_div = np.array([a.dram_bw * 1e9 for a in archs])
+        glb_pen_div = self.arch.core_glb_bytes * self.arch.n_cores
+        energies: List[float] = []
+        delays: List[np.ndarray] = []
+        for group, lms in mapping:
+            ge, an = self.eval_group(group, lms, total_batch)
+            edge_tot = an.edge_bytes + an.edge_bytes_amortized
+            t_noc = float(edge_tot[self._not_d2d].max(initial=0.0)) / noc_div
+            if self._has_d2d:
+                t_d2d = float(edge_tot[self._is_d2d].max(initial=0.0)) \
+                    / d2d_div
+            else:
+                t_d2d = np.zeros(C)
+            m_dram = float((an.dram_bytes
+                            + an.dram_bytes_amortized).max(initial=0.0))
+            t_dram = m_dram / dram_port_div
+            t_comp = float(an.core_time_s.max(initial=0.0))
+            stage = np.maximum(
+                np.maximum(np.maximum(np.maximum(t_comp, t_noc), t_d2d),
+                           t_dram), 1e-12)
+            overflow = ge.glb_overflow_bytes
+            spill_dram = overflow * 2.0
+            stage = stage * (1.0 + overflow / glb_pen_div)
+            stage = stage + spill_dram / dram_div
+            delays.append(stage * (ge.n_passes + ge.depth - 1))
+            energies.append(ge.energy_j)    # energy never reads a bandwidth
+        E = np.full(C, float(sum(energies)))
+        D = np.array([sum(float(d[c]) for d in delays) for c in range(C)])
+        return E, D
 
     # ------------------------------------------------------------------
     def traffic_summary(self, group: LayerGroup, lms: LMS,

@@ -4,10 +4,11 @@ Reduced copy of ``src/repro/core/hw.py``: ``Tech``, ``TECH_12NM``,
 ``ArchConfig`` (fields, ``n_cores``, ``n_chiplets``, ``label()``, and the
 geometry the cost model reads, ``:148-210``: ``core_glb_bytes``,
 ``replace``, ``grid_w``/``grid_h``, ``core_node``, ``core_xy``,
-``dram_node``, ``chiplet_of_core``, ``node_chiplet``) and ``simba_arch``.
-The D2D interface count of the cost/area model, the other paper
-architectures and the TPU roofline constants stay in the reference until
-the search slice needs them.
+``dram_node``, ``chiplet_of_core``, ``node_chiplet``), the D2D interface
+count of the cost/area model (``d2d_interfaces_per_chiplet``, ``:211``)
+and the paper's architectures ``simba_arch``, ``gemini_arch_72t`` and
+``tenstorrent_arch`` (``:233-252``).  ``TPUChip`` and the TPU roofline
+constants belong to the mesh bridge and stay in the reference.
 """
 
 from __future__ import annotations
@@ -175,9 +176,43 @@ class ArchConfig:
         ch = self.y_cores // self.ycut
         return (y // ch) * self.xcut + ((x - 1) // cw)
 
+    @cached_property
+    def d2d_interfaces_per_chiplet(self) -> float:
+        """Average number of D2D interfaces per computing chiplet.
+
+        Interfaces sit on both sides of every inter-chiplet boundary link,
+        including the IO-die <-> core-array boundary (paper Fig. 2: the IO
+        controllers join the same mesh through D2D).
+        """
+        n_ifaces = 0
+        for y in range(self.grid_h):
+            for x in range(self.grid_w):
+                n = y * self.grid_w + x
+                for nx, ny in ((x + 1, y), (x, y + 1)):
+                    if nx >= self.grid_w or ny >= self.grid_h:
+                        continue
+                    m = ny * self.grid_w + nx
+                    if self.node_chiplet(n) != self.node_chiplet(m):
+                        n_ifaces += 2          # one TX/RX pair on each die
+        return n_ifaces / max(1, self.n_chiplets)
+
 
 def simba_arch() -> ArchConfig:
     """S-Arch: 36 chiplets x 1 core, 72 TOPS (paper Sec. VI-A4)."""
     return ArchConfig(x_cores=6, y_cores=6, xcut=6, ycut=6,
                       noc_bw=16.0, d2d_bw=8.0, dram_bw=144.0,
                       glb_kb=1024, macs_per_core=1024)
+
+
+def gemini_arch_72t() -> ArchConfig:
+    """G-Arch found by the paper's 72-TOPS DSE: (2, 36, 144, 32, 16, 2MB, 1024)."""
+    return ArchConfig(x_cores=6, y_cores=6, xcut=2, ycut=1,
+                      noc_bw=32.0, d2d_bw=16.0, dram_bw=144.0,
+                      glb_kb=2048, macs_per_core=1024)
+
+
+def tenstorrent_arch() -> ArchConfig:
+    """T-Arch: 120-core monolithic Grayskull-like (paper Sec. VI-B2)."""
+    return ArchConfig(x_cores=12, y_cores=10, xcut=1, ycut=1,
+                      noc_bw=32.0, d2d_bw=32.0, dram_bw=192.0,
+                      glb_kb=1024, macs_per_core=512)

@@ -1,7 +1,8 @@
 """Workload IR: DNN layers as a DAG with 4-D ofmap cubes (paper Sec. IV).
 
 Reduced copy of ``src/repro/core/workload.py``: ``Layer`` (with the
-per-sample sizes the cost model reads), ``Graph`` (with ``edge_mult`` and
+per-sample sizes the cost model reads and the expected sizes the graph
+partition and T-Map read, ``:131-143``), ``Graph`` (with ``edge_mult`` and
 ``is_scaled``), ``LayerGroup``, ``dense_twin`` (``:250``) and
 ``edge_volume`` (``:285``), with the same class names, field order and
 defaults.  Expected-traffic scales of 1.0 leave every size the exact int
@@ -110,6 +111,21 @@ class Layer:
 
     def weight_bytes(self) -> int:
         return self.weight_elems * self.bytes_per_elem
+
+    # -- expected-traffic sizes (dense value when the scale is 1.0, so the
+    # -- int type and bit pattern of unscaled graphs are untouched) ----------
+    def expected_macs(self, batch: int = 1) -> Union[int, float]:
+        m = self.macs(batch)
+        return m if self.traffic_scale == 1.0 else m * self.traffic_scale
+
+    def expected_ofmap_bytes(self, batch: int = 1) -> Union[int, float]:
+        b = self.ofmap_bytes(batch)
+        return b if self.traffic_scale == 1.0 else b * self.traffic_scale
+
+    def expected_weight_bytes(self) -> Union[int, float]:
+        b = self.weight_bytes()
+        return b if self.weight_traffic_scale == 1.0 \
+            else b * self.weight_traffic_scale
 
 
 @dataclass

@@ -396,3 +396,34 @@ def test_realized_mamba_fixture_kernel_route_vs_plain_route(cuda):
         cuda, "mamba2-370m.simba.ckpt.jsonl", "MAMBA", "lm:mamba2-370m")
     assert stages == 96 and launched == (96, 0, 48)
     assert worst < 2e-4
+
+
+@pytest.mark.gpu
+def test_close_loop_on_the_card(cuda, tmp_path, capsys):
+    """The port's ``close_loop`` on the card at the reference demo's size:
+    each realized pass launches exactly its plan's kernels, the identity
+    pass is bit-identical to the baseline, and the DSE passes (host numpy)
+    equal a CPU run of the same loop."""
+    import collections
+
+    from repro_torch.examples.realize_demo import (close_loop,
+                                                   demo_candidates,
+                                                   demo_config, demo_graph)
+    args = ({"TF": demo_graph()}, demo_candidates(), demo_config())
+    res = close_loop(*args, device=cuda, ckpt=tmp_path / "gpu.ck.jsonl",
+                     out=tmp_path / "gpu.jsonl")
+    assert "identity overlay: second pass bit-identical" in \
+        capsys.readouterr().out
+    for r in res.realized:
+        plan = collections.Counter(
+            {"tiled_matmul": 0, "flash_attention_mha": 0,
+             "ssd_chunk_dual": 0})
+        plan.update(k for sp in r.program.stages for k, _ in sp.launches)
+        assert r.launches == dict(plan) and plan["tiled_matmul"] > 0
+        assert all(st.wall_s > 0 for st in r.report.stages)
+    cpu = close_loop(*args, device="cpu", ckpt=tmp_path / "cpu.ck.jsonl",
+                     out=tmp_path / "cpu.jsonl")
+    assert [p.objective for p in res.baseline] == \
+        [p.objective for p in cpu.baseline]
+    assert [p.objective for p in res.identity] == \
+        [p.objective for p in res.baseline]

@@ -53,3 +53,24 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
                        text=True, timeout=120, env=env, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
     assert json.loads(r.stdout.splitlines()[-1]) == []
+
+
+def test_core_modules_load_no_torch():
+    """``repro_torch.core`` is the numpy cost model and search: the DSE's
+    spawned workers import it alone and must not pay for torch."""
+    modules = [".".join(("repro_torch", "core") + p.relative_to(
+        PORT / "core").with_suffix("").parts).removesuffix(".__init__")
+        for p in sorted((PORT / "core").rglob("*.py"))]
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'src')!r})\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(n for n in sys.modules"
+        " if n.split('.')[0] == 'torch')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert len(modules) > 10
+    assert json.loads(r.stdout.splitlines()[-1]) == []
