@@ -14,7 +14,9 @@ phase prints one JSON line:
    (one ``nvcc`` per source, all at once), with seconds and ptxas lines
    (registers, spills).  Then ``sass``: the tensor-core ``HMMA``
    instructions in each built library's SASS, by kernel function, where
-   the toolkit has ``cuobjdump``.
+   the toolkit has ``cuobjdump``; a kernel of the three tensor-core
+   sources without ``HMMA`` fails the run (``fused_eval.cu`` does no
+   products: its counts are printed, not gated).
 3. ``kernel``: one line per kernel and shape.  Each kernel is held against
    its plain PyTorch version on the same inputs on the card, with TF32 off,
    at the tolerances of ``tests/test_kernels.py`` (GEMM atol 1e-3 /
@@ -53,7 +55,12 @@ phase prints one JSON line:
    stage that launches a kernel with no predicted FLOPs, a ratio that is
    not finite, or an identity overlay that does not return its input
    Tech fails the run.  The paths are ``tf-paper`` (37 stages; GEMM and
-   flash) and ``mamba2-370m`` (96 stages; GEMM and the SSD chunk kernel).
+   flash), ``mamba2-370m`` (96 stages; GEMM and the SSD chunk kernel),
+   ``granite-moe-3b-a800m`` at full width and 2 of 32 layers (162 stages,
+   166 GEMMs and 2 flash launches; routed MoE, realized as its dense
+   equivalent, so the line carries the range of the dense-twin factors,
+   ``expected_scale``) and ``mla-paper`` (5 stages, 16 GEMMs with low-rank
+   shapes and 2 flash launches).
    Then ``loop``: the port's own DSE closes the paper's loop on
    ``tf-paper`` (``repro_torch.examples.realize_demo.close_loop``).  First
    the port's ``run_dse`` on ``simba_arch()`` must write the committed
@@ -73,6 +80,25 @@ phase prints one JSON line:
    objectives, the winner, per realized candidate its stages, launches,
    pass wall and ``ratio_summary``, the overlay, the calibrated objectives
    and whether the ranking changed.
+   Then ``kernel`` lines of the cost model's two kernels (after the
+   paths, so that the paths' host-bound passes run in the parent's
+   conditions), on two layouts (the reference's fused-pass test arch with
+   ``moe-quick``, S-Arch with the granite graph) at the batch of a
+   lockstep SA iteration and of a screen: ``fused_eval`` held against its
+   plain version on the card and the exact numpy engine (rel 1e-4, the
+   same bottleneck, the reference's parity envelope); ``segment_replay``
+   against ``np.bincount`` (rtol 2e-4 / atol 1e-2); each with its device
+   time, the plain version's, its time as the host issues it, the library
+   call's (``index_add_`` for the replay, none for the fused pass), a
+   bound from the bytes it must move at the HBM rate, and for the fused
+   pass the host time of one whole batch evaluation on each backend.
+   Then ``fused``: replica-exchange SA on the granite graph (S-Arch, four
+   chains in lockstep), once on the exact numpy engine and once scoring
+   proposals with the fused pass on the card, with the cost kernels'
+   counts set to 0 just before; proposals a second each way, each winner
+   re-evaluated exactly (it must equal the reported cost to the bit); then
+   ``analyze_requests(backend="fused")`` of a screen-sized batch through
+   ``segment_replay`` against the exact replay.
    Then ``profile`` (not gated): the timed ``ops.ssd_forward`` call at the
    ``mamba2-370m`` SSD layer's shape once more, under ``torch.profiler``:
    the device time of its kernels, the device's idle share over its
@@ -83,7 +109,8 @@ phase prints one JSON line:
    its numbers summed over one pass of each path and of each realized loop
    candidate (``loop#1``, ``loop#2``), and each one's share apart (both
    bounds, ``arith``); under ``bf16`` the same launches' sums with bf16
-   operands.
+   operands.  The cost model's two kernels carry their launches in the
+   ``fused`` phase and one launch's numbers at that phase's shape.
 
 Then the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -115,6 +142,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_S = 3.35e12
+# float64 outside the tensor cores (NVIDIA data sheet, H100 SXM): the rate
+# of segment_replay's adds
+PEAK_F64_FLOPS = 34e12
 ARITH = {"tiled_matmul": "3xTF32 mma.sync",
          "flash_attention_mha": "3xTF32 mma.sync",
          "ssd_chunk_dual": "3xTF32 mma.sync"}
@@ -143,7 +173,15 @@ SLEEP_CYCLES = 10_000_000
 STAGE_REL_TOL = 2e-4
 
 MM_PATH = [(2048, 512, 512), (2048, 512, 2048), (2048, 2048, 512),
-           (4096, 1024, 4384), (4096, 2048, 1024)]
+           (4096, 1024, 4384), (4096, 2048, 1024),
+           # granite-moe-3b-a800m: router (N = 40), experts' up and down,
+           # attention output, qkv
+           (4096, 1536, 40), (4096, 1536, 1024), (4096, 512, 1536),
+           (4096, 1536, 1536), (4096, 1536, 2560),
+           # mla-paper: the low-rank down/up projections, output, FFN
+           (1024, 512, 64), (1024, 512, 128), (1024, 64, 512),
+           (1024, 128, 512), (1024, 512, 512), (1024, 512, 2048),
+           (1024, 1024, 512)]
 # (M, K, N, A one float into its storage): ragged shapes; both tile
 # configurations with 16-byte copies (the path's shapes) and with 4-byte
 # copies (K or N % 4 != 0, or A not 16-byte aligned)
@@ -151,7 +189,8 @@ MM_EDGE = [(100, 300, 50, False), (257, 129, 65, False),
            (1000, 77, 3, False), (64, 64, 64, False),
            (2048, 130, 2050, False), (512, 256, 512, True),
            (2048, 512, 2048, True)]
-FLASH_PATH = [(4, 4, 512, 512, 128, True)]
+FLASH_PATH = [(4, 4, 512, 512, 128, True), (1, 12, 4096, 4096, 128, True),
+              (2, 4, 512, 512, 128, True)]
 # (B, H, Sq, Sk, D, causal, q one float into its storage): every head-dim
 # template (32, 64, 128, 256), Sq != Sk causal both ways, 4-byte copies
 # (D % 4 != 0, q not 16-byte aligned)
@@ -204,6 +243,23 @@ PATHS = [
      {"pred_flops": 3_002_987_446_272.0, "pred_noc_bytes": 3_068_313_600.0,
       "pred_d2d_bytes": 77_788_781_360.0,
       "pred_dram_bytes": 11_575_820_288.0}),
+    # full width, 2 of 32 layers (the search grows faster than linearly
+    # with depth and every layer repeats the same 81 stages); routed MoE,
+    # so the measured side takes the dense-twin factors and its FLOPs are
+    # host float64 like the predicted totals
+    ("granite-moe-3b-a800m", "granite-moe-3b-a800m.simba.ckpt.jsonl",
+     "GRANITE=lm:granite-moe-3b-a800m:seq=4096,n_layers=2", 162,
+     {"tiled_matmul": 166, "flash_attention_mha": 2, "ssd_chunk_dual": 0},
+     516_646_945_745.7445,
+     {"pred_flops": 1_501_086_036_787.2,
+      "pred_noc_bytes": 3_561_259_827.200001,
+      "pred_d2d_bytes": 60_090_000_009.60001,
+      "pred_dram_bytes": 10_500_748_083.2}),
+    ("mla-paper", "mla-paper.simba.ckpt.jsonl", "MLA=mla-paper", 5,
+     {"tiled_matmul": 16, "flash_attention_mha": 2, "ssd_chunk_dual": 0},
+     9_531_555_840,
+     {"pred_flops": 12_155_092_992.0, "pred_noc_bytes": 18_646_016.0,
+      "pred_d2d_bytes": 395_304_640.0, "pred_dram_bytes": 32_178_176.0}),
 ]
 # the predicted totals are host float64 sums; a numpy that groups its
 # pairwise sums differently may move the last bits
@@ -217,6 +273,27 @@ LOOP_CANDIDATES = [("simba_arch", {}), ("gemini_arch_72t", {}),
                    ("simba_arch", {"glb_kb": 2048})]
 LOOP_TOP = 2
 LOOP_SCREEN_KEEP = 0.6
+# the cost model's kernels: the fused phase's SA (replica exchange on the
+# granite graph, S-Arch, the fixtures' batch), its lockstep batch (one
+# proposal a chain) and a screen-sized batch; the layouts of the kernel
+# lines (the reference's fused-pass test arch with moe-quick, and S-Arch
+# with granite); the reference's tolerances (tests/test_fused_eval.py:
+# rel 1e-4 for the fused pass, rtol 2e-4 / atol 1e-2 for the replay)
+FUSED_SPEC = "lm:granite-moe-3b-a800m:seq=4096,n_layers=2"
+FUSED_TOTAL_BATCH = 4
+FUSED_CHAINS = 4
+FUSED_ITERS = 200
+FUSED_B = (FUSED_CHAINS, 64)
+ZOO_ARCH = dict(x_cores=4, y_cores=3, xcut=2, ycut=1, noc_bw=16.0,
+                d2d_bw=8.0, dram_bw=64.0, glb_kb=512, macs_per_core=256)
+FUSED_REL_TOL = 1e-4
+REPLAY_TOL = {"rtol": 2e-4, "atol": 1e-2}
+COST_KERNEL_FILES = {
+    "fused_eval": ("src/repro_torch/kernels/csrc/fused_eval.cu",
+                   "src/repro/core/evaluator.py:97"),
+    "segment_replay": ("src/repro_torch/kernels/csrc/fused_eval.cu",
+                       "src/repro/core/analyzer.py:60"),
+}
 
 
 def emit(obj) -> None:
@@ -693,7 +770,11 @@ def run_path(path, dev):
     if len(stages) != n_stages or launches != want_launches:
         raise AssertionError(f"path {name} ran {len(stages)} stages with "
                              f"launches {launches}")
-    if rec["totals"]["flops"] != want_flops:
+    # a dense path counts integer FLOPs exactly; a scaled one multiplies
+    # them by host float64 factors, held like the predicted totals
+    flops_tol = 0.0 if isinstance(want_flops, int) else PRED_REL_TOL
+    if not math.isclose(rec["totals"]["flops"], want_flops,
+                        rel_tol=flops_tol):
         raise AssertionError(f"path {name} counted "
                              f"{rec['totals']['flops']} FLOPs, not "
                              f"{want_flops}")
@@ -723,6 +804,14 @@ def run_path(path, dev):
                              f"the Tech, or the overlay saw "
                              f"{overlay.n_stages} stages")
     cubes, prog = stage_cube_errors(g, plan, dev)
+    scales = [s["expected_scale"] for s in stages if s.get("expected_scale")]
+    if g.is_scaled != bool(scales) or (scales and len(scales) != n_stages):
+        raise AssertionError(f"path {name}: {len(scales)} stages carry "
+                             f"expected_scale, the graph is_scaled="
+                             f"{g.is_scaled}")
+    extra = {} if not scales else {"expected_scale": {
+        k: {"min": min(e[k] for e in scales), "max": max(e[k] for e in scales)}
+        for k in scales[0]}}
     emit({"phase": "path", "workload": name, "arch": rec["arch"],
           "batch_unit": rec["batch_unit"], "stages": len(stages),
           "seconds": seconds, "launches": launches,
@@ -740,7 +829,7 @@ def run_path(path, dev):
                          s["pred_d2d_bytes"]] for s in stages],
           "per_stage_columns": ["stage", "wall_ms", "flops", "dci_bytes",
                                 "pred_flops", "pred_d2d_bytes"],
-          **cubes})
+          **extra, **cubes})
     if cubes["stage_max_rel_err"] > STAGE_REL_TOL:
         raise AssertionError(f"stage cube {cubes['stage_worst_cube']} "
                              f"differs by {cubes['stage_max_rel_err']}")
@@ -970,6 +1059,278 @@ def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
     return out
 
 
+def cost_wrappers() -> dict:
+    """The cost model's kernel wrappers, by kernel name."""
+    from repro_torch.kernels.fused_eval import fused_eval, segment_replay
+    return {"fused_eval": fused_eval, "segment_replay": segment_replay}
+
+
+def cost_layouts() -> list:
+    """(name, arch, graph) of the cost kernels' lines: the reference's
+    fused-pass test arch (4x3 cores, two chiplets) with ``moe-quick``, and
+    S-Arch with the granite graph of the fused phase."""
+    from repro_torch.core.hw import ArchConfig, simba_arch
+    from repro_torch.core.workloads import make_workload
+    return [("zoo:moe-quick", ArchConfig(**ZOO_ARCH),
+             make_workload("moe-quick")),
+            ("granite", simba_arch(), make_workload(FUSED_SPEC))]
+
+
+def cost_requests(arch, g, n: int, seed: int) -> list:
+    """``n`` (group, random LMS) requests over the graph's partition, as a
+    lockstep iteration or a screen hands them to the evaluator."""
+    import numpy as np
+
+    from repro_torch.core.encoding import random_lms
+    from repro_torch.core.graph_partition import partition_graph
+    rng = np.random.default_rng(seed)
+    groups = partition_graph(g, arch, FUSED_TOTAL_BATCH)
+    return [(grp, random_lms(grp, g, arch.n_cores, arch.n_dram, rng))
+            for grp in (groups[int(i)]
+                        for i in rng.integers(len(groups), size=n))]
+
+
+def _bound(flops: float, peak: float, nbytes: float) -> dict:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_bytes": nbytes, "bound_ops": flops}
+
+
+def check_cost_kernels(dev) -> dict:
+    """``fused_eval`` and ``segment_replay`` at the batch sizes of a
+    lockstep SA iteration and of a screen, on both layouts.  ``fused_eval``
+    is held against its plain version on the same inputs on the card and
+    against the exact numpy engine (rel 1e-4, equal bottleneck);
+    ``segment_replay`` against ``np.bincount`` on the same stream
+    (rtol 2e-4 / atol 1e-2; it adds in float64).  Each line has the
+    kernel's device time, the plain version's, the kernel's as the host
+    issues it, the library call's (``index_add_`` for the replay; no
+    PyTorch call computes the fused pass), the bound (the stream read
+    once, the outputs written once, at the HBM rate) and the host time of
+    one whole batch evaluation each way (``eval_batch_ms``: numpy against
+    fused, streams and caches warm).  Returns the lines by (kernel,
+    layout, B)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_eval import fused_eval, segment_replay
+
+    names = ("compute", "noc", "d2d", "dram")
+    timed = {}
+    for layout, arch, g in cost_layouts():
+        for B in FUSED_B:
+            reqs = cost_requests(arch, g, B, seed=B)
+            ev = Evaluator(arch, g, fused_device=dev)
+            exact = ev.eval_requests_batch(reqs, FUSED_TOTAL_BATCH)
+            plan = ev.fused_plan()
+            host = ev._fused_inputs(reqs, FUSED_TOTAL_BATCH)
+            args = [torch.from_numpy(a).to(dev) for a in host]
+            kw = dict(spans=plan.spans, d2d_mask=plan.d2d_mask,
+                      consts=plan.consts, has_d2d=plan.has_d2d,
+                      buf_len=plan.buf_len)
+            out, bn = fused_eval(plan, *args)
+            want, wbn = ref.fused_eval_ref(*args, **kw)
+            torch.cuda.synchronize()
+            scale = want.abs().clamp_min(1e-30)
+            rel_plain = ((out - want).abs() / scale).max().item()
+            got = out.cpu().numpy()
+            bn_host = bn.cpu().numpy()
+            rel_exact = max(
+                max(abs(float(got[r, b]) - v) / abs(v) for r, v in
+                    ((0, ge.delay_s), (1, ge.energy_j), (2, ge.stage_time_s)))
+                for b, (ge, _) in enumerate(exact))
+            same_bn = all(names[int(bn_host[b])] == ge.bottleneck
+                          for b, (ge, _) in enumerate(exact))
+            nbytes = sum(a.nbytes for a in host) + out.numel() * 4 + B * 4
+            line = {"phase": "kernel", "kernel": "fused_eval",
+                    "layout": layout, "arch": arch.label(), "B": B,
+                    "buf_len": plan.buf_len, "stream": int(host[0].size),
+                    "main_path": (layout, B) == ("granite", FUSED_CHAINS),
+                    "rel_tol": FUSED_REL_TOL,
+                    "max_abs_err": (out - want).abs().max().item(),
+                    "max_rel_err_vs_plain": rel_plain,
+                    "max_rel_err_vs_exact": rel_exact,
+                    "bottleneck_equal": same_bn,
+                    **_bound(host[0].size + 2 * B * plan.buf_len,
+                             PEAK_F32_FLOPS, nbytes),
+                    "ms": time_ms(lambda: fused_eval(plan, *args)),
+                    "host_issued_ms": time_ms(lambda: fused_eval(plan, *args),
+                                              device=False),
+                    "plain_ms": time_ms(
+                        lambda: ref.fused_eval_ref(*args, **kw)),
+                    "library_ms": None,
+                    "library": "none: no single PyTorch call computes it"}
+            line["eval_batch_ms"] = {
+                be: host_ms(lambda: ev.eval_requests_batch(
+                    reqs, FUSED_TOTAL_BATCH, backend=be))
+                for be in ("numpy", "fused")}
+            timed[("fused_eval", layout, B)] = line
+            emit(line)
+            if not (rel_plain <= FUSED_REL_TOL and torch.equal(bn, wbn)
+                    and rel_exact <= FUSED_REL_TOL and same_bn):
+                raise AssertionError(f"fused_eval disagrees at {layout} "
+                                     f"B={B}: {rel_plain}, {rel_exact}, "
+                                     f"bottleneck {same_bn}")
+
+            idx, vals, _ = ev.analyzer._request_streams(reqs,
+                                                        FUSED_TOTAL_BATCH)
+            n_cells = B * ev.analyzer._buf_len
+            ti, tv = torch.from_numpy(idx).to(dev), torch.from_numpy(
+                vals).to(dev)
+            got = segment_replay(ti, tv, n_cells)
+            torch.cuda.synchronize()
+            want = np.bincount(idx, weights=vals, minlength=n_cells)
+            diff = np.abs(got.cpu().numpy() - want)
+            line = {"phase": "kernel", "kernel": "segment_replay",
+                    "layout": layout, "arch": arch.label(), "B": B,
+                    "cells": n_cells, "stream": int(idx.size),
+                    "main_path": (layout, B) == ("granite", FUSED_B[1]),
+                    **REPLAY_TOL, "max_abs_err": float(diff.max()),
+                    "max_rel_err": float((diff / np.maximum(
+                        np.abs(want), 1e-300))[want != 0].max()),
+                    **_bound(idx.size, PEAK_F64_FLOPS,
+                             idx.nbytes + vals.nbytes + n_cells * 8),
+                    "ms": time_ms(lambda: segment_replay(ti, tv, n_cells)),
+                    "host_issued_ms": time_ms(
+                        lambda: segment_replay(ti, tv, n_cells),
+                        device=False),
+                    "plain_ms": time_ms(
+                        lambda: ref.segment_replay_ref(ti, tv, n_cells)),
+                    "library_ms": time_ms(
+                        lambda: torch.zeros(n_cells, dtype=tv.dtype,
+                                            device=dev).index_add_(0, ti, tv)),
+                    "library": "torch.Tensor.index_add_"}
+            timed[("segment_replay", layout, B)] = line
+            emit(line)
+            if not np.allclose(got.cpu().numpy(), want, **REPLAY_TOL):
+                raise AssertionError(f"segment_replay disagrees at "
+                                     f"{layout} B={B}")
+    return timed
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Mean host milliseconds of ``fn`` after one warm-up call (``fn``
+    returns host values, so its device work has ended)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def run_fused(dev) -> dict:
+    """The ``fused`` phase: replica-exchange SA on the granite graph
+    (S-Arch), once on the exact numpy engine and once scoring proposals
+    with the fused pass on the card (``SAConfig(backend="fused")``), with
+    the cost kernels' counts set to 0 just before; proposals a second each
+    way (every request the lockstep hands the evaluator); each winner
+    re-evaluated by an independent exact evaluator, which must give the
+    reported cost, energy and delay to the bit.  Then the analyzer replay
+    on the card: ``analyze_requests(backend="fused")`` of a screen-sized
+    batch against the exact replay (rtol 2e-4 / atol 1e-2).  Fails unless
+    both kernels launched."""
+    import numpy as np
+
+    from repro_torch.core.evaluator import CachedEvaluator, Evaluator
+    from repro_torch.core.explore import replica_exchange_sa
+    from repro_torch.core.graph_partition import partition_graph
+    from repro_torch.core.hw import simba_arch
+    from repro_torch.core.sa import SAConfig
+    from repro_torch.core.workloads import make_workload
+
+    class Counting(CachedEvaluator):
+        proposals = 0
+
+        def eval_groups_batched(self, requests, total_batch,
+                                backend="numpy"):
+            self.proposals += len(requests)
+            return super().eval_groups_batched(requests, total_batch,
+                                               backend=backend)
+
+    t_phase = time.perf_counter()
+    g, arch = make_workload(FUSED_SPEC), simba_arch()
+    groups = partition_graph(g, arch, FUSED_TOTAL_BATCH)
+    wrappers = cost_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    sa_lines = {}
+    for backend in ("numpy", "fused"):
+        cfg = SAConfig(iters=FUSED_ITERS, seed=0, n_chains=FUSED_CHAINS,
+                       backend=backend)
+        ev = Counting(arch, g, fused_device=dev)
+        t0 = time.perf_counter()
+        res = replica_exchange_sa(g, arch, groups, FUSED_TOTAL_BATCH, cfg,
+                                  evaluator=ev)
+        secs = time.perf_counter() - t0
+        final = Evaluator(arch, g).evaluate(res.mapping, FUSED_TOTAL_BATCH)
+        equal = (res.cost == final.cost(cfg.beta, cfg.gamma)
+                 and res.energy_j == final.energy_j
+                 and res.delay_s == final.delay_s)
+        sa_lines[backend] = {
+            "seconds": secs, "proposals": ev.proposals,
+            "proposals_per_s": ev.proposals / secs, "cost": res.cost,
+            "energy_j": res.energy_j, "delay_s": res.delay_s,
+            "winner_equals_exact": equal}
+        if not equal:
+            raise AssertionError(f"fused phase, backend {backend}: the "
+                                 f"reported cost {res.cost} is not the "
+                                 f"exact re-evaluation's")
+    an = Evaluator(arch, g, fused_device=dev).analyzer
+    reqs = cost_requests(arch, g, FUSED_B[1], seed=7)
+    exact = an.analyze_requests(reqs, FUSED_TOTAL_BATCH)
+    fused = an.analyze_requests(reqs, FUSED_TOTAL_BATCH, backend="fused")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    diff = np.abs(fused.buf - exact.buf)
+    replay = {"B": FUSED_B[1], **REPLAY_TOL,
+              "max_abs_err": float(diff.max()),
+              "weight_totals_equal": bool(np.array_equal(
+                  fused.weight_totals, exact.weight_totals))}
+    if not (np.allclose(fused.buf, exact.buf, **REPLAY_TOL)
+            and replay["weight_totals_equal"]):
+        raise AssertionError(f"fused replay disagrees: {replay}")
+    if not all(launches.values()):
+        raise AssertionError(f"the fused phase launched {launches}")
+    return {"phase": "fused", "workload": FUSED_SPEC, "arch": arch.label(),
+            "groups": len(groups), "chains": FUSED_CHAINS,
+            "iters": FUSED_ITERS, "total_batch": FUSED_TOTAL_BATCH,
+            **sa_lines,
+            "fused_over_numpy_s": sa_lines["fused"]["seconds"]
+            / sa_lines["numpy"]["seconds"],
+            "same_winner_cost": sa_lines["fused"]["cost"]
+            == sa_lines["numpy"]["cost"],
+            "replay": replay, "launches": launches,
+            "clock": "host seconds on the machine that holds the card",
+            "seconds": time.perf_counter() - t_phase}
+
+
+def cost_kernel_summary(cost_timed: dict, launches: dict) -> list:
+    """The ``kernels`` entries of the cost model's kernels: ``launches``
+    from the fused phase, the other numbers from the kernel line at the
+    phase's shape (granite layout; the lockstep batch for ``fused_eval``,
+    the screen batch the phase replays for ``segment_replay``), one
+    launch; ``max_abs_err`` over all of the kernel's lines."""
+    out = []
+    for name, (source, replaces) in COST_KERNEL_FILES.items():
+        lines = [ln for (k, _, _), ln in cost_timed.items() if k == name]
+        main, = [ln for ln in lines if ln["main_path"]]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(ln["max_abs_err"] for ln in lines),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "host_issued_ms": main["host_issued_ms"],
+            "per": f"one launch at B={main['B']} on the {main['layout']} "
+                   f"layout ({main['arch']})"})
+        if main["library_ms"] is None:
+            out[-1]["library"] = main["library"]
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() \
             or not all((FIXTURES / p[1]).exists() for p in PATHS):
@@ -1000,8 +1361,9 @@ def main() -> int:
         emit({"phase": "sass", "HMMA": None,
               "note": "the toolkit has no cuobjdump"})
     else:
-        emit({"phase": "sass", "HMMA": hmma})
-        for name in _build.SOURCES:
+        emit({"phase": "sass", "HMMA": hmma,
+              "gated": list(_build.TENSOR_CORE_SOURCES)})
+        for name in _build.TENSOR_CORE_SOURCES:   # fused_eval does no products
             if not hmma[name] or 0 in hmma[name].values():
                 raise AssertionError(f"{name}: a kernel without tensor-core "
                                      f"instructions: {hmma[name]}")
@@ -1012,8 +1374,12 @@ def main() -> int:
     loop_line, loop_runs = run_loop(dev, timed)
     emit(loop_line)
     runs.update(loop_runs)
+    cost_timed = check_cost_kernels(dev)
+    fused_line = run_fused(dev)
+    emit(fused_line)
     emit(profile_ssd_forward(*layer))
-    emit({"kernels": per_pass_summary(timed, timed_bf16, runs)})
+    emit({"kernels": per_pass_summary(timed, timed_bf16, runs)
+          + cost_kernel_summary(cost_timed, fused_line["launches"])})
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,21 @@ paper's "LP SPM Analyzer", Fig. 4): the router grid (``RouterGrid``,
 recorded scatter-add ``Contribution`` streams and their LRU memo tables
 (``:263-390``), and ``Analyzer`` with ``analyze`` and the per-layer and
 per-dependency builders it replays (``:482-905``, ``:1393-1465``,
-``:1577-1742``).  The arithmetic is the reference's, float64 and in the
-same order, so every ``GroupAnalysis`` equals the reference's.  The
-batched builders (``_prefetch_contribs``, ``analyze_requests``,
-``analyze_batch``, ``row_stream``) and the jitted segment-sum replay stay
-in the reference until the search slice needs them; the port's copy
-records no metrics.
+``:1577-1742``); the batched engine: ``GroupAnalysisBatch``,
+``_regions_to_array``, ``_shape_chunks``, ``Contribution.from_flat``,
+``_route_multicast``, ``regions``, the batched builders
+(``_prefetch_contribs``, ``_layer_math``, ``_layer_contribs_batched``,
+``_dep_traffic_batched`` and its two chunk builders, ``:906-1392``),
+``analyze_requests``, ``row_stream``, ``analyze_batch`` (``:1467-1575``)
+and ``d2d_hop_stats`` (``:1744``).  The arithmetic is the reference's,
+float64 and in the same order, so every ``GroupAnalysis`` equals the
+reference's, and every batched row equals the reference's batched row.
+The reference's jitted ``segment_sum`` replay (``_jax_replay``,
+``:60-92``, its ``backend="jax"``) is the port's ``backend="fused"``:
+:func:`_fused_replay` runs the ``segment_replay`` CUDA kernel of
+:mod:`repro_torch.kernels.fused_eval` on the analyzer's ``fused_device``
+(the card unless the caller asks for the CPU, where the kernel's plain
+version runs).  The port's copy records no metrics.
 
 Given a layer group, an ``LMS`` and an ``ArchConfig`` it produces per-core
 compute work (MACs) and buffer footprints, per-directed-link feature-map
@@ -35,14 +44,41 @@ from __future__ import annotations
 
 import sys
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from .encoding import LMS, MS, parse_regions_arrays
+from .encoding import (LMS, LMSBatch, MS, Region, parse_regions_arrays,
+                       unpack_lms_batch)
 from .hw import ArchConfig
 from .intra_core import explore_intra_core_many
 from .workload import Graph, Layer, LayerGroup
+
+
+def _fused_replay(idx: np.ndarray, vals: np.ndarray, n: int,
+                  device: str) -> np.ndarray:
+    """``segment_sum(vals, idx, n)`` on ``device`` through the
+    ``segment_replay`` kernel (the plain version on the CPU), as float64.
+
+    The counterpart of the reference's ``_jax_replay``.  It keeps that
+    function's refusals: an index stream that is not int64 or a value
+    stream that is not float64 raises ``TypeError`` rather than being
+    narrowed without a word.  The kernel adds in float64 with atomics, in
+    an order that changes from run to run, so a replay is parity-grade,
+    never bit-identical to ``np.bincount``."""
+    if idx.dtype != np.int64:
+        raise TypeError(
+            f"fused replay needs an int64 index stream, got {idx.dtype}")
+    if vals.dtype != np.float64:
+        raise TypeError(
+            f"fused replay needs a float64 value stream, got {vals.dtype}")
+    import torch
+
+    from ..kernels.fused_eval import segment_replay
+    dev = torch.device(device)
+    out = segment_replay(torch.from_numpy(idx).to(dev),
+                         torch.from_numpy(vals).to(dev), n)
+    return out.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +181,31 @@ class GroupAnalysis:
     glb_rw_bytes: np.ndarray         # (2,) read, write
 
 
+@dataclass
+class GroupAnalysisBatch:
+    """B :class:`GroupAnalysis` rows sharing one flat ``(B, buf_len)``
+    accumulator buffer.  ``analyses[b]``'s arrays are views of ``buf[b]``,
+    so the batched evaluator can run its math once over the 2-D slices
+    (``target``) while every row remains a full, cache-storable
+    ``GroupAnalysis``."""
+    analyses: List[GroupAnalysis]
+    buf: np.ndarray                  # (B, buf_len)
+    layout: List[Tuple[int, int]]    # per-T_* target (lo, hi) columns
+    weight_totals: np.ndarray        # (B,)
+
+    def target(self, t: int) -> np.ndarray:
+        lo, hi = self.layout[t]
+        return self.buf[:, lo:hi]
+
+
+def _regions_to_array(regions: Dict[int, Region]) -> Tuple[np.ndarray, np.ndarray]:
+    cores = np.array(sorted(regions), dtype=np.int64)
+    arr = np.array([[regions[c].h0, regions[c].h1, regions[c].w0, regions[c].w1,
+                     regions[c].b0, regions[c].b1, regions[c].k0, regions[c].k1]
+                    for c in cores], dtype=np.int64)
+    return cores, arr
+
+
 def _overlap_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """(P,8) x (Q,8) region arrays -> (P,Q) overlap element counts."""
     lo = np.maximum(a[:, None, 0::2], b[None, :, 0::2])
@@ -152,6 +213,34 @@ def _overlap_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     d = hi - lo
     np.clip(d, 0, None, out=d)
     return d[..., 0] * d[..., 1] * d[..., 2] * d[..., 3]
+
+
+def _shape_chunks(jobs: List, shape_fn, max_cells: int):
+    """Split ``jobs`` into runs whose PADDED batch volume stays bounded.
+
+    Jobs are sorted by shape first (similar shapes cluster, minimizing
+    padding waste); a chunk of J jobs padded to the elementwise max of
+    their ``shape_fn`` tuples costs ``J * prod(max_dims)`` cells, and the
+    greedy scan cuts before that cost crosses the cap.  A single
+    oversized job still forms its own chunk (it pads to itself, so the
+    batched path degenerates to the scalar footprint, never worse).
+    """
+    if not jobs:
+        return
+    jobs = sorted(jobs, key=lambda j: tuple(shape_fn(j)))
+    chunk: List = []
+    dims: Tuple[int, ...] = ()
+    for job in jobs:
+        s = tuple(shape_fn(job))
+        nd = tuple(map(max, dims, s)) if chunk else s
+        cost = (len(chunk) + 1) * int(np.prod(nd))
+        if chunk and cost > max_cells:
+            yield chunk
+            chunk, dims = [job], s
+        else:
+            chunk.append(job)
+            dims = nd
+    yield chunk
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +319,21 @@ class Contribution:
             out_v.append(self.flat_vals)
 
 
+    @classmethod
+    def from_flat(cls, idx: np.ndarray, vals: np.ndarray,
+                  weight_total: float = 0.0) -> "Contribution":
+        """Wrap an ALREADY-SEALED stream (offsets applied, chunks
+        concatenated in add order) without the add/seal machinery — the
+        batched builders construct whole streams as slices of one pooled
+        array, and per-piece add/seal dispatch would dominate their
+        runtime."""
+        c = cls.__new__(cls)
+        c._parts = []
+        c.flat_idx = idx
+        c.flat_vals = vals
+        c.weight_total = weight_total
+        return c
+
 
 class _LRU(dict):
     """Tiny bounded LRU dict for memoizing contributions and geometry.
@@ -284,9 +388,12 @@ _GEO_CACHE = _LRU(262_144)
 class Analyzer:
     """Stateful per-(arch, graph) analyzer; reused across SA iterations."""
 
-    def __init__(self, arch: ArchConfig, g: Graph, cache_size: int = 50_000):
+    def __init__(self, arch: ArchConfig, g: Graph, cache_size: int = 50_000,
+                 fused_device: str = "cuda"):
         self.arch = arch
         self.g = g
+        # where analyze_requests(backend="fused") replays
+        self.fused_device = fused_device
         self.grid = router_grid(arch)
         self._core_nodes = np.array(
             [arch.core_node(c) for c in range(arch.n_cores)], dtype=np.int64)
@@ -325,6 +432,7 @@ class Analyzer:
         self._buf_len = int(bounds[-1])
         # memo tables for the incremental path
         self._table_cache = _LRU(cache_size)      # region geometry (per Part)
+        self._regions_cache = _LRU(cache_size)
         self._rarr_cache = _LRU(cache_size)       # regions as (cores, array)
         self._node_cache = _LRU(cache_size)       # region cores -> grid nodes
         self._needgeo_cache = _LRU(cache_size)    # need rows (per Part)
@@ -335,6 +443,12 @@ class Analyzer:
         self._layer_cache = _LRU(cache_size)      # (pre, post) contributions
         self._dep_cache = _LRU(cache_size)
         self._topo_cache = _LRU(cache_size)       # per-group internal preds
+        self._row_cache = _LRU(cache_size)        # fused path: f32 row streams
+        self._lmath_cache = _LRU(cache_size)      # per-layer value math (per Part)
+        # pre-offset DRAM accumulator indices for the batched builders
+        self._dram_iota = np.arange(nd, dtype=np.int64) + self._offsets[T_DRAM]
+        self._dram_iota_am = np.arange(nd, dtype=np.int64) \
+            + self._offsets[T_DRAM_AM]
 
     # -- routing helpers -----------------------------------------------------
     def _route(self, contrib: Contribution, target: int, src_nodes: np.ndarray,
@@ -353,6 +467,16 @@ class Analyzer:
     # ifmap regions, the producerxconsumer overlap counts) depends only on a
     # layer's Part, never on its CG — core swaps (SA OP2/OP3) reuse it all.
     # Only the core BINDING (which core holds which row) involves the CG.
+
+    def _route_multicast(self, contrib: Contribution, target: int,
+                         src_node: int, dst_nodes: Sequence[int],
+                         vol: float) -> None:
+        """One producer datum to many consumers: union of XY paths, counted once."""
+        if vol <= 0 or not len(dst_nodes):
+            return
+        paths = self.grid.paths[src_node, np.asarray(dst_nodes, dtype=np.int64)]
+        edges = np.unique(paths[paths >= 0])
+        contrib.add(target, edges, vol)
 
     def region_geometry(self, name: str, part: Tuple[int, ...],
                         bu: int) -> np.ndarray:
@@ -376,6 +500,16 @@ class Analyzer:
         """(cores, region rows) in correspondence order (unsorted)."""
         return (np.asarray(ms.cg, dtype=np.int64),
                 self.region_geometry(name, ms.part, bu))
+
+    def regions(self, name: str, ms: MS, bu: int) -> Dict[int, Region]:
+        key = (self._layer_idx[name], ms.geo, bu)
+        hit = self._regions_cache.get(key)
+        if hit is None:
+            cores, rarr = self.region_table(name, ms, bu)
+            hit = self._regions_cache.put(
+                key, {c: Region(*row)
+                      for c, row in zip(cores.tolist(), rarr.tolist())})
+        return hit
 
     def _region_arrays(self, name: str, ms: MS, bu: int
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -661,6 +795,502 @@ class Analyzer:
             hit = self._dep_cache.put(key, contrib.seal(self._offsets))
         return hit
 
+    # -- batched construction (one vectorized pass over many cache misses) ----
+    #
+    # ``analyze_requests`` prefetches every contribution piece the batch
+    # will need and builds the MISSING ones here, batched across requests:
+    # ragged per-piece geometry is padded to rectangular index tables whose
+    # pad cells are routed to provably-empty paths (the (n, n) diagonal /
+    # self-routed pairs), so they emit no stream entries at all.  Per-piece
+    # float reductions stay on exact per-piece slices — padding a float
+    # reduction would change numpy's pairwise-summation tree.  The sealed
+    # streams are BIT-IDENTICAL to the scalar builders' (same entries, same
+    # order), which the scalar path remains the reference for.
+
+    def _prefetch_contribs(self, requests: Sequence[Tuple[LayerGroup, LMS]],
+                           total_batch: int) -> None:
+        """Batch-build every layer/dependency piece the requests will miss."""
+        layer_jobs: Dict[Tuple, Tuple] = {}
+        dep_jobs: Dict[Tuple, Tuple] = {}
+        for group, lms in requests:
+            bu = group.batch_unit
+            n_passes = max(1, -(-total_batch // bu))
+            gid = self._group_ids.setdefault(group.names,
+                                             len(self._group_ids))
+            for name, internal_preds in self._group_topology(group):
+                ms = lms.ms[name]
+                lkey = (self._layer_idx[name], ms, bu, n_passes, gid)
+                if lkey not in layer_jobs \
+                        and self._layer_cache.get(lkey) is None:
+                    layer_jobs[lkey] = (name, ms, bu, n_passes, group, gid)
+                for p in internal_preds:
+                    pms = lms.ms[p]
+                    dkey = (self._layer_idx[p], pms.geo,
+                            self._layer_idx[name], ms.geo, bu)
+                    if dkey not in dep_jobs \
+                            and self._dep_cache.get(dkey) is None:
+                        dep_jobs[dkey] = (p, pms, name, ms, bu)
+        if layer_jobs:
+            self._layer_contribs_batched(layer_jobs)
+        if dep_jobs:
+            self._dep_traffic_batched(dep_jobs)
+
+    def _layer_math(self, name: str, part: Tuple[int, ...], bu: int,
+                    n_passes: int) -> Dict[str, object]:
+        """Per-layer value arrays depending only on (layer, Part, bu,
+        n_passes) — computed with the scalar builder's exact pre-scale op
+        sequence, so scale-1.0 jobs (the dense common case) reuse them
+        verbatim and scaled jobs apply the same guarded multiplies the
+        scalar path would."""
+        key = (self._layer_idx[name], part, bu, n_passes)
+        hit = self._lmath_cache.get(key)
+        if hit is not None:
+            return hit
+        lyr = self.g.layers[name]
+        # correspondence order — every array below is elementwise per
+        # region row, so callers permute through their CG's sort order and
+        # land on the exact values the scalar builder computes from the
+        # sorted table (elementwise ops commute with permutation)
+        rarr = self.region_geometry(name, part, bu)
+        elems = (rarr[:, 1] - rarr[:, 0]) * (rarr[:, 3] - rarr[:, 2]) \
+            * (rarr[:, 5] - rarr[:, 4]) * (rarr[:, 7] - rarr[:, 6])
+        mac_per_elem = lyr.macs(1) / max(1, lyr.ofmap_elems)
+        bpe = lyr.bytes_per_elem
+        w_share = lyr.weight_bytes() / max(1, part[3]) if lyr.has_weight else 0
+        fmap = elems * bpe * 2
+        n = len(rarr)
+        off_rw = self._offsets[T_GLB_RW]
+        if lyr.has_weight:
+            k_span = rarr[:, 7] - rarr[:, 6]
+            w_core = k_span / max(1, lyr.K) * lyr.weight_bytes()
+        else:
+            w_core = None
+        hit = {
+            "macs": elems * mac_per_elem,
+            "fmap": fmap,
+            "w_share": w_share,
+            # float64 up front: Contribution.add's dtype conversion is
+            # value-exact, so pre-converting preserves bit-identity
+            "glb1": np.asarray(fmap + w_share, dtype=np.float64),
+            "rw0": np.full(n, off_rw, dtype=np.int64),
+            "rw1": np.full(n, off_rw + 1, dtype=np.int64),
+            "w_core": w_core,
+            "if": np.asarray(self._external_ifmap_bytes(lyr, rarr, bu) * bpe,
+                             dtype=np.float64),
+            "of": np.asarray(elems * bpe, dtype=np.float64),
+        }
+        return self._lmath_cache.put(key, hit)
+
+    def _layer_contribs_batched(self, jobs: Dict[Tuple, Tuple]) -> None:
+        """Build many missing ``_layer_contribs`` pieces in one pass.
+
+        Value math is memoized per (layer, Part, bu, passes) in
+        ``_layer_math`` (the scalar builder's exact op sequence), every
+        queued DRAM flow's XY-path gather runs as ONE fancy index into
+        ``grid.paths``, and the sealed streams assemble as slices of one
+        pooled (idx, vals) pair via ``from_flat`` — chunk content and
+        order match the scalar add/seal output entry for entry.
+        """
+        offsets = self._offsets
+        off_glb = offsets[T_GLB]
+        off_time = offsets[T_CORE_TIME]
+        off_in = offsets[T_CORE_IN]
+        off_out = offsets[T_CORE_OUT]
+        off_e = offsets[T_EDGE]
+        off_eam = offsets[T_EDGE_AM]
+        route_srcs: List[np.ndarray] = []
+        route_dsts: List[np.ndarray] = []
+        route_vols: List[np.ndarray] = []
+        route_offs: List[int] = []
+
+        def queue_route(chunks, eoff, srcs, dsts, vols):
+            chunks.append(len(route_srcs))   # placeholder -> route id
+            route_srcs.append(srcs)
+            route_dsts.append(dsts)
+            route_vols.append(vols)
+            route_offs.append(eoff)
+
+        def queue_dram_flow(chunks, eoff, diota, fd, nodes, vols, to_core):
+            # mirrors _dram_flow exactly (vols arrive as float64 arrays);
+            # the _route path gather is deferred to the bulk gather below
+            if fd == 0:
+                nd = self.arch.n_dram
+                share = vols / nd
+                dn = np.repeat(self._dram_nodes[:nd], len(nodes))
+                cn = np.concatenate([nodes] * nd)
+                sh = np.concatenate([share] * nd)
+                if to_core:
+                    queue_route(chunks, eoff, dn, cn, sh)
+                else:
+                    queue_route(chunks, eoff, cn, dn, sh)
+                chunks.append((diota, np.full(nd, float(share.sum()))))
+            else:
+                d = fd - 1
+                dn = np.full(len(nodes), self._dram_nodes[d])
+                if to_core:
+                    queue_route(chunks, eoff, dn, nodes, vols)
+                else:
+                    queue_route(chunks, eoff, nodes, dn, vols)
+                chunks.append((diota[d:d + 1],
+                               np.asarray([float(vols.sum())])))
+
+        staged: List[Tuple[Tuple, List, List, float]] = []
+        g = self.g
+        for key, (name, ms, bu, n_passes, group, gid) in jobs.items():
+            lyr = g.layers[name]
+            cores, _, order = self._region_arrays(name, ms, bu)
+            nodes = self._core_nodes[cores]
+            m = self._layer_math(name, ms.part, bu, n_passes)
+            ts = lyr.traffic_scale
+            ws = lyr.weight_traffic_scale
+            pre: List = []
+            post: List = []
+            weight_total = 0.0
+
+            # cached arrays are correspondence-order; [order] lands on the
+            # scalar builder's sorted-table values exactly
+            pre.append((cores,
+                        m["macs"][order] if ts == 1.0
+                        else m["macs"][order] * ts))
+            pre.append((cores + off_glb, m["glb1"][order] if ts == 1.0
+                        else m["fmap"][order] * ts + m["w_share"]))
+            t_arr, rd, wr = self._intra_geometry(name, ms.part, bu)
+            if ts != 1.0:
+                t_arr = t_arr * ts
+                rd = rd * ts
+                wr = wr * ts
+            pre.append((np.asarray(ms.cg, dtype=np.int64) + off_time, t_arr))
+            pre.append((m["rw0"], rd))
+            pre.append((m["rw1"], wr))
+
+            if lyr.has_weight:
+                wc = m["w_core"][order]
+                if ws != 1.0:
+                    wc = wc * ws
+                weight_total = float(wc.sum())
+                queue_dram_flow(pre, off_eam, self._dram_iota_am, ms.fd[1],
+                                nodes, wc / n_passes, to_core=True)
+
+            preds = g.preds(name)
+            in_group = group.names
+            external = (not preds) or any(p not in in_group for p in preds)
+            if external and ms.fd[0] >= 0:
+                ifb = m["if"][order] if ts == 1.0 else m["if"][order] * ts
+                queue_dram_flow(post, off_e, self._dram_iota, ms.fd[0],
+                                nodes, ifb, to_core=True)
+                post.append((cores + off_in, ifb))
+
+            if ms.fd[2] >= 0:
+                ofb = m["of"][order] if ts == 1.0 else m["of"][order] * ts
+                queue_dram_flow(post, off_e, self._dram_iota, ms.fd[2],
+                                nodes, ofb, to_core=False)
+                post.append((cores + off_out, ofb))
+
+            staged.append((key, pre, post, weight_total))
+
+        # ONE bulk path gather over every queued flow of every job; the
+        # per-target edge offsets ride along as a repeated offset vector,
+        # so per-route chunks are pure slice views afterwards
+        e_all = v_all = r_bounds = None
+        if route_srcs:
+            R = len(route_srcs)
+            lens = np.fromiter((s.size for s in route_srcs), np.int64, R)
+            roffs = np.concatenate(([0], np.cumsum(lens)))
+            paths_all = self.grid.paths[np.concatenate(route_srcs),
+                                        np.concatenate(route_dsts)]
+            L = paths_all.shape[1]
+            keep = paths_all >= 0
+            per_route = np.add.reduceat(keep.sum(axis=1), roffs[:-1])
+            flat_keep = keep.reshape(-1)
+            e_all = paths_all.reshape(-1)[flat_keep] \
+                + np.repeat(np.asarray(route_offs, dtype=np.int64), per_route)
+            v_all = np.repeat(np.concatenate(route_vols), L)[flat_keep]
+            r_bounds = np.concatenate(([0], np.cumsum(per_route)))
+
+        ci: List[np.ndarray] = []
+        cv: List[np.ndarray] = []
+
+        def emit(chunks) -> int:
+            n = 0
+            for chunk in chunks:
+                if type(chunk) is int:
+                    s, e = r_bounds[chunk], r_bounds[chunk + 1]
+                    ci.append(e_all[s:e])
+                    cv.append(v_all[s:e])
+                    n += int(e - s)
+                else:
+                    ci.append(chunk[0])
+                    cv.append(chunk[1])
+                    n += chunk[0].size
+            return n
+
+        spans: List[Tuple[Tuple, float, int, int]] = []
+        for key, pre, post, weight_total in staged:
+            n_pre = emit(pre)
+            n_post = emit(post)
+            spans.append((key, weight_total, n_pre, n_post))
+        mega_i = np.concatenate(ci)
+        mega_v = np.concatenate(cv)
+        pos = 0
+        for key, wt, n_pre, n_post in spans:
+            mid = pos + n_pre
+            end = mid + n_post
+            self._layer_cache.put(
+                key, (Contribution.from_flat(mega_i[pos:mid],
+                                             mega_v[pos:mid], wt),
+                      Contribution.from_flat(mega_i[mid:end],
+                                             mega_v[mid:end])))
+            pos = end
+
+    # padded-volume cap per batched dependency chunk: bounds the peak
+    # gather size (uint64 words / path cells) when jobs of very different
+    # shapes co-occur; chunking changes nothing but peak memory
+    _DEP_CHUNK_CELLS = 2_000_000
+
+    def _dep_traffic_batched(self, jobs: Dict[Tuple, Tuple]) -> None:
+        """Build many missing ``_dep_contrib`` pieces in one pass each for
+        the contracting (multicast-grouped) and plain (unicast) families."""
+        contracting: List[Tuple] = []
+        plain: List[Tuple] = []
+        for key, (pname, pms, cname, cms, bu) in jobs.items():
+            prod, cons = self.g.layers[pname], self.g.layers[cname]
+            ov_geo, any_ov = self._overlap_geometry(pname, pms.part, cname,
+                                                    cms.part, bu, prod.K)
+            if not any_ov:
+                self._dep_cache.put(key, Contribution().seal(self._offsets))
+                continue
+            p_cores, _, p_ord = self._region_arrays(pname, pms, bu)
+            c_cores, _, c_ord = self._region_arrays(cname, cms, bu)
+            bpe = prod.bytes_per_elem
+            escale = prod.traffic_scale * self.g.edge_mult(pname, cname)
+            p_nodes = self._region_nodes(pname, pms, bu)
+            c_nodes = self._region_nodes(cname, cms, bu)
+            if cons.kind in ("conv", "fc", "matmul"):
+                if self._path_bits is None:
+                    # absurd grids fall back to the scalar sort-dedup path
+                    contrib = Contribution()
+                    self._dep_traffic(contrib, pname, pms, cname, cms, bu)
+                    self._dep_cache.put(key, contrib.seal(self._offsets))
+                    continue
+                need, mc_first, mc_members, mc_cn, mc_live = \
+                    self._need_arrays(cname, cms, bu, prod.K)
+                contracting.append((key, ov_geo, p_ord, c_ord, p_cores,
+                                    c_cores, p_nodes, bpe, escale, mc_first,
+                                    mc_members, mc_cn, mc_live))
+            else:
+                plain.append((key, ov_geo, p_ord, c_ord, p_cores, c_cores,
+                              p_nodes, c_nodes, bpe, escale))
+        # pad jobs to chunk-max shapes: lockstep-iteration job shapes are
+        # tiny (G*P is tens of cells), so padding waste is noise while the
+        # chunk count — hence the numpy dispatch count, the actual cost on
+        # these shapes — drops to O(1) per family per iteration
+        W = self._path_bits.shape[2] if self._path_bits is not None else 1
+        for chunk in _shape_chunks(
+                contracting,
+                lambda j: (len(j[9]), len(j[2]), max(1, j[10].shape[1]), W),
+                self._DEP_CHUNK_CELLS):
+            self._dep_contracting_chunk(chunk)
+        L = self.grid.paths.shape[2]
+        for chunk in _shape_chunks(plain,
+                                   lambda j: (len(j[2]), len(j[3]), L),
+                                   self._DEP_CHUNK_CELLS):
+            self._dep_plain_chunk(chunk)
+
+    def _dep_contracting_chunk(self, jobs: List[Tuple]) -> None:
+        """Batched contracting-dependency construction (packed bitsets).
+
+        Jobs pad to the chunk's max (G, P, Q).  Pad cells index row/col 0
+        of the job's own pooled overlap block — in-bounds garbage — but
+        are dead by construction: pad members carry a False live mask, pad
+        producer columns get their volumes zeroed, so ``act`` is False and
+        pads route to the empty ``(p, p)`` bitset diagonal, emitting no
+        stream entries; the out/in value chunks slice exact (G, P[, Q])
+        sub-blocks.  Every expensive stage — the bitset gather, the member
+        OR-reduce, the unpack, the nonzero scan — runs ONCE per chunk, and
+        per-job streams become slice views of one pooled (idx, vals) pair
+        via ``from_flat``.
+        """
+        J = len(jobs)
+        Gs = [len(j[9]) for j in jobs]
+        Ps = [len(j[2]) for j in jobs]
+        Qs = [j[10].shape[1] for j in jobs]
+        Gm, Pm, Qm = max(Gs), max(Ps), max(max(Qs), 1)
+        p_idx = np.zeros((J, Pm), dtype=np.int64)
+        gfirst = np.zeros((J, Gm), dtype=np.int64)
+        p_nodes_pad = np.zeros((J, Pm), dtype=np.int64)
+        cn_pad = np.zeros((J, Gm, Qm), dtype=np.int64)
+        live_pad = np.zeros((J, Gm, Qm), dtype=bool)
+        scal = np.empty((J, 2), dtype=np.float64)
+        sizes = np.fromiter((j[1].size for j in jobs), np.int64, J)
+        offs = np.concatenate(([0], np.cumsum(sizes)))
+        pool = np.concatenate([j[1].reshape(-1) for j in jobs])
+        ncols = np.fromiter((j[1].shape[1] for j in jobs), np.int64, J)
+        for jj, j in enumerate(jobs):
+            G, P, Q = Gs[jj], Ps[jj], Qs[jj]
+            p_idx[jj, :P] = j[2]
+            gfirst[jj, :G] = j[3][j[9]]
+            p_nodes_pad[jj, :P] = j[6]
+            cn_pad[jj, :G, :Q] = j[11]
+            live_pad[jj, :G, :Q] = j[12]
+            scal[jj, 0] = j[7]
+            scal[jj, 1] = j[8]
+        flat_ov = offs[:-1, None, None] \
+            + p_idx[:, :, None] * ncols[:, None, None] \
+            + gfirst[:, None, :]                             # (J, Pm, Gm)
+        vols = pool[flat_ov].transpose(0, 2, 1) * scal[:, :1, None]
+        vols = vols * scal[:, 1:, None]                      # *1.0 bit-exact
+        # zero pad producer columns: their garbage volumes must not trip
+        # the (vols > 0) activity gate (real cells pass through verbatim)
+        valid_p = np.arange(Pm)[None, :] < np.asarray(Ps)[:, None]
+        vols = np.where(valid_p[:, None, :], vols, 0.0)      # (J, Gm, Pm)
+        off_node = (p_nodes_pad[:, None, :, None] != cn_pad[:, :, None, :]) \
+            & live_pad[:, :, None, :]                        # (J, G, P, Q)
+        act = off_node & (vols > 0)[:, :, :, None]
+        # Sparse union: gather path bitsets only at ACTIVE member cells
+        # (typically <10% of the padded lattice), OR-reduce per (j, g, p)
+        # row with reduceat, then unpack/scan only the surviving rows.
+        # Inactive cells previously OR'd in the empty (p, p) diagonal —
+        # the OR identity — so dropping them leaves every union word
+        # bit-identical, and rows with no active member produce no stream
+        # entries either way.
+        flat_act = np.flatnonzero(act.reshape(-1))
+        if flat_act.size:
+            rowq, q_of = np.divmod(flat_act, Qm)             # row = (j,g,p)
+            jj_of, gp_of = np.divmod(rowq, Gm * Pm)
+            g_of, p_of = np.divmod(gp_of, Pm)
+            srcs = p_nodes_pad.reshape(-1)[jj_of * Pm + p_of]
+            dsts = cn_pad.reshape(-1)[(jj_of * Gm + g_of) * Qm + q_of]
+            pb = self._path_bits[srcs, dsts]                 # (n_act, W)
+            seg_starts = np.concatenate(
+                ([0], np.flatnonzero(rowq[1:] != rowq[:-1]) + 1))
+            union_small = np.bitwise_or.reduceat(pb, seg_starts, axis=0)
+            live_rows = rowq[seg_starts]
+            ub = np.unpackbits(union_small.view(np.uint8), axis=1,
+                               bitorder="little")
+            rr, e_idx = np.divmod(np.flatnonzero(ub.reshape(-1)), ub.shape[1])
+            r_idx = live_rows[rr]
+        else:
+            r_idx = np.empty(0, dtype=np.int64)
+            e_idx = np.empty(0, dtype=np.int64)
+        off_e = self._offsets[T_EDGE]
+        if off_e:
+            e_idx = e_idx + off_e
+        e_vals = vols.reshape(-1)[r_idx]
+        bnd = np.searchsorted(r_idx, np.arange(1, J) * (Gm * Pm))
+        starts = np.concatenate(([0], bnd))
+        ends = np.concatenate((bnd, [len(r_idx)]))
+        has_dst = off_node.any(axis=3)                       # (J, G, P)
+        out_vals = vols * has_dst
+        in_vals = vols[:, :, :, None] * act
+        off_out = self._offsets[T_CORE_OUT]
+        off_in = self._offsets[T_CORE_IN]
+        ci: List[np.ndarray] = []
+        cv: List[np.ndarray] = []
+        lens: List[int] = []
+        for jj, job in enumerate(jobs):
+            G, P, Q = Gs[jj], Ps[jj], Qs[jj]
+            p_cores, c_cores, members = job[4], job[5], job[10]
+            s, e = starts[jj], ends[jj]
+            ci.append(e_idx[s:e])
+            cv.append(e_vals[s:e])
+            ci.append(np.broadcast_to(p_cores + off_out, (G, P)).reshape(-1))
+            cv.append(out_vals[jj, :G, :P].reshape(-1))
+            ci.append(np.broadcast_to((c_cores + off_in)[members][:, None, :],
+                                      (G, P, Q)).reshape(-1))
+            cv.append(in_vals[jj, :G, :P, :Q].reshape(-1))
+            lens.append(int(e - s) + G * P + G * P * Q)
+        mega_i = np.concatenate(ci)
+        mega_v = np.concatenate(cv)
+        pos = 0
+        for job, n in zip(jobs, lens):
+            nxt = pos + n
+            self._dep_cache.put(job[0], Contribution.from_flat(
+                mega_i[pos:nxt], mega_v[pos:nxt]))
+            pos = nxt
+
+    def _dep_plain_chunk(self, jobs: List[Tuple]) -> None:
+        """Batched non-contracting (unicast) dependency construction.
+
+        Jobs pad to the chunk's max (P, Q); pad pairs self-route (dst :=
+        src, whose path row is all ``-1``), so the keep mask drops them
+        and pads emit no edge entries — their garbage volumes never
+        surface, because the core in/out sums reduce exact per-job
+        sub-block slices (padding a float reduction would change numpy's
+        pairwise-summation tree).  One path gather + one keep scan per
+        chunk; per-job streams are slice views of one pooled (idx, vals)
+        pair via ``from_flat``.
+        """
+        J = len(jobs)
+        Ps = [len(j[2]) for j in jobs]
+        Qs = [len(j[3]) for j in jobs]
+        Pm, Qm = max(Ps), max(Qs)
+        p_idx = np.zeros((J, Pm), dtype=np.int64)
+        c_idx = np.zeros((J, Qm), dtype=np.int64)
+        p_nodes_pad = np.zeros((J, Pm), dtype=np.int64)
+        c_nodes_pad = np.zeros((J, Qm), dtype=np.int64)
+        scal = np.empty((J, 2), dtype=np.float64)
+        sizes = np.fromiter((j[1].size for j in jobs), np.int64, J)
+        offs = np.concatenate(([0], np.cumsum(sizes)))
+        pool = np.concatenate([j[1].reshape(-1) for j in jobs])
+        ncols = np.fromiter((j[1].shape[1] for j in jobs), np.int64, J)
+        for jj, j in enumerate(jobs):
+            P, Q = Ps[jj], Qs[jj]
+            p_idx[jj, :P] = j[2]
+            c_idx[jj, :Q] = j[3]
+            p_nodes_pad[jj, :P] = j[6]
+            c_nodes_pad[jj, :Q] = j[7]
+            scal[jj, 0] = j[8]
+            scal[jj, 1] = j[9]
+        valid = (np.arange(Pm)[None, :, None] < np.asarray(Ps)[:, None, None]) \
+            & (np.arange(Qm)[None, None, :] < np.asarray(Qs)[:, None, None])
+        flat_ov = offs[:-1, None, None] \
+            + p_idx[:, :, None] * ncols[:, None, None] \
+            + c_idx[:, None, :]                              # (J, Pm, Qm)
+        vols = pool[flat_ov].astype(float) * scal[:, :1, None]
+        vols = vols * scal[:, 1:, None]                      # *1.0 bit-exact
+        same = p_nodes_pad[:, :, None] == c_nodes_pad[:, None, :]
+        vols_off = np.where(same, 0.0, vols)
+        srcs = np.broadcast_to(p_nodes_pad[:, :, None], (J, Pm, Qm))
+        dsts = np.where(valid,
+                        np.broadcast_to(c_nodes_pad[:, None, :], (J, Pm, Qm)),
+                        srcs)
+        paths = self.grid.paths[srcs, dsts]                  # (J, Pm, Qm, L)
+        L = paths.shape[3]
+        flat = paths.reshape(J, -1)
+        keep = flat >= 0
+        e_all = flat[keep]
+        off_e = self._offsets[T_EDGE]
+        if off_e:
+            e_all = e_all + off_e
+        v_all = np.repeat(vols_off.reshape(J, -1), L, axis=1)[keep]
+        cnt = keep.sum(axis=1)
+        ends = np.cumsum(cnt)
+        starts = ends - cnt
+        off_out = self._offsets[T_CORE_OUT]
+        off_in = self._offsets[T_CORE_IN]
+        ci: List[np.ndarray] = []
+        cv: List[np.ndarray] = []
+        lens: List[int] = []
+        for jj, job in enumerate(jobs):
+            P, Q = Ps[jj], Qs[jj]
+            s, e = starts[jj], ends[jj]
+            vo = vols_off[jj, :P, :Q]
+            ci.append(e_all[s:e])
+            cv.append(v_all[s:e])
+            ci.append(job[4] + off_out)
+            cv.append(vo.sum(axis=1))
+            ci.append(job[5] + off_in)
+            cv.append(vo.sum(axis=0))
+            lens.append(int(e - s) + P + Q)
+        mega_i = np.concatenate(ci)
+        mega_v = np.concatenate(cv)
+        pos = 0
+        for job, n in zip(jobs, lens):
+            nxt = pos + n
+            self._dep_cache.put(job[0], Contribution.from_flat(
+                mega_i[pos:nxt], mega_v[pos:nxt]))
+            pos = nxt
+
     def _group_topology(self, group: LayerGroup) -> List[Tuple[str, List[str]]]:
         """Per layer, its in-group predecessors (graph scans done once)."""
         key = group.names
@@ -728,6 +1358,126 @@ class Analyzer:
         else:
             buf = np.zeros(self._buf_len)
         return self._wrap_analysis(buf, group, lms, bu, weight_total)
+
+    def analyze_requests(self, requests: Sequence[Tuple[LayerGroup, LMS]],
+                         total_batch: int,
+                         backend: str = "numpy") -> GroupAnalysisBatch:
+        """Analyze a mixed batch of (group, lms) requests in ONE replay.
+
+        Row ``b`` of the result is bit-identical to
+        ``analyze(requests[b][0], requests[b][1], total_batch)``: every
+        request's contribution chunks are gathered in the scalar order,
+        offset into its own ``buf_len`` window of one flat
+        ``(B * buf_len,)`` buffer, and the whole batch replays through one
+        ``np.bincount`` — rows never share a cell and per-row add order is
+        the concatenation order, so the float-add sequence of each row is
+        exactly the scalar one.  Requests may mix layer groups (the buffer
+        layout is per-arch, shared by all groups), which is what lets the
+        lockstep SA evaluate one whole iteration in a single pass.
+
+        ``backend="fused"`` (the reference's ``"jax"``) replays on the
+        analyzer's ``fused_device`` through the ``segment_replay`` kernel
+        instead (:func:`_fused_replay`).  Its atomic adds do NOT preserve
+        the add order, so it is parity-grade, never bit-identical, and
+        never the default.
+        """
+        if backend not in ("numpy", "fused"):
+            raise ValueError(f"unknown analyze batch backend {backend!r}")
+        B = len(requests)
+        idx, vals, weight_totals = self._request_streams(requests,
+                                                         total_batch)
+        if idx.size:
+            if backend == "fused":
+                buf = _fused_replay(idx, vals, B * self._buf_len,
+                                    self.fused_device)
+            else:
+                buf = np.bincount(idx, weights=vals,
+                                  minlength=B * self._buf_len)
+        else:
+            buf = np.zeros(B * self._buf_len)
+        buf2 = buf.reshape(B, self._buf_len)
+        analyses = [self._wrap_analysis(buf2[b], group, lms,
+                                        group.batch_unit,
+                                        float(weight_totals[b]))
+                    for b, (group, lms) in enumerate(requests)]
+        return GroupAnalysisBatch(analyses=analyses, buf=buf2,
+                                  layout=self._layout,
+                                  weight_totals=weight_totals)
+
+    def _request_streams(self, requests: Sequence[Tuple[LayerGroup, LMS]],
+                         total_batch: int
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """A batch's replay stream: (int64 idx, row ``b``'s cells offset by
+        ``b * buf_len``; float64 vals; per-row weight-DRAM totals), every
+        request's chunks in the scalar gather order.  Every cache-missing
+        piece is built first, batched across the whole request list (the
+        batched builders seal bit-identical streams, so this is a pure
+        construction-cost optimization)."""
+        self._prefetch_contribs(requests, total_batch)
+        chunks_i: List[np.ndarray] = []
+        chunks_v: List[np.ndarray] = []
+        bases: List[int] = []
+        weight_totals = np.empty(len(requests))
+        for b, (group, lms) in enumerate(requests):
+            bu = group.batch_unit
+            n_passes = max(1, -(-total_batch // bu))
+            gid = self._group_ids.setdefault(group.names,
+                                             len(self._group_ids))
+            n0 = len(chunks_i)
+            weight_totals[b] = self._gather_stream(group, lms, bu, n_passes,
+                                                   gid, chunks_i, chunks_v)
+            bases.extend([b * self._buf_len] * (len(chunks_i) - n0))
+        if not chunks_i:
+            return (np.empty(0, np.int64), np.empty(0), weight_totals)
+        idx = np.concatenate(chunks_i)
+        lens = np.fromiter((c.size for c in chunks_i), np.int64,
+                           len(chunks_i))
+        idx += np.repeat(np.asarray(bases, dtype=np.int64), lens)
+        return idx, np.concatenate(chunks_v), weight_totals
+
+    def row_stream(self, group: LayerGroup, lms: LMS, total_batch: int
+                   ) -> Tuple[np.ndarray, np.ndarray, float]:
+        """One request row's full contribution stream, downcast for the
+        fused pass: (int32 idx, float32 vals, weight_total).
+
+        The stream is the same canonical gather order the exact replay
+        uses; the downcast (and the kernel's atomic add order) is why the
+        fused path is parity-grade, never bit-exact.  Cached per
+        (group, mapping, pass count) so lockstep SA pays construction
+        once per novel proposal.
+        """
+        bu = group.batch_unit
+        n_passes = max(1, -(-total_batch // bu))
+        gid = self._group_ids.setdefault(group.names, len(self._group_ids))
+        key = (gid, lms.cache_key(), bu, n_passes)
+        hit = self._row_cache.get(key)
+        if hit is None:
+            chunks_i: List[np.ndarray] = []
+            chunks_v: List[np.ndarray] = []
+            wt = self._gather_stream(group, lms, bu, n_passes, gid,
+                                     chunks_i, chunks_v)
+            if chunks_i:
+                idx = np.concatenate(chunks_i).astype(np.int32)
+                vals = np.concatenate(chunks_v).astype(np.float32)
+            else:
+                idx = np.empty(0, np.int32)
+                vals = np.empty(0, np.float32)
+            hit = self._row_cache.put(key, (idx, vals, wt))
+        return hit
+
+    def analyze_batch(self, group: LayerGroup,
+                      lms_batch: "Union[Sequence[LMS], LMSBatch]",
+                      total_batch: int,
+                      backend: str = "numpy") -> GroupAnalysisBatch:
+        """Analyze B mappings of ONE layer group in a single replay pass
+        (:meth:`analyze_requests` with a constant group; accepts either a
+        sequence of ``LMS`` or a packed SoA :class:`LMSBatch`)."""
+        if isinstance(lms_batch, LMSBatch):
+            lms_list: Sequence[LMS] = unpack_lms_batch(lms_batch)
+        else:
+            lms_list = list(lms_batch)
+        return self.analyze_requests([(group, lms) for lms in lms_list],
+                                     total_batch, backend=backend)
 
     def _external_ifmap_bytes(self, lyr: Layer, rarr: np.ndarray,
                               bu: int) -> np.ndarray:
@@ -895,3 +1645,11 @@ class Analyzer:
             contrib.add(T_CORE_OUT, p_cores, vols_off.sum(axis=1))
             contrib.add(T_CORE_IN, c_cores, vols_off.sum(axis=0))
 
+
+def d2d_hop_stats(arch: ArchConfig, analyses: Sequence[GroupAnalysis]) -> Dict[str, float]:
+    """Totals used by the Fig. 9 style reporting."""
+    grid = router_grid(arch)
+    tot = sum(float(a.edge_bytes.sum()) for a in analyses)
+    d2d = sum(float(a.edge_bytes[grid.edge_is_d2d].sum()) for a in analyses)
+    return {"total_hop_bytes": tot, "d2d_hop_bytes": d2d,
+            "d2d_fraction": d2d / tot if tot else 0.0}

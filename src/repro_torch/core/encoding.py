@@ -6,10 +6,10 @@ Reduced copy of ``src/repro/core/encoding.py``: ``split_points`` (``:34``),
 ``parse_regions_arrays`` (``:310``), ``parse_regions`` (``:335``) and
 ``ifmap_region`` (``:343``), the search's generators ``_divisors_upto``,
 ``factor_parts``, ``default_fd`` and ``random_lms`` (``:371-466``), the
-space-size bounds (``:470-495``), plus the ``Mapping`` alias of
-``src/repro/core/sa.py``.  The batched LMS packing (``LMSBatch``,
-``pack_lms_batch``, ``RoutingTables``) belongs to the batched engine and
-stays in the reference.
+space-size bounds (``:470-495``), the batched engine's packed LMS batches
+(``LMSBatch``, ``RoutingTables``, ``pack_lms_batch``,
+``unpack_lms_batch``, ``:145-280``), plus the ``Mapping`` alias of
+``src/repro/core/sa.py``.
 
 An ``LMS`` (LP spatial Mapping Scheme) of a layer group holds one ``MS`` per
 layer: ``MS = (Part, CG, FD)``.
@@ -29,7 +29,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -135,6 +135,144 @@ class LMS:
 
 # a full LP-SPM mapping: one (layer group, LMS) per pipeline stage
 Mapping = List[Tuple[LayerGroup, LMS]]
+
+
+# ---------------------------------------------------------------------------
+# Packed structure-of-arrays LMS batches (batched evaluation engine)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LMSBatch:
+    """B mappings of ONE layer group, packed as padded int arrays.
+
+    Structure-of-arrays transport format of the batched evaluation engine:
+    every per-layer field of every mapping lives in one int64 array with a
+    leading batch axis, so a whole batch ships as five ndarrays instead of
+    B dicts of frozen dataclasses.  Layer order is fixed (``names``); CG
+    rows are right-padded with -1 to the batch-wide maximum (mappings of
+    one group may give a layer different core counts — "ragged" batches).
+
+    ``pack_lms_batch`` / ``unpack_lms_batch`` round-trip exactly;
+    unpacking rebuilds real ``MS`` values, so ``MS.__post_init__``
+    re-validates every row (Part product == |CG|, no duplicate cores) —
+    a corrupted batch raises instead of analyzing garbage.
+    """
+    names: Tuple[str, ...]        # layer order of the rows below
+    part: np.ndarray              # (B, L, 4) int64
+    cg: np.ndarray                # (B, L, Cmax) int64, -1 padded
+    cg_len: np.ndarray            # (B, L) int64 — valid prefix of each CG row
+    fd: np.ndarray                # (B, L, 3) int64
+
+    @property
+    def batch_size(self) -> int:
+        return int(self.part.shape[0])
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.names)
+
+    def routing_tables(self) -> "RoutingTables":
+        """Padded per-layer routing tables of this batch (memoized).
+
+        Rectangularizes the ragged CG geometry so batched construction can
+        gather core bindings without per-row Python: every table is a dense
+        int/bool array over ``(B, L, Cmax)`` whose pad cells are routed to a
+        *safe* real value (slot 0 / the row's last real core) and flagged
+        off in ``slot_mask`` — the same trick the analyzer's packed
+        multicast bitsets use (inactive members redirect to the empty
+        ``(p, p)`` diagonal).  Consumers mask or slice by ``cg_len``;
+        gathering through a pad cell is always in-bounds and never
+        contributes.
+        """
+        try:
+            return self._routes                      # type: ignore[attr-defined]
+        except AttributeError:
+            pass
+        cg, cg_len = self.cg, self.cg_len
+        B, L, cmax = cg.shape
+        slot_mask = cg >= 0                          # (B, L, Cmax)
+        cg_safe = np.where(slot_mask, cg, 0)
+        # stable argsort over (real cores ascending, pads last): CG rows
+        # hold distinct core ids, so this equals the analyzer's
+        # np.argsort(cores) permutation on the valid prefix
+        key = np.where(slot_mask, cg, np.iinfo(np.int64).max)
+        order = np.argsort(key, axis=2, kind="stable")
+        cg_sorted = np.take_along_axis(cg, order, axis=2)
+        # pad slots -> the row's LAST real core (every row has >= 1 core:
+        # Part products are >= 1), so sorted-order gathers stay in-bounds
+        last = np.take_along_axis(
+            cg_sorted, np.maximum(cg_len - 1, 0)[..., None], axis=2)
+        cg_sorted = np.where(np.take_along_axis(slot_mask, order, axis=2),
+                             cg_sorted, last)
+        rt = RoutingTables(slot_mask=slot_mask, cg_safe=cg_safe,
+                           order=order, cg_sorted=cg_sorted)
+        object.__setattr__(self, "_routes", rt)
+        return rt
+
+
+@dataclass(frozen=True)
+class RoutingTables:
+    """Rectangular core-binding tables of one :class:`LMSBatch`.
+
+    All arrays are ``(B, L, Cmax)``; see :meth:`LMSBatch.routing_tables`
+    for the padding contract.  ``order`` maps correspondence order to
+    sorted-core order per (mapping, layer) row — pad slots sort last, real
+    slots reproduce ``np.argsort`` of the valid CG prefix exactly (core
+    ids within a row are distinct, so the permutation is unique).
+    """
+    slot_mask: np.ndarray         # bool — True where the CG slot is real
+    cg_safe: np.ndarray           # int64 — CG with pads replaced by 0
+    order: np.ndarray             # int64 — correspondence -> sorted perm
+    cg_sorted: np.ndarray         # int64 — cores ascending, pads = last core
+
+
+def pack_lms_batch(lms_list: Sequence[LMS],
+                   names: Optional[Sequence[str]] = None) -> LMSBatch:
+    """Pack B same-group mappings into one :class:`LMSBatch`.
+
+    ``names`` fixes the layer axis order (defaults to the first mapping's
+    insertion order).  Every mapping must cover exactly that layer set.
+    """
+    if not lms_list:
+        raise ValueError("cannot pack an empty LMS batch")
+    if names is None:
+        names = tuple(lms_list[0].ms)
+    else:
+        names = tuple(names)
+    B, L = len(lms_list), len(names)
+    for lms in lms_list:
+        if set(lms.ms) != set(names):
+            raise ValueError(
+                f"LMS layers {sorted(lms.ms)} != batch layers {sorted(names)}")
+    cmax = max(m.nc for lms in lms_list for m in lms.ms.values())
+    part = np.empty((B, L, 4), dtype=np.int64)
+    cg = np.full((B, L, cmax), -1, dtype=np.int64)
+    cg_len = np.empty((B, L), dtype=np.int64)
+    fd = np.empty((B, L, 3), dtype=np.int64)
+    for b, lms in enumerate(lms_list):
+        for l, name in enumerate(names):
+            m = lms.ms[name]
+            part[b, l] = m.part
+            cg[b, l, :m.nc] = m.cg
+            cg_len[b, l] = m.nc
+            fd[b, l] = m.fd
+    return LMSBatch(names=names, part=part, cg=cg, cg_len=cg_len, fd=fd)
+
+
+def unpack_lms_batch(batch: LMSBatch) -> List[LMS]:
+    """Rebuild the B ``LMS`` values of a packed batch (exact inverse of
+    :func:`pack_lms_batch`; ``MS.__post_init__`` re-validates each row)."""
+    out: List[LMS] = []
+    part, cg, cg_len, fd = batch.part, batch.cg, batch.cg_len, batch.fd
+    for b in range(batch.batch_size):
+        ms: Dict[str, MS] = {}
+        for l, name in enumerate(batch.names):
+            n = int(cg_len[b, l])
+            ms[name] = MS(part=tuple(int(v) for v in part[b, l]),
+                          cg=tuple(int(v) for v in cg[b, l, :n]),
+                          fd=tuple(int(v) for v in fd[b, l]))
+        out.append(LMS(ms=ms))
+    return out
 
 
 # ---------------------------------------------------------------------------

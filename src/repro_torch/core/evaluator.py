@@ -5,11 +5,22 @@ Reduced copy of the scalar path of ``src/repro/core/evaluator.py``:
 ``cost``, ``:93``), ``_pipeline_depth``, ``Evaluator`` with ``eval_group``
 (``:221``), the bandwidth-vectorized ``eval_mapping_archs`` (``:481``),
 ``traffic_summary`` (``:540``) and ``evaluate`` (``:563``),
-``CachedEvaluator.eval_group`` and ``evaluator_for`` (``:687``).  The
-arithmetic is the reference's, float64 and in the same order, so every
-``GroupEval`` equals the reference's scalar one.  The batched and fused
-(jitted) paths belong to the fused-evaluator item of the port's roadmap;
-the port's copy records no metrics.
+``CachedEvaluator`` with its separate fused cache and ``cache_info``
+(``:577-684``) and ``evaluator_for`` (``:687``); and the batched engine:
+``eval_requests_batch`` (``:285``), ``eval_group_batch`` (``:445``) and
+``eval_groups_batched`` (``:456``).  The arithmetic is the reference's,
+float64 and in the same order, so every ``GroupEval`` equals the
+reference's scalar one and every batched row the reference's batched row.
+The port's copy records no metrics.
+
+The reference's opt-in ``backend="jax"`` (``_build_fused_fn``, ``:97-179``,
+and ``_eval_requests_fused``, ``:376``) is the port's ``backend="fused"``:
+the batch's float32 contribution streams go through the ``fused_eval`` CUDA
+kernel (:mod:`repro_torch.kernels.fused_eval`), which replays them and
+computes every row's delay, energy and bottleneck in one launch.  It runs
+on the evaluator's ``fused_device``, the card unless the caller asks for
+the CPU (where the kernel's plain version runs); without a card the first
+fused call raises.  ``"jax"`` is refused like any unknown backend.
 
 A mapped DNN is a sequence of (LayerGroup, LMS).  Per group we take the
 ``GroupAnalysis`` traffic and compute
@@ -30,11 +41,13 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .analyzer import Analyzer, GroupAnalysis, router_grid
+from .analyzer import (T_CORE_IN, T_CORE_MACS, T_CORE_TIME, T_DRAM,
+                       T_DRAM_AM, T_EDGE, T_EDGE_AM, T_GLB, T_GLB_RW,
+                       Analyzer, GroupAnalysis, router_grid)
 from .encoding import LMS
 from .hw import ArchConfig
 from .workload import Graph, LayerGroup
@@ -93,17 +106,29 @@ def _pipeline_depth(g: Graph, group: LayerGroup) -> int:
 
 
 class Evaluator:
-    """Per-(arch, graph) evaluator; reuses the Analyzer and its caches."""
+    """Per-(arch, graph) evaluator; reuses the Analyzer and its caches.
 
-    def __init__(self, arch: ArchConfig, g: Graph):
+    ``fused_device`` is where ``backend="fused"`` runs: ``"cuda"`` (the
+    default: the ``fused_eval`` kernel on the card) or ``"cpu"`` (its plain
+    version).  The exact numpy engine never reads it."""
+
+    def __init__(self, arch: ArchConfig, g: Graph,
+                 fused_device: str = "cuda"):
         self.arch = arch
         self.g = g
-        self.analyzer = Analyzer(arch, g)
+        self.fused_device = fused_device
+        self.analyzer = Analyzer(arch, g, fused_device=fused_device)
         self.grid = router_grid(arch)
         self._is_d2d = self.grid.edge_is_d2d
         self._not_d2d = ~self._is_d2d
         self._has_d2d = bool(self._is_d2d.any())
+        # integer column indices: fancy-indexing (B, ne) rows is cheaper
+        # than boolean masks and selects the same elements in the same
+        # (ascending-position) order
+        self._noc_idx = np.flatnonzero(self._not_d2d)
+        self._d2d_idx = np.flatnonzero(self._is_d2d)
         self._depth_cache: Dict[Tuple[str, ...], int] = {}
+        self._fused_plan = None          # built on first backend="fused" use
 
     # ------------------------------------------------------------------
     def _group_depth(self, group: LayerGroup) -> int:
@@ -176,6 +201,210 @@ class Evaluator:
                        energy_breakdown=e)
         return ge, an
 
+
+    def eval_requests_batch(self, requests: Sequence[Tuple[LayerGroup, LMS]],
+                            total_batch: int, backend: str = "numpy"
+                            ) -> List[Tuple[GroupEval, GroupAnalysis]]:
+        """Evaluate a mixed batch of (group, lms) requests in ONE pass.
+
+        With the default ``backend="numpy"``, row ``b`` equals the
+        reference's batched row to the bit, and ``eval_group(*requests[b],
+        total_batch)`` within an ulp: the batched analyzer replays every
+        request's contribution stream in the scalar order (disjoint buffer
+        rows, one ``np.bincount``, so the analyses are the scalar ones to
+        the bit), and the delay/energy math below mirrors the scalar path
+        operation for operation along a leading batch axis, except the
+        energy total: the scalar path's ``sum(e.values())`` is compensated
+        on Python 3.12, the explicit left-to-right adds here are not.
+
+        ``backend="fused"`` (the reference's ``"jax"``) instead runs the
+        opt-in FUSED pass: batched construction feeds one ``fused_eval``
+        launch that replays the streams and computes the delay/energy math
+        (float32, ~1e-4 parity envelope, analyses are ``None`` in the
+        returned tuples).  Winners must be re-scored by the exact engine.
+        """
+        if backend == "fused":
+            return self._eval_requests_fused(requests, total_batch)
+        if backend != "numpy":
+            raise ValueError(f"unknown eval batch backend {backend!r}")
+        arch, tech = self.arch, self.arch.tech
+        ab = self.analyzer.analyze_requests(requests, total_batch)
+        n_passes = np.array([max(1, -(-total_batch // grp.batch_unit))
+                             for grp, _ in requests], dtype=np.int64)
+        depth = np.array([self._group_depth(grp) for grp, _ in requests],
+                         dtype=np.int64)
+
+        core_time = ab.target(T_CORE_TIME)                   # (B, nc)
+        glb_rw = ab.target(T_GLB_RW)                         # (B, 2)
+        edge_tot = ab.target(T_EDGE) + ab.target(T_EDGE_AM)  # (B, ne)
+        edge_noc = edge_tot[:, self._noc_idx]
+        edge_d2d = edge_tot[:, self._d2d_idx]
+        t_noc = (edge_noc / (arch.noc_bw * 1e9)).max(axis=1, initial=0.0)
+        if self._has_d2d:
+            t_d2d = (edge_d2d / (arch.d2d_bw * 1e9)).max(axis=1, initial=0.0)
+        else:
+            t_d2d = np.zeros(len(t_noc))
+        dram_port_bw = arch.dram_bw / arch.n_dram * 1e9
+        dram_tot = ab.target(T_DRAM) + ab.target(T_DRAM_AM)
+        t_dram = (dram_tot / dram_port_bw).max(axis=1, initial=0.0)
+        t_comp = core_time.max(axis=1, initial=0.0)
+        times = np.stack([t_comp, t_noc, t_d2d, t_dram])     # (4, B)
+        stage = np.maximum(times.max(axis=0), 1e-12)
+        # np.argmax picks the FIRST of tied maxima — same tie-break as the
+        # scalar path's strict-greater update loop
+        b_idx = np.argmax(times, axis=0)
+
+        over = np.maximum(ab.target(T_GLB) - arch.core_glb_bytes, 0.0)
+        overflow = over.sum(axis=1)
+        spill_dram = overflow * 2.0
+        stage = stage * (1.0 + overflow / (arch.core_glb_bytes * arch.n_cores))
+        stage = stage + spill_dram / (arch.dram_bw * 1e9)
+        delay = stage * (n_passes + depth - 1)
+
+        noc_bytes = edge_noc.sum(axis=1) * n_passes
+        d2d_bytes = edge_d2d.sum(axis=1) * n_passes
+        dram_b = ab.target(T_DRAM).sum(axis=1) * n_passes \
+            + ab.weight_totals + spill_dram * n_passes
+        macs_total = ab.target(T_CORE_MACS).sum(axis=1) * n_passes
+        e_mac = macs_total * tech.e_mac
+        e_glb = (glb_rw[:, 0] + glb_rw[:, 1]
+                 + ab.target(T_CORE_IN).sum(axis=1)) * n_passes \
+            * tech.e_glb_byte
+        e_noc = (noc_bytes + d2d_bytes) * tech.e_noc_hop_byte
+        e_d2d = d2d_bytes * tech.e_d2d_byte
+        e_dram = dram_b * tech.e_dram_byte
+        # same association order as the scalar path's sum(e.values())
+        energy = ((((e_mac + e_glb) + e_noc) + e_d2d) + e_dram)
+
+        names = ("compute", "noc", "d2d", "dram")
+        out: List[Tuple[GroupEval, GroupAnalysis]] = []
+        for b, an in enumerate(ab.analyses):
+            ge = GroupEval(
+                delay_s=float(delay[b]), energy_j=float(energy[b]),
+                stage_time_s=float(stage[b]), n_passes=int(n_passes[b]),
+                depth=int(depth[b]),
+                bottleneck=names[int(b_idx[b])],
+                glb_overflow_bytes=float(overflow[b]),
+                energy_breakdown={
+                    "mac": float(e_mac[b]), "glb": float(e_glb[b]),
+                    "noc": float(e_noc[b]), "d2d": float(e_d2d[b]),
+                    "dram": float(e_dram[b])})
+            out.append((ge, an))
+        return out
+
+    def _fused_inputs(self, requests: Sequence[Tuple[LayerGroup, LMS]],
+                      total_batch: int) -> Tuple[np.ndarray, ...]:
+        """The fused pass's inputs for a batch: ``(idx int32, vals f32,
+        passes int32, depth int32, weight totals f32)``.
+
+        Construction is the same batched engine the exact path uses
+        (``_prefetch_contribs`` + cached ``row_stream`` downcasts), row
+        ``b``'s stream offset into its ``buf_len`` window.  Streams are
+        padded to power-of-two lengths (pad entries scatter into a dump
+        cell past the last row), as in the reference, so stream shapes
+        repeat under SA stepping."""
+        an = self.analyzer
+        an._prefetch_contribs(requests, total_batch)
+        B = len(requests)
+        buf_len = an._buf_len
+        idx_parts: List[np.ndarray] = []
+        val_parts: List[np.ndarray] = []
+        wts = np.empty(B, dtype=np.float32)
+        npass = np.empty(B, dtype=np.int32)
+        dep = np.empty(B, dtype=np.int32)
+        for b, (grp, lms) in enumerate(requests):
+            i, v, wt = an.row_stream(grp, lms, total_batch)
+            idx_parts.append(i + np.int32(b * buf_len) if b else i)
+            val_parts.append(v)
+            wts[b] = wt
+            npass[b] = max(1, -(-total_batch // grp.batch_unit))
+            dep[b] = self._group_depth(grp)
+        idx = np.concatenate(idx_parts)
+        vals = np.concatenate(val_parts)
+        n = idx.size
+        n_pad = 1 << max(4, (max(n, 1) - 1).bit_length())
+        if n_pad != n:
+            dump = np.int32(B * buf_len)
+            idx = np.concatenate([idx, np.full(n_pad - n, dump, np.int32)])
+            vals = np.concatenate([vals, np.zeros(n_pad - n, np.float32)])
+        return idx, vals, npass, dep, wts
+
+    def fused_plan(self):
+        """This evaluator's :class:`~repro_torch.kernels.fused_eval.
+        FusedEvalPlan` on ``fused_device``, uploaded on first use (raises
+        for the card when there is none)."""
+        if self._fused_plan is None:
+            from ..kernels.fused_eval import FusedEvalPlan
+            an = self.analyzer
+            self._fused_plan = FusedEvalPlan.build(
+                an._layout, an._buf_len, self._is_d2d, self.arch,
+                self.fused_device)
+        return self._fused_plan
+
+    def _eval_requests_fused(self, requests: Sequence[Tuple[LayerGroup, LMS]],
+                             total_batch: int
+                             ) -> List[Tuple[GroupEval, GroupAnalysis]]:
+        """The fused construct->replay->eval pass (``backend="fused"``):
+        :meth:`_fused_inputs`, then the replay and the entire delay/energy
+        pipeline as ONE ``fused_eval`` launch on ``fused_device``.
+
+        Returns ``(GroupEval, None)`` tuples: the fused path never
+        materializes per-row :class:`GroupAnalysis` views.  Results carry
+        a ~1e-4 relative envelope vs the exact engine (float32 math,
+        atomic adds in no fixed order) — winners must be re-scored exactly.
+        """
+        if not requests:
+            return []
+        from ..kernels.fused_eval import evaluate_rows
+        plan = self.fused_plan()
+        idx, vals, npass, dep, wts = self._fused_inputs(requests,
+                                                        total_batch)
+        out = evaluate_rows(plan, idx, vals, npass, dep, wts)
+        names = ("compute", "noc", "d2d", "dram")
+        ekeys = ("mac", "glb", "noc", "d2d", "dram")
+        res: List[Tuple[GroupEval, GroupAnalysis]] = []
+        for b in range(len(requests)):
+            ge = GroupEval(
+                delay_s=float(out.delay[b]), energy_j=float(out.energy[b]),
+                stage_time_s=float(out.stage[b]), n_passes=int(npass[b]),
+                depth=int(dep[b]), bottleneck=names[int(out.bottleneck[b])],
+                glb_overflow_bytes=float(out.overflow[b]),
+                energy_breakdown={k: float(out.energy_parts[j, b])
+                                  for j, k in enumerate(ekeys)})
+            res.append((ge, None))
+        return res
+
+    def eval_group_batch(self, group: LayerGroup, lms_list: Sequence[LMS],
+                         total_batch: int, backend: str = "numpy"
+                         ) -> List[Tuple[GroupEval, GroupAnalysis]]:
+        """Evaluate B mappings of ONE group in a single vectorized pass
+        (:meth:`eval_requests_batch` with a constant group)."""
+        return self.eval_requests_batch([(group, lms) for lms in lms_list],
+                                        total_batch, backend=backend)
+
+    # ------------------------------------------------------------------
+    def eval_groups_batched(self, requests: Sequence[Tuple[LayerGroup, LMS]],
+                            total_batch: int, backend: str = "numpy"
+                            ) -> List[Tuple[GroupEval, GroupAnalysis]]:
+        """Evaluate a mixed batch of (group, lms) requests.
+
+        Requests are deduplicated and run through ONE
+        :meth:`eval_requests_batch` pass (layer groups may mix — the
+        accumulator layout is per-arch).  Results are returned in request
+        order; ``backend="fused"`` routes through the fused parity-grade
+        pass instead of the exact one.
+        """
+        keyed = [(grp.names, grp.batch_unit, lms.cache_key())
+                 for grp, lms in requests]
+        distinct: "OrderedDict[Tuple, Tuple[LayerGroup, LMS]]" = OrderedDict()
+        for req, key in zip(requests, keyed):
+            if key not in distinct:
+                distinct[key] = req
+        results = dict(zip(distinct,
+                           self.eval_requests_batch(list(distinct.values()),
+                                                    total_batch,
+                                                    backend=backend)))
+        return [results[key] for key in keyed]
 
     # ------------------------------------------------------------------
     def eval_mapping_archs(self, mapping: Sequence[Tuple[LayerGroup, LMS]],
@@ -288,12 +517,19 @@ class CachedEvaluator(Evaluator):
     go stale for a fixed (arch, graph).  Callers must treat the returned
     (GroupEval, GroupAnalysis) as immutable: the tuple is shared between
     cache hits.  If the arch or graph changes, build a new evaluator.
+    Fused (``backend="fused"``) results live in a separate cache, so a
+    parity-grade value never satisfies an exact lookup.
     """
 
-    def __init__(self, arch: ArchConfig, g: Graph, maxsize: int = 20_000):
-        super().__init__(arch, g)
+    def __init__(self, arch: ArchConfig, g: Graph, maxsize: int = 20_000,
+                 fused_device: str = "cuda"):
+        super().__init__(arch, g, fused_device=fused_device)
         self.maxsize = maxsize
+        self.hits = 0
+        self.misses = 0
         self._cache: "OrderedDict[Tuple, Tuple[GroupEval, GroupAnalysis]]" \
+            = OrderedDict()
+        self._fused_cache: "OrderedDict[Tuple, Tuple[GroupEval, None]]" \
             = OrderedDict()
 
     def eval_group(self, group: LayerGroup, lms: LMS,
@@ -302,36 +538,92 @@ class CachedEvaluator(Evaluator):
         hit = self._cache.get(key)
         if hit is not None:
             self._cache.move_to_end(key)
+            self.hits += 1
             return hit
+        self.misses += 1
         out = super().eval_group(group, lms, total_batch)
         self._cache[key] = out
         if len(self._cache) > self.maxsize:
             self._cache.popitem(last=False)
         return out
 
+    def eval_groups_batched(self, requests: Sequence[Tuple[LayerGroup, LMS]],
+                            total_batch: int, backend: str = "numpy"
+                            ) -> List[Tuple[GroupEval, GroupAnalysis]]:
+        """Cache-aware batch: hits resolve from the content cache, misses
+        run through the vectorized batch path and are inserted under the
+        keys :meth:`eval_group` uses (values within an ulp of its own, as
+        in the reference, so a later scalar call returns the batched
+        value).  Fused
+        (``backend="fused"``) results resolve against a separate cache —
+        parity-grade values never leak into exact-path lookups."""
+        cache = self._fused_cache if backend == "fused" else self._cache
+        keys = [(grp.names, grp.batch_unit, lms.cache_key(), total_batch)
+                for grp, lms in requests]
+        out: List[Optional[Tuple[GroupEval, GroupAnalysis]]] \
+            = [None] * len(requests)
+        fresh: Dict[Tuple, Tuple[GroupEval, GroupAnalysis]] = {}
+        miss_reqs: List[Tuple[LayerGroup, LMS]] = []
+        miss_keys: List[Tuple] = []
+        n_hits = 0
+        for i, key in enumerate(keys):
+            hit = cache.get(key)
+            if hit is not None:
+                cache.move_to_end(key)
+                n_hits += 1
+                out[i] = hit
+            elif key not in fresh:
+                fresh[key] = None          # claimed; filled below
+                miss_reqs.append(requests[i])
+                miss_keys.append(key)
+            else:
+                n_hits += 1                # duplicate of an in-batch miss
+        self.hits += n_hits
+        if miss_reqs:
+            self.misses += len(miss_reqs)
+            for key, res in zip(miss_keys,
+                                self.eval_requests_batch(miss_reqs,
+                                                         total_batch,
+                                                         backend=backend)):
+                fresh[key] = res
+                cache[key] = res
+                if len(cache) > self.maxsize:
+                    cache.popitem(last=False)
+        for i, key in enumerate(keys):
+            if out[i] is None:
+                out[i] = fresh[key]
+        return out
+
+    def cache_info(self) -> Dict[str, int]:
+        return {"hits": self.hits, "misses": self.misses,
+                "size": len(self._cache)}
+
 
 # ---------------------------------------------------------------------------
 # Per-process evaluator registry
 # ---------------------------------------------------------------------------
 
-# (ArchConfig, id(graph)) -> CachedEvaluator.  Each entry holds its Graph
+# (ArchConfig, id(graph), fused device) -> CachedEvaluator.  Each entry holds its Graph
 # strongly (Evaluator.g), so a live entry's id() can never be recycled; the
 # key is only ever compared while the entry is alive.
-_REGISTRY: "OrderedDict[Tuple[ArchConfig, int], CachedEvaluator]" \
+_REGISTRY: "OrderedDict[Tuple[ArchConfig, int, str], CachedEvaluator]" \
     = OrderedDict()
 _REGISTRY_MAX = 8
 
 
-def evaluator_for(arch: ArchConfig, g: Graph,
-                  maxsize: int = 20_000) -> CachedEvaluator:
+def evaluator_for(arch: ArchConfig, g: Graph, maxsize: int = 20_000,
+                  fused_device: str = "cuda") -> CachedEvaluator:
     """Process-local LRU registry of :class:`CachedEvaluator` instances:
     the same ``(arch, graph)`` re-scored within the last ``_REGISTRY_MAX``
     distinct architectures reuses its evaluator and caches.  Reuse is pure
-    memoization: values are identical whether or not an entry was found."""
-    key = (arch, id(g))
+    memoization: values are identical whether or not an entry was found.
+    ``fused_device`` is the device of the fused pass (see
+    :class:`Evaluator`); it is part of the key."""
+    key = (arch, id(g), fused_device)
     ev = _REGISTRY.get(key)
     if ev is None:
-        ev = CachedEvaluator(arch, g, maxsize=maxsize)
+        ev = CachedEvaluator(arch, g, maxsize=maxsize,
+                             fused_device=fused_device)
         _REGISTRY[key] = ev
         if len(_REGISTRY) > _REGISTRY_MAX:
             _REGISTRY.popitem(last=False)

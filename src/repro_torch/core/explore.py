@@ -72,7 +72,7 @@ from .evaluator import (CachedEvaluator, Evaluator, analysis_signature,
 from .graph_partition import partition_graph
 from .hw import TECH_12NM, ArchConfig
 from .sa import (Mapping, SAChain, SAConfig, SAResult,
-                 _require_numpy_backend, group_draw_cdf, step_chains_lockstep)
+                 check_backend, group_draw_cdf, step_chains_lockstep)
 from .tangram import tangram_map
 from .workload import Graph, LayerGroup
 
@@ -163,18 +163,20 @@ def replica_exchange_sa(g: Graph, arch: ArchConfig,
 
     With ``cfg.lockstep`` (the default) the chains advance through
     :func:`repro_torch.core.sa.step_chains_lockstep`: each iteration draws
-    every chain's proposal, scores them in chain order, then runs the
-    acceptances in chain order.  Per-chain RNG streams are consumed in the
-    serial order and evaluation consumes none, so trajectories — including
-    the reference chain's, and therefore the single-chain guarantee — are
-    those of the serial loop.
+    every chain's proposal, batch-evaluates them in one pass on
+    ``cfg.backend``, then runs the acceptances in chain order.  Per-chain
+    RNG streams are consumed in the serial order and evaluation consumes
+    none, so on the exact engine the trajectories are those of the serial
+    loop wherever the batched scores equal the scalar ones (the batched
+    numpy path, like the reference's, can be an ulp off the scalar path on
+    Python 3.12).
 
     Note ``n_chains=2`` has a one-chain ladder and therefore no swaps —
     it degenerates to two independent seeds plus elitism (the pre-refactor
     restart behavior).  Tempering proper needs ``n_chains >= 3``;
     ``sa_optimize`` warns and substitutes 3 when handed 2.
     """
-    _require_numpy_backend(cfg.backend)
+    check_backend(cfg.backend)
     ev = evaluator or CachedEvaluator(arch, g)
     cum_w = group_draw_cdf(groups, arch.n_cores)
     chains = [SAChain(g, arch, groups, total_batch, cfg, init, ev,

@@ -19,12 +19,11 @@ reachable even though the stripe initialization uses every core.
 
 Copy of ``src/repro/core/sa.py`` on its exact numpy engine: the RNG draws
 are consumed in the reference's order, so a seed gives the reference's
-trajectory.  ``step_chains_lockstep`` scores the proposals through the
-scalar ``eval_group`` in chain order, which the reference's contract makes
-equal to its serial loop; the batched and fused scoring
-(``SAConfig.backend="jax"``) belong to the fused-evaluator item of the
-port's roadmap and raise ``NotImplementedError``.  The port records no
-``obs`` metrics.
+trajectory.  ``step_chains_lockstep`` scores each iteration's proposals in
+one batched pass (``eval_groups_batched``) on ``SAConfig.backend``:
+``"numpy"``, the exact engine, or ``"fused"``, the port's name for the
+reference's ``"jax"``: the ``fused_eval`` kernel on the evaluator's
+``fused_device``.  The port records no ``obs`` metrics.
 """
 
 from __future__ import annotations
@@ -61,14 +60,17 @@ class SAConfig:
     # conservative (3.0, 50) at equal-or-better geomean cost.
     swap_every: int = 25          # iterations between adjacent-chain swaps
     t_ladder: float = 2.0         # temperature ratio between adjacent chains
-    # n_chains > 1 only: step all chains in lockstep (every chain draws its
-    # proposal, then the proposals are scored in chain order, then the
-    # acceptances run).  Trajectories are bit-identical either way (per-
-    # chain RNG streams are consumed in the same order and evaluation
-    # consumes none) — False keeps the serial per-chain loop.
+    # n_chains > 1 only: step all chains in lockstep, evaluating the
+    # iteration's proposals through one vectorized batch.  Per-chain RNG
+    # streams are consumed in the serial order and evaluation consumes
+    # none — False keeps the serial per-chain loop for A/B tests.
     lockstep: bool = True
-    # "numpy" = the exact engine, the only one the port has.  The
-    # reference's "jax" (fused jitted proposal scoring) raises here.
+    # "numpy" (default) = exact engine.  "fused" (the reference's "jax") =
+    # the fused_eval kernel for lockstep proposal scoring: float32
+    # parity-grade (~1e-4), so trajectories may diverge from the exact
+    # engine's — but every chain's BEST mapping is still re-scored by the
+    # exact engine in finalize(), so reported costs are always exact.  The
+    # device is the evaluator's (Evaluator.fused_device).
     backend: str = "numpy"
 
 
@@ -391,35 +393,45 @@ class SAChain:
                         proposed=self.proposed)
 
 
-def _require_numpy_backend(backend: str) -> None:
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"SAConfig.backend={backend!r}: the port scores proposals on the "
-            "exact numpy engine only; the fused jitted pass (with "
-            "eval_groups_batched and the batched analyzer) is the "
-            "fused-evaluator item of ROADMAP queue 2")
+BACKENDS = ("numpy", "fused")
+
+
+def check_backend(backend: str) -> None:
+    """Refuse an ``SAConfig.backend`` the port does not have, with the
+    reference's unknown-backend error (its ``"jax"`` is ``"fused"`` here)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown eval batch backend {backend!r}; the "
+                         f"port's are {BACKENDS} ('fused' is the "
+                         f"reference's 'jax')")
 
 
 def step_chains_lockstep(chains: Sequence[SAChain],
                          backend: str = "numpy") -> None:
-    """Advance every chain one iteration in lockstep.
+    """Advance every chain one iteration with ONE batched evaluation.
 
     Phase 1 draws each chain's proposal with its own RNG (same per-chain
-    draw order as serial ``step()``).  Phase 2 scores the drawn candidates
-    in chain order through the shared evaluator's ``eval_group`` (cached,
-    so a candidate two chains drew is analyzed once).  Phase 3 runs the
-    Metropolis acceptances in chain order, each consuming only its own
-    chain's RNG.  Evaluation consumes no randomness, so every chain's
-    trajectory equals the serial per-chain loop's.
+    draw order as serial ``step()``).  Phase 2 evaluates all drawn
+    candidates through the shared evaluator's batch path
+    (``eval_groups_batched``: deduplicated, one replay for the iteration).
+    Phase 3 runs the Metropolis acceptances in chain order, each consuming
+    only its own chain's RNG.  Evaluation consumes no randomness, so every
+    chain's trajectory equals the serial loop's as far as the batched
+    scores equal the scalar ones (the reference's batched numpy path is an
+    ulp off its scalar path on Python 3.12, and so is the port's).
+
+    ``backend="fused"`` scores the iteration's proposals through the fused
+    pass instead: parity-grade float32 objectives (trajectories may diverge
+    from the exact engine's), with each chain's best re-scored exactly at
+    finalize().
     """
-    _require_numpy_backend(backend)
     props = [ch.propose() for ch in chains]
     live = [(i, p) for i, p in enumerate(props) if p is not None]
     if not live:
         return
     ev = chains[0].ev
     total_batch = chains[0].total_batch
-    results = [ev.eval_group(p[1], p[2], total_batch) for _, p in live]
+    results = ev.eval_groups_batched(
+        [(p[1], p[2]) for _, p in live], total_batch, backend=backend)
     for (i, (gi, grp, cand, new_idle)), (ge, _) in zip(live, results):
         chains[i].accept(gi, grp, cand, new_idle, ge)
 
@@ -440,7 +452,7 @@ def sa_optimize(g: Graph, arch: ArchConfig, groups: Sequence[LayerGroup],
     two independent seeds plus elitism, not tempering.  Asking for 2 warns
     and runs the documented minimum useful ladder (3) instead.
     """
-    _require_numpy_backend(cfg.backend)
+    check_backend(cfg.backend)
     if cfg.n_chains <= 1:
         return _sa_chain(g, arch, groups, total_batch, cfg, init, evaluator)
     if cfg.n_chains == 2:

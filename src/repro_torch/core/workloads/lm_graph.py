@@ -8,16 +8,20 @@ quadratic).  bf16 serving feature maps (bytes_per_elem=2).  Layer names,
 dims, ``bytes_per_elem`` and edge order follow the reference line for line,
 so a port-built graph has the reference's fingerprint.
 
-The ``ssm``, ``hybrid``, dense (``dense``, ``encdec``) and legacy
-``moe-dense`` families are ported.  The routed ``moe`` family needs the
-expected-traffic expert branches of ``core/workloads/moe.py``
-(``add_moe_ffn``), which the port does not have yet: it raises.
+Routed-MoE blocks (``family="moe"``) export the routed structure through
+:func:`.moe.add_moe_ffn`: a router, ``n_experts`` expert branches carrying
+``traffic_scale = top_k / n_experts``, and an expected-active-width
+combine.  The legacy ``family="moe-dense"`` collapses the routing into one
+dense FFN of the active width ``top_k * d_ff``.  The registered configs
+have no shared experts, so no block adds any (the reference reads an
+``n_shared_experts`` field that no config defines).
 """
 
 from __future__ import annotations
 
 from ...configs.base import ModelConfig
 from ..workload import Graph, Layer
+from .moe import add_moe_ffn
 
 
 def _fc(g, name, src, K, C, seq, bpe=2):
@@ -28,11 +32,6 @@ def _fc(g, name, src, K, C, seq, bpe=2):
 
 def lm_graph(cfg: ModelConfig, seq: int = 4096, n_layers: int = 0) -> Graph:
     """Layer DAG of one LM architecture (optionally truncated depth)."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: routed-MoE graphs need add_moe_ffn "
-            f"(core/workloads/moe.py), which the port does not have yet "
-            f"(ROADMAP queue 1, slice 3: the MoE workload graphs)")
     L = n_layers or cfg.n_layers
     g = Graph(cfg.name)
     d = cfg.d_model
@@ -55,7 +54,7 @@ def lm_graph(cfg: ModelConfig, seq: int = 4096, n_layers: int = 0) -> Graph:
                        and i % cfg.attn_every == 0)
             if not is_attn:
                 continue
-        # attention block (dense/hybrid-shared)
+        # attention block (dense/moe/hybrid-shared)
         hd = cfg.hd
         qkv = _fc(g, f"{t}_qkv", prev, (cfg.n_heads + 2 * cfg.n_kv) * hd,
                   d, seq)
@@ -67,6 +66,11 @@ def lm_graph(cfg: ModelConfig, seq: int = 4096, n_layers: int = 0) -> Graph:
         a1 = g.add(Layer(name=f"{t}_add1", kind="eltwise", K=d, H=seq,
                          n_inputs=2, bytes_per_elem=2),
                    [o, prev] if prev else [o]).name
+        if cfg.family == "moe":
+            # routed MoE: expected-traffic expert branches
+            prev = add_moe_ffn(g, t, a1, d, cfg.d_ff, cfg.n_experts,
+                               cfg.top_k, seq)
+            continue
         # legacy "moe-dense": routing collapsed into one dense FFN of the
         # active width
         ff = (cfg.top_k * cfg.d_ff) if cfg.family == "moe-dense" else cfg.d_ff

@@ -1,8 +1,11 @@
 """Plain PyTorch versions of the kernels (the allclose targets).
 
 Port of the oracles of ``src/repro/kernels/ref.py``: f32 math, the JAX
-package's layouts.  On the CPU the kernel wrappers run these; on the card
-they are what each kernel is held against.
+package's layouts; and the plain versions of the cost model's two kernels,
+``segment_replay_ref`` and ``fused_eval_ref`` (the jitted functions of
+``src/repro/core/analyzer.py:60-92`` and ``src/repro/core/evaluator.py:97-179``).
+On the CPU the kernel wrappers run these; on the card they are what each
+kernel is held against.
 """
 
 from __future__ import annotations
@@ -61,3 +64,69 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(M, K) @ (K, N) in f32, cast to ``out_dtype`` (default: a's)."""
     return (a.float() @ b.float()).to(out_dtype or a.dtype)
+
+
+def segment_replay_ref(idx: torch.Tensor, vals: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """``segment_sum(vals, idx, n)``: a scatter-add of ``vals`` into ``n``
+    zeroed cells of their type (oracle of ``segment_replay``)."""
+    return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
+        .scatter_add_(0, idx.long(), vals)
+
+
+def fused_eval_ref(idx: torch.Tensor, vals: torch.Tensor,
+                   npass: torch.Tensor, depth: torch.Tensor,
+                   wts: torch.Tensor, *, spans: torch.Tensor,
+                   d2d_mask: torch.Tensor, consts: torch.Tensor,
+                   has_d2d: bool, buf_len: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The evaluator's fused pass (oracle of ``fused_eval``), f32.
+
+    Replays the stream into ``B * buf_len + 1`` cells (the last the dump
+    cell of the pad entries), then per row the math of the reference's
+    ``_build_fused_fn`` (``src/repro/core/evaluator.py:131-177``): the four
+    resource times (maxima with initial 0), stage time, first-max
+    bottleneck, GLB-overflow penalty, delay and the five energies.
+    ``spans`` (10, 2) are the analyzer's target columns, ``d2d_mask`` the
+    D2D links among the edges, ``consts`` the slots of
+    :data:`repro_torch.kernels.fused_eval.CONSTS`.  Returns ``(out (9, B)
+    f32 in OUT_ROWS order, bottleneck (B,) int32)``."""
+    B = npass.shape[0]
+    buf = segment_replay_ref(idx, vals.float(), B * buf_len + 1)
+    buf = buf[:-1].reshape(B, buf_len)
+    sp = spans.tolist()
+    tgt = lambda t: buf[:, sp[t][0]:sp[t][1]]
+    (noc_bw, d2d_bw, dram_port_bw, dram_bw, glb_cap, glb_total,
+     e_mac_u, e_glb_u, e_noc_u, e_d2d_u, e_dram_u) = consts.float()
+    zero = torch.zeros(B, 1, device=buf.device)
+    row_max = lambda x: torch.cat([zero, x], dim=1).amax(dim=1)
+    edge_tot = tgt(1) + tgt(2)
+    d2d = d2d_mask.bool()[None, :]
+    edge_noc = torch.where(d2d, 0.0, edge_tot)
+    edge_d2d = torch.where(d2d, edge_tot, 0.0)
+    t_noc = row_max(edge_noc) / noc_bw
+    t_d2d = row_max(edge_d2d) / d2d_bw if has_d2d else zero[:, 0]
+    t_dram = row_max(tgt(3) + tgt(4)) / dram_port_bw
+    t_comp = row_max(tgt(8))
+    times = torch.stack([t_comp, t_noc, t_d2d, t_dram])          # (4, B)
+    stage = times.amax(dim=0).clamp_min(1e-12)
+    b_idx = torch.argmax(times, dim=0)                 # first of tied maxima
+    overflow = (tgt(5) - glb_cap).clamp_min(0.0).sum(dim=1)
+    spill = overflow * 2.0
+    stage = stage * (1.0 + overflow / glb_total)
+    stage = stage + spill / dram_bw
+    np_f = npass.float()
+    delay = stage * (np_f + depth.float() - 1.0)
+    noc_bytes = edge_noc.sum(dim=1) * np_f
+    d2d_bytes = edge_d2d.sum(dim=1) * np_f
+    dram_b = tgt(3).sum(dim=1) * np_f + wts.float() + spill * np_f
+    glb_rw = tgt(9)
+    e_mac = tgt(0).sum(dim=1) * np_f * e_mac_u
+    e_glb = (glb_rw[:, 0] + glb_rw[:, 1] + tgt(6).sum(dim=1)) * np_f \
+        * e_glb_u
+    e_noc = (noc_bytes + d2d_bytes) * e_noc_u
+    e_d2d = d2d_bytes * e_d2d_u
+    e_dram = dram_b * e_dram_u
+    energy = e_mac + e_glb + e_noc + e_d2d + e_dram
+    return (torch.stack([delay, energy, stage, overflow, e_mac, e_glb,
+                         e_noc, e_d2d, e_dram]), b_idx.int())

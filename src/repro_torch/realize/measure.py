@@ -11,11 +11,12 @@ call the reference makes — into the seven ``pred_*`` fields.  It is host
 numpy, float64, and equals the reference's to the bit; it runs before the
 stages execute, outside their timed CUDA events, and
 ``RealizationReport.predict_s`` records its host seconds.  A scaled
-(expected-traffic) graph would have its measured side multiplied by the
-per-axis factor ``pred_scaled / pred_dense`` of a
-:func:`repro_torch.core.workload.dense_twin` evaluation, as in the
-reference (``expected_scale``); no graph the port builds is scaled yet, so
-the twin is the graph itself and no factor is applied.
+(expected-traffic) graph, a routed MoE, executes its dense-equivalent
+cubes, so its measured side is multiplied per stage by the per-axis factor
+``pred_scaled / pred_dense`` of a
+:func:`repro_torch.core.workload.dense_twin` evaluation of the same LMS, as
+in the reference (``expected_scale``); a dense graph is its own twin and
+takes no factor.
 
 **Measured side.**  The reference reads FLOPs and HBM bytes from compiled
 HLO; the port has no HLO, so it counts them per kernel launch from the

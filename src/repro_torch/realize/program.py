@@ -24,6 +24,17 @@ eager stage function that runs on the one device:
   billed when the slices its producer's grid puts on each core differ from
   the consumer's (:func:`cube_layout`), the logical analogue of the
   reference's ``NamedSharding.is_equivalent_to`` test.
+* Expected-traffic graphs (routed MoE: ``graph.is_scaled``) lower to their
+  dense-equivalent programs, as in the reference: every expert branch runs
+  its full cube (an fc layer takes its first in-stage predecessor as the
+  activation operand; the router edges only model traffic) and the combine
+  sums every expert's output.  The expected-traffic correction happens on
+  the measured side (``measure.py``'s dense-twin factors).
+* A conv with a kernel window (R·S > 1) or groups (groups > 1) has no
+  route: the ``matmul`` route contracts the activation's C columns, not
+  the ``C/groups·R·S`` rows of its weight, and the reference fails on it
+  the same way deep in a shape error (``src/repro/realize/program.py:292,
+  366``).  :func:`build_program` refuses such a layer up front.
 """
 
 from __future__ import annotations
@@ -341,6 +352,16 @@ def build_program(g: Graph, plan: MeshPlan,
     routes through the plain versions on any device (the parity target).
     """
     device = resolve_device(device)
+    for st in plan.stages:
+        for name in st.layers:
+            lyr = g.layers[name]
+            if lyr.kind == "conv" and (lyr.R * lyr.S > 1 or lyr.groups > 1):
+                raise ValueError(
+                    f"layer {name}: a conv with R*S = {lyr.R * lyr.S} and "
+                    f"groups = {lyr.groups} has no route (the matmul route "
+                    f"contracts the activation's C columns, not the "
+                    f"weight's C/groups*R*S rows); only 1x1 ungrouped "
+                    f"convs realize")
     bu = plan.batch_unit
     stage_of: Dict[str, int] = {}
     for i, st in enumerate(plan.stages):

@@ -1,0 +1,358 @@
+"""The port's batched evaluation engine and its fused pass
+(``repro_torch.core``: ``LMSBatch`` packing, ``Analyzer.analyze_requests``
+and its batched builders, ``Evaluator.eval_requests_batch`` /
+``eval_groups_batched``, ``CachedEvaluator``'s fused cache, lockstep SA)
+against the reference's (``repro.core``) on the workload zoo.
+
+Tolerances, each with its reason:
+
+* the exact ``"numpy"`` batched path equals the reference's batched path
+  to the bit: the same float64 arithmetic in the same order;
+* it is held to the port's scalar ``eval_group`` at rel 1e-12 only: the
+  batched numpy reductions are an ulp off the scalar ones on Python 3.12,
+  in the reference too (its known failures in
+  ``tests/test_batched_engine.py``);
+* the fused pass (here the plain PyTorch version of the ``fused_eval``
+  kernel, which the wrapper runs for CPU tensors) computes in float32, so
+  it is held to the reference's parity envelope, rel 1e-4 with the same
+  bottleneck (``tests/test_fused_eval.py``);
+* the fused replay is held to ``np.bincount`` at the reference's rtol 2e-4
+  / atol 1e-2 (its kernel adds in float64 with atomics in no fixed order).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.analyzer import d2d_hop_stats as ref_d2d_hop_stats
+from repro.core.encoding import pack_lms_batch as ref_pack
+from repro.core.encoding import random_lms as ref_random_lms
+from repro.core.evaluator import CachedEvaluator as RefCachedEvaluator
+from repro.core.evaluator import Evaluator as RefEvaluator
+from repro.core.explore import replica_exchange_sa as ref_replica_exchange
+from repro.core.graph_partition import partition_graph as ref_partition
+from repro.core.hw import ArchConfig as RefArch
+from repro.core.sa import SAConfig as RefSAConfig
+from repro.core.workloads import make_workload as ref_workload
+from repro_torch.core.analyzer import (_fused_replay, _regions_to_array,
+                                       d2d_hop_stats)
+from repro_torch.core.encoding import (LMS, MS, pack_lms_batch, random_lms,
+                                       unpack_lms_batch)
+from repro_torch.core.evaluator import CachedEvaluator, Evaluator
+from repro_torch.core.explore import mapping_to_jsonable, replica_exchange_sa
+from repro_torch.core.graph_partition import partition_graph
+from repro_torch.core.hw import ArchConfig
+from repro_torch.core.sa import SAConfig
+from repro_torch.core.workloads import make_workload
+from repro_torch.kernels import fused_eval as fe
+
+REL_TOL = 1e-4          # the reference's fused parity envelope
+SCALAR_REL = 1e-12      # batched numpy vs scalar (an ulp on Python 3.12)
+ZOO = ("tf-quick", "moe-quick", "mla-quick")
+ARCH_KW = dict(x_cores=4, y_cores=3, xcut=2, ycut=1, noc_bw=16.0,
+               d2d_bw=8.0, dram_bw=64.0, glb_kb=512, macs_per_core=256)
+
+
+def _pair(spec, seed=0, n=3):
+    """The same requests in both packages: (port arch, graph, requests),
+    (reference arch, graph, requests)."""
+    a, ra = ArchConfig(**ARCH_KW), RefArch(**ARCH_KW)
+    g, rg = make_workload(spec), ref_workload(spec)
+    rng, rrng = np.random.default_rng(seed), np.random.default_rng(seed)
+    reqs = [(grp, random_lms(grp, g, a.n_cores, a.n_dram, rng))
+            for grp in partition_graph(g, a, 8) for _ in range(n)]
+    rreqs = [(grp, ref_random_lms(grp, rg, ra.n_cores, ra.n_dram, rrng))
+             for grp in ref_partition(rg, ra, 8) for _ in range(n)]
+    return (a, g, reqs), (ra, rg, rreqs)
+
+
+def _ge(ge):
+    return dataclasses.asdict(ge)
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# LMSBatch packing
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec", ZOO)
+def test_pack_lms_batch_round_trips_and_equals_reference(spec):
+    (a, g, reqs), (ra, rg, rreqs) = _pair(spec, seed=2, n=4)
+    grp = reqs[0][0]
+    lms_list = [lms for gr, lms in reqs if gr.names == grp.names]
+    rlms = [lms for gr, lms in rreqs if gr.names == grp.names]
+    packed, rpacked = pack_lms_batch(lms_list, names=grp.names), \
+        ref_pack(rlms, names=grp.names)
+    for f in ("part", "cg", "cg_len", "fd"):
+        np.testing.assert_array_equal(getattr(packed, f),
+                                      getattr(rpacked, f))
+    assert unpack_lms_batch(packed) == lms_list
+    rt, rrt = packed.routing_tables(), rpacked.routing_tables()
+    assert rt is packed.routing_tables()
+    for f in ("slot_mask", "cg_safe", "order", "cg_sorted"):
+        np.testing.assert_array_equal(getattr(rt, f), getattr(rrt, f))
+    # a batch analyzes as its unpacked requests do
+    an = Evaluator(a, g, fused_device="cpu").analyzer
+    np.testing.assert_array_equal(
+        an.analyze_batch(grp, packed, 8).buf,
+        an.analyze_requests([(grp, lms) for lms in lms_list], 8).buf)
+
+
+def test_pack_lms_batch_refuses_bad_batches():
+    (a, g, reqs), _ = _pair("tf-quick", n=1)
+    grp, lms = reqs[0]
+    with pytest.raises(ValueError, match="empty"):
+        pack_lms_batch([])
+    name = grp.names[0]
+    bad = dict(lms.ms)
+    bad.pop(name)
+    with pytest.raises(ValueError, match="batch layers"):
+        pack_lms_batch([lms, LMS(ms=bad)], names=grp.names)
+    packed = pack_lms_batch([lms], names=grp.names)
+    multi = [l for l, n in enumerate(grp.names) if lms.ms[n].nc > 1]
+    assert multi
+    packed.cg[0, multi[0], :] = 0          # duplicate cores in one CG row
+    with pytest.raises(ValueError):
+        unpack_lms_batch(packed)
+
+
+# ---------------------------------------------------------------------------
+# the exact batched path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec", ZOO)
+def test_batched_numpy_equals_reference_batched_path(spec):
+    (a, g, reqs), (ra, rg, rreqs) = _pair(spec, seed=1)
+    ev, rev = Evaluator(a, g, fused_device="cpu"), RefEvaluator(ra, rg)
+    ab, rab = ev.analyzer.analyze_requests(reqs, 8), \
+        rev.analyzer.analyze_requests(rreqs, 8)
+    np.testing.assert_array_equal(ab.buf, rab.buf)
+    np.testing.assert_array_equal(ab.weight_totals, rab.weight_totals)
+    assert ab.layout == rab.layout
+    got, want = ev.eval_requests_batch(reqs, 8), \
+        rev.eval_requests_batch(rreqs, 8)
+    assert [_ge(x) for x, _ in got] == [_ge(x) for x, _ in want]
+    # eval_group_batch: one group's mappings
+    grp = reqs[0][0]
+    one = [lms for gr, lms in reqs if gr.names == grp.names]
+    rone = [lms for gr, lms in rreqs if gr.names == grp.names]
+    assert [_ge(x) for x, _ in ev.eval_group_batch(grp, one, 8)] == \
+        [_ge(x) for x, _ in rev.eval_group_batch(rreqs[0][0], rone, 8)]
+
+
+@pytest.mark.parametrize("spec", ZOO)
+def test_batched_numpy_within_an_ulp_of_the_scalar_path(spec):
+    (a, g, reqs), _ = _pair(spec, seed=3)
+    rows = Evaluator(a, g, fused_device="cpu").eval_requests_batch(reqs, 8)
+    ev = Evaluator(a, g)
+    for (ge, an), (grp, lms) in zip(rows, reqs):
+        want, wan = ev.eval_group(grp, lms, 8)
+        assert (ge.bottleneck, ge.depth, ge.n_passes) == \
+            (want.bottleneck, want.depth, want.n_passes)
+        for f in ("delay_s", "energy_j", "stage_time_s"):
+            assert _rel(getattr(ge, f), getattr(want, f)) <= SCALAR_REL
+        for k, v in want.energy_breakdown.items():
+            assert _rel(ge.energy_breakdown[k], v) <= SCALAR_REL
+        # the replayed analyses are the scalar ones, bit for bit
+        np.testing.assert_array_equal(an.edge_bytes, wan.edge_bytes)
+        np.testing.assert_array_equal(an.core_time_s, wan.core_time_s)
+
+
+def test_region_helpers_and_hop_stats_equal_reference():
+    (a, g, reqs), (ra, rg, rreqs) = _pair("moe-quick", seed=5, n=1)
+    an = Evaluator(a, g, fused_device="cpu").analyzer
+    ran = RefEvaluator(ra, rg).analyzer
+    analyses, ranalyses = [], []
+    for (grp, lms), (rgrp, rlms) in zip(reqs, rreqs):
+        for name in grp.names:
+            regs = an.regions(name, lms.ms[name], grp.batch_unit)
+            rregs = ran.regions(name, rlms.ms[name], rgrp.batch_unit)
+            assert {c: dataclasses.astuple(r) for c, r in regs.items()} == \
+                {c: dataclasses.astuple(r) for c, r in rregs.items()}
+            cores, arr = _regions_to_array(regs)
+            assert cores.tolist() == sorted(regs)
+            assert arr.shape == (len(regs), 8)
+        analyses.append(an.analyze(grp, lms, 8))
+        ranalyses.append(ran.analyze(rgrp, rlms, 8))
+    assert d2d_hop_stats(a, analyses) == ref_d2d_hop_stats(ra, ranalyses)
+
+    from repro.core.analyzer import Contribution as RefContribution
+    from repro_torch.core.analyzer import Contribution
+    c, rc = Contribution(), RefContribution()
+    an._route_multicast(c, 1, 0, [3, 5, 7], 12.0)
+    ran._route_multicast(rc, 1, 0, [3, 5, 7], 12.0)
+    c.seal(an._offsets)
+    rc.seal(ran._offsets)
+    np.testing.assert_array_equal(c.flat_idx, rc.flat_idx)
+    np.testing.assert_array_equal(c.flat_vals, rc.flat_vals)
+
+
+# ---------------------------------------------------------------------------
+# the fused pass (plain version on the CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec", ZOO)
+def test_fused_parity_envelope(spec):
+    (a, g, reqs), _ = _pair(spec, seed=1)
+    ev = Evaluator(a, g, fused_device="cpu")
+    exact = ev.eval_requests_batch(reqs, 8)
+    fused = ev.eval_requests_batch(reqs, 8, backend="fused")
+    assert len(fused) == len(exact)
+    for (ge, an), (gf, anf) in zip(exact, fused):
+        assert anf is None and an is not None
+        for f in ("delay_s", "energy_j", "stage_time_s"):
+            assert _rel(getattr(gf, f), getattr(ge, f)) < REL_TOL
+        assert ge.bottleneck == gf.bottleneck
+        assert (ge.n_passes, ge.depth) == (gf.n_passes, gf.depth)
+        for k, v in ge.energy_breakdown.items():
+            assert abs(gf.energy_breakdown[k] - v) <= REL_TOL * max(
+                abs(v), 1e-12)
+
+
+def test_fused_empty_requests_and_bad_backends():
+    (a, g, reqs), _ = _pair("tf-quick", n=1)
+    ev = Evaluator(a, g, fused_device="cpu")
+    assert ev.eval_requests_batch([], 8, backend="fused") == []
+    for bad in ("jax", "torch"):
+        with pytest.raises(ValueError, match="unknown eval batch backend"):
+            ev.eval_requests_batch(reqs, 8, backend=bad)
+        with pytest.raises(ValueError, match="unknown analyze batch backend"):
+            ev.analyzer.analyze_requests(reqs, 8, backend=bad)
+
+
+def test_fused_pass_on_the_default_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (a, g, reqs), _ = _pair("tf-quick", n=1)
+    ev = Evaluator(a, g)                    # fused_device="cuda"
+    assert ev.fused_device == "cuda"
+    assert ev.eval_requests_batch(reqs, 8)  # the exact path needs no card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ev.eval_requests_batch(reqs, 8, backend="fused")
+
+
+def test_fused_plain_version_on_padded_streams():
+    """``fused_eval``'s plain version on one batch's padded streams (pad
+    entries in the dump cell) against the exact engine, through the
+    wrapper, with no kernel launch on the CPU."""
+    (a, g, reqs), _ = _pair("moe-quick", seed=6, n=2)
+    ev = Evaluator(a, g, fused_device="cpu")
+    idx, vals, npass, dep, wts = ev._fused_inputs(reqs, 8)
+    B, L = len(reqs), ev.analyzer._buf_len
+    assert idx.size & (idx.size - 1) == 0         # a power of two
+    assert (idx == B * L).sum() > 0               # pads in the dump cell
+    plan = ev.fused_plan()
+    assert plan is ev.fused_plan()                # uploaded once
+    n0 = fe.fused_eval.launches
+    rows = fe.evaluate_rows(plan, idx, vals, npass, dep, wts)
+    assert fe.fused_eval.launches == n0       # the plain version launches none
+    exact = ev.eval_requests_batch(reqs, 8)
+    for b, (ge, _) in enumerate(exact):
+        assert _rel(float(rows.delay[b]), ge.delay_s) < REL_TOL
+        assert _rel(float(rows.energy[b]), ge.energy_j) < REL_TOL
+        assert ("compute", "noc", "d2d", "dram")[rows.bottleneck[b]] \
+            == ge.bottleneck
+    assert rows.energy_parts.shape == (5, B)
+
+
+def test_cached_evaluator_keeps_fused_results_separate():
+    """Parity-grade fused values never satisfy an exact-path lookup."""
+    (a, g, reqs), (ra, rg, rreqs) = _pair("tf-quick", seed=2, n=2)
+    ce = CachedEvaluator(a, g, fused_device="cpu")
+    fused = ce.eval_groups_batched(reqs, 8, backend="fused")
+    assert len(ce._fused_cache) > 0 and len(ce._cache) == 0
+    fused2 = ce.eval_groups_batched(reqs, 8, backend="fused")
+    assert [ge for ge, _ in fused2] == [ge for ge, _ in fused]
+    exact = ce.eval_groups_batched(reqs, 8)
+    ref = RefEvaluator(ra, rg).eval_requests_batch(rreqs, 8)
+    assert [_ge(x) for x, _ in exact] == [_ge(x) for x, _ in ref]
+    info = ce.cache_info()
+    rce = RefCachedEvaluator(ra, rg)
+    rce.eval_groups_batched(rreqs, 8, backend="jax")
+    rce.eval_groups_batched(rreqs, 8, backend="jax")
+    rce.eval_groups_batched(rreqs, 8)
+    assert info == rce.cache_info()
+    # the exact cache serves eval_group afterwards, the same objects
+    grp, lms = reqs[0]
+    assert ce.eval_group(grp, lms, 8) is exact[0]
+
+
+# ---------------------------------------------------------------------------
+# the fused replay (analyze_requests(backend="fused"))
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec", ZOO)
+def test_fused_replay_zoo_parity(spec):
+    (a, g, reqs), _ = _pair(spec, seed=4, n=2)
+    if spec == "moe-quick":
+        assert g.is_scaled                 # routed experts present
+    an = Evaluator(a, g, fused_device="cpu").analyzer
+    ab_np = an.analyze_requests(reqs, 8)
+    ab_fu = an.analyze_requests(reqs, 8, backend="fused")
+    np.testing.assert_allclose(ab_fu.buf, ab_np.buf, rtol=2e-4, atol=1e-2)
+    np.testing.assert_array_equal(ab_fu.weight_totals, ab_np.weight_totals)
+
+
+def test_fused_replay_refuses_bad_dtypes():
+    with pytest.raises(TypeError, match="int64 index stream"):
+        _fused_replay(np.array([0, 1], np.int32), np.array([1.0, 2.0]), 4,
+                      "cpu")
+    with pytest.raises(TypeError, match="float64 value stream"):
+        _fused_replay(np.array([0, 1], np.int64),
+                      np.array([1.0, 2.0], np.float32), 4, "cpu")
+
+
+def test_fused_replay_matches_bincount():
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, 64, size=500)
+    vals = rng.normal(size=500)
+    out = _fused_replay(idx.astype(np.int64), vals, 64, "cpu")
+    ref = np.bincount(idx, weights=vals, minlength=64)
+    assert out.shape == ref.shape and out.dtype == np.float64
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# lockstep SA
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec,seed", [("tf-quick", 3), ("moe-quick", 1),
+                                       ("mla-quick", 2)])
+def test_lockstep_replica_exchange_equals_reference_lockstep(spec, seed):
+    """The port's batched lockstep against the reference's
+    ``lockstep=True``: the same trajectories, to the bit."""
+    (a, g, _), (ra, rg, _) = _pair(spec)
+    kw = dict(iters=60, seed=seed, n_chains=3, log_every=5, swap_every=10)
+    mine = replica_exchange_sa(g, a, partition_graph(g, a, 8), 8,
+                               SAConfig(**kw))
+    ref = ref_replica_exchange(rg, ra, ref_partition(rg, ra, 8), 8,
+                               RefSAConfig(**kw))
+    from repro.core.explore import mapping_to_jsonable as ref_jsonable
+    assert mapping_to_jsonable(mine.mapping) == ref_jsonable(ref.mapping)
+    assert (mine.cost, mine.energy_j, mine.delay_s, mine.history) == \
+        (ref.cost, ref.energy_j, ref.delay_s, ref.history)
+    assert (mine.accepted, mine.proposed, mine.swap_attempts,
+            mine.swap_accepts) == (ref.accepted, ref.proposed,
+                                   ref.swap_attempts, ref.swap_accepts)
+
+
+def test_sa_fused_backend_rescores_winners_exact():
+    """SAConfig(backend="fused"): proposals scored fused, best re-scored
+    exactly at finalize — the reported cost equals an independent exact
+    evaluation of the returned mapping."""
+    (a, g, _), _ = _pair("tf-quick")
+    groups = partition_graph(g, a, 8)
+    cfg = SAConfig(iters=40, seed=3, n_chains=2, backend="fused")
+    ev = CachedEvaluator(a, g, fused_device="cpu")
+    with pytest.warns(RuntimeWarning, match="n_chains=3"):
+        from repro_torch.core.sa import sa_optimize
+        res = sa_optimize(g, a, groups, 8, cfg, evaluator=ev)
+    assert len(ev._fused_cache) > 0
+    final = Evaluator(a, g).evaluate(res.mapping, 8)
+    assert res.cost == final.cost(cfg.beta, cfg.gamma)
+    assert res.energy_j == final.energy_j
+    assert res.delay_s == final.delay_s

@@ -2,8 +2,9 @@
 evaluator) against the reference's scalar engine (``repro.core``).
 
 Both packages are fed the committed fixtures' own graphs and mappings
-(``tests/data/realize``), at full size: every stage of ``tf-paper`` (37)
-and ``mamba2-370m`` (96).  The port's copies are float64 host numpy with
+(``tests/data/realize``), at full size: every stage of ``tf-paper`` (37),
+``mamba2-370m`` (96), ``granite-moe-3b-a800m`` at 2 of its 32 layers (162,
+a routed-MoE graph with expected-traffic scales) and ``mla-paper`` (5).  The port's copies are float64 host numpy with
 the reference's arithmetic in the reference's order, so the tolerance is
 relative 1e-9 (they agree to the bit today; the tolerance leaves room for
 a numpy whose pairwise sums group differently).  The reference's batched
@@ -49,6 +50,11 @@ FIXTURES = {
     "tf-paper": ("tf-paper.simba.ckpt.jsonl", "TF", "tf-paper", 37),
     "mamba2-370m": ("mamba2-370m.simba.ckpt.jsonl", "MAMBA",
                     "lm:mamba2-370m", 96),
+    "granite-moe-3b-a800m": ("granite-moe-3b-a800m.simba.ckpt.jsonl",
+                             "GRANITE",
+                             "lm:granite-moe-3b-a800m:seq=4096,n_layers=2",
+                             162),
+    "mla-paper": ("mla-paper.simba.ckpt.jsonl", "MLA", "mla-paper", 5),
 }
 # the seven traffic_summary keys, and the per-pass predicted totals of
 # each fixture (the port's CPU values, equal to the reference's; pinned
@@ -62,6 +68,12 @@ PRED_TOTALS = {
                     "noc_bytes": 3_068_313_600.0,
                     "d2d_bytes": 77_788_781_360.0,
                     "dram_bytes": 11_575_820_288.0},
+    "granite-moe-3b-a800m": {"flops": 1_501_086_036_787.1953,
+                             "noc_bytes": 3_561_259_827.199997,
+                             "d2d_bytes": 60_090_000_009.59994,
+                             "dram_bytes": 10_500_748_083.199978},
+    "mla-paper": {"flops": 12_155_092_992.0, "noc_bytes": 18_646_016.0,
+                  "d2d_bytes": 395_304_640.0, "dram_bytes": 32_178_176.0},
 }
 REL = 1e-9
 

@@ -5,12 +5,13 @@
 
 Every comparison here is equality, to the bit: both packages run the same
 float64 arithmetic in the same order and consume their
-``np.random.default_rng`` streams in the same order.  The reference's
-replica exchange is run with ``lockstep=False`` (its serial loop, scored by
-the scalar evaluator), never through its batched lockstep, whose last bits
-differ from the scalar path on this toolchain.  The two committed fixtures
-are reproduced by the port's ``run_dse`` at the bound the reference's own
-fixture test uses (header and mapping equal, energy/delay rel 1e-9).
+``np.random.default_rng`` streams in the same order.  Replica exchange is
+compared mode for mode: each package's batched lockstep against the
+other's, and each serial loop (``lockstep=False``, scored by the scalar
+evaluator) against the other's; the two modes may differ in the last bits
+on this toolchain.  The committed fixtures are reproduced by the port's
+``run_dse`` at the bound the reference's own fixture test uses (header and
+mapping equal, energy/delay rel 1e-9).
 """
 
 import json
@@ -243,20 +244,20 @@ def test_single_chain_sa_equals_reference(spec, arch, seed):
 
 @pytest.mark.parametrize("seed", [0, 5])
 def test_replica_exchange_equals_reference_serial_loop(seed):
-    """Port lockstep (scalar-scored) == reference lockstep=False."""
+    """Port serial loop == reference serial loop (``lockstep=False``), and
+    port lockstep (batched) == reference lockstep (batched)."""
     kw = dict(iters=150, seed=seed, n_chains=3, log_every=10, swap_every=10)
-    mine, ref = _sa_pair("tf-quick", "8core", kw, {"lockstep": False})
-    assert sum(mine.swap_attempts) > 0
-    _assert_same_result(mine, ref)
-    serial, _ = _sa_pair("tf-quick", "8core", {**kw, "lockstep": False})
+    serial, ref = _sa_pair("tf-quick", "8core", {**kw, "lockstep": False})
+    assert sum(serial.swap_attempts) > 0
     _assert_same_result(serial, ref)
+    mine, ref_lockstep = _sa_pair("tf-quick", "8core", kw)
+    _assert_same_result(mine, ref_lockstep)
 
 
 def test_two_chains_warn_and_run_three():
     with pytest.warns(RuntimeWarning, match="n_chains=3"):
         two, ref = _sa_pair(SMALL, "4core",
-                            dict(iters=60, seed=1, n_chains=2),
-                            {"lockstep": False})
+                            dict(iters=60, seed=1, n_chains=2))
     assert len(two.swap_attempts) == 1
     _assert_same_result(two, ref)
 
@@ -349,7 +350,10 @@ def test_joint_reuse_dse_equals_reference():
 
 @pytest.mark.parametrize("fixture,name,spec", [
     ("tf-paper.simba.ckpt.jsonl", "TF", "tf-paper"),
-    ("mamba2-370m.simba.ckpt.jsonl", "MAMBA", "lm:mamba2-370m")])
+    ("mamba2-370m.simba.ckpt.jsonl", "MAMBA", "lm:mamba2-370m"),
+    ("granite-moe-3b-a800m.simba.ckpt.jsonl", "GRANITE",
+     "lm:granite-moe-3b-a800m:seq=4096,n_layers=2"),
+    ("mla-paper.simba.ckpt.jsonl", "MLA", "mla-paper")])
 def test_port_dse_writes_the_committed_fixture(tmp_path, fixture, name, spec):
     """What ``tests/test_torch_realize.py`` asks of the reference's fresh
     DSE, asked of the port's."""
@@ -396,16 +400,20 @@ def test_slo_objective_is_refused_everywhere():
 
 @pytest.mark.parametrize("n_chains", [1, 3])
 def test_jax_backend_is_refused(n_chains):
+    """The reference's ``"jax"`` is the port's ``"fused"``: ``"jax"`` gets
+    the reference's unknown-backend error wherever the backend is read."""
     g = make_workload(SMALL)
     a = ARCHS["4core"]
     groups = partition_graph(g, a, 4)
     cfg = sa.SAConfig(iters=5, n_chains=n_chains, backend="jax")
-    with pytest.raises(NotImplementedError, match="fused-evaluator"):
+    with pytest.raises(ValueError, match="unknown eval batch backend"):
         sa.sa_optimize(g, a, groups, 4, cfg)
-    with pytest.raises(NotImplementedError, match="fused-evaluator"):
+    with pytest.raises(ValueError, match="unknown eval batch backend"):
         explore.replica_exchange_sa(g, a, groups, 4, cfg)
     ev = CachedEvaluator(a, g)
     chains = [sa.SAChain(g, a, groups, 4, cfg, None, ev, seed=0,
-                         cum_w=sa.group_draw_cdf(groups, a.n_cores))]
-    with pytest.raises(NotImplementedError, match="fused-evaluator"):
-        sa.step_chains_lockstep(chains, backend="jax")
+                         cum_w=sa.group_draw_cdf(groups, a.n_cores))
+              for _ in range(n_chains)]
+    with pytest.raises(ValueError, match="unknown eval batch backend"):
+        for _ in range(20):           # until a chain draws a proposal
+            sa.step_chains_lockstep(chains, backend="jax")

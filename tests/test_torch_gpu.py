@@ -12,7 +12,11 @@ and 2e-4 for the chunked SSD; for bf16 operands, GEMM atol 0.5 / rtol
 (the SSD kernel returns f32 and keeps 1e-4).  TF32 is off for the plain
 versions.  The three kernels compute in 3xTF32 on the tensor cores; each
 of their tile or head-dim configurations and copy widths is driven here,
-for f32 and for bf16.
+for f32 and for bf16.  The cost model's two kernels: ``fused_eval``
+within rel 1e-5 of its plain version and within the reference's parity
+envelope (rel 1e-4, equal bottlenecks) of the exact numpy engine;
+``segment_replay`` within rel 1e-12 of ``np.bincount`` (float64 atomic
+adds, in an order that changes from run to run).
 """
 
 import numpy as np
@@ -427,3 +431,129 @@ def test_close_loop_on_the_card(cuda, tmp_path, capsys):
         [p.objective for p in cpu.baseline]
     assert [p.objective for p in res.identity] == \
         [p.objective for p in res.baseline]
+
+
+# ---------------------------------------------------------------------------
+# the cost model's kernels: fused_eval and segment_replay
+# ---------------------------------------------------------------------------
+
+def _zoo_batch(spec, n):
+    """A fused-pass batch of the workload zoo on the reference's test arch:
+    the evaluator (fused on the card) and its requests."""
+    from repro_torch.core.encoding import random_lms
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.core.graph_partition import partition_graph
+    from repro_torch.core.hw import ArchConfig
+    from repro_torch.core.workloads import make_workload
+    a = ArchConfig(x_cores=4, y_cores=3, xcut=2, ycut=1, noc_bw=16.0,
+                   d2d_bw=8.0, dram_bw=64.0, glb_kb=512, macs_per_core=256)
+    g = make_workload(spec)
+    rng = np.random.default_rng(n)
+    reqs = [(grp, random_lms(grp, g, a.n_cores, a.n_dram, rng))
+            for grp in partition_graph(g, a, 8) for _ in range(n)]
+    return Evaluator(a, g, fused_device="cuda"), reqs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec,n", [("tf-quick", 1), ("moe-quick", 3),
+                                    ("mla-quick", 8)])
+def test_fused_eval_kernel_vs_exact_engine(cuda, spec, n):
+    """The fused pass on the card within the reference's parity envelope
+    (rel 1e-4, same bottleneck) of the exact numpy engine; one launch."""
+    from repro_torch.kernels.fused_eval import fused_eval
+    ev, reqs = _zoo_batch(spec, n)
+    exact = ev.eval_requests_batch(reqs, 8)
+    n0 = fused_eval.launches
+    fused = ev.eval_requests_batch(reqs, 8, backend="fused")
+    assert fused_eval.launches == n0 + 1
+    for (ge, _), (gf, anf) in zip(exact, fused):
+        assert anf is None and ge.bottleneck == gf.bottleneck
+        for f in ("delay_s", "energy_j", "stage_time_s"):
+            a, b = getattr(ge, f), getattr(gf, f)
+            assert abs(a - b) <= 1e-4 * abs(a), f
+        for k, v in ge.energy_breakdown.items():
+            assert abs(gf.energy_breakdown[k] - v) <= 1e-4 * max(abs(v),
+                                                                 1e-12)
+
+
+@pytest.mark.gpu
+def test_fused_eval_kernel_vs_plain(cuda):
+    """Kernel against its plain version on the same inputs on the card,
+    pads in the dump cell included: rel 1e-5 (float32 atomic adds in no
+    fixed order), the same bottleneck."""
+    from repro_torch.kernels import fused_eval as fe
+    ev, reqs = _zoo_batch("moe-quick", 4)
+    idx, vals, npass, dep, wts = ev._fused_inputs(reqs, 8)
+    assert (idx == idx.max()).sum() > 1          # pads in the dump cell
+    plan, L = ev.fused_plan(), ev.analyzer._buf_len
+    t = lambda x: torch.from_numpy(x).to(cuda)
+    out, bn = fe.fused_eval(plan, t(idx), t(vals), t(npass), t(dep), t(wts))
+    want, wbn = ref.fused_eval_ref(
+        t(idx), t(vals), t(npass), t(dep), t(wts), spans=plan.spans,
+        d2d_mask=plan.d2d_mask, consts=plan.consts, has_d2d=plan.has_d2d,
+        buf_len=L)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=0.0)
+    assert torch.equal(bn, wbn)
+    with pytest.raises(TypeError, match="dtypes"):
+        fe.fused_eval(plan, t(idx.astype(np.int64)), t(vals), t(npass),
+                      t(dep), t(wts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,cells", [(500, 64), (1 << 20, 4096),
+                                     (3_000_000, 1)])
+def test_segment_replay_kernel_vs_bincount(cuda, n, cells):
+    """float64 atomic adds against np.bincount: rel 1e-12 (the order of
+    the adds changes from run to run; float64 keeps it far inside the
+    reference's float32 envelope)."""
+    from repro_torch.kernels.fused_eval import segment_replay
+    rng = np.random.default_rng(n)
+    idx = rng.integers(0, cells, size=n)
+    vals = rng.normal(size=n)
+    n0 = segment_replay.launches
+    out = segment_replay(torch.from_numpy(idx).to(cuda),
+                         torch.from_numpy(vals).to(cuda), cells)
+    torch.cuda.synchronize()
+    assert segment_replay.launches == n0 + 1
+    want = np.bincount(idx, weights=vals, minlength=cells)
+    np.testing.assert_allclose(out.cpu().numpy(), want, rtol=1e-12,
+                               atol=1e-9)
+    with pytest.raises(TypeError, match="int64 and float64"):
+        segment_replay(torch.from_numpy(idx.astype(np.int32)).to(cuda),
+                       torch.from_numpy(vals).to(cuda), cells)
+
+
+@pytest.mark.gpu
+def test_fused_replay_and_sa_on_the_card(cuda):
+    """``analyze_requests(backend="fused")`` through the kernel within the
+    reference's rtol 2e-4 / atol 1e-2 of the exact replay, and
+    ``SAConfig(backend="fused")`` re-scoring its winner exactly."""
+    from repro_torch.core.evaluator import CachedEvaluator, Evaluator
+    from repro_torch.core.explore import replica_exchange_sa
+    from repro_torch.core.graph_partition import partition_graph
+    from repro_torch.core.sa import SAConfig
+    ev, reqs = _zoo_batch("moe-quick", 2)
+    exact = ev.analyzer.analyze_requests(reqs, 8)
+    fused = ev.analyzer.analyze_requests(reqs, 8, backend="fused")
+    np.testing.assert_allclose(fused.buf, exact.buf, rtol=2e-4, atol=1e-2)
+    g, a = ev.g, ev.arch
+    cfg = SAConfig(iters=40, seed=3, n_chains=3, backend="fused")
+    res = replica_exchange_sa(g, a, partition_graph(g, a, 8), 8, cfg,
+                              evaluator=CachedEvaluator(a, g))
+    final = Evaluator(a, g).evaluate(res.mapping, 8)
+    assert res.cost == final.cost(cfg.beta, cfg.gamma)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fixture,name,spec,stages,launched", [
+    ("granite-moe-3b-a800m.simba.ckpt.jsonl", "GRANITE",
+     "lm:granite-moe-3b-a800m:seq=4096,n_layers=2", 162, (166, 2, 0)),
+    ("mla-paper.simba.ckpt.jsonl", "MLA", "mla-paper", 5, (16, 2, 0))])
+def test_family_fixture_kernel_route_vs_plain_route(cuda, fixture, name,
+                                                    spec, stages, launched):
+    """The two family fixtures realized at full width: the plan's launches
+    in one pass, every stage cube within 2e-4 of the plain route's."""
+    got = _kernel_route_vs_plain_route(cuda, fixture, name, spec)
+    assert got[:2] == (stages, launched)
+    assert got[2] < 2e-4

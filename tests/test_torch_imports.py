@@ -74,3 +74,14 @@ def test_core_modules_load_no_torch():
     assert r.returncode == 0, r.stderr[-3000:]
     assert len(modules) > 10
     assert json.loads(r.stdout.splitlines()[-1]) == []
+
+
+def test_the_walks_cover_the_family_and_fused_pass_modules():
+    """The ``ast`` walk and the clean-interpreter import see the MoE, MLA
+    and CNN workload modules and the fused pass."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    for rel in ("core/workloads/moe.py", "core/workloads/mla.py",
+                "core/workloads/cnn.py", "kernels/fused_eval.py"):
+        assert rel in files, rel
+    assert (PORT / "kernels" / "csrc" / "fused_eval.cu").exists()

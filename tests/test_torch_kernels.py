@@ -443,8 +443,12 @@ def test_dtype_suffix_takes_f32_or_bf16_all_of_one_type():
     for bad in ((f, h), (h, f), (f.double(),), (f.half(), f.half())):
         with pytest.raises(TypeError, match="float32 or bfloat16"):
             _build.dtype_suffix("k", bad)
-    for name, fns in _build.SIGNATURES.items():
+    for name in _build.TENSOR_CORE_SOURCES:
+        fns = _build.SIGNATURES[name]
         assert {fn.rsplit("_", 1)[1] for fn in fns} == {"f32", "bf16"}
+    assert set(_build.SIGNATURES) == set(_build.SOURCES)
+    assert set(_build.SIGNATURES["fused_eval"]) == {"fused_eval_f32",
+                                                    "segment_replay_f64"}
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,9 @@ from repro_torch.realize.program import _fit, _route_layers, build_program
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE = REPO / "tests" / "data" / "realize" / "tf-paper.simba.ckpt.jsonl"
 MAMBA_FIXTURE = FIXTURE.with_name("mamba2-370m.simba.ckpt.jsonl")
+GRANITE_FIXTURE = FIXTURE.with_name("granite-moe-3b-a800m.simba.ckpt.jsonl")
+MLA_FIXTURE = FIXTURE.with_name("mla-paper.simba.ckpt.jsonl")
+GRANITE_SPEC = "lm:granite-moe-3b-a800m:seq=4096,n_layers=2"
 SMALL_SPEC = "transformer:n_layers=1,d_model=64,d_ff=128,seq=32,name=tf-t"
 
 
@@ -91,23 +94,71 @@ def test_mamba_fixture_equals_fresh_reference_dse(tmp_path):
                                      "lm:mamba2-370m")
 
 
+def test_granite_fixture_equals_fresh_reference_dse(tmp_path):
+    """Full width, depth cut to 2 of 32 layers: the routed-MoE fixture."""
+    _assert_fixture_equals_fresh_dse(tmp_path, GRANITE_FIXTURE, "GRANITE",
+                                     GRANITE_SPEC)
+
+
+def test_mla_fixture_equals_fresh_reference_dse(tmp_path):
+    _assert_fixture_equals_fresh_dse(tmp_path, MLA_FIXTURE, "MLA",
+                                     "mla-paper")
+
+
+@pytest.mark.parametrize("fixture,name,spec,stages,launches", [
+    (GRANITE_FIXTURE, "GRANITE", GRANITE_SPEC, 162,
+     {"tiled_matmul": 166, "flash_attention_mha": 2}),
+    (MLA_FIXTURE, "MLA", "mla-paper", 5,
+     {"tiled_matmul": 16, "flash_attention_mha": 2})])
+def test_family_fixture_plans_and_routes_match_reference(
+        fixture, name, spec, stages, launches):
+    """The two family fixtures lower to the reference's plan and routes,
+    with the stages and kernel launches ``chip_smoke.py`` pins."""
+    g, rg = make_workload(spec), ref_workload(spec)
+    (cand, plan), = plans_for(load_realize_candidates(
+        fixture, {name: g}, top=0, verbose=False))
+    rcand, = ref_load(fixture, {name: rg}, top=0, verbose=False)
+    assert _plan_tuple(plan) == _plan_tuple(rcand.lower())
+    prog = build_program(g, plan, device="cpu")
+    assert len(prog.stages) == stages
+    for sp, rst in zip(prog.stages, rcand.lower().stages):
+        assert sp.routes == ref_routes(rg, rst)
+    counted = {}
+    for sp in prog.stages:
+        for kernel, _ in sp.launches:
+            counted[kernel] = counted.get(kernel, 0) + 1
+    assert counted == launches
+    assert g.is_scaled == (name == "GRANITE")
+
+
 @pytest.mark.parametrize("spec", [
     "tf-paper", "tf-quick", SMALL_SPEC, "lm:mamba2-370m",
     "lm:mamba2-370m:seq=256,n_layers=2", "lm:zamba2-1.2b:seq=128,n_layers=2",
-    "lm:qwen3-0.6b:seq=64,n_layers=2", "lm:whisper-small:seq=32,n_layers=1"])
+    "lm:qwen3-0.6b:seq=64,n_layers=2", "lm:whisper-small:seq=32,n_layers=1",
+    GRANITE_SPEC, "mla-paper", "moe-paper"])
 def test_graph_fingerprint_matches_reference(spec):
     assert graph_fingerprint(make_workload(spec)) == \
         ref_fingerprint(ref_workload(spec))
 
 
 def test_unknown_workload_names_what_the_port_has():
-    with pytest.raises(ValueError, match="tf-paper.*transformer:k=v"):
-        make_workload("moe-quick")
+    """An unknown spec raises the reference's error, naming every preset
+    and grammar."""
+    with pytest.raises(ValueError) as mine:
+        make_workload("moe-huge")
+    with pytest.raises(ValueError) as ref:
+        ref_workload("moe-huge")
+    assert str(mine.value) == str(ref.value)
+    assert "mla-paper" in str(mine.value) and "moe:k=v" in str(mine.value)
 
 
 def test_routed_moe_lm_spec_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice 3"):
-        make_workload("lm:granite-moe-3b-a800m:seq=64,n_layers=1")
+    """A routed-MoE ``lm:`` spec builds the reference's scaled graph."""
+    spec = "lm:granite-moe-3b-a800m:seq=64,n_layers=1"
+    g, rg = make_workload(spec), ref_workload(spec)
+    assert g.is_scaled and rg.is_scaled
+    assert graph_fingerprint(g) == ref_fingerprint(rg)
+    assert g.edge_mults == rg.edge_mults
 
 
 def test_configs_match_reference():
