@@ -15,15 +15,19 @@ phase prints one JSON line:
    (registers, spills).  Then ``sass``: the tensor-core ``HMMA``
    instructions in each built library's SASS, by kernel function, where
    the toolkit has ``cuobjdump``; a kernel of the three tensor-core
-   sources without ``HMMA`` fails the run (``fused_eval.cu`` does no
-   products: its counts are printed, not gated).
+   sources without ``HMMA`` fails the run (``fused_eval.cu`` and
+   ``ssd_state.cu`` do no tensor-core products: their counts are printed,
+   not gated).
 3. ``kernel``: one line per kernel and shape.  Each kernel is held against
    its plain PyTorch version on the same inputs on the card, with TF32 off,
    at the tolerances of ``tests/test_kernels.py`` (GEMM atol 1e-3 /
    rtol 1e-4, flash 2e-5, SSD chunk 1e-4; the chunked SSD ``ssd_forward``
-   at 2e-4).  Each kernel line names the kernel configuration the launch
-   took (``route``: tile, head-dim template or P tile, copy width); the
-   edge shapes drive each of them.  The realization paths' shapes also get
+   at 2e-4; the SSD state pass, ``ssd_state_pass``, at 1e-4, and the
+   model's chunked SSD through both SSD kernels at 2e-4; flash with
+   ``q_offset = Sk - Sq``, the model's cache mode, in f32 and bf16).  Each
+   kernel line names the kernel configuration the launch took (``route``:
+   tile, head-dim template or P tile, copy width); the edge shapes drive
+   each of them.  The realization paths' shapes also get
    the kernel's time, the plain version's, one PyTorch library call's
    (``torch.matmul``, ``scaled_dot_product_attention``; none computes the
    SSD chunk form, so its ``library_ms`` is null), each as device time
@@ -45,7 +49,8 @@ phase prints one JSON line:
    checkpoint realized at full width through ``repro_torch.launch.realize
    --calibrate`` (one warm-up pass, then the counted pass, with every
    launch count set to 0 just before it): stages, kernel launches of the
-   pass, wall, FLOPs and DCI bytes per stage, the predicted totals
+   pass (``ssd_state_pass`` once per SSD layer, after the chunk kernel),
+   wall, FLOPs and DCI bytes per stage, the predicted totals
    (``pred_flops``, ``pred_dram_bytes``, ``pred_noc_bytes``,
    ``pred_d2d_bytes``, held to the pinned CPU values), the
    measured/predicted geomeans (``ratio_summary``), the fitted overlay,
@@ -99,18 +104,37 @@ phase prints one JSON line:
    re-evaluated exactly (it must equal the reported cost to the bit); then
    ``analyze_requests(backend="fused")`` of a screen-sized batch through
    ``segment_replay`` against the exact replay.
+   Then ``serve``: ``zamba2-1.2b`` at full width and depth (38 layers,
+   about 1.2 B parameters from the port's seeded ``init_params``, f32
+   parameters and bf16 compute) served through
+   ``repro_torch.runtime.serve_loop.Server``: 8 requests of 300-1024
+   prompt tokens and 16 new tokens in two waves of 4 on a 2048-position
+   cache, after a short warm-up wave, with the launch counts set to 0 just
+   before: requests, tokens, prefill seconds per wave, the median decode
+   step, tokens a second, peak memory, and the launches, gated at 7 flash,
+   38 SSD chunk and 38 state-pass kernels a wave; the first wave's prefill
+   and 4 teacher-forced decode steps through the kernels against
+   ``use_kernels=False`` on the card: within 2e-2 of the largest logit in
+   f32 compute, and in the served bf16 compute within the larger of 2e-2
+   and the plain route's own bf16-vs-f32 gap (``serve_check``).
+   Kernel lines at the serve launches' shapes (flash in bf16, the SSD
+   kernels in f32) give their times.  Then ``serve_cli``: the two serving
+   entry points, ``repro_torch.launch.serve`` and
+   ``repro_torch.examples.serve_lm``, with ``--arch zamba2-1.2b`` at their
+   defaults; each must answer every request.
    Then ``profile`` (not gated): the timed ``ops.ssd_forward`` call at the
    ``mamba2-370m`` SSD layer's shape once more, under ``torch.profiler``:
    the device time of its kernels, the device's idle share over its
    host-issued wall, and kernel launches and device time split between
-   the chunk kernel, the inter-chunk recurrence loop and the rest of the
-   eager glue.
-5. ``kernels``: every kernel with its launches on the paths and the loop,
-   its numbers summed over one pass of each path and of each realized loop
-   candidate (``loop#1``, ``loop#2``), and each one's share apart (both
-   bounds, ``arith``); under ``bf16`` the same launches' sums with bf16
-   operands.  The cost model's two kernels carry their launches in the
-   ``fused`` phase and one launch's numbers at that phase's shape.
+   the chunk kernel, the state pass (``recurrence_launches``) and the rest
+   of the eager glue.
+5. ``kernels``: every kernel with its launches on the paths, the loop and
+   the serve phase, its numbers summed over one pass of each path, of
+   each realized loop candidate (``loop#1``, ``loop#2``) and of the serve
+   phase, and each one's share apart (both bounds, ``arith``); under
+   ``bf16`` the realization launches' sums with bf16 operands.  The cost
+   model's two kernels carry their launches in the ``fused`` phase and
+   one launch's numbers at that phase's shape.
 
 Then the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -147,7 +171,8 @@ PEAK_HBM_BYTES_S = 3.35e12
 PEAK_F64_FLOPS = 34e12
 ARITH = {"tiled_matmul": "3xTF32 mma.sync",
          "flash_attention_mha": "3xTF32 mma.sync",
-         "ssd_chunk_dual": "3xTF32 mma.sync"}
+         "ssd_chunk_dual": "3xTF32 mma.sync",
+         "ssd_state_pass": "f32 FMA (no tensor cores)"}
 ARITH_BF16 = {
     "tiled_matmul": "bf16 operands, f32 math: 1 TF32 mma.sync a product",
     "flash_attention_mha": "bf16 operands, f32 math: 1 TF32 mma.sync for "
@@ -223,9 +248,30 @@ MM_BF16_EDGE = [(257, 129, 65), (2048, 131, 2048), (1000, 64, 77)]
 FLASH_BF16_EDGE = [(2, 2, 100, 70, 40, True), (1, 2, 70, 70, 33, True)]
 SSD_BF16_EDGE = [(1, 128, 3, 130, 24), (2, 16, 2, 8, 4)]
 # ssd_forward, kernel vs plain: (B, L, H, P, N, chunk); a padded last
-# chunk, and the mamba2-370m path's SSD layer (timed: the chunk kernel plus
-# the eager discretization, recurrence and inter-chunk output around it)
+# chunk, and the mamba2-370m path's SSD layer (timed: the chunk kernel and
+# the state pass plus the eager discretization and cumsum around them)
 SSD_FORWARD = [(2, 70, 4, 64, 32, 32), (1, 4096, 16, 128, 64, 128)]
+# the SSD state pass: (B, nc, Q, H, P, N, G, init) at the zamba2-1.2b
+# layer's shape (a 1024-token wave of 4) and the mamba2-370m realization
+# shape (timed), then edges: nc = 1, an initial state, G = 2 and 3, P and
+# N off 4 (4-byte copies), N = 128
+STATE_PATH = [(4, 8, 128, 64, 64, 64, 1, False),
+              (1, 32, 128, 16, 128, 64, 1, False)]
+STATE_EDGE = [(2, 1, 128, 4, 64, 32, 1, False),
+              (2, 3, 128, 8, 64, 64, 1, True),
+              (2, 3, 70, 4, 130, 50, 2, True),
+              (1, 5, 128, 6, 32, 128, 3, True),
+              (2, 4, 100, 4, 64, 13, 2, False)]
+STATE_TOL = SSD_TOL
+# the model's chunked SSD through the kernels against its plain version at
+# the config's chunk (B, L, H, P, G, N, chunk, init): L off the chunk, an
+# initial state, G = 2 (the chunk kernel once per group)
+CHUNKED = [(2, 300, 8, 64, 1, 32, 256, False),
+           (2, 512, 8, 64, 2, 32, 256, True),
+           (1, 1000, 64, 64, 1, 64, 256, True)]
+# flash with q_offset = Sk - Sq (the model's cache mode), f32 and bf16
+FLASH_OFFSET = [(2, 4, 128, 384, 64), (1, 32, 300, 1000, 64),
+                (1, 2, 70, 200, 128)]
 
 # the realization paths: (name, fixture, workload binding, stages,
 # launches of one pass, counted FLOPs of one pass, predicted totals of one
@@ -233,12 +279,14 @@ SSD_FORWARD = [(2, 70, 4, 64, 32, 32), (1, 4096, 16, 128, 64, 128)]
 # tests/test_torch_cost_model.py holds equal to the reference's.
 PATHS = [
     ("tf-paper", "tf-paper.simba.ckpt.jsonl", "TF=tf-paper", 37,
-     {"tiled_matmul": 36, "flash_attention_mha": 6, "ssd_chunk_dual": 0},
+     {"tiled_matmul": 36, "flash_attention_mha": 6, "ssd_chunk_dual": 0,
+      "ssd_state_pass": 0},
      83_764_445_184,
      {"pred_flops": 90_244_644_864.0, "pred_noc_bytes": 109_003_176.0,
       "pred_d2d_bytes": 2_166_178_741.0, "pred_dram_bytes": 325_844_992.0}),
     ("mamba2-370m", "mamba2-370m.simba.ckpt.jsonl", "MAMBA=lm:mamba2-370m",
-     96, {"tiled_matmul": 96, "flash_attention_mha": 0, "ssd_chunk_dual": 48},
+     96, {"tiled_matmul": 96, "flash_attention_mha": 0, "ssd_chunk_dual": 48,
+          "ssd_state_pass": 48},
      2_694_970_343_424,
      {"pred_flops": 3_002_987_446_272.0, "pred_noc_bytes": 3_068_313_600.0,
       "pred_d2d_bytes": 77_788_781_360.0,
@@ -249,14 +297,16 @@ PATHS = [
     # host float64 like the predicted totals
     ("granite-moe-3b-a800m", "granite-moe-3b-a800m.simba.ckpt.jsonl",
      "GRANITE=lm:granite-moe-3b-a800m:seq=4096,n_layers=2", 162,
-     {"tiled_matmul": 166, "flash_attention_mha": 2, "ssd_chunk_dual": 0},
+     {"tiled_matmul": 166, "flash_attention_mha": 2, "ssd_chunk_dual": 0,
+      "ssd_state_pass": 0},
      516_646_945_745.7445,
      {"pred_flops": 1_501_086_036_787.2,
       "pred_noc_bytes": 3_561_259_827.200001,
       "pred_d2d_bytes": 60_090_000_009.60001,
       "pred_dram_bytes": 10_500_748_083.2}),
     ("mla-paper", "mla-paper.simba.ckpt.jsonl", "MLA=mla-paper", 5,
-     {"tiled_matmul": 16, "flash_attention_mha": 2, "ssd_chunk_dual": 0},
+     {"tiled_matmul": 16, "flash_attention_mha": 2, "ssd_chunk_dual": 0,
+      "ssd_state_pass": 0},
      9_531_555_840,
      {"pred_flops": 12_155_092_992.0, "pred_noc_bytes": 18_646_016.0,
       "pred_d2d_bytes": 395_304_640.0, "pred_dram_bytes": 32_178_176.0}),
@@ -294,6 +344,29 @@ COST_KERNEL_FILES = {
     "segment_replay": ("src/repro_torch/kernels/csrc/fused_eval.cu",
                        "src/repro/core/analyzer.py:60"),
 }
+# the serve phase: zamba2-1.2b at full width and depth (38 Mamba-2 layers,
+# the shared attention block applied every 6: 7 times), parameters from
+# the port's seeded init_params on the card (f32 params, bf16 compute);
+# a Server of 4 slots and a 2048-position cache answers 8 requests of
+# 300-1024 prompt tokens (every prefill takes the flash path: Sq * 2048 >
+# 256 * 2048) and 16 new tokens each.  Each wave launches 7 flash, 38 SSD
+# chunk and 38 state-pass kernels (decode takes the scores path and the
+# recurrent update).  The first wave's prefill and 4 teacher-forced decode
+# steps through the kernels against use_kernels=False on the card, within
+# 2e-2 of the largest logit (the reference's bf16 serving tolerance) in f32
+# compute; in the served bf16 compute within the larger of 2e-2 and the
+# plain route's own bf16-vs-f32 gap (bf16 rounding, amplified over 38
+# random-init layers, moves the logits by more than 2e-2: serve_check)
+SERVE_ARCH = "zamba2-1.2b"
+SERVE_REQUESTS = 8
+SERVE_MAX_BATCH = 4
+SERVE_MAX_SEQ = 2048
+SERVE_MAX_NEW = 16
+SERVE_PROMPT = (300, 1024)
+SERVE_PER_WAVE = {"tiled_matmul": 0, "flash_attention_mha": 7,
+                  "ssd_chunk_dual": 38, "ssd_state_pass": 38}
+SERVE_CHECK_STEPS = 4
+SERVE_TOL = 2e-2
 
 
 def emit(obj) -> None:
@@ -470,9 +543,10 @@ def check_kernels(dev):
     for path, (B, L, H, P, N, chunk) in zip((False, True), SSD_FORWARD):
         args = (randn(B, L, H, P), randn(B, L, H).abs() * 0.1,
                 -randn(H).abs(), randn(B, L, 1, N), randn(B, L, 1, N))
+        plain = dict(chunk_dual=ref.ssd_chunk_ref,
+                     state_pass=ref.ssd_state_ref)
         got, _ = ops.ssd_forward(*args, chunk=chunk)
-        want, _ = ops.ssd_forward(*args, chunk=chunk,
-                                  chunk_dual=ref.ssd_chunk_ref)
+        want, _ = ops.ssd_forward(*args, chunk=chunk, **plain)
         torch.cuda.synchronize()
         line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
                 "via": "ops.ssd_forward", "shape": dict(zip(
@@ -485,15 +559,136 @@ def check_kernels(dev):
             line["ms"] = time_ms(lambda: ops.ssd_forward(*args, chunk=chunk),
                                  device=False)
             line["plain_ms"] = time_ms(lambda: ops.ssd_forward(
-                *args, chunk=chunk, chunk_dual=ref.ssd_chunk_ref),
-                device=False)
+                *args, chunk=chunk, **plain), device=False)
         emit(line)
         if not torch.allclose(got, want, **SSD_FORWARD_TOL):
             raise AssertionError(
                 f"ssd_forward disagrees at {(B, L, H, P, N, chunk)}")
         if path:
             layer = (args, chunk, line)
+    for path, shape in [(True, s) for s in STATE_PATH] \
+            + [(False, s) for s in STATE_EDGE]:
+        line = check_state_pass(randn, *shape, timed=path)
+        if path:
+            timed[("ssd_state_pass", shape[:7])] = line
+    check_chunked(randn)
+    check_flash_offset(randn)
     return timed, layer
+
+
+def state_inputs(randn, B, nc, Q, H, P, N, G, init):
+    """Inputs of the SSD state pass on the card: y_intra, S, cum (a
+    decreasing cumsum within each chunk), C, and an initial state or
+    None."""
+    import torch
+    return (randn(B, nc, Q, H, P), randn(B, nc, H, N, P) * 0.1,
+            torch.cumsum(-randn(B, nc, Q, H).abs() * 0.05, dim=2),
+            randn(B, nc, Q, G, N), randn(B, H, N, P) if init else None)
+
+
+def check_state_pass(randn, B, nc, Q, H, P, N, G, init, timed: bool,
+                     main_path="realize") -> dict:
+    """One ``ssd_state_pass`` kernel line: the kernel against its plain
+    version (``STATE_TOL``), its copy width; with ``timed`` its device
+    time, the plain version's, the time as the host issues it and the
+    bound (f32 FMA and HBM; no library call computes it)."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_state
+    from repro_torch.kernels.ssd_state import ssd_state_pass
+    from repro_torch.realize.measure import launch_cost
+    args = state_inputs(randn, B, nc, Q, H, P, N, G, init)
+    got = ssd_state_pass(*args)
+    want = ref.ssd_state_ref(*args)
+    torch.cuda.synchronize()
+    shape = dict(zip(("B", "nc", "Q", "H", "P", "N", "G"),
+                     (B, nc, Q, H, P, N, G)), init=int(init))
+    line = {"phase": "kernel", "kernel": "ssd_state_pass", "shape": shape,
+            "route": ssd_state.kernel_route(args[1], args[3]),
+            "arith": ARITH["ssd_state_pass"],
+            "main_path": main_path if timed else False, **STATE_TOL,
+            "max_abs_err": max((g - w).abs().max().item()
+                               for g, w in zip(got, want))}
+    if timed:
+        b = bounds(*launch_cost("ssd_state_pass", shape))
+        b["bound_3xtf32_ms"] = b["bound_ms"]     # no tensor-core products
+        line.update(b)
+        line["ms"] = time_ms(lambda: ssd_state_pass(*args))
+        line["host_issued_ms"] = time_ms(lambda: ssd_state_pass(*args),
+                                         device=False)
+        line["plain_ms"] = time_ms(lambda: ref.ssd_state_ref(*args))
+        line["library_ms"] = None
+        line["library"] = "none: no single PyTorch call computes it"
+    emit(line)
+    if not all(torch.allclose(g, w, **STATE_TOL)
+               for g, w in zip(got, want)):
+        raise AssertionError(f"ssd_state_pass disagrees at "
+                             f"{(B, nc, Q, H, P, N, G, init)}")
+    return line
+
+
+def check_chunked(randn) -> None:
+    """The model's chunked SSD (``nn.mamba2.ssd_chunked``) through the two
+    kernels against its plain version at the config's chunk: one chunk
+    kernel launch per group and one state pass a call, within 2e-4."""
+    import torch
+
+    from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
+    from repro_torch.kernels.ssd_state import ssd_state_pass
+    from repro_torch.nn.mamba2 import ssd_chunked, ssd_chunked_ref
+    for B, L, H, P, G, N, chunk, init in CHUNKED:
+        args = (randn(B, L, H, P), randn(B, L, H).abs() * 0.1,
+                -randn(H).abs(), randn(B, L, G, N), randn(B, L, G, N))
+        h0 = randn(B, H, N, P) if init else None
+        n0 = (ssd_chunk_dual.launches, ssd_state_pass.launches)
+        got = ssd_chunked(*args, chunk=chunk, init_state=h0)
+        n1 = (ssd_chunk_dual.launches, ssd_state_pass.launches)
+        want = ssd_chunked_ref(*args, chunk=chunk, init_state=h0)
+        torch.cuda.synchronize()
+        ok = all(torch.allclose(g, w, **SSD_FORWARD_TOL)
+                 for g, w in zip(got, want))
+        emit({"phase": "kernel", "kernel": "ssd_state_pass",
+              "via": "nn.mamba2.ssd_chunked",
+              "shape": {"B": B, "L": L, "H": H, "P": P, "G": G, "N": N,
+                        "chunk": chunk, "init": int(init)},
+              "launches": {"ssd_chunk_dual": n1[0] - n0[0],
+                           "ssd_state_pass": n1[1] - n0[1]},
+              "main_path": False, **SSD_FORWARD_TOL,
+              "max_abs_err": max((g - w).abs().max().item()
+                                 for g, w in zip(got, want))})
+        if not ok or (n1[0] - n0[0], n1[1] - n0[1]) != (G, 1):
+            raise AssertionError(f"ssd_chunked disagrees or launched "
+                                 f"{n1[0] - n0[0]}, {n1[1] - n0[1]} at "
+                                 f"{(B, L, H, P, G, N, chunk)}")
+
+
+def check_flash_offset(randn) -> None:
+    """Causal flash with ``q_offset = Sk - Sq`` against the plain version
+    on the upcast inputs, f32 (2e-5) and bf16 (2e-2)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels.flash_attention import flash_attention_mha
+    for dtype, tol in ((torch.float32, FLASH_TOL),
+                       (torch.bfloat16, FLASH_BF16_TOL)):
+        for B, H, Sq, Sk, D in FLASH_OFFSET:
+            q, k, v = (randn(B, H, n, D).to(dtype) for n in (Sq, Sk, Sk))
+            off = Sk - Sq
+            got = flash_attention_mha(q, k, v, causal=True, q_offset=off)
+            want = ref.attention_ref(q.float(), k.float(), v.float(),
+                                     causal=True, q_offset=off)
+            torch.cuda.synchronize()
+            emit({"phase": "kernel", "kernel": "flash_attention_mha",
+                  "dtype": str(dtype).rsplit(".", 1)[-1],
+                  "shape": {"B": B, "H": H, "Sq": Sq, "Sk": Sk, "D": D,
+                            "causal": 1, "q_offset": off},
+                  "route": flash_attention.kernel_route(q, k, v),
+                  "main_path": False, **tol,
+                  "max_abs_err": (got.float() - want).abs().max().item()})
+            if got.dtype != dtype \
+                    or not torch.allclose(got.float(), want, **tol):
+                raise AssertionError(f"flash q_offset={off} disagrees at "
+                                     f"{(B, H, Sq, Sk, D, dtype)}")
 
 
 def check_bf16(dev) -> dict:
@@ -616,16 +811,13 @@ def profile_ssd_forward(args, chunk: int, timed_line: dict) -> dict:
     call's wall as the host issues it without the profiler (``ms`` of the
     timed line); the profiled wall (ended by a synchronize), which the
     profiler stretches; and the kernel launches and their device time in
-    three groups, by the host time of each launch: the chunk kernel; the
-    recurrence, launched after it up to the end of the ``torch.stack`` of
-    the states (``ops.py``: the zero state, the loop over chunks, the
-    stack), with the share of the profiled wall that its launches span;
-    and the rest of the glue (discretization, cumsum, casts, the
-    inter-chunk output).  Kernels are matched to their launches by the
-    trace's correlation ids.  The chrome trace goes to ``results/``.  It
-    runs after the paths: launches that follow a profiler session in the
-    same process were slower (the ``mamba2-370m`` pass took 205-249 ms
-    after it against 124-147 ms without; NVIDIA H100 80GB HBM3, 700 W)."""
+    three groups, by kernel name: the chunk kernel, the state pass (the
+    inter-chunk recurrence and output, one launch since it became a
+    kernel) and the rest of the eager glue (discretization, cumsum,
+    casts, pads).  The chrome trace goes to ``results/``.  It runs last:
+    launches that follow a profiler session in the same process were
+    slower (the ``mamba2-370m`` pass took 205-249 ms after it against
+    124-147 ms without; NVIDIA H100 80GB HBM3, 700 W)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -642,42 +834,25 @@ def profile_ssd_forward(args, chunk: int, timed_line: dict) -> dict:
     trace = REPORTS / "chip_smoke.ssd_forward.trace.json"
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
-    corr = lambda e: (e.get("args") or {}).get("correlation")
     kernels = [e for e in events if e.get("cat") == "kernel"]
     copies = [e for e in events
               if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
-    launch_ts = {corr(e): e["ts"] for e in events
-                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                 and corr(e) is not None}
-    chunk_k = [e for e in kernels if "ssd_chunk" in e.get("name", "")]
     line = {"phase": "profile", "via": "ops.ssd_forward",
             "shape": timed_line["shape"], "gated": False,
             "trace": str(trace.relative_to(ROOT)),
             "host_issued_ms": timed_line["ms"], "profiled_wall_ms": wall_ms,
             "device_ms": sum(e["dur"] for e in kernels + copies) / 1e3}
     line["idle_share"] = 1.0 - line["device_ms"] / line["host_issued_ms"]
-    if len(chunk_k) != 1 or corr(chunk_k[0]) not in launch_ts:
-        line["split"] = None
-        line["note"] = (f"{len(kernels)} device kernels in the trace, "
-                        f"{len(chunk_k)} of them the chunk kernel; no split")
-        return line
-    start = launch_ts[corr(chunk_k[0])]
-    stacks = [e["ts"] + e["dur"] for e in events
-              if e.get("cat") == "cpu_op" and e.get("name") == "aten::stack"
-              and e["ts"] > start]
-    end = min(stacks) if stacks else float("inf")
-    groups = {"chunk_kernel": [], "recurrence": [], "glue": []}
+    groups = {"chunk_kernel": [], "state_pass": [], "glue": []}
     for e in kernels:
-        ts = launch_ts.get(corr(e))
-        key = ("chunk_kernel" if e is chunk_k[0] else
-               "recurrence" if ts is not None and start < ts <= end else
-               "glue")
+        name = e.get("name", "")
+        key = ("chunk_kernel" if "ssd_chunk" in name else
+               "state_pass" if "ssd_state_pass" in name else "glue")
         groups[key].append(e)
     line["split"] = {k: {"launches": len(v),
                          "device_ms": sum(e["dur"] for e in v) / 1e3}
                      for k, v in groups.items()}
-    line["split"]["recurrence"]["profiled_wall_share"] = \
-        None if not stacks else (end - start) / 1e3 / wall_ms
+    line["recurrence_launches"] = len(groups["state_pass"])
     names = {}
     for e in groups["glue"]:
         short = e["name"][:60]
@@ -724,10 +899,12 @@ def kernel_wrappers() -> dict:
     """Each kernel's wrapper, by kernel name (each counts its launches)."""
     from repro_torch.kernels.flash_attention import flash_attention_mha
     from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
+    from repro_torch.kernels.ssd_state import ssd_state_pass
     from repro_torch.kernels.tiled_matmul import tiled_matmul
     return {"tiled_matmul": tiled_matmul,
             "flash_attention_mha": flash_attention_mha,
-            "ssd_chunk_dual": ssd_chunk_dual}
+            "ssd_chunk_dual": ssd_chunk_dual,
+            "ssd_state_pass": ssd_state_pass}
 
 
 def run_path(path, dev):
@@ -996,24 +1173,43 @@ KERNEL_FILES = {
                             "src/repro/kernels/flash_attention.py:90"),
     "ssd_chunk_dual": ("src/repro_torch/kernels/csrc/mamba_ssd.cu",
                        "src/repro/kernels/mamba_ssd.py:48"),
+    "ssd_state_pass": ("src/repro_torch/kernels/csrc/ssd_state.cu",
+                       "src/repro/kernels/ops.py:51"),
 }
 
 
+def program_keys(prog) -> list:
+    """The (kernel, shape) of every launch of one pass of a realized
+    program: its plan's launches, and one state pass after each SSD chunk
+    kernel (``ops.ssd_forward``: B = the batch unit, nc = BC / B, G = 1)."""
+    keys = []
+    for sp in prog.stages:
+        for kernel, shape in sp.launches:
+            keys.append((kernel, tuple(shape.values())))
+            if kernel == "ssd_chunk_dual":
+                bu = prog.batch_unit
+                keys.append(("ssd_state_pass",
+                             (bu, shape["BC"] // bu, shape["Q"], shape["H"],
+                              shape["P"], shape["N"], 1)))
+    return keys
+
+
 def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
-    """Each kernel's numbers summed over one pass of each path and of each
-    realized loop candidate (the timed line of every launch's shape, once
-    per launch), and each one's share apart; under ``bf16`` the same sums
-    for bf16 operands at the same shapes (the paths and the loop run f32).
-    ``runs`` maps a path or loop candidate to its (launches, kernel route
-    program)."""
+    """Each kernel's numbers summed over one pass of each path, of each
+    realized loop candidate and of the serve phase (the timed line of every
+    launch's shape, once per launch; the serve phase's flash launches are
+    bf16, as it runs them), and each one's share apart; under ``bf16`` the
+    realization passes' launches again with bf16 operands (they run f32).
+    ``runs`` maps a path, loop candidate or the serve phase to its
+    (launches, [(kernel, shape) of each launch])."""
     out = []
     for name, (source, replaces) in KERNEL_FILES.items():
         per_path, lines, lines16 = {}, [], []
-        for path, (launches, prog) in runs.items():
-            keys = [(kernel, tuple(shape.values()))
-                    for sp in prog.stages for kernel, shape in sp.launches
-                    if kernel == name]
-            ls = [timed[k] for k in keys]
+        for path, (launches, keys) in runs.items():
+            ls = [timed[k] for k in keys if k[0] == name]
+            if len(ls) != launches[name]:
+                raise AssertionError(f"{path}: {launches[name]} {name} "
+                                     f"launches, {len(ls)} in its plan")
             lib = [ln["library_ms"] for ln in ls]
             per_path[path] = {
                 "launches": launches[name],
@@ -1023,7 +1219,8 @@ def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
                 "bound_3xtf32_ms": sum(ln["bound_3xtf32_ms"] for ln in ls),
                 "library_ms": None if None in lib else sum(lib)}
             lines += ls
-            lines16 += [timed_bf16[k] for k in keys]
+            lines16 += [timed_bf16[k] for k in keys
+                        if k[0] == name and k in timed_bf16]
         total = lambda k: sum(p[k] for p in per_path.values())
         lib = [ln["library_ms"] for ln in lines]
         line = {
@@ -1035,26 +1232,27 @@ def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
             "bound_by": max(lines, key=lambda ln: ln["bound_ms"])["bound_by"],
             "bound_3xtf32_ms": total("bound_3xtf32_ms"), "arith": ARITH[name],
             "library_ms": None if None in lib else sum(lib),
-            "per": "one pass of each path and of each realized loop "
-                   "candidate, summed; per_path splits it",
+            "per": "one pass of each path, of each realized loop candidate "
+                   "and of the serve phase, summed; per_path splits it",
             "per_path": per_path}
         if None in lib:
             line["library"] = "none: no single PyTorch call computes it"
-        lib16 = [ln["library_ms"] for ln in lines16]
-        line["bf16"] = {
-            "route": "cuda", "dtype": "bf16",
-            "routes": sorted({ln["route"] for ln in lines16}),
-            "arith": ARITH_BF16[name],
-            "max_abs_err": max(ln["max_abs_err"] for ln in lines16),
-            "ms": sum(ln["ms"] for ln in lines16),
-            "plain_ms": sum(ln["plain_ms"] for ln in lines16),
-            "bound_ms": sum(ln["bound_ms"] for ln in lines16),
-            "bound_by": max(lines16,
-                            key=lambda ln: ln["bound_ms"])["bound_by"],
-            "library_ms": None if None in lib16 else sum(lib16),
-            "per": "the launches of one pass of each path and loop "
-                   "candidate, at their shapes, with bf16 operands (not run "
-                   "on the paths)"}
+        if lines16:
+            lib16 = [ln["library_ms"] for ln in lines16]
+            line["bf16"] = {
+                "route": "cuda", "dtype": "bf16",
+                "routes": sorted({ln["route"] for ln in lines16}),
+                "arith": ARITH_BF16[name],
+                "max_abs_err": max(ln["max_abs_err"] for ln in lines16),
+                "ms": sum(ln["ms"] for ln in lines16),
+                "plain_ms": sum(ln["plain_ms"] for ln in lines16),
+                "bound_ms": sum(ln["bound_ms"] for ln in lines16),
+                "bound_by": max(lines16,
+                                key=lambda ln: ln["bound_ms"])["bound_by"],
+                "library_ms": None if None in lib16 else sum(lib16),
+                "per": "the launches of one pass of each realization path "
+                       "and loop candidate, at their shapes, with bf16 "
+                       "operands (not run on the paths)"}
         out.append(line)
     return out
 
@@ -1331,6 +1529,269 @@ def cost_kernel_summary(cost_timed: dict, launches: dict) -> list:
     return out
 
 
+def serve_kernel_lines(dev, waves) -> dict:
+    """Kernel lines at the serve phase's launch shapes, one set per wave
+    (B slots, prompts padded to L): flash on bf16 (B, 32, L, L, 64),
+    causal, as the prefill runs it; the SSD chunk kernel on f32
+    (B * ceil(L / 128), 128, 64, 64, 64); the state pass on (B,
+    ceil(L / 128), 128, 64, 64, 64, G = 1).  Each against its plain version
+    on the same inputs (flash on the upcast inputs, 2e-2; the SSD kernels
+    1e-4), with its device time, the plain version's, the library call's
+    (bf16 ``scaled_dot_product_attention``; none for the SSD kernels) and
+    the bound (bf16 rates for flash).  Returns them by launch key."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, mamba_ssd, ref
+    from repro_torch.kernels.flash_attention import flash_attention_mha
+    from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
+    from repro_torch.realize.measure import launch_cost
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    randn = lambda *s: torch.randn(*s, device=dev, generator=gen)
+    timed = {}
+    for B, L in sorted(set(waves)):
+        nc = -(-L // 128)
+        q, k, v = (randn(B, 32, L, 64).bfloat16() for _ in range(3))
+        got = flash_attention_mha(q, k, v, causal=True)
+        want = ref.attention_ref(q.float(), k.float(), v.float(),
+                                 causal=True)
+        torch.cuda.synchronize()
+        shape = {"B": B, "H": 32, "Sq": L, "Sk": L, "D": 64, "causal": 1}
+        line = {"phase": "kernel", "kernel": "flash_attention_mha",
+                "dtype": "bf16", "shape": shape, "q_offset": 0,
+                "route": flash_attention.kernel_route(q, k, v),
+                "arith": ARITH_BF16["flash_attention_mha"],
+                "main_path": "serve", **FLASH_BF16_TOL,
+                "max_abs_err": (got.float() - want).abs().max().item(),
+                **bf16_bounds("flash_attention_mha", shape)}
+        line["bound_3xtf32_ms"] = line["bound_ms"]   # bf16 operands
+        line["ms"] = time_ms(lambda: flash_attention_mha(q, k, v))
+        line["host_issued_ms"] = time_ms(
+            lambda: flash_attention_mha(q, k, v), device=False)
+        line["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v))
+        line["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        emit(line)
+        if not torch.allclose(got.float(), want, **FLASH_BF16_TOL):
+            raise AssertionError(f"serve flash disagrees at {shape}")
+        timed[("flash_attention_mha", (B, 32, L, L, 64, 1, 0, "bf16"))] = line
+
+        x = randn(B * nc, 128, 64, 64)
+        cum = torch.cumsum(-randn(B * nc, 128, 64).abs() * 0.1, dim=1)
+        Bm, Cm = randn(B * nc, 128, 64), randn(B * nc, 128, 64)
+        got = ssd_chunk_dual(x, cum, Bm, Cm)
+        want = ref.ssd_chunk_ref(x, cum, Bm, Cm)
+        torch.cuda.synchronize()
+        shape = {"BC": B * nc, "Q": 128, "H": 64, "P": 64, "N": 64}
+        line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
+                "shape": shape, "route": mamba_ssd.kernel_route(x, Bm, Cm),
+                "arith": ARITH["ssd_chunk_dual"], "main_path": "serve",
+                **SSD_TOL, "max_abs_err": max((g - w).abs().max().item()
+                                              for g, w in zip(got, want)),
+                **bounds(*launch_cost("ssd_chunk_dual", shape))}
+        line["ms"] = time_ms(lambda: ssd_chunk_dual(x, cum, Bm, Cm))
+        line["host_issued_ms"] = time_ms(
+            lambda: ssd_chunk_dual(x, cum, Bm, Cm), device=False)
+        line["plain_ms"] = time_ms(lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm))
+        line["library_ms"] = None
+        line["library"] = "none: no single PyTorch call computes it"
+        emit(line)
+        if not all(torch.allclose(g, w, **SSD_TOL)
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"serve ssd_chunk_dual disagrees at {shape}")
+        timed[("ssd_chunk_dual", tuple(shape.values()))] = line
+        del x, cum, Bm, Cm, got, want
+        state = (B, nc, 128, 64, 64, 64, 1)
+        timed[("ssd_state_pass", state)] = check_state_pass(
+            randn, *state, False, timed=True, main_path="serve")
+    return timed
+
+
+def serve_check(cfg, params, toks, dev) -> dict:
+    """The first wave's prefill and ``SERVE_CHECK_STEPS`` decode steps
+    four ways on the card, each on its own cache and all fed the greedy
+    tokens of the first: through the kernels and with
+    ``use_kernels=False``, in the config's bf16 compute and in f32 compute
+    (the same parameters).  Per step, the largest difference relative to
+    the largest logit of: kernels against plain in f32 (the kernels'
+    error: gated at ``SERVE_TOL``); kernels against plain in bf16; and
+    the plain route's bf16 against its f32 (the bf16 rounding the served
+    numerics carry, which a 38-layer random-init model amplifies: the
+    bf16 gap is gated at the larger of ``SERVE_TOL`` and that)."""
+    import torch
+
+    from repro_torch.models import model_api
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    feed, logits = None, {}
+    for cdt in ("bfloat16", "float32"):
+        api = model_api(cfg.replace(compute_dtype=cdt))
+        for uk in (True, False):
+            cache = api.init_cache(toks.shape[0], SERVE_MAX_SEQ, device=dev)
+            lg, cache = api.prefill(params, {"tokens": toks}, cache,
+                                    use_kernels=uk)
+            out, cur_feed = [lg], []
+            for step in range(SERVE_CHECK_STEPS):
+                cur = (lg.argmax(dim=-1).to(torch.int32)[:, None]
+                       if feed is None else feed[step])
+                cur_feed.append(cur)
+                lg, cache = api.decode_step(params, cur, cache,
+                                            use_kernels=uk)
+                out.append(lg)
+            feed = feed or cur_feed
+            logits[(cdt, uk)] = out
+            del cache
+    torch.cuda.synchronize()
+    pairs = {"f32_kernels_vs_plain": (("float32", True), ("float32", False)),
+             "bf16_kernels_vs_plain": (("bfloat16", True),
+                                       ("bfloat16", False)),
+             "bf16_plain_vs_f32_plain": (("bfloat16", False),
+                                         ("float32", False))}
+    line = {k: [rel(a, b) for a, b in zip(logits[x], logits[y])]
+            for k, (x, y) in pairs.items()}
+    bf16_bound = [max(SERVE_TOL, g) for g in line["bf16_plain_vs_f32_plain"]]
+    line.update({
+        "rel_tol": SERVE_TOL, "slots": int(toks.shape[0]),
+        "max_rel_err": max(line["f32_kernels_vs_plain"]),
+        "bf16_within_rounding": all(
+            e <= b for e, b in zip(line["bf16_kernels_vs_plain"],
+                                   bf16_bound)),
+        "greedy_tokens_equal_bf16": [
+            int((a.argmax(-1) == b.argmax(-1)).sum().item()) for a, b in
+            zip(logits[("bfloat16", True)], logits[("bfloat16", False)])],
+        "steps": "prefill, then teacher-forced decode steps"})
+    return line
+
+
+def run_serve(dev):
+    """The ``serve`` phase (``SERVE_*``): ``zamba2-1.2b`` at full width and
+    depth from the port's seeded ``init_params`` on the card, a ``Server``
+    answering ``SERVE_REQUESTS`` requests, after one short warm-up wave
+    (library handles, the allocator), with the launch counts set to 0 just
+    before the counted run.  Gates: every request answered, the launches
+    ``SERVE_PER_WAVE`` a wave, the kernel route within ``SERVE_TOL`` of the
+    plain route.  Returns the line, the (B, L) of each wave and the launch
+    keys of the run."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_api
+    from repro_torch.nn.params import count_params, param_bytes
+    from repro_torch.runtime.serve_loop import Request, Server
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    api = model_api(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lo, hi = SERVE_PROMPT
+    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(lo, hi + 1)))
+               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    srv = Server(cfg, params, max_batch=SERVE_MAX_BATCH,
+                 max_seq=SERVE_MAX_SEQ)
+    costs = []
+    run_wave = srv.executor.run_wave
+
+    def recording(wave):
+        out = run_wave(wave)
+        costs.append(out[2])
+        return out
+
+    srv.executor.run_wave = recording
+    srv.submit(Request(rid=-1, prompt=prompts[0][:lo], max_new=2))
+    srv.run_until_empty()                            # warm-up, not counted
+    costs.clear()
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i, p in enumerate(prompts):
+        srv.submit(Request(rid=i, prompt=p, max_new=SERVE_MAX_NEW))
+    t0 = time.perf_counter()
+    results = srv.run_until_empty()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    waves = [prompts[i:i + SERVE_MAX_BATCH]
+             for i in range(0, SERVE_REQUESTS, SERVE_MAX_BATCH)]
+    shapes = [(len(w), max(len(p) for p in w)) for w in waves]
+    want = {k: n * len(waves) for k, n in SERVE_PER_WAVE.items()}
+    n_tok = sum(len(r.tokens) for r in results)
+    steps = [t for c in costs for t in c.step_s]
+    check = serve_check(cfg, params, torch.from_numpy(
+        srv.executor._pad_wave(waves[0])).to(dev), dev)
+    keys = []
+    for B, L in shapes:
+        nc = -(-L // 128)
+        per = {"flash_attention_mha": (B, 32, L, L, 64, 1, 0, "bf16"),
+               "ssd_chunk_dual": (B * nc, 128, 64, 64, 64),
+               "ssd_state_pass": (B, nc, 128, 64, 64, 64, 1)}
+        keys += [(k, per[k]) for k, n in SERVE_PER_WAVE.items()
+                 for _ in range(n)]
+    line = {"phase": "serve", "arch": SERVE_ARCH, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": count_params(params),
+            "param_gb": param_bytes(params) / 1e9,
+            "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype, "init_s": init_s,
+            "max_batch": SERVE_MAX_BATCH, "max_seq": SERVE_MAX_SEQ,
+            "max_new": SERVE_MAX_NEW, "requests": len(results),
+            "tokens": n_tok, "waves": len(costs),
+            "wave_shapes": [list(s) for s in shapes],
+            "prefill_s": [c.prefill_s for c in costs],
+            "decode_ms_median": statistics.median(steps) * 1e3,
+            "decode_steps": len(steps), "seconds": seconds,
+            "tokens_per_s": n_tok / seconds,
+            "latency_s": sorted(r.latency_s for r in results),
+            "launches": launches, "launches_want": want,
+            "peak_mem_gb": peak / 1e9, "kernel_vs_plain": check,
+            "clock": "host seconds around work that ends in a synchronize"}
+    if len(results) != SERVE_REQUESTS \
+            or sorted(r.rid for r in results) != list(range(SERVE_REQUESTS)) \
+            or not all(len(r.tokens) for r in results):
+        raise AssertionError(f"serve: answered {len(results)} requests")
+    if launches != want:
+        raise AssertionError(f"serve launched {launches}, not {want}")
+    if check["max_rel_err"] > SERVE_TOL or not check["bf16_within_rounding"]:
+        raise AssertionError(f"serve: the kernel route against the plain "
+                             f"route: {check}")
+    line["seconds_phase"] = time.perf_counter() - t_phase
+    return line, shapes, keys
+
+
+def run_serve_cli() -> dict:
+    """``python -m repro_torch.launch.serve --arch zamba2-1.2b`` and
+    ``python -m repro_torch.examples.serve_lm --arch zamba2-1.2b`` in this
+    process (their defaults: 8 requests of 4-31 prompt tokens, a
+    512-position cache; 10 of 4-47, 256): both serve at full width on the
+    card and answer every request."""
+    import io
+
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import serve
+    out, secs = {}, {}
+    for name, fn, argv, want in (
+            ("launch.serve", serve.main, ["--arch", SERVE_ARCH],
+             "[serve] 8 requests"),
+            ("examples.serve_lm", serve_lm.main, ["--arch", SERVE_ARCH],
+             f"{SERVE_ARCH}: 10 requests")):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+        secs[name] = time.perf_counter() - t0
+        out[name] = buf.getvalue().splitlines()
+        if not any(want in ln for ln in out[name]):
+            raise AssertionError(f"{name} {argv}: {out[name]}")
+    return {"phase": "serve_cli", "arch": SERVE_ARCH, "stdout": out,
+            "seconds": secs}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() \
             or not all((FIXTURES / p[1]).exists() for p in PATHS):
@@ -1374,9 +1835,18 @@ def main() -> int:
     loop_line, loop_runs = run_loop(dev, timed)
     emit(loop_line)
     runs.update(loop_runs)
+    runs = {k: (launches, program_keys(prog))
+            for k, (launches, prog) in runs.items()}
     cost_timed = check_cost_kernels(dev)
     fused_line = run_fused(dev)
     emit(fused_line)
+    serve_line, serve_waves, serve_keys = run_serve(dev)
+    emit(serve_line)
+    torch.cuda.empty_cache()
+    timed.update(serve_kernel_lines(dev, serve_waves))
+    runs["serve"] = (serve_line["launches"], serve_keys)
+    emit(run_serve_cli())
+    torch.cuda.empty_cache()
     emit(profile_ssd_forward(*layer))
     emit({"kernels": per_pass_summary(timed, timed_bf16, runs)
           + cost_kernel_summary(cost_timed, fused_line["launches"])})

@@ -1,3 +1,3 @@
-from .base import ModelConfig, get_config, register
+from .base import ModelConfig, all_archs, get_config, register
 
-__all__ = ["ModelConfig", "get_config", "register"]
+__all__ = ["ModelConfig", "all_archs", "get_config", "register"]

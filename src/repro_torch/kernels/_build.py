@@ -28,15 +28,16 @@ from typing import Dict, Iterable, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # the sources whose products run on the tensor cores (SASS HMMA), each
-# with an f32 and a bf16 launch function; fused_eval does no products
+# with an f32 and a bf16 launch function; fused_eval and ssd_state do no
+# products on the tensor cores
 TENSOR_CORE_SOURCES = ("tiled_matmul", "flash_attention", "mamba_ssd")
-SOURCES = TENSOR_CORE_SOURCES + ("fused_eval",)
+SOURCES = TENSOR_CORE_SOURCES + ("fused_eval", "ssd_state")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _MM = [_P] * 3 + [_I] * 4 + [_P]
-_FLASH = [_P] * 4 + [_I] * 7 + [_P]
+_FLASH = [_P] * 4 + [_I] * 8 + [_P]
 _SSD = [_P] * 6 + [_I] * 6 + [_P]
 # argument types of each source's launch functions, one per element type
 # (f32, bf16) for the three tensor-core sources; every one returns the
@@ -49,6 +50,7 @@ SIGNATURES = {
     "fused_eval": {"fused_eval_f32": [_P, _P, _L, _I, _I] + [_P] * 7
                    + [_I, _P, _P, _I, _P],
                    "segment_replay_f64": [_P, _P, _L, _P, _L, _I, _P]},
+    "ssd_state": {"ssd_state_pass_f32": [_P] * 7 + [_I] * 8 + [_P]},
 }
 # argument types of the functions that name the configuration a launch
 # takes (the last argument the operands' bytes an element); each returns a
@@ -57,6 +59,7 @@ ROUTES = {
     "tiled_matmul": {"tiled_matmul_route": [_I] * 3 + [_P] * 2 + [_I] * 2},
     "flash_attention": {"flash_attention_route": [_I] + [_P] * 3 + [_I]},
     "mamba_ssd": {"ssd_chunk_dual_route": [_I] * 2 + [_P] * 3 + [_I]},
+    "ssd_state": {"ssd_state_pass_route": [_I] * 2 + [_P] * 2},
 }
 # the suffix of a launch function's name, by operand dtype name
 DTYPE_SUFFIX = {"float32": "f32", "bfloat16": "bf16"}

@@ -6,10 +6,11 @@
 // Replaces the Pallas kernel `_flash_kernel` driven by `flash_attention_mha`
 // (src/repro/kernels/flash_attention.py:90) and follows its numerics
 // exactly: scale 1/sqrt(D) on the q.k dot product; keys past Sk always
-// masked; with `causal`, the mask q_pos >= k_pos counted from 0 for both
-// (top-left aligned when Sq != Sk); masked scores are the finite -1e30, not
-// -inf; running max starts at -1e30, the denominator at 0; the output is
-// acc / max(l, 1e-30).
+// masked; with `causal`, the mask q_offset + q_pos >= k_pos counted from 0
+// for both (top-left aligned when q_offset = 0; q_offset = pos is the
+// model's cache mode, `_flash_path` of src/repro/nn/attention.py:87);
+// masked scores are the finite -1e30, not -inf; running max starts at
+// -1e30, the denominator at 0; the output is acc / max(l, 1e-30).
 //
 // What bounds it: at the realization path's shape (B, H, S, D) =
 // (4, 4, 512, 128), causal, a launch does 1.08 GFLOP on 4.2 MB, about 250
@@ -132,7 +133,7 @@ template <int DMAX, class T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int D,
-          int causal, float scale_log2) {
+          int causal, int q_offset, float scale_log2) {
   using C = Cfg<DMAX, T>;
   constexpr bool EX = kTf32Exact<T>;
   constexpr int BKV = C::BKV;
@@ -165,8 +166,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int wr = rw * 16;
   const int row0 = q0 + wr + g;         // query rows of c0/c1 and c2/c3
   const int row1 = row0 + 8;
+  const int pos0 = q_offset + row0;     // their positions for the mask
+  const int pos1 = pos0 + 8;
 
-  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int kv_end = causal ? min(Sk, q_offset + q0 + BQ) : Sk;
   const int n_kv = (kv_end + BKV - 1) / BKV;
 
   T* Qt = reinterpret_cast<T*>(EX ? Ql : Qs);   // where q lands
@@ -217,7 +220,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     // warp's 16 rows changes nothing (all its probabilities are 0) and is
     // skipped
     const int kh = k0 + grp * C::PART;
-    if (kh < Sk && !(causal && kh > q0 + wr + 15)) {
+    if (kh < Sk && !(causal && kh > q_offset + q0 + wr + 15)) {
       const T* Kt = Ks + (it & 1) * BKV * LDT + grp * C::PART * LDT;
       const T* Vt = Vs + (it & 1) * BKV * LDT + grp * C::PART * LDT;
 
@@ -260,9 +263,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           const int kpos = kh + n * 8 + 2 * t + e;
           const bool in = kpos < Sk;
-          s[n][e] = in && (!causal || row0 >= kpos) ? s[n][e] * scale_log2
+          s[n][e] = in && (!causal || pos0 >= kpos) ? s[n][e] * scale_log2
                                                     : NEG_INF;
-          s[n][2 + e] = in && (!causal || row1 >= kpos)
+          s[n][2 + e] = in && (!causal || pos1 >= kpos)
               ? s[n][2 + e] * scale_log2 : NEG_INF;
           mx0 = fmaxf(mx0, s[n][e]);
           mx1 = fmaxf(mx1, s[n][2 + e]);
@@ -413,7 +416,8 @@ int head_dim_template(int D) {
 
 template <int DMAX, class T, bool VEC>
 int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int Sq, int Sk, int D, int causal, cudaStream_t stream) {
+           int Sq, int Sk, int D, int causal, int q_offset,
+           cudaStream_t stream) {
   constexpr size_t bytes = Cfg<DMAX, T>::bytes;
   // once per instantiation (the process drives one card)
   static const cudaError_t attr = [] {
@@ -431,22 +435,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
   flash_fwd<DMAX, T, VEC><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, D, causal,
-      scale_log2);
+      q_offset, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DMAX, class T>
 int launch_d(bool vec, const void* q, const void* k, const void* v, void* o,
-             int BH, int Sq, int Sk, int D, int causal, cudaStream_t stream) {
-  return vec
-      ? launch<DMAX, T, true>(q, k, v, o, BH, Sq, Sk, D, causal, stream)
-      : launch<DMAX, T, false>(q, k, v, o, BH, Sq, Sk, D, causal, stream);
+             int BH, int Sq, int Sk, int D, int causal, int q_offset,
+             cudaStream_t stream) {
+  return vec ? launch<DMAX, T, true>(q, k, v, o, BH, Sq, Sk, D, causal,
+                                     q_offset, stream)
+             : launch<DMAX, T, false>(q, k, v, o, BH, Sq, Sk, D, causal,
+                                      q_offset, stream);
 }
 
 template <class T>
 int launch_t(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Sq, int Sk, int D, int causal, int device,
-             void* stream) {
+             int H, int Sq, int Sk, int D, int causal, int q_offset,
+             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -454,13 +460,17 @@ int launch_t(const void* q, const void* k, const void* v, void* o, int B,
   const bool vec = vec_copies(D, sizeof(T), q, k, v, o);
   switch (head_dim_template(D)) {
     case 32:
-      return launch_d<32, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+      return launch_d<32, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal,
+                              q_offset, st);
     case 64:
-      return launch_d<64, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+      return launch_d<64, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal,
+                              q_offset, st);
     case 128:
-      return launch_d<128, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+      return launch_d<128, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal,
+                              q_offset, st);
     case 256:
-      return launch_d<256, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal, st);
+      return launch_d<256, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal,
+                              q_offset, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -471,19 +481,21 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t from the caller) and return the
 // launch's cudaError_t: 0 when the kernel was accepted.  1 <= D <= 256,
-// B * H <= 2^31 - 1, ceil(Sq / 32) <= 65535.  q, k, v and o all f32, or
-// all bf16 (f32 arithmetic either way).
+// B * H <= 2^31 - 1, ceil(Sq / 32) <= 65535, 0 <= q_offset (the position
+// of query row 0 for the causal mask).  q, k, v and o all f32, or all
+// bf16 (f32 arithmetic either way).
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Sq, int Sk, int D, int causal,
-                        int device, void* stream) {
-  return launch_t<float>(q, k, v, o, B, H, Sq, Sk, D, causal, device, stream);
+                        int q_offset, int device, void* stream) {
+  return launch_t<float>(q, k, v, o, B, H, Sq, Sk, D, causal, q_offset,
+                         device, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, int B, int H, int Sq, int Sk, int D,
-                         int causal, int device, void* stream) {
+                         int causal, int q_offset, int device, void* stream) {
   return launch_t<__nv_bfloat16>(q, k, v, o, B, H, Sq, Sk, D, causal,
-                                 device, stream);
+                                 q_offset, device, stream);
 }
 
 // The configuration a launch takes for these arguments of `elem_bytes`

@@ -1,8 +1,8 @@
 """Flash attention forward: the port of the Pallas ``flash_attention_mha``
 (``src/repro/kernels/flash_attention.py:90``).
 
-``flash_attention_mha(q, k, v, causal)`` launches the CUDA kernel of
-``csrc/flash_attention.cu`` (3xTF32 on the tensor cores, f32 accuracy; f32
+``flash_attention_mha(q, k, v, causal, q_offset)`` launches the CUDA kernel
+of ``csrc/flash_attention.cu`` (3xTF32 on the tensor cores, f32 accuracy; f32
 or bf16 operands, the output of their type, as the reference) for
 tensors on the card and runs the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`) for tensors on the CPU.  A
@@ -23,12 +23,17 @@ MAX_HEAD_DIM = 256
 
 
 def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, q_offset: int = 0
+                        ) -> torch.Tensor:
     """q (B, H, Sq, D); k, v (B, H, Sk, D), MHA layout -> (B, H, Sq, D)
-    of q's type."""
+    of q's type.  With ``causal``, query row i sits at position
+    ``q_offset + i`` and sees keys 0 .. q_offset + i."""
     qkv = (q, k, v)
+    if int(q_offset) != q_offset or q_offset < 0:
+        raise ValueError(f"flash_attention_mha: q_offset={q_offset!r} is "
+                         f"not an int >= 0")
     if all(x.device.type == "cpu" for x in qkv):
-        return attention_ref(q, k, v, causal=causal)
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type != "cuda" or any(x.device != q.device for x in qkv):
         raise ValueError("flash_attention_mha: q, k, v must lie on one card")
     suffix = _build.dtype_suffix("flash_attention_mha", qkv)
@@ -42,7 +47,8 @@ def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     if min(B, H, Sq, Sk, D) < 1 or D > MAX_HEAD_DIM \
-            or -(-Sq // 32) > 65535 or max(q.numel(), k.numel()) > 2**31 - 1:
+            or -(-Sq // 32) > 65535 or max(q.numel(), k.numel()) > 2**31 - 1 \
+            or q_offset + Sq > 2**31 - 1:
         raise ValueError(f"flash_attention_mha: B={B} H={H} Sq={Sq} Sk={Sk} "
                          f"D={D} out of the kernel's range "
                          f"(D <= {MAX_HEAD_DIM}, Sq <= 32 * 65535)")
@@ -51,7 +57,8 @@ def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     launch = getattr(lib, f"flash_attention_{suffix}")
     code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, H, Sq, Sk, D, int(causal), q.device.index or 0, stream)
+                  B, H, Sq, Sk, D, int(causal), int(q_offset),
+                  q.device.index or 0, stream)
     _build.check(lib, "flash_attention_mha", code)
     flash_attention_mha.launches += 1
     return out

@@ -1,8 +1,11 @@
 """Plain PyTorch versions of the kernels (the allclose targets).
 
 Port of the oracles of ``src/repro/kernels/ref.py``: f32 math, the JAX
-package's layouts; and the plain versions of the cost model's two kernels,
-``segment_replay_ref`` and ``fused_eval_ref`` (the jitted functions of
+package's layouts; the chunked SSD's inter-chunk pass (``ssd_state_ref``:
+the ``lax.scan`` and output of ``src/repro/kernels/ops.py:72-93``, with
+the model's groups and initial state); and the plain versions of the cost
+model's two kernels, ``segment_replay_ref`` and ``fused_eval_ref`` (the
+jitted functions of
 ``src/repro/core/analyzer.py:60-92`` and ``src/repro/core/evaluator.py:97-179``).
 On the CPU the kernel wrappers run these; on the card they are what each
 kernel is held against.
@@ -17,15 +20,16 @@ import torch
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Naive softmax attention.  q/k/v: (B, H, S, D), MHA layout.  The causal
-    mask is ``q_pos >= k_pos`` counted from 0 for both (top-left aligned);
-    masked scores are the finite -1e30, as in the reference."""
+    mask is ``q_offset + q_pos >= k_pos``, both counted from 0 (top-left
+    aligned at ``q_offset = 0``); masked scores are the finite -1e30, as in
+    the reference."""
     D = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
     if causal:
         Sq, Sk = s.shape[-2], s.shape[-1]
-        mask = (torch.arange(Sq, device=s.device)[:, None]
+        mask = (q_offset + torch.arange(Sq, device=s.device)[:, None]
                 >= torch.arange(Sk, device=s.device)[None, :])
         s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
@@ -58,6 +62,37 @@ def ssd_chunk_ref(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
     xd = (xf * decay_end[..., None]).permute(0, 2, 1, 3)       # (BC, H, Q, P)
     state = torch.matmul(Bf.transpose(1, 2)[:, None], xd)      # (BC, H, N, P)
     return y.contiguous(), state
+
+
+def ssd_state_ref(y_intra: torch.Tensor, S: torch.Tensor, cum: torch.Tensor,
+                  Cm: torch.Tensor, init_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD's inter-chunk pass (oracle of ``ssd_state_pass``),
+    f32: the chunk-state recurrence ``h <- h * exp(tot_c) + S_c`` as a loop
+    over chunks (``lax.scan`` in the reference), then ``y = y_intra +
+    exp(cum) * (C . h_before)``.
+
+    y_intra (B, nc, Q, H, P), S (B, nc, H, N, P), cum (B, nc, Q, H),
+    Cm (B, nc, Q, G, N) (head h reads group h // (H // G), ``jnp.repeat``
+    order), init_state (B, H, N, P) or None for zeros.  Returns (y (B, nc,
+    Q, H, P), final state (B, H, N, P))."""
+    Bsz, nc, Q, H, P = y_intra.shape
+    G, N = Cm.shape[3], Cm.shape[4]
+    cumf = cum.float()
+    tot = cumf[:, :, -1]                                 # (B, nc, H)
+    h = (torch.zeros((Bsz, H, N, P), dtype=torch.float32,
+                     device=y_intra.device)
+         if init_state is None else init_state.float())
+    h_before = []                                        # state before chunk
+    for c in range(nc):
+        h_before.append(h)
+        h = h * tot[:, c].exp()[..., None, None] + S[:, c].float()
+    hb = torch.stack(h_before, dim=1)                    # (B, nc, H, N, P)
+    Ch = Cm.float().repeat_interleave(H // G, dim=3)     # (B, nc, Q, H, N)
+    # y_inter[b,c,q,h,p] = sum_n C[b,c,q,h,n] hb[b,c,h,n,p] exp(cum[b,c,q,h])
+    y_inter = torch.matmul(Ch.transpose(2, 3), hb).transpose(2, 3) \
+        * cumf.exp()[..., None]
+    return y_intra.float() + y_inter, h
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor,

@@ -1,10 +1,45 @@
-"""``--workload NAME=SPEC`` bindings: the port's part of
-``src/repro/launch/cli.py`` (``workload_bindings`` and
-``resolve_workloads``)."""
+"""Shared launcher CLI surface: the port's part of
+``src/repro/launch/cli.py``.
+
+* ``--arch NAME`` + ``--reduced``: a model config from
+  ``repro_torch.configs.get_config`` (``--reduced`` applies the CPU-sized
+  variant);
+* ``--workload NAME=SPEC`` bindings (``workload_bindings``,
+  ``resolve_workloads``);
+* ``--out PATH`` / ``--seed N``: artifact path and base RNG seed.
+"""
 
 from __future__ import annotations
 
+import argparse
 from typing import Callable, Dict, Optional, Sequence
+
+
+def add_arch_args(ap: argparse.ArgumentParser, required: bool = True,
+                  default: Optional[str] = None) -> None:
+    ap.add_argument("--arch", required=required, default=default,
+                    help="model config name (repro_torch.configs.get_config)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced-size config variant (CPU runs)")
+
+
+def model_config(args: argparse.Namespace):
+    """Resolve ``--arch``/``--reduced`` into a ModelConfig."""
+    from ..configs import get_config
+    cfg = get_config(args.arch)
+    return cfg.reduced() if args.reduced else cfg
+
+
+def add_out_arg(ap: argparse.ArgumentParser, default: Optional[str] = None,
+                what: str = "result artifact") -> None:
+    ap.add_argument("--out", default=default,
+                    help=f"write the {what} here"
+                         + (f" (default {default})" if default else ""))
+
+
+def add_seed_arg(ap: argparse.ArgumentParser, default: int = 0) -> None:
+    ap.add_argument("--seed", type=int, default=default,
+                    help=f"base RNG seed (default {default})")
 
 
 def workload_bindings(items: Sequence[str],

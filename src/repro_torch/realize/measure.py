@@ -71,13 +71,16 @@ from .program import RealizedProgram
 F32_BYTES = 4
 
 
-def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
+def attention_pairs(Sq: int, Sk: int, causal: bool,
+                    q_offset: int = 0) -> int:
     """(query, key) pairs attention scores: all of them, or with the
-    top-left causal mask (k_pos <= q_pos, both from 0) those it keeps."""
+    causal mask (k_pos <= q_offset + q_pos, both from 0) those it keeps."""
     if not causal:
         return Sq * Sk
-    n = min(Sq, Sk)
-    return n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk
+    # query i keeps min(Sk, q_offset + i + 1) keys
+    full = max(0, min(Sq, Sk - q_offset))       # rows below the last key
+    n0 = q_offset + 1
+    return full * n0 + full * (full - 1) // 2 + (Sq - full) * Sk
 
 
 def launch_cost(kernel: str, shape: Dict[str, int]) -> Tuple[float, float]:
@@ -87,7 +90,8 @@ def launch_cost(kernel: str, shape: Dict[str, int]) -> Tuple[float, float]:
         return 2.0 * M * N * K, float(F32_BYTES * (M * K + K * N + M * N))
     if kernel == "flash_attention_mha":
         B, H, Sq, Sk, D = (shape[k] for k in ("B", "H", "Sq", "Sk", "D"))
-        pairs = attention_pairs(Sq, Sk, bool(shape["causal"]))
+        pairs = attention_pairs(Sq, Sk, bool(shape["causal"]),
+                                shape.get("q_offset", 0))
         return (4.0 * B * H * D * pairs,
                 float(F32_BYTES * B * H * D * (2 * Sq + 2 * Sk)))
     if kernel == "ssd_chunk_dual":
@@ -96,6 +100,17 @@ def launch_cost(kernel: str, shape: Dict[str, int]) -> Tuple[float, float]:
         return (2.0 * BC * (T * N + T * H * P + Q * H * N * P),
                 float(F32_BYTES * BC * (2 * Q * H * P + Q * H + 2 * Q * N
                                         + H * N * P)))
+    if kernel == "ssd_state_pass":
+        B, nc, Q, H, P, N, G = (shape[k] for k in
+                                ("B", "nc", "Q", "H", "P", "N", "G"))
+        init = shape.get("init", 0)
+        # y_inter = C . h (Q x N x P a head and chunk), the exp scale and
+        # the add, the state update; y_intra in, y out, S, cum, C, the
+        # final state (and the initial one) once each
+        return (2.0 * B * nc * H * (Q * N * P + Q * P + N * P),
+                float(F32_BYTES * (2 * B * nc * Q * H * P + B * nc * H * N * P
+                                   + B * nc * Q * H + B * nc * Q * G * N
+                                   + (1 + init) * B * H * N * P)))
     raise KeyError(f"no cost model for kernel {kernel!r}")
 
 

@@ -6,8 +6,8 @@ eager stage function that runs on the one device:
 * ``fc``/``matmul`` layers run the tiled GEMM (:func:`..kernels.ops.matmul`),
   detected (qk, av) score/context pairs run flash attention (the score
   matrix is never materialized), ``*_ssd`` layers run the chunked SSD
-  (:func:`..kernels.ops.ssd_forward`, one ``ssd_chunk_dual`` launch per
-  layer), eltwise layers are adds.  With
+  (:func:`..kernels.ops.ssd_forward`, one ``ssd_chunk_dual`` and one
+  ``ssd_state_pass`` launch per layer), eltwise layers are adds.  With
   ``use_kernels=False`` the same program routes through the plain versions
   of :mod:`..kernels.ref` (the parity target).  On a CPU device the kernel
   wrappers run those plain versions too.
@@ -272,6 +272,7 @@ def _stage_fn(g: Graph, st: StagePlan, routes: Dict[str, str],
         return t(ref.attention_ref(t(q), t(k), t(v)))
 
     chunk_dual = ops.ssd_chunk_dual if use_kernels else ref.ssd_chunk_ref
+    state_pass = ops.ssd_state_pass if use_kernels else ref.ssd_state_ref
 
     def stage_fn(*args: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         vals: Dict[str, torch.Tensor] = {}
@@ -316,7 +317,8 @@ def _stage_fn(g: Graph, st: StagePlan, routes: Dict[str, str],
                 Bm = _fit(a_in, (bu, S, 1, N)) * 0.1
                 Cm = _fit(a_in * 0.5 + 1.0, (bu, S, 1, N)) * 0.1
                 y, _ = ops.ssd_forward(x, dt, A, Bm, Cm, chunk=chunk,
-                                       chunk_dual=chunk_dual)
+                                       chunk_dual=chunk_dual,
+                                       state_pass=state_pass)
                 out = y.reshape(bu, S, 1, heads * hd)
                 out = _fit(out, shape) if tuple(out.shape) != shape else out
             elif route == "matmul":

@@ -16,7 +16,10 @@ for f32 and for bf16.  The cost model's two kernels: ``fused_eval``
 within rel 1e-5 of its plain version and within the reference's parity
 envelope (rel 1e-4, equal bottlenecks) of the exact numpy engine;
 ``segment_replay`` within rel 1e-12 of ``np.bincount`` (float64 atomic
-adds, in an order that changes from run to run).
+adds, in an order that changes from run to run).  The model stack's: the
+SSD state pass within 1e-4 of its plain version, the model's chunked SSD
+within 2e-4, flash with ``q_offset`` at the flash tolerances, and the
+reduced models' kernel route against ``use_kernels=False`` (below).
 """
 
 import numpy as np
@@ -421,7 +424,7 @@ def test_close_loop_on_the_card(cuda, tmp_path, capsys):
     for r in res.realized:
         plan = collections.Counter(
             {"tiled_matmul": 0, "flash_attention_mha": 0,
-             "ssd_chunk_dual": 0})
+             "ssd_chunk_dual": 0, "ssd_state_pass": 0})
         plan.update(k for sp in r.program.stages for k, _ in sp.launches)
         assert r.launches == dict(plan) and plan["tiled_matmul"] > 0
         assert all(st.wall_s > 0 for st in r.report.stages)
@@ -557,3 +560,164 @@ def test_family_fixture_kernel_route_vs_plain_route(cuda, fixture, name,
     got = _kernel_route_vs_plain_route(cuda, fixture, name, spec)
     assert got[:2] == (stages, launched)
     assert got[2] < 2e-4
+
+
+# ---------------------------------------------------------------------------
+# the model and serving stack: the SSD state pass, flash with q_offset, the
+# reduced models' kernel route (tolerances: the state pass 1e-4 as the SSD
+# chunk kernel, the chunked SSD 2e-4; flash 2e-5 f32, 2e-2 bf16; the models
+# in bf16 compute 2e-2 of the largest plain-route logit)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nc,Q,H,P,N,G,init,route", [
+    (4, 8, 128, 64, 64, 64, 1, False, "cp.async16"),    # zamba2 prefill
+    (1, 32, 128, 16, 128, 64, 1, False, "cp.async16"),  # mamba2-370m path
+    (2, 1, 128, 4, 64, 32, 1, False, "cp.async16"),     # nc = 1
+    (2, 3, 70, 4, 130, 50, 2, True, "cp.async4"),       # P, N off 4; G 2
+    (1, 5, 128, 6, 32, 128, 3, True, "cp.async16"),     # N 128, G 3
+    (2, 4, 100, 4, 64, 13, 2, False, "cp.async4"),
+])
+def test_ssd_state_pass_kernel_vs_plain(cuda, B, nc, Q, H, P, N, G, init,
+                                        route):
+    from repro_torch.kernels import ssd_state
+    from repro_torch.kernels.ssd_state import ssd_state_pass
+    rng = np.random.default_rng(B * nc + Q + N)
+    y = _on_card(rng, (B, nc, Q, H, P), cuda)
+    S = _on_card(rng, (B, nc, H, N, P), cuda) * 0.1
+    cum = torch.cumsum(-_on_card(rng, (B, nc, Q, H), cuda).abs() * 0.05,
+                       dim=2)
+    C = _on_card(rng, (B, nc, Q, G, N), cuda)
+    h0 = _on_card(rng, (B, H, N, P), cuda) if init else None
+    assert ssd_state.kernel_route(S, C) == route
+    n0 = ssd_state_pass.launches
+    got = ssd_state_pass(y, S, cum, C, h0)
+    torch.cuda.synchronize()
+    assert ssd_state_pass.launches == n0 + 1
+    for a, b in zip(got, ref.ssd_state_ref(y, S, cum, C, h0)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,G,init,chunk", [(300, 1, False, 256),
+                                            (512, 2, True, 256),
+                                            (70, 2, False, 32),
+                                            (1024, 1, True, 256)])
+def test_ssd_chunked_kernel_route_vs_plain(cuda, L, G, init, chunk):
+    """The model's chunked SSD on the card (the chunk kernel in chunks of
+    at most 128, once per group, then the state pass) against the plain
+    version at the config's chunk, each counted once per call."""
+    from repro_torch.kernels.ssd_state import ssd_state_pass
+    from repro_torch.nn.mamba2 import ssd_chunked, ssd_chunked_ref
+    rng = np.random.default_rng(L + G)
+    B, H, P, N = 2, 8, 64, 32
+    x = _on_card(rng, (B, L, H, P), cuda)
+    dt = _on_card(rng, (B, L, H), cuda).abs() * 0.1
+    A = -_on_card(rng, (H,), cuda).abs()
+    Bm, Cm = _on_card(rng, (B, L, G, N), cuda), _on_card(rng, (B, L, G, N),
+                                                         cuda)
+    h0 = _on_card(rng, (B, H, N, P), cuda) if init else None
+    n0 = (ssd_chunk_dual.launches, ssd_state_pass.launches)
+    y, h = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0)
+    torch.cuda.synchronize()
+    assert (ssd_chunk_dual.launches, ssd_state_pass.launches) == \
+        (n0[0] + G, n0[1] + 1)
+    wy, wh = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0)
+    torch.testing.assert_close(y, wy, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(h, wh, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_chunked_refuses_a_state_past_the_chunk_kernels_range(cuda):
+    """N = 128 (mamba2-370m) is past ssd_chunk_dual's N <= 64: it raises,
+    and nothing falls back to the plain version."""
+    from repro_torch.nn.mamba2 import ssd_chunked
+    x = torch.zeros((1, 64, 2, 64), device=cuda)
+    dt = torch.ones((1, 64, 2), device=cuda)
+    Bm = torch.zeros((1, 64, 1, 128), device=cuda)
+    with pytest.raises(ValueError, match="N <= 64"):
+        ssd_chunked(x, dt, -torch.ones(2, device=cuda), Bm, Bm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,Sq,Sk,D", [(2, 4, 128, 384, 64),
+                                         (1, 32, 300, 1000, 64),
+                                         (1, 2, 70, 200, 128),
+                                         (1, 2, 33, 40, 32)])
+def test_flash_attention_q_offset_vs_plain(cuda, dtype, tol, B, H, Sq, Sk,
+                                           D):
+    """Causal flash with ``q_offset = Sk - Sq`` (the model's cache mode:
+    the queries are the last Sq positions) against the plain version on
+    the upcast inputs."""
+    rng = np.random.default_rng(Sq + Sk + D)
+    q, k, v = (_on_card(rng, (B, H, n, D), cuda).to(dtype)
+               for n in (Sq, Sk, Sk))
+    got = flash_attention_mha(q, k, v, causal=True, q_offset=Sk - Sq)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=True,
+                             q_offset=Sk - Sq)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+def _served_logits(api, params, toks, use_kernels, dev):
+    """Prefill of ``toks`` into a 2048-position cache (so attention takes
+    the flash path), then two decode steps fed ``toks``' first tokens."""
+    cache = api.init_cache(toks.shape[0], 2048, device=dev)
+    lg, cache = api.prefill(params, {"tokens": toks}, cache,
+                            use_kernels=use_kernels)
+    out = [lg]
+    for t in range(2):
+        lg, cache = api.decode_step(params, toks[:, t:t + 1], cache,
+                                    use_kernels=use_kernels)
+        out.append(lg)
+    torch.cuda.synchronize()
+    return torch.stack(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-0.6b", "mamba2-370m",
+                                  "zamba2-1.2b", "phi3.5-moe-42b-a6.6b"])
+def test_reduced_models_kernel_route_vs_plain(cuda, arch):
+    """A reduced model's prefill of 300 tokens and two decode steps,
+    through the kernels and with ``use_kernels=False`` on the same card.
+    f32 compute: within 1e-3 of the largest plain-route logit (the caches
+    are bf16: an entry that rounds the other way moves by a bf16 ulp;
+    MoE with capacity factor 8, as the reference's decode test).  bf16
+    compute (not MoE, whose top-k routing flips on bf16 near ties): within
+    the larger of 2e-2 and the plain route's own bf16-vs-f32 gap.  The
+    kernels launch on the kernel route only."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_state import ssd_state_pass
+    from repro_torch.models import model_api
+    cfg = get_config(arch).reduced()
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=8.0)
+    params = model_api(cfg).init_params(
+        torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 300)).astype(np.int32)).to(cuda)
+    counts = lambda: (flash_attention_mha.launches, ssd_chunk_dual.launches,
+                      ssd_state_pass.launches)
+    out, launched = {}, {}
+    for cdt in ("float32", "bfloat16"):
+        api = model_api(cfg.replace(compute_dtype=cdt))
+        for use_kernels in (True, False):
+            n0 = counts()
+            out[cdt, use_kernels] = _served_logits(api, params, toks,
+                                                   use_kernels, cuda)
+            launched[use_kernels] = [a - b for a, b in zip(counts(), n0)]
+    ssm = cfg.family in ("ssm", "hybrid")
+    attn = cfg.family != "ssm"
+    assert launched[False] == [0, 0, 0]
+    flash, chunk, state = launched[True]
+    assert (flash > 0) == attn and (chunk > 0) == ssm and (state > 0) == ssm
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    got, want = out["float32", True], out["float32", False]
+    assert torch.isfinite(got).all() and rel(got, want) <= 1e-3
+    if cfg.family != "moe":
+        gap = rel(out["bfloat16", False], want)
+        assert rel(out["bfloat16", True], out["bfloat16", False]) \
+            <= max(2e-2, gap)

@@ -85,3 +85,29 @@ def test_the_walks_cover_the_family_and_fused_pass_modules():
                 "core/workloads/cnn.py", "kernels/fused_eval.py"):
         assert rel in files, rel
     assert (PORT / "kernels" / "csrc" / "fused_eval.cu").exists()
+
+
+def test_the_walks_cover_the_model_and_serving_stack():
+    """The ``ast`` walk and the clean-interpreter import see the model
+    layers, the models, the serve loop and its harness copy, the serving
+    entry points and the SSD state pass; ``configs`` stays torch-free for
+    ``core``."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    for rel in ("nn/__init__.py", "nn/params.py", "nn/layers.py",
+                "nn/rope.py", "nn/attention.py", "nn/mamba2.py",
+                "nn/moe.py", "models/__init__.py", "models/lm.py",
+                "models/frontends.py", "models/convert.py",
+                "serve/__init__.py", "serve/harness.py",
+                "runtime/__init__.py", "runtime/serve_loop.py",
+                "launch/serve.py", "examples/serve_lm.py",
+                "kernels/ssd_state.py"):
+        assert rel in files, rel
+    assert (PORT / "kernels" / "csrc" / "ssd_state.cu").exists()
+    for path in (PORT / "configs").glob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] \
+                    if isinstance(node, ast.Import) else [node.module or ""]
+                assert not any(n.split(".")[0] == "torch" for n in names), \
+                    path

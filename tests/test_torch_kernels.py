@@ -25,6 +25,7 @@ from repro.kernels.mamba_ssd import ssd_chunk_dual as jssd_chunk_dual
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_mha
 from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
+from repro_torch.kernels.ssd_state import smem_bytes, ssd_state_pass
 from repro_torch.kernels.tiled_matmul import tiled_matmul
 
 
@@ -172,6 +173,100 @@ def test_ssd_forward_vs_pallas(L, chunk):
     assert none is None and tuple(got.shape) == (B, L, H, P)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
                                rtol=2e-4)
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(16, 48, 32), (5, 9, 4),
+                                            (8, 8, 0), (6, 30, 10)])
+def test_attention_ref_q_offset_vs_reference_attention(Sq, Sk, q_offset):
+    """The plain version's causal mask ``q_offset + i >= j`` against the
+    reference model's attention at that ``q_offset`` (f32, 2e-5)."""
+    from repro.nn.attention import multihead_attention as jmha
+    rng = np.random.default_rng(Sq + Sk)
+    B, H, D = 2, 3, 16
+    q, k, v = (_randn(rng, (B, n, H, D)) for n in (Sq, Sk, Sk))
+    want = jmha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), n_kv=H,
+                causal=True, q_offset=q_offset, force_flash=False)
+    t = lambda a: torch.from_numpy(a).transpose(1, 2)
+    got = ref.attention_ref(t(q), t(k), t(v), causal=True,
+                            q_offset=q_offset).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+    assert torch.equal(flash_attention_mha(t(q), t(k), t(v),
+                                           q_offset=q_offset),
+                       ref.attention_ref(t(q), t(k), t(v),
+                                         q_offset=q_offset))
+
+
+def _state_inputs(rng, B, nc, Q, H, P, N, G, init):
+    return [torch.from_numpy(a) for a in (
+        _randn(rng, (B, nc, Q, H, P)), _randn(rng, (B, nc, H, N, P)) * 0.1,
+        np.cumsum(-np.abs(_randn(rng, (B, nc, Q, H))) * 0.05, axis=2),
+        _randn(rng, (B, nc, Q, G, N)))] \
+        + [torch.from_numpy(_randn(rng, (B, H, N, P))) if init else None]
+
+
+@pytest.mark.parametrize("nc,G,init", [(1, 1, False), (3, 2, True),
+                                       (4, 1, True)])
+def test_ssd_state_ref_vs_reference_ssd_chunked(nc, G, init):
+    """``ops.ssd_chunks`` (the kernel route, here through the plain
+    versions: ``ssd_chunk_ref`` per group, then ``ssd_state_ref``) gives
+    the reference's ``ssd_chunked`` y and final state (f32, 2e-4 as the
+    chunked SSD): G groups, an initial state, nc = 1."""
+    from repro.nn.mamba2 import ssd_chunked as jssd_chunked
+    rng = np.random.default_rng(nc + G)
+    B, Q, H, P, N = 2, 16, 4, 8, 12
+    L = nc * Q - 3
+    x = _randn(rng, (B, L, H, P))
+    dt = np.abs(_randn(rng, (B, L, H))) * 0.1
+    A = -np.abs(_randn(rng, (H,)))
+    Bm, Cm = _randn(rng, (B, L, G, N)), _randn(rng, (B, L, G, N))
+    h0 = _randn(rng, (B, H, N, P)) if init else None
+    want_y, want_h = jssd_chunked(
+        *(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)), chunk=Q,
+        init_state=None if h0 is None else jnp.asarray(h0))
+    y, h = ops.ssd_chunks(
+        *(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)), chunk=Q,
+        init_state=None if h0 is None else torch.from_numpy(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=2e-4,
+                               rtol=2e-4)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=2e-4,
+                               rtol=2e-4)
+
+
+def test_ssd_state_pass_cpu_dispatch_and_refusals():
+    """CPU tensors run the plain version uncounted; a tensor off the CPU
+    goes to the kernel or raises; shapes that do not agree raise on every
+    device; the shared memory a shape needs is bounded."""
+    rng = np.random.default_rng(0)
+    args = _state_inputs(rng, 2, 3, 16, 4, 8, 12, 2, True)
+    n0 = ssd_state_pass.launches
+    for a, b in zip(ssd_state_pass(*args), ref.ssd_state_ref(*args)):
+        assert torch.equal(a, b)
+    assert ssd_state_pass.launches == n0
+    meta = [torch.empty(a.shape, device="meta") for a in args]
+    with pytest.raises(ValueError, match="one card"):
+        ssd_state_pass(*meta)
+    with pytest.raises(ValueError, match="one card"):
+        ssd_state_pass(meta[0], *args[1:])
+    y, S, cum, C, h0 = args
+    for bad in ((y[:, :, :, :3], S, cum, C, h0),       # H differs
+                (y, S, cum[..., :2], C, h0),
+                (y, S, cum, C[:, :, :, :1].repeat(1, 1, 1, 3, 1), h0),
+                (y, S[:, :2], cum, C, h0),
+                (y, S, cum, C, h0[..., :4]),
+                (y[0], S, cum, C, None)):
+        with pytest.raises(ValueError, match="ssd_state_pass: shapes"):
+            ssd_state_pass(*bad)
+    assert ssd_state_pass.launches == n0
+    assert smem_bytes(128, 64) == 4 * (2 * 64 * 64 + 2 * 128 * 68 + 256)
+    assert smem_bytes(128, 128) <= 232448 < smem_bytes(128, 256)
+
+
+def test_flash_refuses_a_negative_or_fractional_q_offset():
+    q = torch.zeros((1, 1, 4, 8))
+    for off in (-1, 1.5):
+        with pytest.raises(ValueError, match="q_offset"):
+            flash_attention_mha(q, q, q, q_offset=off)
 
 
 # ---------------------------------------------------------------------------
