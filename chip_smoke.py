@@ -22,9 +22,19 @@ phase prints one JSON line:
    its plain PyTorch version on the same inputs on the card, with TF32 off,
    at the tolerances of ``tests/test_kernels.py`` (GEMM atol 1e-3 /
    rtol 1e-4, flash 2e-5, SSD chunk 1e-4; the chunked SSD ``ssd_forward``
-   at 2e-4; the SSD state pass, ``ssd_state_pass``, at 1e-4, and the
-   model's chunked SSD through both SSD kernels at 2e-4; flash with
-   ``q_offset = Sk - Sq``, the model's cache mode, in f32 and bf16).  Each
+   at 2e-4; the SSD state pass, ``ssd_state_pass``, at 1e-4 on each route
+   (forced): the walk, ``ssd_state_walk``, and the split,
+   ``ssd_state_scan`` then ``ssd_state_out``, each of those against its own
+   plain version too, every launch counted; the model's chunked SSD through
+   the SSD kernels at 2e-4; flash with ``q_offset = Sk - Sq``, the model's
+   cache mode, in f32 and bf16; flash with its statistics (m, l) against
+   the plain version's, and at Sk = 0 with no launch; attention with
+   ``cache_stack`` through the kernel against ``use_kernels=False`` at 1e-4
+   of the largest value).  The SSD chunk kernel's N <= 128 instance
+   (``P64 N128``) is timed at the ``mamba2-370m`` serve wave's shape (f32
+   and bf16) and at an odd N (4-byte copies); the state pass at the
+   ``zamba2-1.2b`` prefill, the ``mamba2-370m`` realization and serve
+   shapes, on both routes, each kernel of the route also on its own.  Each
    kernel line names the kernel configuration the launch took (``route``:
    tile, head-dim template or P tile, copy width); the edge shapes drive
    each of them.  The realization paths' shapes also get
@@ -49,7 +59,8 @@ phase prints one JSON line:
    checkpoint realized at full width through ``repro_torch.launch.realize
    --calibrate`` (one warm-up pass, then the counted pass, with every
    launch count set to 0 just before it): stages, kernel launches of the
-   pass (``ssd_state_pass`` once per SSD layer, after the chunk kernel),
+   pass (the state pass's route's kernels once per SSD layer, after the
+   chunk kernel; they must equal the plan's declared launches),
    wall, FLOPs and DCI bytes per stage, the predicted totals
    (``pred_flops``, ``pred_dram_bytes``, ``pred_noc_bytes``,
    ``pred_d2d_bytes``, held to the pinned CPU values), the
@@ -104,34 +115,40 @@ phase prints one JSON line:
    re-evaluated exactly (it must equal the reported cost to the bit); then
    ``analyze_requests(backend="fused")`` of a screen-sized batch through
    ``segment_replay`` against the exact replay.
-   Then ``serve``: ``zamba2-1.2b`` at full width and depth (38 layers,
-   about 1.2 B parameters from the port's seeded ``init_params``, f32
-   parameters and bf16 compute) served through
-   ``repro_torch.runtime.serve_loop.Server``: 8 requests of 300-1024
-   prompt tokens and 16 new tokens in two waves of 4 on a 2048-position
-   cache, after a short warm-up wave, with the launch counts set to 0 just
-   before: requests, tokens, prefill seconds per wave, the median decode
-   step, tokens a second, peak memory, and the launches, gated at 7 flash,
-   38 SSD chunk and 38 state-pass kernels a wave; the first wave's prefill
-   and 4 teacher-forced decode steps through the kernels against
-   ``use_kernels=False`` on the card: within 2e-2 of the largest logit in
-   f32 compute, and in the served bf16 compute within the larger of 2e-2
-   and the plain route's own bf16-vs-f32 gap (``serve_check``).
-   Kernel lines at the serve launches' shapes (flash in bf16, the SSD
-   kernels in f32) give their times.  Then ``serve_cli``: the two serving
-   entry points, ``repro_torch.launch.serve`` and
+   Then ``serve``, twice: ``zamba2-1.2b`` at full width and depth (38
+   layers, about 1.2 B parameters from the port's seeded ``init_params``,
+   f32 parameters and bf16 compute), then ``mamba2-370m`` at full width
+   and depth (48 layers, d 1024, N 128, about 0.37 B parameters), each
+   served through ``repro_torch.runtime.serve_loop.Server``: 8 requests of
+   300-1024 prompt tokens and 16 new tokens in two waves of 4 on a
+   2048-position cache, after a short warm-up wave, with the launch counts
+   set to 0 just before: requests, tokens, prefill seconds per wave, the
+   median decode step, tokens a second, peak memory, and the launches,
+   gated a wave at 7 flash, 38 SSD chunk and 38 state-pass walks
+   (zamba2) and at 48 SSD chunk and 48 of each of the split's two kernels
+   (mamba2-370m: the route the rule takes at 4 x 32 heads); the first
+   wave's prefill and 4 teacher-forced decode steps through the kernels
+   against ``use_kernels=False`` on the card: within 2e-2 of the largest
+   logit in f32 compute, and in the served bf16 compute within the larger
+   of 2e-2 and the plain route's own bf16-vs-f32 gap (``serve_check``).
+   Kernel lines at each serve phase's launch shapes (flash in bf16, the
+   SSD kernels in f32) give their times.  Then ``serve_cli``: the two
+   serving entry points, ``repro_torch.launch.serve`` and
    ``repro_torch.examples.serve_lm``, with ``--arch zamba2-1.2b`` at their
-   defaults; each must answer every request.
+   defaults, and ``launch.serve --arch mamba2-370m``; each must answer
+   every request.
    Then ``profile`` (not gated): the timed ``ops.ssd_forward`` call at the
    ``mamba2-370m`` SSD layer's shape once more, under ``torch.profiler``:
    the device time of its kernels, the device's idle share over its
    host-issued wall, and kernel launches and device time split between
-   the chunk kernel, the state pass (``recurrence_launches``) and the rest
-   of the eager glue.
-5. ``kernels``: every kernel with its launches on the paths, the loop and
-   the serve phase, its numbers summed over one pass of each path, of
-   each realized loop candidate (``loop#1``, ``loop#2``) and of the serve
-   phase, and each one's share apart (both bounds, ``arith``); under
+   the chunk kernel, the state pass (``recurrence_launches``; its route
+   and kernels) and the rest of the eager glue.
+5. ``kernels``: every kernel (the state pass's three apart) with its
+   launches on the paths, the loop and the serve phases, its numbers
+   summed over one pass of each path, of each realized loop candidate
+   (``loop#1``, ``loop#2``) and of each serve phase (``serve``,
+   ``serve:mamba2-370m``), and each one's share apart (both bounds,
+   ``arith``); under
    ``bf16`` the realization launches' sums with bf16 operands.  The cost
    model's two kernels carry their launches in the ``fused`` phase and
    one launch's numbers at that phase's shape.
@@ -146,6 +163,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -172,7 +190,11 @@ PEAK_F64_FLOPS = 34e12
 ARITH = {"tiled_matmul": "3xTF32 mma.sync",
          "flash_attention_mha": "3xTF32 mma.sync",
          "ssd_chunk_dual": "3xTF32 mma.sync",
-         "ssd_state_pass": "f32 FMA (no tensor cores)"}
+         "ssd_state_walk": "f32 FMA (no tensor cores)",
+         "ssd_state_scan": "f32 FMA (no tensor cores)",
+         "ssd_state_out": "f32 FMA (no tensor cores)"}
+# the state pass's kernels, by route (repro_torch.kernels.ssd_state)
+STATE_KERNELS = ("ssd_state_walk", "ssd_state_scan", "ssd_state_out")
 ARITH_BF16 = {
     "tiled_matmul": "bf16 operands, f32 math: 1 TF32 mma.sync a product",
     "flash_attention_mha": "bf16 operands, f32 math: 1 TF32 mma.sync for "
@@ -235,6 +257,13 @@ FLASH_EDGE = [(2, 4, 96, 96, 64, True, False),
 # head) blocks: 4-byte copies (x not 16-byte aligned), Q of 70 and 100,
 # N % 8 != 0 and P = 130
 SSD_PATH = [(32, 128, 16, 128, 64, False)]
+# the N <= 128 instance (P64 N128), timed: the mamba2-370m serve wave's
+# shape (4 slots of up to 1024 tokens) and an odd N past 64 (4-byte
+# copies); then edges: N = 100 with 16-byte copies, x a float off 16 B, P
+# = 130 in three tiles, Q off 16
+SSD_WIDE = [(32, 128, 32, 64, 128, False), (32, 128, 32, 64, 99, False)]
+SSD_WIDE_EDGE = [(2, 128, 3, 64, 100, False), (1, 100, 5, 64, 128, True),
+                 (1, 128, 3, 130, 72, False), (3, 70, 3, 64, 99, False)]
 SSD_EDGE = [(2, 16, 2, 8, 4, False), (4, 64, 4, 32, 16, False),
             (1, 128, 8, 64, 32, False), (2, 96, 4, 64, 64, False),
             (3, 70, 2, 32, 16, False), (2, 70, 3, 130, 50, False),
@@ -246,17 +275,21 @@ SSD_EDGE = [(2, 16, 2, 8, 4, False), (4, 64, 4, 32, 16, False),
 # P = 130 and N % 8 != 0
 MM_BF16_EDGE = [(257, 129, 65), (2048, 131, 2048), (1000, 64, 77)]
 FLASH_BF16_EDGE = [(2, 2, 100, 70, 40, True), (1, 2, 70, 70, 33, True)]
-SSD_BF16_EDGE = [(1, 128, 3, 130, 24), (2, 16, 2, 8, 4)]
+SSD_BF16_EDGE = [(1, 128, 3, 130, 24), (2, 16, 2, 8, 4),
+                 (2, 128, 3, 64, 100), (1, 100, 5, 130, 128)]
 # ssd_forward, kernel vs plain: (B, L, H, P, N, chunk); a padded last
 # chunk, and the mamba2-370m path's SSD layer (timed: the chunk kernel and
 # the state pass plus the eager discretization and cumsum around them)
 SSD_FORWARD = [(2, 70, 4, 64, 32, 32), (1, 4096, 16, 128, 64, 128)]
 # the SSD state pass: (B, nc, Q, H, P, N, G, init) at the zamba2-1.2b
-# layer's shape (a 1024-token wave of 4) and the mamba2-370m realization
-# shape (timed), then edges: nc = 1, an initial state, G = 2 and 3, P and
-# N off 4 (4-byte copies), N = 128
+# layer's shape (a 1024-token wave of 4), the mamba2-370m realization
+# shape and its serve wave's (timed, each on both routes: the walk and the
+# split, forced), then edges, each on both routes: nc = 1, an initial
+# state, G = 2 and 3, P and N off 4 (4-byte copies), N = 128
 STATE_PATH = [(4, 8, 128, 64, 64, 64, 1, False),
-              (1, 32, 128, 16, 128, 64, 1, False)]
+              (1, 32, 128, 16, 128, 64, 1, False),
+              (4, 8, 128, 32, 64, 128, 1, False)]
+STATE_ROUTES = ("walk", "split")
 STATE_EDGE = [(2, 1, 128, 4, 64, 32, 1, False),
               (2, 3, 128, 8, 64, 64, 1, True),
               (2, 3, 70, 4, 130, 50, 2, True),
@@ -272,6 +305,17 @@ CHUNKED = [(2, 300, 8, 64, 1, 32, 256, False),
 # flash with q_offset = Sk - Sq (the model's cache mode), f32 and bf16
 FLASH_OFFSET = [(2, 4, 128, 384, 64), (1, 32, 300, 1000, 64),
                 (1, 2, 70, 200, 128)]
+# flash with its statistics (m, l) against the plain version's, f32 and
+# bf16: (B, H, Sq, Sk, D, causal, q_offset): the cache mode, top-left
+# causal, not causal off the head-dim template, the 256 template; then
+# Sk = 0 (no launch).  Then attention with cache_stack on the card against
+# use_kernels=False at (pos, S) (the old cache empty at pos 0), f32
+# compute, within CACHE_STACK_TOL (flash's 2e-5 through the merge and the
+# output projection)
+FLASH_STATS = [(2, 4, 128, 384, 64, True, 256), (1, 2, 100, 300, 64, True, 0),
+               (2, 3, 70, 45, 100, False, 0), (1, 2, 130, 130, 256, True, 0)]
+CACHE_STACK = [(0, 1024), (512, 768)]
+CACHE_STACK_TOL = 1e-4
 
 # the realization paths: (name, fixture, workload binding, stages,
 # launches of one pass, counted FLOPs of one pass, predicted totals of one
@@ -280,13 +324,13 @@ FLASH_OFFSET = [(2, 4, 128, 384, 64), (1, 32, 300, 1000, 64),
 PATHS = [
     ("tf-paper", "tf-paper.simba.ckpt.jsonl", "TF=tf-paper", 37,
      {"tiled_matmul": 36, "flash_attention_mha": 6, "ssd_chunk_dual": 0,
-      "ssd_state_pass": 0},
+      "ssd_state_walk": 0, "ssd_state_scan": 0, "ssd_state_out": 0},
      83_764_445_184,
      {"pred_flops": 90_244_644_864.0, "pred_noc_bytes": 109_003_176.0,
       "pred_d2d_bytes": 2_166_178_741.0, "pred_dram_bytes": 325_844_992.0}),
     ("mamba2-370m", "mamba2-370m.simba.ckpt.jsonl", "MAMBA=lm:mamba2-370m",
      96, {"tiled_matmul": 96, "flash_attention_mha": 0, "ssd_chunk_dual": 48,
-          "ssd_state_pass": 48},
+          "ssd_state_walk": 0, "ssd_state_scan": 48, "ssd_state_out": 48},
      2_694_970_343_424,
      {"pred_flops": 3_002_987_446_272.0, "pred_noc_bytes": 3_068_313_600.0,
       "pred_d2d_bytes": 77_788_781_360.0,
@@ -298,7 +342,7 @@ PATHS = [
     ("granite-moe-3b-a800m", "granite-moe-3b-a800m.simba.ckpt.jsonl",
      "GRANITE=lm:granite-moe-3b-a800m:seq=4096,n_layers=2", 162,
      {"tiled_matmul": 166, "flash_attention_mha": 2, "ssd_chunk_dual": 0,
-      "ssd_state_pass": 0},
+      "ssd_state_walk": 0, "ssd_state_scan": 0, "ssd_state_out": 0},
      516_646_945_745.7445,
      {"pred_flops": 1_501_086_036_787.2,
       "pred_noc_bytes": 3_561_259_827.200001,
@@ -306,7 +350,7 @@ PATHS = [
       "pred_dram_bytes": 10_500_748_083.2}),
     ("mla-paper", "mla-paper.simba.ckpt.jsonl", "MLA=mla-paper", 5,
      {"tiled_matmul": 16, "flash_attention_mha": 2, "ssd_chunk_dual": 0,
-      "ssd_state_pass": 0},
+      "ssd_state_walk": 0, "ssd_state_scan": 0, "ssd_state_out": 0},
      9_531_555_840,
      {"pred_flops": 12_155_092_992.0, "pred_noc_bytes": 18_646_016.0,
       "pred_d2d_bytes": 395_304_640.0, "pred_dram_bytes": 32_178_176.0}),
@@ -345,26 +389,33 @@ COST_KERNEL_FILES = {
                        "src/repro/core/analyzer.py:60"),
 }
 # the serve phase: zamba2-1.2b at full width and depth (38 Mamba-2 layers,
-# the shared attention block applied every 6: 7 times), parameters from
-# the port's seeded init_params on the card (f32 params, bf16 compute);
-# a Server of 4 slots and a 2048-position cache answers 8 requests of
-# 300-1024 prompt tokens (every prefill takes the flash path: Sq * 2048 >
-# 256 * 2048) and 16 new tokens each.  Each wave launches 7 flash, 38 SSD
-# chunk and 38 state-pass kernels (decode takes the scores path and the
-# recurrent update).  The first wave's prefill and 4 teacher-forced decode
-# steps through the kernels against use_kernels=False on the card, within
-# 2e-2 of the largest logit (the reference's bf16 serving tolerance) in f32
-# compute; in the served bf16 compute within the larger of 2e-2 and the
-# plain route's own bf16-vs-f32 gap (bf16 rounding, amplified over 38
-# random-init layers, moves the logits by more than 2e-2: serve_check)
+# the shared attention block applied every 6: 7 times), then mamba2-370m
+# at full width and depth (48 Mamba-2 layers, d 1024, 32 heads of 64, N
+# 128), parameters from the port's seeded init_params on the card (f32
+# params, bf16 compute); a Server of 4 slots and a 2048-position cache
+# answers 8 requests of 300-1024 prompt tokens (every prefill of zamba2
+# takes the flash path: Sq * 2048 > 256 * 2048) and 16 new tokens each.
+# Each wave launches, per SERVE_ARCHS, the flash kernel once an attention
+# application, the SSD chunk kernel once a Mamba-2 layer and the kernels
+# of the route the state pass takes once a Mamba-2 layer (zamba2's waves
+# of 4: the walk, 256 blocks; mamba2-370m's: the split, 128 walk blocks on
+# 132 SMs); decode takes the scores path and the recurrent update.  The
+# first wave's prefill and 4 teacher-forced decode steps through the
+# kernels against use_kernels=False on the card, within 2e-2 of the
+# largest logit (the reference's bf16 serving tolerance) in f32 compute;
+# in the served bf16 compute within the larger of 2e-2 and the plain
+# route's own bf16-vs-f32 gap (bf16 rounding, amplified over 38 random-init
+# layers, moves the logits by more than 2e-2: serve_check)
 SERVE_ARCH = "zamba2-1.2b"
+# arch -> (flash launches a wave, Mamba-2 layers, attention heads and head
+# dim of the flash launches, SSD heads, head dim P and state width N)
+SERVE_ARCHS = {"zamba2-1.2b": (7, 38, 32, 64, 64, 64, 64),
+               "mamba2-370m": (0, 48, 0, 0, 32, 64, 128)}
 SERVE_REQUESTS = 8
 SERVE_MAX_BATCH = 4
 SERVE_MAX_SEQ = 2048
 SERVE_MAX_NEW = 16
 SERVE_PROMPT = (300, 1024)
-SERVE_PER_WAVE = {"tiled_matmul": 0, "flash_attention_mha": 7,
-                  "ssd_chunk_dual": 38, "ssd_state_pass": 38}
 SERVE_CHECK_STEPS = 4
 SERVE_TOL = 2e-2
 
@@ -509,8 +560,10 @@ def check_kernels(dev):
         if not torch.allclose(got, want, **FLASH_TOL):
             raise AssertionError(
                 f"flash_attention_mha disagrees at {(B, H, Sq, Sk, D)}")
-    for path, (BC, Q, H, P, N, offset) in \
-            [(True, s) for s in SSD_PATH] + [(False, s) for s in SSD_EDGE]:
+    for path, clock, (BC, Q, H, P, N, offset) in \
+            [(True, True, s) for s in SSD_PATH] \
+            + [(False, True, s) for s in SSD_WIDE] \
+            + [(False, False, s) for s in SSD_EDGE + SSD_WIDE_EDGE]:
         x = on_card(randn, (BC, Q, H, P), offset)
         cum = torch.cumsum(-randn(BC, Q, H).abs() * 0.1, dim=1)
         Bm, Cm = randn(BC, Q, N), randn(BC, Q, N)
@@ -525,7 +578,7 @@ def check_kernels(dev):
                 "main_path": path, **SSD_TOL,
                 "max_abs_err": max((g - w).abs().max().item()
                                    for g, w in zip(got, want))}
-        if path:
+        if clock:
             line.update(bounds(*launch_cost("ssd_chunk_dual", shape)))
             line["ms"] = time_ms(lambda: ssd_chunk_dual(x, cum, Bm, Cm))
             line["host_issued_ms"] = time_ms(
@@ -534,6 +587,7 @@ def check_kernels(dev):
                 lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm))
             line["library_ms"] = None
             line["library"] = "none: no single PyTorch call computes it"
+        if path:
             timed[("ssd_chunk_dual", tuple(shape.values()))] = line
         emit(line)
         if not all(torch.allclose(g, w, **SSD_TOL)
@@ -568,11 +622,13 @@ def check_kernels(dev):
             layer = (args, chunk, line)
     for path, shape in [(True, s) for s in STATE_PATH] \
             + [(False, s) for s in STATE_EDGE]:
-        line = check_state_pass(randn, *shape, timed=path)
-        if path:
-            timed[("ssd_state_pass", shape[:7])] = line
+        for route in STATE_ROUTES:
+            per = check_state_pass(randn, *shape, timed=path, route=route)
+            if path:
+                timed.update({(k, shape[:7]): ln for k, ln in per.items()})
     check_chunked(randn)
     check_flash_offset(randn)
+    check_flash_stats(randn, dev)
     return timed, layer
 
 
@@ -587,78 +643,142 @@ def state_inputs(randn, B, nc, Q, H, P, N, G, init):
 
 
 def check_state_pass(randn, B, nc, Q, H, P, N, G, init, timed: bool,
-                     main_path="realize") -> dict:
-    """One ``ssd_state_pass`` kernel line: the kernel against its plain
-    version (``STATE_TOL``), its copy width; with ``timed`` its device
-    time, the plain version's, the time as the host issues it and the
-    bound (f32 FMA and HBM; no library call computes it)."""
+                     route=None, main_path="realize") -> dict:
+    """One ``ssd_state_pass`` kernel line on ``route`` (None: the route
+    the rule picks, through ``ssd_state_pass``; else forced by calling the
+    route's wrappers): the pass against its plain version (``STATE_TOL``),
+    each launch counted; on the split, each of its two kernels against its
+    own plain version too.  With ``timed`` the pass's device time, the
+    plain version's, the time as the host issues it and the bounds (f32
+    FMA, 3xTF32 and HBM; no library call computes it), and each kernel's
+    own.  Returns each launched kernel's numbers by name, for the per-pass
+    summary."""
     import torch
 
     from repro_torch.kernels import ref, ssd_state
-    from repro_torch.kernels.ssd_state import ssd_state_pass
     from repro_torch.realize.measure import launch_cost
     args = state_inputs(randn, B, nc, Q, H, P, N, G, init)
-    got = ssd_state_pass(*args)
+    y, S, cum, C, h0 = args
+    rule = ssd_state.state_route(B, H, P, ssd_state.sm_count(y.device))
+    route = route or rule
+
+    def run():
+        if route == rule:
+            return ssd_state.ssd_state_pass(*args)
+        if route == "walk":
+            return ssd_state.ssd_state_walk(*args)
+        hb, h = ssd_state.ssd_state_scan(S, cum, h0)
+        return ssd_state.ssd_state_out(y, hb, cum, C), h
+
+    kernels = ssd_state.ROUTE_KERNELS[route]
+    wrappers = {k: getattr(ssd_state, k) for k in STATE_KERNELS}
+    n0 = {k: fn.launches for k, fn in wrappers.items()}
+    got = run()
+    launched = {k: fn.launches - n0[k] for k, fn in wrappers.items()}
     want = ref.ssd_state_ref(*args)
     torch.cuda.synchronize()
     shape = dict(zip(("B", "nc", "Q", "H", "P", "N", "G"),
                      (B, nc, Q, H, P, N, G)), init=int(init))
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    ok = all(torch.allclose(g, w, **STATE_TOL) for g, w in zip(got, want)) \
+        and launched == {k: int(k in kernels) for k in wrappers}
+    # each kernel of the route with its inputs, plain version and cost
+    if route == "walk":
+        copies = ssd_state.copy_width(C, S)
+        parts = {"ssd_state_walk": (lambda: ssd_state.ssd_state_walk(*args),
+                                    lambda: ref.ssd_state_ref(*args), err)}
+    else:
+        hb, h = ref.ssd_state_scan_ref(S, cum, h0)
+        scan = ssd_state.ssd_state_scan(S, cum, h0)
+        out = ssd_state.ssd_state_out(y, hb, cum, C)
+        want_out = ref.ssd_state_out_ref(y, hb, cum, C)
+        torch.cuda.synchronize()
+        copies = ssd_state.copy_width(C, scan[0])
+        errs = (max((g - w).abs().max().item()
+                    for g, w in zip(scan, (hb, h))),
+                (out - want_out).abs().max().item())
+        ok = ok and all(torch.allclose(g, w, **STATE_TOL)
+                        for g, w in zip((*scan, out), (hb, h, want_out)))
+        parts = {"ssd_state_scan": (
+                     lambda: ssd_state.ssd_state_scan(S, cum, h0),
+                     lambda: ref.ssd_state_scan_ref(S, cum, h0), errs[0]),
+                 "ssd_state_out": (
+                     lambda: ssd_state.ssd_state_out(y, hb, cum, C),
+                     lambda: ref.ssd_state_out_ref(y, hb, cum, C), errs[1])}
     line = {"phase": "kernel", "kernel": "ssd_state_pass", "shape": shape,
-            "route": ssd_state.kernel_route(args[1], args[3]),
-            "arith": ARITH["ssd_state_pass"],
+            "route": f"{route} {copies}", "rule_route": rule,
+            "kernels": list(kernels), "launches": launched,
+            "arith": ARITH["ssd_state_walk"],
             "main_path": main_path if timed else False, **STATE_TOL,
-            "max_abs_err": max((g - w).abs().max().item()
-                               for g, w in zip(got, want))}
+            "max_abs_err": err}
+    if route == rule and line["route"] != ssd_state.kernel_route(S, C):
+        ok = False
+    per = {}
+    for k, (fn, plain, e) in parts.items():
+        per[k] = {"max_abs_err": e, "library_ms": None}
+        if timed:
+            per[k].update(bounds(*launch_cost(k, shape)), ms=time_ms(fn),
+                          plain_ms=time_ms(plain),
+                          host_issued_ms=time_ms(fn, device=False))
+    line["per_kernel"] = per
     if timed:
-        b = bounds(*launch_cost("ssd_state_pass", shape))
-        b["bound_3xtf32_ms"] = b["bound_ms"]     # no tensor-core products
-        line.update(b)
-        line["ms"] = time_ms(lambda: ssd_state_pass(*args))
-        line["host_issued_ms"] = time_ms(lambda: ssd_state_pass(*args),
-                                         device=False)
+        # the route's bound: its kernels' (the split writes and reads
+        # h_before besides); the pass's work done once, as the walk does it
+        for b in ("bound_ms", "bound_3xtf32_ms"):
+            line[b] = sum(p[b] for p in per.values())
+        line["bound_by"] = max(per.values(),
+                               key=lambda p: p["bound_ms"])["bound_by"]
+        line["bound_pass_ms"] = bounds(
+            *launch_cost("ssd_state_pass", shape))["bound_ms"]
+        line["ms"] = time_ms(run)
+        line["host_issued_ms"] = time_ms(run, device=False)
         line["plain_ms"] = time_ms(lambda: ref.ssd_state_ref(*args))
         line["library_ms"] = None
         line["library"] = "none: no single PyTorch call computes it"
     emit(line)
-    if not all(torch.allclose(g, w, **STATE_TOL)
-               for g, w in zip(got, want)):
-        raise AssertionError(f"ssd_state_pass disagrees at "
-                             f"{(B, nc, Q, H, P, N, G, init)}")
-    return line
+    if not ok:
+        raise AssertionError(f"ssd_state_pass ({line['route']}) disagrees, "
+                             f"names another route or launched {launched} "
+                             f"at {(B, nc, Q, H, P, N, G, init)}")
+    return per
 
 
 def check_chunked(randn) -> None:
-    """The model's chunked SSD (``nn.mamba2.ssd_chunked``) through the two
+    """The model's chunked SSD (``nn.mamba2.ssd_chunked``) through the
     kernels against its plain version at the config's chunk: one chunk
-    kernel launch per group and one state pass a call, within 2e-4."""
+    kernel launch per group and the state pass's route's kernels once a
+    call, within 2e-4."""
     import torch
 
+    from repro_torch.kernels import ssd_state
     from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
-    from repro_torch.kernels.ssd_state import ssd_state_pass
     from repro_torch.nn.mamba2 import ssd_chunked, ssd_chunked_ref
+    wrappers = {"ssd_chunk_dual": ssd_chunk_dual,
+                **{k: getattr(ssd_state, k) for k in STATE_KERNELS}}
     for B, L, H, P, G, N, chunk, init in CHUNKED:
         args = (randn(B, L, H, P), randn(B, L, H).abs() * 0.1,
                 -randn(H).abs(), randn(B, L, G, N), randn(B, L, G, N))
         h0 = randn(B, H, N, P) if init else None
-        n0 = (ssd_chunk_dual.launches, ssd_state_pass.launches)
+        n0 = {k: fn.launches for k, fn in wrappers.items()}
         got = ssd_chunked(*args, chunk=chunk, init_state=h0)
-        n1 = (ssd_chunk_dual.launches, ssd_state_pass.launches)
+        launched = {k: fn.launches - n0[k] for k, fn in wrappers.items()}
         want = ssd_chunked_ref(*args, chunk=chunk, init_state=h0)
         torch.cuda.synchronize()
+        route = ssd_state.route_kernels(B, H, P, args[0].device)
+        expect = {k: G if k == "ssd_chunk_dual" else int(k in route)
+                  for k in wrappers}
         ok = all(torch.allclose(g, w, **SSD_FORWARD_TOL)
                  for g, w in zip(got, want))
         emit({"phase": "kernel", "kernel": "ssd_state_pass",
               "via": "nn.mamba2.ssd_chunked",
               "shape": {"B": B, "L": L, "H": H, "P": P, "G": G, "N": N,
                         "chunk": chunk, "init": int(init)},
-              "launches": {"ssd_chunk_dual": n1[0] - n0[0],
-                           "ssd_state_pass": n1[1] - n0[1]},
-              "main_path": False, **SSD_FORWARD_TOL,
+              "launches": launched, "main_path": False, **SSD_FORWARD_TOL,
               "max_abs_err": max((g - w).abs().max().item()
                                  for g, w in zip(got, want))})
-        if not ok or (n1[0] - n0[0], n1[1] - n0[1]) != (G, 1):
+        if not ok or launched != expect:
             raise AssertionError(f"ssd_chunked disagrees or launched "
-                                 f"{n1[0] - n0[0]}, {n1[1] - n0[1]} at "
+                                 f"{launched}, not {expect}, at "
                                  f"{(B, L, H, P, G, N, chunk)}")
 
 
@@ -689,6 +809,85 @@ def check_flash_offset(randn) -> None:
                     or not torch.allclose(got.float(), want, **tol):
                 raise AssertionError(f"flash q_offset={off} disagrees at "
                                      f"{(B, H, Sq, Sk, D, dtype)}")
+
+
+def check_flash_stats(randn, dev) -> None:
+    """``flash_attention_mha(return_stats=True)`` against
+    ``attention_ref(return_stats=True)`` on the upcast inputs, out, m and l,
+    f32 (2e-5) and bf16 (2e-2), one launch each; at Sk = 0 no launch, m =
+    -2e38 and l = 0.  Then ``Attention(cache_stack=...)`` on the card
+    against ``use_kernels=False`` (f32 compute, ``CACHE_STACK_TOL``): the
+    old pages and the new segment through the flash kernel with their
+    statistics (no launch for the empty old cache at pos 0), the stacks
+    written alike."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels.flash_attention import flash_attention_mha
+    from repro_torch.nn.attention import Attention
+    for dtype, tol in ((torch.float32, FLASH_TOL),
+                       (torch.bfloat16, FLASH_BF16_TOL)):
+        for B, H, Sq, Sk, D, causal, off in FLASH_STATS + [
+                (1, 2, 70, 0, 64, False, 0)]:
+            q, k, v = (randn(B, H, n, D).to(dtype) for n in (Sq, Sk, Sk))
+            n0 = flash_attention_mha.launches
+            got = flash_attention_mha(q, k, v, causal=causal, q_offset=off,
+                                      return_stats=True)
+            launched = flash_attention_mha.launches - n0
+            want = ref.attention_ref(q.float(), k.float(), v.float(),
+                                     causal=causal, q_offset=off,
+                                     return_stats=True)
+            torch.cuda.synchronize()
+            errs = [(g.float() - w).abs().max().item() if Sk else 0.0
+                    for g, w in zip(got, want)]
+            emit({"phase": "kernel", "kernel": "flash_attention_mha",
+                  "via": "return_stats",
+                  "dtype": str(dtype).rsplit(".", 1)[-1],
+                  "shape": {"B": B, "H": H, "Sq": Sq, "Sk": Sk, "D": D,
+                            "causal": int(causal), "q_offset": off},
+                  "route": flash_attention.kernel_route(q, k, v) if Sk
+                  else "no launch (Sk = 0)", "launches": launched,
+                  "main_path": False, **tol,
+                  "max_abs_err": dict(zip(("out", "m", "l"), errs)),
+                  "m_min": got[1].min().item(), "l_max": got[2].max().item()})
+            ok = all(torch.allclose(g.float(), w, **tol)
+                     for g, w in zip(got, want)) \
+                and launched == int(Sk > 0) \
+                and got[1].dtype == got[2].dtype == torch.float32
+            if not Sk:
+                ok = ok and bool((got[1] == -2.0e38).all()) \
+                    and bool((got[2] == 0).all())
+            if not ok:
+                raise AssertionError(f"flash statistics disagree at "
+                                     f"{(B, H, Sq, Sk, D, causal, off)}")
+    B, d, H, KV, hd, smax, li = 2, 256, 4, 2, 64, 2048, 1
+    for pos, S in CACHE_STACK:
+        mod = Attention(d, H, KV, hd, device=dev,
+                        gen=torch.Generator(device=dev).manual_seed(pos))
+        x = randn(B, S, d)
+        positions = (pos + torch.arange(S, device=dev))[None]
+        stacks = [randn(3, B, smax, KV, hd) for _ in range(2)]
+        got = {}
+        for use_kernels in (True, False):
+            tk, tv = (t.clone() for t in stacks)
+            n0 = flash_attention_mha.launches
+            y, _ = mod(x, positions=positions, cache_stack=(tk, tv, li, pos),
+                       compute_dtype=torch.float32, use_kernels=use_kernels)
+            torch.cuda.synchronize()
+            got[use_kernels] = (y, tk, tv,
+                                flash_attention_mha.launches - n0)
+        (y, tk, tv, n), (yp, tkp, tvp, npl) = got[True], got[False]
+        err = ((y - yp).abs().max() / yp.abs().max()).item()
+        emit({"phase": "kernel", "kernel": "flash_attention_mha",
+              "via": "nn.attention cache_stack",
+              "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": hd,
+                        "pos": pos, "max_seq": smax},
+              "launches": n, "plain_launches": npl, "main_path": False,
+              "rel_tol": CACHE_STACK_TOL, "max_rel_err": err})
+        if err > CACHE_STACK_TOL or n != (1 if pos == 0 else 2) or npl \
+                or not (torch.equal(tk, tkp) and torch.equal(tv, tvp)):
+            raise AssertionError(f"cache_stack at pos {pos}: {err}, "
+                                 f"{n} launches")
 
 
 def check_bf16(dev) -> dict:
@@ -723,12 +922,15 @@ def check_bf16(dev) -> dict:
                                  f"counted ({n0} -> {fn.launches})")
         return out
 
-    def finish(line, kernel, key, path, err, ok, timings):
+    def finish(line, kernel, key, path, err, ok, timings, clock=False):
+        """``path``: timed and kept for the per-pass summary; ``clock``:
+        timed only."""
         line["max_abs_err"] = err
-        if path:
+        if path or clock:
             line.update(bf16_bounds(kernel, line["shape"]))
-            line.update({k: time_ms(f) if f else None
-                         for k, f in timings.items()})
+            line.update({k: time_ms(f, device=k != "host_issued_ms")
+                         if f else None for k, f in timings.items()})
+        if path:
             timed[(kernel, key)] = line
         emit(line)
         if not ok:
@@ -776,9 +978,10 @@ def check_bf16(dev) -> dict:
                                                       causal=causal),
                 "library_ms": lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal)})
-    for path, (BC, Q, H, P, N) in \
-            [(True, s[:5]) for s in SSD_PATH] \
-            + [(False, s) for s in SSD_BF16_EDGE]:
+    for path, clock, (BC, Q, H, P, N) in \
+            [(True, True, s[:5]) for s in SSD_PATH] \
+            + [(False, True, s[:5]) for s in SSD_WIDE[:1]] \
+            + [(False, False, s) for s in SSD_BF16_EDGE]:
         x = randn(BC, Q, H, P)
         cum = torch.cumsum(-randn(BC, Q, H).float().abs() * 0.1,
                            dim=1).bfloat16()
@@ -792,7 +995,7 @@ def check_bf16(dev) -> dict:
                 "route": mamba_ssd.kernel_route(x, Bm, Cm),
                 "arith": ARITH_BF16["ssd_chunk_dual"], "main_path": path,
                 "out_dtype": str(got[0].dtype), **SSD_BF16_TOL}
-        if path:
+        if clock:
             line["library"] = "none: no single PyTorch call computes it"
         finish(line, "ssd_chunk_dual", tuple(shape.values()), path,
                max((g - w).abs().max().item() for g, w in zip(got, want)),
@@ -800,8 +1003,9 @@ def check_bf16(dev) -> dict:
                    and torch.allclose(g, w, **SSD_BF16_TOL)
                    for g, w in zip(got, want)),
                {"ms": lambda: ssd_chunk_dual(x, cum, Bm, Cm),
+                "host_issued_ms": lambda: ssd_chunk_dual(x, cum, Bm, Cm),
                 "plain_ms": lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm),
-                "library_ms": None})
+                "library_ms": None}, clock=clock)
     return timed
 
 
@@ -812,8 +1016,9 @@ def profile_ssd_forward(args, chunk: int, timed_line: dict) -> dict:
     timed line); the profiled wall (ended by a synchronize), which the
     profiler stretches; and the kernel launches and their device time in
     three groups, by kernel name: the chunk kernel, the state pass (the
-    inter-chunk recurrence and output, one launch since it became a
-    kernel) and the rest of the eager glue (discretization, cumsum,
+    inter-chunk recurrence and output: one walk, or the split's two
+    kernels, by the route the rule takes at the layer's shape,
+    ``state_route``) and the rest of the eager glue (discretization, cumsum,
     casts, pads).  The chrome trace goes to ``results/``.  It runs last:
     launches that follow a profiler session in the same process were
     slower (the ``mamba2-370m`` pass took 205-249 ms after it against
@@ -821,7 +1026,7 @@ def profile_ssd_forward(args, chunk: int, timed_line: dict) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ssd_state
     ops.ssd_forward(*args, chunk=chunk)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -847,12 +1052,19 @@ def profile_ssd_forward(args, chunk: int, timed_line: dict) -> dict:
     for e in kernels:
         name = e.get("name", "")
         key = ("chunk_kernel" if "ssd_chunk" in name else
-               "state_pass" if "ssd_state_pass" in name else "glue")
+               "state_pass" if "ssd_state_" in name else "glue")
         groups[key].append(e)
     line["split"] = {k: {"launches": len(v),
                          "device_ms": sum(e["dur"] for e in v) / 1e3}
                      for k, v in groups.items()}
     line["recurrence_launches"] = len(groups["state_pass"])
+    x, _, _, Bm, _ = args
+    B, _, H, P = x.shape
+    line["state_route"] = ssd_state.state_route(
+        B, H, P, ssd_state.sm_count(x.device))
+    line["state_kernels"] = sorted({re.search(r"ssd_state_\w+",
+                                              e["name"]).group(0)
+                                    for e in groups["state_pass"]})
     names = {}
     for e in groups["glue"]:
         short = e["name"][:60]
@@ -897,14 +1109,14 @@ def stage_cube_errors(g, plan, dev) -> dict:
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, by kernel name (each counts its launches)."""
+    from repro_torch.kernels import ssd_state
     from repro_torch.kernels.flash_attention import flash_attention_mha
     from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
-    from repro_torch.kernels.ssd_state import ssd_state_pass
     from repro_torch.kernels.tiled_matmul import tiled_matmul
     return {"tiled_matmul": tiled_matmul,
             "flash_attention_mha": flash_attention_mha,
             "ssd_chunk_dual": ssd_chunk_dual,
-            "ssd_state_pass": ssd_state_pass}
+            **{k: getattr(ssd_state, k) for k in STATE_KERNELS}}
 
 
 def run_path(path, dev):
@@ -981,6 +1193,13 @@ def run_path(path, dev):
                              f"the Tech, or the overlay saw "
                              f"{overlay.n_stages} stages")
     cubes, prog = stage_cube_errors(g, plan, dev)
+    planned = {k: 0 for k in wrappers}
+    for sp in prog.stages:
+        for k, _ in sp.kernel_launches:
+            planned[k] += 1
+    if launches != planned:
+        raise AssertionError(f"path {name} launched {launches}, its plan "
+                             f"declares {planned}")
     scales = [s["expected_scale"] for s in stages if s.get("expected_scale")]
     if g.is_scaled != bool(scales) or (scales and len(scales) != n_stages):
         raise AssertionError(f"path {name}: {len(scales)} stages carry "
@@ -1105,7 +1324,8 @@ def run_loop(dev, timed: dict):
         rep, prog = r.report, r.program
         plan_launches = collections.Counter(
             {k: 0 for k in wrappers})
-        plan_launches.update(k for sp in prog.stages for k, _ in sp.launches)
+        plan_launches.update(k for sp in prog.stages
+                             for k, _ in sp.kernel_launches)
         summed.update(r.launches)
         stages = [s.to_record() for s in rep.stages]
         unpredicted = [s["index"] for s in stages
@@ -1173,35 +1393,26 @@ KERNEL_FILES = {
                             "src/repro/kernels/flash_attention.py:90"),
     "ssd_chunk_dual": ("src/repro_torch/kernels/csrc/mamba_ssd.cu",
                        "src/repro/kernels/mamba_ssd.py:48"),
-    "ssd_state_pass": ("src/repro_torch/kernels/csrc/ssd_state.cu",
-                       "src/repro/kernels/ops.py:51"),
+    **{k: ("src/repro_torch/kernels/csrc/ssd_state.cu",
+           "src/repro/kernels/ops.py:51") for k in STATE_KERNELS},
 }
 
 
 def program_keys(prog) -> list:
     """The (kernel, shape) of every launch of one pass of a realized
-    program: its plan's launches, and one state pass after each SSD chunk
-    kernel (``ops.ssd_forward``: B = the batch unit, nc = BC / B, G = 1)."""
-    keys = []
-    for sp in prog.stages:
-        for kernel, shape in sp.launches:
-            keys.append((kernel, tuple(shape.values())))
-            if kernel == "ssd_chunk_dual":
-                bu = prog.batch_unit
-                keys.append(("ssd_state_pass",
-                             (bu, shape["BC"] // bu, shape["Q"], shape["H"],
-                              shape["P"], shape["N"], 1)))
-    return keys
+    program: its plan's launches, the state pass's kernels included."""
+    return [(kernel, tuple(shape.values())) for sp in prog.stages
+            for kernel, shape in sp.kernel_launches]
 
 
 def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
     """Each kernel's numbers summed over one pass of each path, of each
-    realized loop candidate and of the serve phase (the timed line of every
-    launch's shape, once per launch; the serve phase's flash launches are
-    bf16, as it runs them), and each one's share apart; under ``bf16`` the
-    realization passes' launches again with bf16 operands (they run f32).
-    ``runs`` maps a path, loop candidate or the serve phase to its
-    (launches, [(kernel, shape) of each launch])."""
+    realized loop candidate and of each serve phase (the timed line of
+    every launch's shape, once per launch; the serve phases' flash
+    launches are bf16, as they run them), and each one's share apart;
+    under ``bf16`` the realization passes' launches again with bf16
+    operands (they run f32).  ``runs`` maps a path, loop candidate or serve
+    phase to its (launches, [(kernel, shape) of each launch])."""
     out = []
     for name, (source, replaces) in KERNEL_FILES.items():
         per_path, lines, lines16 = {}, [], []
@@ -1233,7 +1444,7 @@ def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
             "bound_3xtf32_ms": total("bound_3xtf32_ms"), "arith": ARITH[name],
             "library_ms": None if None in lib else sum(lib),
             "per": "one pass of each path, of each realized loop candidate "
-                   "and of the serve phase, summed; per_path splits it",
+                   "and of each serve phase, summed; per_path splits it",
             "per_path": per_path}
         if None in lib:
             line["library"] = "none: no single PyTorch call computes it"
@@ -1529,16 +1740,17 @@ def cost_kernel_summary(cost_timed: dict, launches: dict) -> list:
     return out
 
 
-def serve_kernel_lines(dev, waves) -> dict:
-    """Kernel lines at the serve phase's launch shapes, one set per wave
-    (B slots, prompts padded to L): flash on bf16 (B, 32, L, L, 64),
-    causal, as the prefill runs it; the SSD chunk kernel on f32
-    (B * ceil(L / 128), 128, 64, 64, 64); the state pass on (B,
-    ceil(L / 128), 128, 64, 64, 64, G = 1).  Each against its plain version
-    on the same inputs (flash on the upcast inputs, 2e-2; the SSD kernels
-    1e-4), with its device time, the plain version's, the library call's
-    (bf16 ``scaled_dot_product_attention``; none for the SSD kernels) and
-    the bound (bf16 rates for flash).  Returns them by launch key."""
+def serve_kernel_lines(dev, arch, waves) -> dict:
+    """Kernel lines at a serve phase's launch shapes, one set per wave (B
+    slots, prompts padded to L), by ``SERVE_ARCHS[arch]``: flash on bf16
+    (B, heads, L, L, head dim), causal, as the prefill runs it, where the
+    arch has attention; the SSD chunk kernel on f32 (B * ceil(L / 128),
+    128, H, P, N); the state pass on (B, ceil(L / 128), 128, H, P, N, G =
+    1) by the route the rule picks.  Each against its plain version on the
+    same inputs (flash on the upcast inputs, 2e-2; the SSD kernels 1e-4),
+    with its device time, the plain version's, the library call's (bf16
+    ``scaled_dot_product_attention``; none for the SSD kernels) and the
+    bound (bf16 rates for flash).  Returns them by launch key."""
     import torch
     import torch.nn.functional as F
 
@@ -1547,46 +1759,53 @@ def serve_kernel_lines(dev, waves) -> dict:
     from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
     from repro_torch.realize.measure import launch_cost
 
+    n_flash, _, heads, hd, H, P, N = SERVE_ARCHS[arch]
+    main_path = serve_path(arch)
     gen = torch.Generator(device=dev).manual_seed(2)
     randn = lambda *s: torch.randn(*s, device=dev, generator=gen)
     timed = {}
     for B, L in sorted(set(waves)):
         nc = -(-L // 128)
-        q, k, v = (randn(B, 32, L, 64).bfloat16() for _ in range(3))
-        got = flash_attention_mha(q, k, v, causal=True)
-        want = ref.attention_ref(q.float(), k.float(), v.float(),
-                                 causal=True)
-        torch.cuda.synchronize()
-        shape = {"B": B, "H": 32, "Sq": L, "Sk": L, "D": 64, "causal": 1}
-        line = {"phase": "kernel", "kernel": "flash_attention_mha",
-                "dtype": "bf16", "shape": shape, "q_offset": 0,
-                "route": flash_attention.kernel_route(q, k, v),
-                "arith": ARITH_BF16["flash_attention_mha"],
-                "main_path": "serve", **FLASH_BF16_TOL,
-                "max_abs_err": (got.float() - want).abs().max().item(),
-                **bf16_bounds("flash_attention_mha", shape)}
-        line["bound_3xtf32_ms"] = line["bound_ms"]   # bf16 operands
-        line["ms"] = time_ms(lambda: flash_attention_mha(q, k, v))
-        line["host_issued_ms"] = time_ms(
-            lambda: flash_attention_mha(q, k, v), device=False)
-        line["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v))
-        line["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True))
-        emit(line)
-        if not torch.allclose(got.float(), want, **FLASH_BF16_TOL):
-            raise AssertionError(f"serve flash disagrees at {shape}")
-        timed[("flash_attention_mha", (B, 32, L, L, 64, 1, 0, "bf16"))] = line
+        if n_flash:
+            q, k, v = (randn(B, heads, L, hd).bfloat16() for _ in range(3))
+            got = flash_attention_mha(q, k, v, causal=True)
+            want = ref.attention_ref(q.float(), k.float(), v.float(),
+                                     causal=True)
+            torch.cuda.synchronize()
+            shape = {"B": B, "H": heads, "Sq": L, "Sk": L, "D": hd,
+                     "causal": 1}
+            line = {"phase": "kernel", "kernel": "flash_attention_mha",
+                    "dtype": "bf16", "shape": shape, "q_offset": 0,
+                    "route": flash_attention.kernel_route(q, k, v),
+                    "arith": ARITH_BF16["flash_attention_mha"],
+                    "main_path": main_path, **FLASH_BF16_TOL,
+                    "max_abs_err": (got.float() - want).abs().max().item(),
+                    **bf16_bounds("flash_attention_mha", shape)}
+            line["bound_3xtf32_ms"] = line["bound_ms"]   # bf16 operands
+            line["ms"] = time_ms(lambda: flash_attention_mha(q, k, v))
+            line["host_issued_ms"] = time_ms(
+                lambda: flash_attention_mha(q, k, v), device=False)
+            line["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v))
+            line["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True))
+            emit(line)
+            if not torch.allclose(got.float(), want, **FLASH_BF16_TOL):
+                raise AssertionError(f"serve flash disagrees at {shape}")
+            timed[("flash_attention_mha",
+                   (B, heads, L, L, hd, 1, 0, "bf16"))] = line
+            del q, k, v, got, want
 
-        x = randn(B * nc, 128, 64, 64)
-        cum = torch.cumsum(-randn(B * nc, 128, 64).abs() * 0.1, dim=1)
-        Bm, Cm = randn(B * nc, 128, 64), randn(B * nc, 128, 64)
+        x = randn(B * nc, 128, H, P)
+        cum = torch.cumsum(-randn(B * nc, 128, H).abs() * 0.1, dim=1)
+        Bm, Cm = randn(B * nc, 128, N), randn(B * nc, 128, N)
         got = ssd_chunk_dual(x, cum, Bm, Cm)
         want = ref.ssd_chunk_ref(x, cum, Bm, Cm)
         torch.cuda.synchronize()
-        shape = {"BC": B * nc, "Q": 128, "H": 64, "P": 64, "N": 64}
+        shape = {"BC": B * nc, "Q": 128, "H": H, "P": P, "N": N}
         line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
                 "shape": shape, "route": mamba_ssd.kernel_route(x, Bm, Cm),
-                "arith": ARITH["ssd_chunk_dual"], "main_path": "serve",
+                "arith": ARITH["ssd_chunk_dual"], "main_path": main_path,
                 **SSD_TOL, "max_abs_err": max((g - w).abs().max().item()
                                               for g, w in zip(got, want)),
                 **bounds(*launch_cost("ssd_chunk_dual", shape))}
@@ -1602,10 +1821,18 @@ def serve_kernel_lines(dev, waves) -> dict:
             raise AssertionError(f"serve ssd_chunk_dual disagrees at {shape}")
         timed[("ssd_chunk_dual", tuple(shape.values()))] = line
         del x, cum, Bm, Cm, got, want
-        state = (B, nc, 128, 64, 64, 64, 1)
-        timed[("ssd_state_pass", state)] = check_state_pass(
-            randn, *state, False, timed=True, main_path="serve")
+        state = (B, nc, 128, H, P, N, 1)
+        for kernel, line in check_state_pass(
+                randn, *state, False, timed=True,
+                main_path=main_path).items():
+            timed[(kernel, state)] = line
     return timed
+
+
+def serve_path(arch: str) -> str:
+    """The name of a serve phase in the per-pass summary: ``serve`` for
+    zamba2-1.2b (as before mamba2-370m served), ``serve:<arch>`` else."""
+    return "serve" if arch == SERVE_ARCH else f"serve:{arch}"
 
 
 def serve_check(cfg, params, toks, dev) -> dict:
@@ -1663,27 +1890,34 @@ def serve_check(cfg, params, toks, dev) -> dict:
     return line
 
 
-def run_serve(dev):
-    """The ``serve`` phase (``SERVE_*``): ``zamba2-1.2b`` at full width and
-    depth from the port's seeded ``init_params`` on the card, a ``Server``
+def run_serve(dev, arch):
+    """A ``serve`` phase (``SERVE_*``): ``arch`` at full width and depth
+    from the port's seeded ``init_params`` on the card, a ``Server``
     answering ``SERVE_REQUESTS`` requests, after one short warm-up wave
     (library handles, the allocator), with the launch counts set to 0 just
-    before the counted run.  Gates: every request answered, the launches
-    ``SERVE_PER_WAVE`` a wave, the kernel route within ``SERVE_TOL`` of the
-    plain route.  Returns the line, the (B, L) of each wave and the launch
-    keys of the run."""
+    before the counted run.  Gates: every request answered, the launches a
+    wave by ``SERVE_ARCHS`` (the state pass's by the route it takes at the
+    wave's shape), the kernel route within ``SERVE_TOL`` of the plain
+    route.  Returns the line, the (B, L) of each wave and the launch keys
+    of the run."""
     import statistics
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_state
     from repro_torch.models import model_api
     from repro_torch.nn.params import count_params, param_bytes
     from repro_torch.runtime.serve_loop import Request, Server
 
     t_phase = time.perf_counter()
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
+    n_flash, n_ssm, heads, hd, H, P, N = SERVE_ARCHS[arch]
+    if (cfg.n_layers, cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim,
+            cfg.ssm_headdim, cfg.ssm_state) != (n_ssm, H, P, N):
+        raise AssertionError(f"SERVE_ARCHS[{arch!r}] does not match the "
+                             f"config")
     api = model_api(cfg)
     t0 = time.perf_counter()
     params = api.init_params(torch.Generator(device=dev).manual_seed(0), dev)
@@ -1721,20 +1955,22 @@ def run_serve(dev):
     waves = [prompts[i:i + SERVE_MAX_BATCH]
              for i in range(0, SERVE_REQUESTS, SERVE_MAX_BATCH)]
     shapes = [(len(w), max(len(p) for p in w)) for w in waves]
-    want = {k: n * len(waves) for k, n in SERVE_PER_WAVE.items()}
+    keys, routes = [], []
+    for B, L in shapes:
+        nc = -(-L // 128)
+        state = (B, nc, 128, H, P, N, 1)
+        kernels = ssd_state.route_kernels(B, H, P, dev)
+        routes.append(ssd_state.state_route(B, H, P, ssd_state.sm_count(dev)))
+        keys += [("flash_attention_mha",
+                  (B, heads, L, L, hd, 1, 0, "bf16"))] * n_flash \
+            + [("ssd_chunk_dual", (B * nc, 128, H, P, N))] * n_ssm \
+            + [(k, state) for k in kernels] * n_ssm
+    want = {k: sum(1 for key in keys if key[0] == k) for k in wrappers}
     n_tok = sum(len(r.tokens) for r in results)
     steps = [t for c in costs for t in c.step_s]
     check = serve_check(cfg, params, torch.from_numpy(
         srv.executor._pad_wave(waves[0])).to(dev), dev)
-    keys = []
-    for B, L in shapes:
-        nc = -(-L // 128)
-        per = {"flash_attention_mha": (B, 32, L, L, 64, 1, 0, "bf16"),
-               "ssd_chunk_dual": (B * nc, 128, 64, 64, 64),
-               "ssd_state_pass": (B, nc, 128, 64, 64, 64, 1)}
-        keys += [(k, per[k]) for k, n in SERVE_PER_WAVE.items()
-                 for _ in range(n)]
-    line = {"phase": "serve", "arch": SERVE_ARCH, "n_layers": cfg.n_layers,
+    line = {"phase": "serve", "arch": arch, "n_layers": cfg.n_layers,
             "d_model": cfg.d_model, "params": count_params(params),
             "param_gb": param_bytes(params) / 1e9,
             "param_dtype": cfg.param_dtype,
@@ -1749,6 +1985,7 @@ def run_serve(dev):
             "tokens_per_s": n_tok / seconds,
             "latency_s": sorted(r.latency_s for r in results),
             "launches": launches, "launches_want": want,
+            "state_routes": routes,
             "peak_mem_gb": peak / 1e9, "kernel_vs_plain": check,
             "clock": "host seconds around work that ends in a synchronize"}
     if len(results) != SERVE_REQUESTS \
@@ -1768,8 +2005,9 @@ def run_serve_cli() -> dict:
     """``python -m repro_torch.launch.serve --arch zamba2-1.2b`` and
     ``python -m repro_torch.examples.serve_lm --arch zamba2-1.2b`` in this
     process (their defaults: 8 requests of 4-31 prompt tokens, a
-    512-position cache; 10 of 4-47, 256): both serve at full width on the
-    card and answer every request."""
+    512-position cache; 10 of 4-47, 256), then ``launch.serve --arch
+    mamba2-370m``: each serves at full width on the card and answers every
+    request."""
     import io
 
     from repro_torch.examples import serve_lm
@@ -1779,7 +2017,9 @@ def run_serve_cli() -> dict:
             ("launch.serve", serve.main, ["--arch", SERVE_ARCH],
              "[serve] 8 requests"),
             ("examples.serve_lm", serve_lm.main, ["--arch", SERVE_ARCH],
-             f"{SERVE_ARCH}: 10 requests")):
+             f"{SERVE_ARCH}: 10 requests"),
+            ("launch.serve mamba2-370m", serve.main,
+             ["--arch", "mamba2-370m"], "[serve] 8 requests")):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -1788,8 +2028,8 @@ def run_serve_cli() -> dict:
         out[name] = buf.getvalue().splitlines()
         if not any(want in ln for ln in out[name]):
             raise AssertionError(f"{name} {argv}: {out[name]}")
-    return {"phase": "serve_cli", "arch": SERVE_ARCH, "stdout": out,
-            "seconds": secs}
+    return {"phase": "serve_cli", "arch": [SERVE_ARCH, "mamba2-370m"],
+            "stdout": out, "seconds": secs}
 
 
 def main() -> int:
@@ -1840,11 +2080,12 @@ def main() -> int:
     cost_timed = check_cost_kernels(dev)
     fused_line = run_fused(dev)
     emit(fused_line)
-    serve_line, serve_waves, serve_keys = run_serve(dev)
-    emit(serve_line)
-    torch.cuda.empty_cache()
-    timed.update(serve_kernel_lines(dev, serve_waves))
-    runs["serve"] = (serve_line["launches"], serve_keys)
+    for arch in SERVE_ARCHS:
+        serve_line, serve_waves, serve_keys = run_serve(dev, arch)
+        emit(serve_line)
+        torch.cuda.empty_cache()
+        timed.update(serve_kernel_lines(dev, arch, serve_waves))
+        runs[serve_path(arch)] = (serve_line["launches"], serve_keys)
     emit(run_serve_cli())
     torch.cuda.empty_cache()
     emit(profile_ssd_forward(*layer))

@@ -32,7 +32,8 @@ from ..core.workload import Graph
 from ..core.workloads import transformer
 from ..kernels.flash_attention import flash_attention_mha
 from ..kernels.mamba_ssd import ssd_chunk_dual
-from ..kernels.ssd_state import ssd_state_pass
+from ..kernels.ssd_state import (ssd_state_out, ssd_state_scan,
+                                 ssd_state_walk)
 from ..kernels.tiled_matmul import tiled_matmul
 from ..realize.calibrate import (TechOverlay, calibrated_candidates,
                                  fit_overlay)
@@ -48,7 +49,9 @@ OUT = "results/realize_demo-torch.jsonl"
 _WRAPPERS = {"tiled_matmul": tiled_matmul,
              "flash_attention_mha": flash_attention_mha,
              "ssd_chunk_dual": ssd_chunk_dual,
-             "ssd_state_pass": ssd_state_pass}
+             "ssd_state_walk": ssd_state_walk,
+             "ssd_state_scan": ssd_state_scan,
+             "ssd_state_out": ssd_state_out}
 
 
 def demo_graph() -> Graph:

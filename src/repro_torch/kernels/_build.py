@@ -38,19 +38,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _MM = [_P] * 3 + [_I] * 4 + [_P]
 _FLASH = [_P] * 4 + [_I] * 8 + [_P]
+_FLASH_STATS = [_P] * 6 + [_I] * 8 + [_P]
 _SSD = [_P] * 6 + [_I] * 6 + [_P]
 # argument types of each source's launch functions, one per element type
-# (f32, bf16) for the three tensor-core sources; every one returns the
-# launch's cudaError_t as an int
+# (f32, bf16) for the three tensor-core sources (flash also with its
+# statistics); every one returns the launch's cudaError_t as an int
 SIGNATURES = {
     "tiled_matmul": {"tiled_matmul_f32": _MM, "tiled_matmul_bf16": _MM},
     "flash_attention": {"flash_attention_f32": _FLASH,
-                        "flash_attention_bf16": _FLASH},
+                        "flash_attention_bf16": _FLASH,
+                        "flash_attention_stats_f32": _FLASH_STATS,
+                        "flash_attention_stats_bf16": _FLASH_STATS},
     "mamba_ssd": {"ssd_chunk_dual_f32": _SSD, "ssd_chunk_dual_bf16": _SSD},
     "fused_eval": {"fused_eval_f32": [_P, _P, _L, _I, _I] + [_P] * 7
                    + [_I, _P, _P, _I, _P],
                    "segment_replay_f64": [_P, _P, _L, _P, _L, _I, _P]},
-    "ssd_state": {"ssd_state_pass_f32": [_P] * 7 + [_I] * 8 + [_P]},
+    "ssd_state": {"ssd_state_walk_f32": [_P] * 7 + [_I] * 8 + [_P],
+                  "ssd_state_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
+                  "ssd_state_out_f32": [_P] * 5 + [_I] * 8 + [_P]},
 }
 # argument types of the functions that name the configuration a launch
 # takes (the last argument the operands' bytes an element); each returns a

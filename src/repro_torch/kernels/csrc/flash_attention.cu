@@ -1,7 +1,8 @@
 // Flash attention forward for Hopper (sm_90a), on the tensor cores, f32
 // or bf16 operands, f32 arithmetic.
 // q (B, H, Sq, D), k and v (B, H, Sk, D), contiguous -> o (B, H, Sq, D)
-// of q's type.
+// of q's type and, on request, the online-softmax statistics m and l
+// (B, H, Sq), f32.
 //
 // Replaces the Pallas kernel `_flash_kernel` driven by `flash_attention_mha`
 // (src/repro/kernels/flash_attention.py:90) and follows its numerics
@@ -11,6 +12,17 @@
 // model's cache mode, `_flash_path` of src/repro/nn/attention.py:87);
 // masked scores are the finite -1e30, not -inf; running max starts at
 // -1e30, the denominator at 0; the output is acc / max(l, 1e-30).
+//
+// Statistics (m_out and l_out, both or neither; the `_stats` entry
+// points, an instance of their own, STATS): the reference's flash
+// path returns each row's max of the scaled scores m and its sum
+// l = sum exp(s - m) (src/repro/nn/attention.py:87-128), which
+// merge_attention weighs two partial attentions with.  The kernel keeps
+// its max in log2 units (s * scale * log2 e), so it writes m = M / log2 e
+// and l as it is (sum exp2(s2 - M) = sum exp(s - m)), after the kv
+// groups' merge.  Every row sees key 0 (Sk >= 1; causal positions are
+// >= 0), so m is finite; Sk = 0, whose m is the reference's NEG_INF,
+// launches nothing (flash_attention.py).
 //
 // What bounds it: at the realization path's shape (B, H, S, D) =
 // (4, 4, 512, 128), causal, a launch does 1.08 GFLOP on 4.2 MB, about 250
@@ -129,11 +141,12 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-template <int DMAX, class T, bool VEC>
+template <int DMAX, class T, bool VEC, bool STATS>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int D,
-          int causal, int q_offset, float scale_log2) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ m_out, float* __restrict__ l_out, int Sq,
+          int Sk, int D, int causal, int q_offset, float scale_log2) {
   using C = Cfg<DMAX, T>;
   constexpr bool EX = kTf32Exact<T>;
   constexpr int BKV = C::BKV;
@@ -374,6 +387,17 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     L0 += xm[64] * w0[p + 1];
     L1 += xm[96] * w1[p + 1];
   }
+  if (STATS && t == 0) {                // one thread of each row pair
+    const size_t r0 = bh * Sq + row0, r1 = r0 + 8;
+    if (row0 < Sq) {
+      m_out[r0] = M0 / LOG2E;
+      l_out[r0] = L0;
+    }
+    if (row1 < Sq) {
+      m_out[r1] = M1 / LOG2E;
+      l_out[r1] = L1;
+    }
+  }
   const float d0 = fmaxf(L0, 1e-30f), d1 = fmaxf(L1, 1e-30f);
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
@@ -414,63 +438,76 @@ int head_dim_template(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 0;
 }
 
-template <int DMAX, class T, bool VEC>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int Sq, int Sk, int D, int causal, int q_offset,
+template <int DMAX, class T, bool VEC, bool STATS>
+int launch(const void* q, const void* k, const void* v, void* o, float* m,
+           float* l, int BH, int Sq, int Sk, int D, int causal, int q_offset,
            cudaStream_t stream) {
   constexpr size_t bytes = Cfg<DMAX, T>::bytes;
   // once per instantiation (the process drives one card)
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<DMAX, T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd<DMAX, T, VEC, STATS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(flash_fwd<DMAX, T, VEC>,
+    return cudaFuncSetAttribute(flash_fwd<DMAX, T, VEC, STATS>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 int(cudaSharedmemCarveoutMaxShared));
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(BH, (Sq + BQ - 1) / BQ);
   const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
-  flash_fwd<DMAX, T, VEC><<<grid, THREADS, bytes, stream>>>(
+  flash_fwd<DMAX, T, VEC, STATS><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, D, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), m, l, Sq, Sk, D, causal,
       q_offset, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance for the copy width and whether the statistics are written
+// (a separate instance, so that a launch without them runs the code it ran
+// before they existed).
 template <int DMAX, class T>
 int launch_d(bool vec, const void* q, const void* k, const void* v, void* o,
-             int BH, int Sq, int Sk, int D, int causal, int q_offset,
-             cudaStream_t stream) {
-  return vec ? launch<DMAX, T, true>(q, k, v, o, BH, Sq, Sk, D, causal,
-                                     q_offset, stream)
-             : launch<DMAX, T, false>(q, k, v, o, BH, Sq, Sk, D, causal,
-                                      q_offset, stream);
+             float* m, float* l, int BH, int Sq, int Sk, int D, int causal,
+             int q_offset, cudaStream_t stream) {
+  if (m != nullptr)
+    return vec ? launch<DMAX, T, true, true>(q, k, v, o, m, l, BH, Sq, Sk, D,
+                                             causal, q_offset, stream)
+               : launch<DMAX, T, false, true>(q, k, v, o, m, l, BH, Sq, Sk,
+                                              D, causal, q_offset, stream);
+  return vec ? launch<DMAX, T, true, false>(q, k, v, o, m, l, BH, Sq, Sk, D,
+                                            causal, q_offset, stream)
+             : launch<DMAX, T, false, false>(q, k, v, o, m, l, BH, Sq, Sk, D,
+                                             causal, q_offset, stream);
 }
 
 template <class T>
-int launch_t(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Sq, int Sk, int D, int causal, int q_offset,
-             int device, void* stream) {
+int launch_t(const void* q, const void* k, const void* v, void* o, void* m,
+             void* l, int B, int H, int Sq, int Sk, int D, int causal,
+             int q_offset, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if ((m == nullptr) != (l == nullptr) || Sk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
   const bool vec = vec_copies(D, sizeof(T), q, k, v, o);
   switch (head_dim_template(D)) {
     case 32:
-      return launch_d<32, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal,
-                              q_offset, st);
+      return launch_d<32, T>(vec, q, k, v, o, mf, lf, BH, Sq, Sk, D,
+                             causal, q_offset, st);
     case 64:
-      return launch_d<64, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal,
-                              q_offset, st);
+      return launch_d<64, T>(vec, q, k, v, o, mf, lf, BH, Sq, Sk, D,
+                             causal, q_offset, st);
     case 128:
-      return launch_d<128, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal,
-                              q_offset, st);
+      return launch_d<128, T>(vec, q, k, v, o, mf, lf, BH, Sq, Sk, D,
+                              causal, q_offset, st);
     case 256:
-      return launch_d<256, T>(vec, q, k, v, o, BH, Sq, Sk, D, causal,
-                              q_offset, st);
+      return launch_d<256, T>(vec, q, k, v, o, mf, lf, BH, Sq, Sk, D,
+                              causal, q_offset, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -481,20 +518,38 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t from the caller) and return the
 // launch's cudaError_t: 0 when the kernel was accepted.  1 <= D <= 256,
-// B * H <= 2^31 - 1, ceil(Sq / 32) <= 65535, 0 <= q_offset (the position
-// of query row 0 for the causal mask).  q, k, v and o all f32, or all
-// bf16 (f32 arithmetic either way).
+// 1 <= Sk, B * H <= 2^31 - 1, ceil(Sq / 32) <= 65535, 0 <= q_offset (the
+// position of query row 0 for the causal mask).  q, k, v and o all f32,
+// or all bf16 (f32 arithmetic either way).
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Sq, int Sk, int D, int causal,
                         int q_offset, int device, void* stream) {
-  return launch_t<float>(q, k, v, o, B, H, Sq, Sk, D, causal, q_offset,
-                         device, stream);
+  return launch_t<float>(q, k, v, o, nullptr, nullptr, B, H, Sq, Sk, D,
+                         causal, q_offset, device, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, int B, int H, int Sq, int Sk, int D,
                          int causal, int q_offset, int device, void* stream) {
-  return launch_t<__nv_bfloat16>(q, k, v, o, B, H, Sq, Sk, D, causal,
+  return launch_t<__nv_bfloat16>(q, k, v, o, nullptr, nullptr, B, H, Sq, Sk,
+                                 D, causal, q_offset, device, stream);
+}
+
+// The same launch that also writes each row's statistics m and l into
+// (B, H, Sq) f32 buffers (see the header).
+int flash_attention_stats_f32(const void* q, const void* k, const void* v,
+                              void* o, void* m, void* l, int B, int H,
+                              int Sq, int Sk, int D, int causal,
+                              int q_offset, int device, void* stream) {
+  return launch_t<float>(q, k, v, o, m, l, B, H, Sq, Sk, D, causal, q_offset,
+                         device, stream);
+}
+
+int flash_attention_stats_bf16(const void* q, const void* k, const void* v,
+                               void* o, void* m, void* l, int B, int H,
+                               int Sq, int Sk, int D, int causal,
+                               int q_offset, int device, void* stream) {
+  return launch_t<__nv_bfloat16>(q, k, v, o, m, l, B, H, Sq, Sk, D, causal,
                                  q_offset, device, stream);
 }
 

@@ -37,9 +37,10 @@
 // warps take tiles 2r and 2r + 1, each computes its 16 x 16 scores with
 // m16n8k8 3xTF32 products over the state width (C rows as A, B rows as B
 // fragments; one fragment started at zero, N <= 64 is at most 8 k8
-// steps), multiplies them in registers by exp(cum_i - cum_j) where j <= i
-// and selects 0 elsewhere, and leaves the masked tile W (1 KB) in a
-// double-buffered exchange slot; after a barrier of the two warps
+// steps; two at N <= 128), multiplies them in registers by
+// exp(cum_i - cum_j) where j <= i and selects 0 elsewhere, and leaves the
+// masked tile W (1 KB) in a double-buffered exchange slot; after a
+// barrier of the two warps
 // (bar.sync, one id a strip) each multiplies both tiles by its half of x.
 // The score fragment holds columns (2t, 2t + 1) where the A fragment of
 // the second product wants (t, t + 4), so inside each k8 step the j index
@@ -49,13 +50,15 @@
 // d_j = exp(cum_{Q-1} - cum_j), is one more 3xTF32 product over all QP
 // rows (padded rows carry d = 0 and x = 0), with the same j permutation
 // (it keeps the shared reads free of bank conflicts); its 16-row tiles go
-// to the warps of strips 0 .. 3, whose causal strips are the lightest,
-// each warp its half of the columns.  Each product sums at most a few k8
-// steps in a fragment and adds it to an f32 accumulator (the tensor
-// core's accumulation rounds toward zero; tf32x3.cuh).
+// to the warps of strips 0 .. 3 at N <= 64, whose causal strips are the
+// lightest (of strips 0 .. 7 at N <= 128), each warp its half of the
+// columns.  Each product sums at most a few k8 steps in a fragment and
+// adds it to an f32 accumulator (the tensor core's accumulation rounds
+// toward zero; tf32x3.cuh).
 //
-// Shared memory is 167 KB at Q = 128 (C, B, x, the W exchange), so one
-// block (16 warps) runs on an SM, at 128 registers a thread, no spill.
+// Shared memory is 167 KB at Q = 128 (C, B, x, the W exchange; the
+// N <= 64 instance), so one block (16 warps) runs on an SM, at 128
+// registers a thread, no spill.
 // What bounds it in practice is shared-memory traffic: with the x tile
 // split into its TF32 parts once and both parts kept in shared memory (so
 // every x fragment is two reads and no split), the kernel is slower, not
@@ -69,8 +72,24 @@
 // Rows are copied 16 bytes at a time where N % 4 == 0, P % 4 == 0 and x,
 // B and C are 16-byte aligned, else 4 bytes at a time (a second
 // instantiation).
-// Taken: 1 <= Q <= 128, 1 <= N <= 64, any P (tiled by 128 over the grid),
+// Taken: 1 <= Q <= 128, 1 <= N <= 128, any P (tiled over the grid),
 // BC * H < 2^31.
+//
+// Two instances by the state width, each with its P tile (the template
+// arguments NMAX and PT; the route names them):
+//   N <= 64:  NMAX 64, PT 128 ("P128"): the layout above, 167 KB of
+//             shared memory at Q = 128 in f32;
+//   N <= 128: NMAX 128, PT 64 ("P64 N128"): C and B of Q x 132 floats
+//             each, the x tile of Q x 68, cum, the decays and the 32 KB
+//             W exchange: 203,776 bytes at Q = 128 in f32 (with a
+//             128-wide tile it would be about 235 KB, past the 227 KB a
+//             block may take); bf16 121,856 bytes.  Both models with
+//             N = 128 or 64 have heads of P = 64 (mamba2-370m, zamba2),
+//             so no column of the 64-wide tile is idle.  The scores sum
+//             16 k8 steps, two fragments of 8 drained into f32 adds (the
+//             tensor core's accumulation rounds toward zero), and S's
+//             128 rows take the warps of all 8 strips, each strip its 16
+//             rows, each warp its 32 columns.
 //
 // bf16 (tf32x3.cuh): the same kernel with T = __nv_bfloat16, as the
 // reference casts each block to f32 and returns f32.  C, B and x tiles
@@ -94,10 +113,9 @@ constexpr int STRIPS = 8;               // 16-row strips of the chunk
 constexpr int WARPS = 2 * STRIPS;       // two warps a strip
 constexpr int THREADS = 32 * WARPS;
 constexpr int QMAX = 16 * STRIPS;       // chunk length
-constexpr int NMAX = 64;                // state width
-constexpr int PT = 128;                 // head-dim columns a block
-constexpr int PH = PT / 2;              // head-dim columns a warp
-constexpr int NO = PH / 8;              // n8 tiles of a warp's output
+// the instances: (state width NMAX, head-dim columns a block PT)
+constexpr int NMAX_S = 64, PT_S = 128;  // N <= 64
+constexpr int NMAX_L = 128, PT_L = 64;  // N <= 128
 // the W exchange: per strip two rounds (double buffer) of two 16 x 16
 // tiles, each as 32 lanes x 8 floats in fragment order
 constexpr int EXF = STRIPS * 2 * 2 * 256;
@@ -105,8 +123,8 @@ constexpr int EXF = STRIPS * 2 * 2 * 256;
 // Row strides in elements of T.  f32: 4 mod 32 words, so the fragment
 // reads (row g, column t of C and B; rows 2t and 2t + 1, column g of B and
 // x) hit 32 different banks; bf16: 16 bytes of pad.  Rows stay 16-byte
-// aligned either way.
-template <class T>
+// aligned either way.  Ld<T> is the N <= 64 instance's.
+template <class T, int NMAX = NMAX_S, int PT = PT_S>
 struct Ld {
   static constexpr int N = NMAX + int(16 / sizeof(T));
   static constexpr int X = PT + int(16 / sizeof(T));
@@ -114,9 +132,10 @@ struct Ld {
 
 // Dynamic shared memory for QP (Q rounded up to 16) rows: C, B, the x
 // tile (of T), cum, the end-of-chunk decays and the W exchange (f32).
-template <class T>
+template <class T, int NMAX, int PT>
 size_t smem_bytes(int QP) {
-  return sizeof(T) * size_t(QP) * (2 * Ld<T>::N + Ld<T>::X) +
+  using L = Ld<T, NMAX, PT>;
+  return sizeof(T) * size_t(QP) * (2 * L::N + L::X) +
          sizeof(float) * (2 * size_t(QP) + EXF);
 }
 
@@ -138,18 +157,21 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t ld,
 }
 
 // s = C[i0 .. i0 + 15] . B[j0 .. j0 + 15]^T over the state width, 3xTF32
-// (one product for bf16): s[n] holds columns j0 + 8n .. j0 + 8n + 7,
-// summed in one fragment started at zero over the NK <= 8 k8 steps.
-template <class T>
+// (one product for bf16): s[n] holds columns j0 + 8n .. j0 + 8n + 7.
+// NMAX 64 sums its NK <= 8 k8 steps in one fragment started at zero; NMAX
+// 128 sums fragments of 8 k8 steps and adds them to s with f32 adds.
+template <class T, int NMAX, int PT>
 __device__ __forceinline__ void score_tile(float (&s)[2][4], const T* Cs,
                                            const T* Bs, int i0, int j0,
                                            int NK, int g, int t) {
-  constexpr int LDN = Ld<T>::N;
+  constexpr int LDN = Ld<T, NMAX, PT>::N;
   constexpr bool EX = kTf32Exact<T>;
+  constexpr bool CHUNKED = NMAX > 64;
+  float d[2][4];
 #pragma unroll
   for (int n = 0; n < 2; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) s[n][e] = d[n][e] = 0.f;
 #pragma unroll
   for (int k = 0; k < NMAX / 8; ++k) {
     if (k >= NK) break;
@@ -165,8 +187,22 @@ __device__ __forceinline__ void score_tile(float (&s)[2][4], const T* Cs,
       uint32_t bhi[2], blo[2];
       split_t(br[0], bhi[0], blo[0]);
       split_t(br[4], bhi[1], blo[1]);
-      mmax<EX, EX>(s[n], ahi, alo, bhi, blo);
+      if constexpr (CHUNKED) {
+        mmax<EX, EX>(d[n], ahi, alo, bhi, blo);
+      } else {
+        mmax<EX, EX>(s[n], ahi, alo, bhi, blo);
+      }
     }
+    if constexpr (CHUNKED) {
+      if (k % 8 == 7) {
+        drain(s[0], d[0]);
+        drain(s[1], d[1]);
+      }
+    }
+  }
+  if constexpr (CHUNKED) {
+    drain(s[0], d[0]);
+    drain(s[1], d[1]);
   }
 }
 
@@ -182,14 +218,16 @@ __device__ __forceinline__ void store2(float* row, int col, int pw, bool vec,
   if (col + 1 < pw) row[col + 1] = v1;
 }
 
-template <class T, bool VEC>
+template <class T, int NMAX, int PT, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_chunk(const T* __restrict__ x, const T* __restrict__ cum,
           const T* __restrict__ Bm, const T* __restrict__ Cm,
           float* __restrict__ y, float* __restrict__ state, int H, int Q,
           int P, int N, int QP) {
-  constexpr int LDN = Ld<T>::N;
-  constexpr int LDX = Ld<T>::X;
+  constexpr int LDN = Ld<T, NMAX, PT>::N;
+  constexpr int LDX = Ld<T, NMAX, PT>::X;
+  constexpr int PH = PT / 2;            // head-dim columns a warp
+  constexpr int NO = PH / 8;            // n8 tiles of a warp's output
   constexpr bool EX = kTf32Exact<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Cs = reinterpret_cast<T*>(smem_raw);   // [QP][LDN], zero past Q, N
@@ -233,7 +271,8 @@ ssd_chunk(const T* __restrict__ x, const T* __restrict__ cum,
   const bool vec2 = (P & 1) == 0;       // 8-byte aligned pairs of y and S
   float s[2][4];
   if (has_rows && half <= strip)       // the first round's tile, while
-    score_tile(s, Cs, Bs, i0, 16 * half, NK, g, t);   // x is in flight
+    score_tile<T, NMAX, PT>(s, Cs, Bs, i0, 16 * half, NK, g,
+                             t);   // x is in flight
   cp_async_wait<0>();
   __syncthreads();                      // x and the decays are in
 
@@ -251,7 +290,8 @@ ssd_chunk(const T* __restrict__ x, const T* __restrict__ cum,
       // before the round r + 2 write
       float* buf = ex + strip * 1024 + (r & 1) * 512;
       if (km <= strip) {
-        if (r > 0) score_tile(s, Cs, Bs, i0, 16 * km, NK, g, t);
+        if (r > 0)
+          score_tile<T, NMAX, PT>(s, Cs, Bs, i0, 16 * km, NK, g, t);
         // W = s .* exp(cum_i - cum_j) where j <= i, else 0: that exp is
         // selected away, never multiplied.  __expf (ex2.approx, relative
         // error about 2^-21 here) is faster than expf
@@ -318,7 +358,8 @@ ssd_chunk(const T* __restrict__ x, const T* __restrict__ cum,
   }
 
   // S[n][p] = sum_j (ds[j] B[j][n]) x[j][p]: the warps of strip w take
-  // rows 16w .. 16w + 15 of S (N <= 64: strips 0 .. 3), each its half of
+  // rows 16w .. 16w + 15 of S (N <= 64: strips 0 .. 3; N <= 128: all
+  // eight), each its half of
   // the columns, over all QP rows j.  k8 step kk: logical k = t is row
   // kk + 2t, k = t + 4 the row after it.
   const int n0 = strip * 16;
@@ -374,28 +415,42 @@ bool vec_copies(int P, int N, int elem_bytes, const void* x, const void* Bm,
          aligned16(Cm);
 }
 
-template <class T, bool VEC>
+template <class T, int NMAX, int PT, bool VEC>
 int launch(const void* x, const void* cum, const void* Bm, const void* Cm,
            float* y, float* state, int BC, int Q, int H, int P, int N,
            cudaStream_t stream) {
   // once per instantiation (the process drives one card)
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        ssd_chunk<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes<T>(QMAX)));
+        ssd_chunk<T, NMAX, PT, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes<T, NMAX, PT>(QMAX)));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(ssd_chunk<T, VEC>,
+    return cudaFuncSetAttribute(ssd_chunk<T, NMAX, PT, VEC>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 int(cudaSharedmemCarveoutMaxShared));
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int QP = (Q + 15) / 16 * 16;
   const dim3 grid(BC * H, (P + PT - 1) / PT);
-  ssd_chunk<T, VEC><<<grid, THREADS, smem_bytes<T>(QP), stream>>>(
+  ssd_chunk<T, NMAX, PT, VEC>
+      <<<grid, THREADS, smem_bytes<T, NMAX, PT>(QP), stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(cum),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), y, state, H, Q,
       P, N, QP);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T, int NMAX, int PT>
+int launch_v(bool vec, const void* x, const void* cum, const void* Bm,
+             const void* Cm, float* y, float* state, int BC, int Q, int H,
+             int P, int N, cudaStream_t st) {
+  if ((P + PT - 1) / PT > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return vec ? launch<T, NMAX, PT, true>(x, cum, Bm, Cm, y, state, BC, Q, H,
+                                         P, N, st)
+             : launch<T, NMAX, PT, false>(x, cum, Bm, Cm, y, state, BC, Q,
+                                          H, P, N, st);
 }
 
 template <class T>
@@ -404,14 +459,16 @@ int launch_t(const void* x, const void* cum, const void* Bm, const void* Cm,
              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (BC < 1 || H < 1 || P < 1 || Q < 1 || Q > QMAX || N < 1 || N > NMAX ||
-      static_cast<long long>(BC) * H > 0x7fffffffLL ||
-      (P + PT - 1) / PT > 65535)
+  if (BC < 1 || H < 1 || P < 1 || Q < 1 || Q > QMAX || N < 1 ||
+      N > NMAX_L || static_cast<long long>(BC) * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return vec_copies(P, N, sizeof(T), x, Bm, Cm)
-      ? launch<T, true>(x, cum, Bm, Cm, y, state, BC, Q, H, P, N, st)
-      : launch<T, false>(x, cum, Bm, Cm, y, state, BC, Q, H, P, N, st);
+  const bool vec = vec_copies(P, N, sizeof(T), x, Bm, Cm);
+  return N <= NMAX_S
+      ? launch_v<T, NMAX_S, PT_S>(vec, x, cum, Bm, Cm, y, state, BC, Q, H,
+                                  P, N, st)
+      : launch_v<T, NMAX_L, PT_L>(vec, x, cum, Bm, Cm, y, state, BC, Q, H,
+                                  P, N, st);
 }
 
 }  // namespace
@@ -420,7 +477,8 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t from the caller) and return the
 // launch's cudaError_t: 0 when the kernel was accepted.  1 <= Q <= 128,
-// 1 <= N <= 64, 1 <= P <= 128 * 65535, 1 <= BC * H < 2^31; y and state
+// 1 <= N <= 128, 1 <= P <= PT * 65535 (PT 128 at N <= 64, else 64),
+// 1 <= BC * H < 2^31; y and state
 // f32, 8-byte aligned (fresh allocations).  x, cum, B and C all f32, or
 // all bf16.
 int ssd_chunk_dual_f32(const void* x, const void* cum, const void* Bm,
@@ -439,13 +497,21 @@ int ssd_chunk_dual_bf16(const void* x, const void* cum, const void* Bm,
 }
 
 // The configuration a launch takes for these arguments of `elem_bytes`
-// bytes an element: "P128 cp.async16" or "P128 cp.async4"; bf16 routes
-// end in " bf16", and their one-element copies are plain loads ("ld2").
+// bytes an element: the instance ("P128" at N <= 64, "P64 N128" above)
+// and the copy width, e.g. "P128 cp.async16" or "P64 N128 cp.async4";
+// bf16 routes end in " bf16", and their one-element copies are plain
+// loads ("ld2").
 const char* ssd_chunk_dual_route(int P, int N, const void* x, const void* Bm,
                                  const void* Cm, int elem_bytes) {
   const bool vec = vec_copies(P, N, elem_bytes, x, Bm, Cm);
-  if (elem_bytes == 2) return vec ? "P128 cp.async16 bf16" : "P128 ld2 bf16";
-  return vec ? "P128 cp.async16" : "P128 cp.async4";
+  if (N <= NMAX_S) {
+    if (elem_bytes == 2)
+      return vec ? "P128 cp.async16 bf16" : "P128 ld2 bf16";
+    return vec ? "P128 cp.async16" : "P128 cp.async4";
+  }
+  if (elem_bytes == 2)
+    return vec ? "P64 N128 cp.async16 bf16" : "P64 N128 ld2 bf16";
+  return vec ? "P64 N128 cp.async16" : "P64 N128 cp.async4";
 }
 
 const char* cuda_error_string(int code) {

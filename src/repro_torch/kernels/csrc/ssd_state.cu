@@ -22,9 +22,12 @@
 // chunk 128, H 64, N 64, P 64) that is 145 MB against 2.1 GFLOP, so it is
 // bound by bytes (43 us at 3.35 TB/s; 32 us of f32 FMA at 67 TFLOP/s).
 //
-// Design (simple first): one block of 256 threads per (P tile of 64
-// columns, head, batch) walks the chunks in order, the way the scan does;
-// the walk is the sequential grid axis of a TPU kernel turned into a loop.
+// Two routes; ssd_state.py picks one by the launch's block count.
+//
+// The walk (`ssd_state_walk`, the first design, simple first): one block
+// of 256 threads per (P tile of 64 columns, head, batch) walks the chunks
+// in order, the way the scan does; the walk is the sequential grid axis
+// of a TPU kernel turned into a loop.
 // The N x 64 state stays in shared memory for the whole walk.  The chunk's
 // C rows (Q x N) and cum are copied with cp.async into one of two buffers,
 // the next chunk's copy in flight while the current chunk is computed; S
@@ -35,7 +38,28 @@
 // the two rows a warp reads lie in different banks).  A barrier, then
 // each thread updates its entries of the state with the chunk's total
 // decay and S.  A batch of few heads leaves SMs idle, since each block is
-// a sequential walk over the chunks; splitting the walk is later work.
+// a sequential walk over the chunks: at the mamba2-370m realization shape
+// (B 1, H 16, P 128) that is 32 blocks on 132 SMs, and the walk took
+// 0.318 ms against its 0.026 ms bound (PERF.md, NVIDIA H100 80GB HBM3,
+// 700 W).
+//
+// The split (`ssd_state_scan`, then `ssd_state_out`) takes the walk
+// apart where it would leave SMs idle:
+//   scan: one thread per state entry (b, h, n, p) scans the chunks,
+//         h_before[b, c] = h; h = h * exp(cum[b, c, Q - 1]) + S[b, c],
+//         and writes every chunk's h_before (B, nc, H, N, P) and the
+//         final state.  It reads S once and writes h_before once (plus
+//         the initial and final states); each thread keeps eight chunks'
+//         loads in flight, so the B H N P threads (131,072 at the
+//         realization shape) hide the memory latency of the sequence.
+//   out:  one block per (batch and chunk, head, P tile of 64 columns),
+//         no walk: the chunk's C rows and cum and its h_before tile are
+//         copied to shared memory (cp.async) and y = y_intra + exp(cum) *
+//         (C_g . h_before) is the walk's product, the same 8 x 4 register
+//         tile a thread (chunk_output below).
+// It moves h_before twice more than the walk (written, read back): at the
+// realization shape 119 MB in place of 86 MB, a 0.036 ms bound at 3.35
+// TB/s against 0.026, with 1024 output blocks in place of 32.
 
 #include <cuda_runtime.h>
 
@@ -93,9 +117,62 @@ __device__ __forceinline__ void load_chunk(float* Cs, float* cs,
     cp_async4(cs + q, cum + (bc * Q + q) * H + hd, true);
 }
 
+// y of chunk bc for head hd and the 64 columns from p0: y = y_intra +
+// exp(cum) * (C_g . h) from the chunk's C rows Cs (Q x LDC), its cum cs
+// and the state tile hs (N4 x 64, rows past N zero), all in shared
+// memory.  Each thread sums an 8-row x 4-column tile a pass over
+// kRowBlock rows.
+__device__ __forceinline__ void chunk_output(
+    const float* Cs, const float* cs, const float* hs, const Layout& L,
+    const float* __restrict__ y_intra, float* __restrict__ y, size_t bc,
+    int H, int P, int hd, int p0) {
+  const int Q = L.Q;
+  const int c0 = (threadIdx.x % kColGroups) * 4;   // the tile's columns
+  const int r0 = threadIdx.x / kColGroups;         // and first row
+  for (int qb = 0; qb < Q; qb += kRowBlock) {
+    float acc[kRows][4];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int n = 0; n < L.N4; n += 4) {
+      float4 h4[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        h4[k] = *reinterpret_cast<const float4*>(hs + (n + k) * kPT + c0);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int q = min(qb + r0 + i * kRowGroups, Q - 1);
+        const float4 cv =
+            *reinterpret_cast<const float4*>(Cs + q * L.LDC + n);
+        const float cn[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc[i][0] = fmaf(cn[k], h4[k].x, acc[i][0]);
+          acc[i][1] = fmaf(cn[k], h4[k].y, acc[i][1]);
+          acc[i][2] = fmaf(cn[k], h4[k].z, acc[i][2]);
+          acc[i][3] = fmaf(cn[k], h4[k].w, acc[i][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int q = qb + r0 + i * kRowGroups;
+      if (q >= Q) break;
+      const float e = expf(cs[q]);
+      const size_t row = ((bc * Q + q) * H + hd) * P;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = p0 + c0 + j;
+        if (p < P) y[row + p] = y_intra[row + p] + e * acc[i][j];
+      }
+    }
+  }
+}
+
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
-ssd_state_pass(const float* __restrict__ y_intra, const float* __restrict__ S,
+ssd_state_walk(const float* __restrict__ y_intra, const float* __restrict__ S,
                const float* __restrict__ cum, const float* __restrict__ C,
                const float* __restrict__ init, float* __restrict__ y,
                float* __restrict__ h_out, int nc, int Q, int H, int P, int N,
@@ -111,8 +188,6 @@ ssd_state_pass(const float* __restrict__ y_intra, const float* __restrict__ S,
   const int hd = blockIdx.y;
   const size_t b = blockIdx.z;
   const int g = hd / (H / G);
-  const int c0 = (threadIdx.x % kColGroups) * 4;   // the tile's columns
-  const int r0 = threadIdx.x / kColGroups;         // and first row
 
   load_chunk<VEC>(Cb, cb, C, cum, b * nc, Q, H, N, G, g, hd, L);
   cp_async_commit();
@@ -150,45 +225,7 @@ ssd_state_pass(const float* __restrict__ y_intra, const float* __restrict__ S,
 
     const float* Cs = Cb + buf * Q * L.LDC;
     const float* cs = cb + buf * Q;
-    for (int qb = 0; qb < Q; qb += kRowBlock) {
-      float acc[kRows][4];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int n = 0; n < L.N4; n += 4) {
-        float4 h4[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          h4[k] = *reinterpret_cast<const float4*>(hs + (n + k) * kPT + c0);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int q = min(qb + r0 + i * kRowGroups, Q - 1);
-          const float4 cv =
-              *reinterpret_cast<const float4*>(Cs + q * L.LDC + n);
-          const float cn[4] = {cv.x, cv.y, cv.z, cv.w};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            acc[i][0] = fmaf(cn[k], h4[k].x, acc[i][0]);
-            acc[i][1] = fmaf(cn[k], h4[k].y, acc[i][1]);
-            acc[i][2] = fmaf(cn[k], h4[k].z, acc[i][2]);
-            acc[i][3] = fmaf(cn[k], h4[k].w, acc[i][3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int q = qb + r0 + i * kRowGroups;
-        if (q >= Q) break;
-        const float e = expf(cs[q]);
-        const size_t row = ((bc * Q + q) * H + hd) * P;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = p0 + c0 + j;
-          if (p < P) y[row + p] = y_intra[row + p] + e * acc[i][j];
-        }
-      }
-    }
+    chunk_output(Cs, cs, hs, L, y_intra, y, bc, H, P, hd, p0);
     const float decay = expf(cs[Q - 1]);   // the chunk's total decay
     cp_async_wait<0>();
     __syncthreads();                  // S is in; every read of the state done
@@ -206,47 +243,144 @@ ssd_state_pass(const float* __restrict__ y_intra, const float* __restrict__ S,
   }
 }
 
+// The split's states: thread e of batch b holds state entry e of (H, N,
+// P) and scans the chunks, writing the state before each one into
+// h_before and the last into h_out.  kUnroll chunks' loads are issued
+// before their updates.
+constexpr int kUnroll = 8;
+
+__global__ void __launch_bounds__(kThreads)
+ssd_state_scan(const float* __restrict__ S, const float* __restrict__ cum,
+               const float* __restrict__ init, float* __restrict__ h_before,
+               float* __restrict__ h_out, int B, int nc, int Q, int H,
+               int NP) {
+  const size_t HNP = size_t(H) * NP;
+  const size_t idx = size_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= size_t(B) * HNP) return;
+  const size_t b = idx / HNP, e = idx % HNP;
+  const int hd = static_cast<int>(e / NP);
+  float h = init != nullptr ? init[idx] : 0.f;
+  for (int c0 = 0; c0 < nc; c0 += kUnroll) {
+    float s[kUnroll], tot[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const size_t bc = b * nc + c0 + u;
+      if (c0 + u < nc) {
+        s[u] = S[bc * HNP + e];
+        tot[u] = cum[(bc * Q + Q - 1) * H + hd];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (c0 + u < nc) {
+        h_before[(b * nc + c0 + u) * HNP + e] = h;
+        h = h * expf(tot[u]) + s[u];
+      }
+    }
+  }
+  h_out[idx] = h;
+}
+
+// The split's outputs: one block per (chunk bc, head, P tile); the chunk's
+// C rows and cum and its state tile from h_before, then chunk_output.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+ssd_state_out(const float* __restrict__ y_intra,
+              const float* __restrict__ h_before,
+              const float* __restrict__ cum, const float* __restrict__ C,
+              float* __restrict__ y, int Q, int H, int P, int N, int G) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L = layout(Q, N);
+  float* hs = smem;                   // [N4][kPT] the state's tile
+  float* Cs = hs + L.N4 * kPT;        // [Q][LDC] C rows
+  float* cs = Cs + Q * L.LDC;         // [Q] cum
+  const size_t bc = blockIdx.x;
+  const int hd = blockIdx.y;
+  const int p0 = blockIdx.z * kPT;
+  load_chunk<VEC>(Cs, cs, C, cum, bc, Q, H, N, G, hd / (H / G), hd, L);
+  const float* hb = h_before + (bc * H + hd) * size_t(N) * P;
+  constexpr int W = VEC ? 4 : 1;
+  for (int i = threadIdx.x; i < L.N4 * (kPT / W); i += kThreads) {
+    const int n = i / (kPT / W), cc = (i % (kPT / W)) * W;
+    const bool in = n < N && p0 + cc < P;
+    const float* src = in ? hb + size_t(n) * P + p0 + cc : h_before;
+    if constexpr (VEC) {
+      cp_async16(hs + n * kPT + cc, src, in);
+    } else {
+      cp_async4(hs + n * kPT + cc, src, in);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  chunk_output(Cs, cs, hs, L, y_intra, y, bc, H, P, hd, p0);
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// 16-byte copies where N and P are multiples of 4 and C and the state
+// rows read (S for the walk, h_before for the outputs) are 16-byte
+// aligned
+bool vec_copies(int N, int P, const void* C, const void* S) {
+  return N % 4 == 0 && P % 4 == 0 && aligned16(C) && aligned16(S);
+}
+
+long long out_smem(int Q, int N) {
+  const Layout L = layout(Q, N);
+  return 4LL * (L.N4 * kPT + Q * L.LDC + Q);
+}
+
+// Set each instantiation's shared-memory limit once (the process drives
+// one card).
+cudaError_t set_smem_limits() {
+  static const cudaError_t attr = [] {
+    constexpr auto kAttr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    cudaError_t e = cudaFuncSetAttribute(ssd_state_walk<true>, kAttr,
+                                         kMaxSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_state_walk<false>, kAttr, kMaxSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_state_out<true>, kAttr, kMaxSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_state_out<false>, kAttr, kMaxSmem);
+    return e;
+  }();
+  return attr;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory a launch takes (ssd_state.py::smem_bytes).
+// Bytes of dynamic shared memory a walk takes (ssd_state.py::smem_bytes;
+// a block of the split's outputs takes less).
 long long ssd_state_pass_smem(int Q, int N) {
   return 4LL * layout(Q, N).floats();
 }
 
-// Launch on `stream` (a cudaStream_t from the caller) and return the
-// launch's cudaError_t: 0 when the kernel was accepted.  `init` may be
-// null (a zero initial state).  H % G == 0; ceil(P / 64), H and B at most
-// 65535; ssd_state_pass_smem(Q, N) at most 227 KB.  C and S rows are
-// copied 16 bytes at a time where N and P are multiples of 4 and C and S
-// are 16-byte aligned, else 4 bytes at a time.
-int ssd_state_pass_f32(const void* y_intra, const void* S, const void* cum,
+// Each launch function runs on `stream` (a cudaStream_t from the caller)
+// and returns the launch's cudaError_t: 0 when the kernel was accepted.
+// `init` may be null (a zero initial state).  H % G == 0;
+// ssd_state_pass_smem(Q, N) at most 227 KB.  C and S (h_before for the
+// outputs) rows are copied 16 bytes at a time where N and P are multiples
+// of 4 and both are 16-byte aligned, else 4 bytes at a time.
+//
+// The walk: y and the final state.  ceil(P / 64), H and B at most 65535.
+int ssd_state_walk_f32(const void* y_intra, const void* S, const void* cum,
                        const void* C, const void* init, void* y, void* h_out,
                        int B, int nc, int Q, int H, int P, int N, int G,
                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // once per instantiation (the process drives one card)
-  static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        ssd_state_pass<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(ssd_state_pass<false>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kMaxSmem);
-  }();
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  err = set_smem_limits();
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long bytes = ssd_state_pass_smem(Q, N);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((P + kPT - 1) / kPT, H, B);
-  const bool vec = N % 4 == 0 && P % 4 == 0 && aligned16(C) && aligned16(S);
-  auto kernel = vec ? ssd_state_pass<true> : ssd_state_pass<false>;
+  auto kernel = vec_copies(N, P, C, S) ? ssd_state_walk<true>
+                                       : ssd_state_walk<false>;
   kernel<<<grid, kThreads, static_cast<size_t>(bytes),
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y_intra), static_cast<const float*>(S),
@@ -256,11 +390,52 @@ int ssd_state_pass_f32(const void* y_intra, const void* S, const void* cum,
   return static_cast<int>(cudaGetLastError());
 }
 
-// "cp.async16" or "cp.async4": the copy width a launch takes.
+// The split's states: every chunk's h_before (B, nc, H, N, P) and the
+// final state.  B * H * N * P < 2^31 * 256.
+int ssd_state_scan_f32(const void* S, const void* cum, const void* init,
+                       void* h_before, void* h_out, int B, int nc, int Q,
+                       int H, int P, int N, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(B) * H * N * P;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  ssd_state_scan<<<static_cast<unsigned>(blocks), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(S), static_cast<const float*>(cum),
+      static_cast<const float*>(init), static_cast<float*>(h_before),
+      static_cast<float*>(h_out), B, nc, Q, H, N * P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split's outputs: y from y_intra, h_before, cum and C.  B * nc below
+// 2^31; H and ceil(P / 64) at most 65535.
+int ssd_state_out_f32(const void* y_intra, const void* h_before,
+                      const void* cum, const void* C, void* y, int B, int nc,
+                      int Q, int H, int P, int N, int G, int device,
+                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = set_smem_limits();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ssd_state_pass_smem(Q, N) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B * nc, H, (P + kPT - 1) / kPT);
+  auto kernel = vec_copies(N, P, C, h_before) ? ssd_state_out<true>
+                                              : ssd_state_out<false>;
+  kernel<<<grid, kThreads, static_cast<size_t>(out_smem(Q, N)),
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y_intra), static_cast<const float*>(h_before),
+      static_cast<const float*>(cum), static_cast<const float*>(C),
+      static_cast<float*>(y), Q, H, P, N, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// "cp.async16" or "cp.async4": the copy width a launch reading C and the
+// state rows `rows` takes (S for the walk, h_before for the outputs).
 const char* ssd_state_pass_route(int N, int P, const void* C,
-                                 const void* S) {
-  return N % 4 == 0 && P % 4 == 0 && aligned16(C) && aligned16(S)
-             ? "cp.async16" : "cp.async4";
+                                 const void* rows) {
+  return vec_copies(N, P, C, rows) ? "cp.async16" : "cp.async4";
 }
 
 const char* cuda_error_string(int code) {

@@ -3,7 +3,9 @@
 
 ``flash_attention_mha(q, k, v, causal, q_offset)`` launches the CUDA kernel
 of ``csrc/flash_attention.cu`` (3xTF32 on the tensor cores, f32 accuracy; f32
-or bf16 operands, the output of their type, as the reference) for
+or bf16 operands, the output of their type, as the reference; with
+``return_stats`` also each row's softmax statistics (m, l), as the
+reference's flash path returns them) for
 tensors on the card and runs the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`) for tensors on the CPU.  A
 CUDA tensor never falls back: what the kernel does not take raises.
@@ -14,26 +16,34 @@ takes.
 
 from __future__ import annotations
 
+from typing import Tuple, Union
+
 import torch
 
 from . import _build
-from .ref import attention_ref
+from .ref import NEG_INF, attention_ref
 
 MAX_HEAD_DIM = 256
 
 
 def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, q_offset: int = 0
-                        ) -> torch.Tensor:
+                        *, causal: bool = True, q_offset: int = 0,
+                        return_stats: bool = False
+                        ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """q (B, H, Sq, D); k, v (B, H, Sk, D), MHA layout -> (B, H, Sq, D)
     of q's type.  With ``causal``, query row i sits at position
-    ``q_offset + i`` and sees keys 0 .. q_offset + i."""
+    ``q_offset + i`` and sees keys 0 .. q_offset + i.  With
+    ``return_stats``, ``(out, m, l)``: each row's max of the scaled scores
+    and ``sum exp(s - m)``, f32 (B, H, Sq), in the reference's units.  No
+    key (Sk = 0) launches nothing and gives zeros, ``m`` -2e38 and ``l``
+    0, as the plain version does."""
     qkv = (q, k, v)
     if int(q_offset) != q_offset or q_offset < 0:
         raise ValueError(f"flash_attention_mha: q_offset={q_offset!r} is "
                          f"not an int >= 0")
     if all(x.device.type == "cpu" for x in qkv):
-        return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                             return_stats=return_stats)
     if q.device.type != "cuda" or any(x.device != q.device for x in qkv):
         raise ValueError("flash_attention_mha: q, k, v must lie on one card")
     suffix = _build.dtype_suffix("flash_attention_mha", qkv)
@@ -46,6 +56,12 @@ def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_mha: q, k, v must be contiguous")
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
+    if Sk == 0 and min(B, H, Sq, D) >= 1 and D <= MAX_HEAD_DIM:
+        out = torch.zeros_like(q)
+        if not return_stats:
+            return out
+        return (out, torch.full((B, H, Sq), NEG_INF, device=q.device),
+                torch.zeros((B, H, Sq), device=q.device))
     if min(B, H, Sq, Sk, D) < 1 or D > MAX_HEAD_DIM \
             or -(-Sq // 32) > 65535 or max(q.numel(), k.numel()) > 2**31 - 1 \
             or q_offset + Sq > 2**31 - 1:
@@ -55,13 +71,20 @@ def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    launch = getattr(lib, f"flash_attention_{suffix}")
-    code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, H, Sq, Sk, D, int(causal), int(q_offset),
-                  q.device.index or 0, stream)
+    tail = (B, H, Sq, Sk, D, int(causal), int(q_offset), q.device.index or 0,
+            stream)
+    if return_stats:
+        m, l = (torch.empty((B, H, Sq), device=q.device) for _ in range(2))
+        launch = getattr(lib, f"flash_attention_stats_{suffix}")
+        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), m.data_ptr(), l.data_ptr(), *tail)
+    else:
+        launch = getattr(lib, f"flash_attention_{suffix}")
+        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), *tail)
     _build.check(lib, "flash_attention_mha", code)
     flash_attention_mha.launches += 1
-    return out
+    return (out, m, l) if return_stats else out
 
 
 flash_attention_mha.launches = 0

@@ -8,7 +8,8 @@ runs the plain version
 (:func:`repro_torch.kernels.ref.ssd_chunk_ref`) for tensors on the CPU.  A
 CUDA tensor never falls back: what the kernel does not take raises.
 ``ssd_chunk_dual.launches`` counts kernel launches; :func:`kernel_route`
-names the P tile and copy width a launch takes.
+names the instance (by the state width: N <= 64 takes a 128-column P
+tile, N <= 128 a 64-column one) and copy width a launch takes.
 """
 
 from __future__ import annotations
@@ -21,8 +22,13 @@ from . import _build
 from .ref import ssd_chunk_ref
 
 MAX_CHUNK = 128
-MAX_STATE = 64
-P_TILE = 128                # head-dim columns a block of the kernel takes
+MAX_STATE = 128
+
+
+def p_tile(N: int) -> int:
+    """Head-dim columns a block of the kernel takes at state width N: 128
+    for N <= 64, 64 above (the shared-memory budget of csrc/mamba_ssd.cu)."""
+    return 128 if N <= 64 else 64
 
 
 def ssd_chunk_dual(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
@@ -50,10 +56,10 @@ def ssd_chunk_dual(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
     BC, Q, H, P = x.shape
     N = Bm.shape[2]
     if min(BC, Q, H, P, N) < 1 or Q > MAX_CHUNK or N > MAX_STATE \
-            or BC * H > 2**31 - 1 or -(-P // P_TILE) > 65535:
+            or BC * H > 2**31 - 1 or -(-P // p_tile(N)) > 65535:
         raise ValueError(f"ssd_chunk_dual: BC={BC} Q={Q} H={H} P={P} N={N} "
-                         f"out of the kernel's range (Q <= {MAX_CHUNK}, "
-                         f"N <= {MAX_STATE}, BC*H < 2^31)")
+                         f"out of the kernel's range (1 <= Q <= {MAX_CHUNK}, "
+                         f"1 <= N <= {MAX_STATE}, BC*H < 2^31)")
     y = torch.empty(x.shape, device=x.device, dtype=torch.float32)
     state = torch.empty((BC, H, N, P), device=x.device, dtype=torch.float32)
     lib = _build.load("mamba_ssd")
@@ -72,9 +78,10 @@ ssd_chunk_dual.launches = 0
 
 def kernel_route(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor) -> str:
     """The kernel configuration ``ssd_chunk_dual(x, cum, Bm, Cm)`` launches
-    for these CUDA tensors, e.g. ``"P128 cp.async16"``: the P tile and the
-    copy width (16 bytes where P and N are multiples of 4 f32 or 8 bf16
-    elements and x, Bm, Cm are 16-byte aligned, else one element:
+    for these CUDA tensors, e.g. ``"P128 cp.async16"`` or ``"P64 N128
+    cp.async16"``: the instance (``P128`` for N <= 64, ``P64 N128`` above)
+    and the copy width (16 bytes where P and N are multiples of 4 f32 or 8
+    bf16 elements and x, Bm, Cm are 16-byte aligned, else one element:
     ``cp.async4`` for f32, ``ld2`` for bf16, whose routes end in
     `` bf16``)."""
     lib = _build.load("mamba_ssd")

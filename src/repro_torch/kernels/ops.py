@@ -19,21 +19,27 @@ from .tiled_matmul import tiled_matmul
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0,
+                    return_stats: bool = False):
     """q (B, Sq, H, D); k/v (B, Sk, KV, D) -> (B, Sq, H, D).
 
     GQA (KV < H) is expanded to MHA by repeating each kv head H // KV times
     (``jnp.repeat`` order).  With ``causal``, query row i sits at position
-    ``q_offset + i``."""
+    ``q_offset + i``.  With ``return_stats`` also each row's softmax
+    statistics (m, l), f32 (B, H, Sq) (:func:`flash_attention_mha`)."""
     H = q.shape[2]
     KV = k.shape[2]
     if KV != H:
         k = k.repeat_interleave(H // KV, dim=2)
         v = v.repeat_interleave(H // KV, dim=2)
     heads_first = lambda x: x.transpose(1, 2).contiguous()
-    out = flash_attention_mha(heads_first(q), heads_first(k), heads_first(v),
-                              causal=causal, q_offset=q_offset)
-    return out.transpose(1, 2)
+    got = flash_attention_mha(heads_first(q), heads_first(k), heads_first(v),
+                              causal=causal, q_offset=q_offset,
+                              return_stats=return_stats)
+    if return_stats:
+        out, m, l = got
+        return out.transpose(1, 2), m, l
+    return got.transpose(1, 2)
 
 
 def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -3,7 +3,9 @@
 Port of the oracles of ``src/repro/kernels/ref.py``: f32 math, the JAX
 package's layouts; the chunked SSD's inter-chunk pass (``ssd_state_ref``:
 the ``lax.scan`` and output of ``src/repro/kernels/ops.py:72-93``, with
-the model's groups and initial state); and the plain versions of the cost
+the model's groups and initial state), which is its two halves composed,
+``ssd_state_scan_ref`` (the states) and ``ssd_state_out_ref`` (the
+outputs); and the plain versions of the cost
 model's two kernels, ``segment_replay_ref`` and ``fused_eval_ref`` (the
 jitted functions of
 ``src/repro/core/analyzer.py:60-92`` and ``src/repro/core/evaluator.py:97-179``).
@@ -14,18 +16,35 @@ kernel is held against.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
+# the running max of a row with no visible key, in the reference's
+# attention statistics (src/repro/nn/attention.py:22); the flash kernel
+# writes the same value (csrc/flash_attention.cu)
+NEG_INF = -2.0e38
+
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                  causal: bool = True, q_offset: int = 0,
+                  return_stats: bool = False
+                  ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Naive softmax attention.  q/k/v: (B, H, S, D), MHA layout.  The causal
     mask is ``q_offset + q_pos >= k_pos``, both counted from 0 (top-left
     aligned at ``q_offset = 0``); masked scores are the finite -1e30, as in
-    the reference."""
+    the reference.  With ``return_stats`` also each row's online-softmax
+    statistics, f32 (B, H, Sq): ``m`` the max of the scaled scores and
+    ``l = sum exp(s - m)`` over the visible keys.  With no key (Sk = 0) the
+    output is 0, ``m`` the reference's ``NEG_INF`` (-2e38) and ``l`` 0."""
     D = q.shape[-1]
+    if k.shape[2] == 0:
+        out = torch.zeros_like(q)
+        if not return_stats:
+            return out
+        B, H, Sq = q.shape[:3]
+        return (out, torch.full((B, H, Sq), NEG_INF, device=q.device),
+                torch.zeros((B, H, Sq), device=q.device))
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
     if causal:
         Sq, Sk = s.shape[-2], s.shape[-1]
@@ -33,7 +52,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 >= torch.arange(Sk, device=s.device)[None, :])
         s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    if not return_stats:
+        return out
+    m = s.amax(dim=-1)
+    return out, m, torch.exp(s - m[..., None]).sum(dim=-1)
 
 
 def ssd_chunk_ref(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
@@ -64,35 +87,53 @@ def ssd_chunk_ref(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
     return y.contiguous(), state
 
 
+def ssd_state_scan_ref(S: torch.Tensor, cum: torch.Tensor,
+                       init_state: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The states of the SSD inter-chunk pass (oracle of
+    ``ssd_state_scan``), f32: the recurrence ``h <- h * exp(tot_c) + S_c``
+    with ``tot_c = cum[:, c, Q - 1]`` as a loop over chunks (``lax.scan``
+    in the reference).  S (B, nc, H, N, P), cum (B, nc, Q, H), init_state
+    (B, H, N, P) or None for zeros.  Returns (the state before each chunk
+    (B, nc, H, N, P), the final state (B, H, N, P))."""
+    Bsz, nc, H, N, P = S.shape
+    tot = cum.float()[:, :, -1]                          # (B, nc, H)
+    h = (torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=S.device)
+         if init_state is None else init_state.float())
+    h_before = []
+    for c in range(nc):
+        h_before.append(h)
+        h = h * tot[:, c].exp()[..., None, None] + S[:, c].float()
+    return torch.stack(h_before, dim=1), h
+
+
+def ssd_state_out_ref(y_intra: torch.Tensor, h_before: torch.Tensor,
+                      cum: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """The outputs of the SSD inter-chunk pass (oracle of
+    ``ssd_state_out``), f32: ``y = y_intra + exp(cum) * (C . h_before)``.
+    y_intra (B, nc, Q, H, P), h_before (B, nc, H, N, P), cum (B, nc, Q, H),
+    Cm (B, nc, Q, G, N) (head h reads group h // (H // G), ``jnp.repeat``
+    order).  Returns y (B, nc, Q, H, P)."""
+    H, G = y_intra.shape[3], Cm.shape[3]
+    Ch = Cm.float().repeat_interleave(H // G, dim=3)     # (B, nc, Q, H, N)
+    # y_inter[b,c,q,h,p] = sum_n C[b,c,q,h,n] hb[b,c,h,n,p] exp(cum[b,c,q,h])
+    y_inter = torch.matmul(Ch.transpose(2, 3), h_before.float()) \
+        .transpose(2, 3) * cum.float().exp()[..., None]
+    return y_intra.float() + y_inter
+
+
 def ssd_state_ref(y_intra: torch.Tensor, S: torch.Tensor, cum: torch.Tensor,
                   Cm: torch.Tensor, init_state: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD's inter-chunk pass (oracle of ``ssd_state_pass``),
-    f32: the chunk-state recurrence ``h <- h * exp(tot_c) + S_c`` as a loop
-    over chunks (``lax.scan`` in the reference), then ``y = y_intra +
-    exp(cum) * (C . h_before)``.
+    f32: the states (:func:`ssd_state_scan_ref`), then the outputs
+    (:func:`ssd_state_out_ref`).
 
     y_intra (B, nc, Q, H, P), S (B, nc, H, N, P), cum (B, nc, Q, H),
-    Cm (B, nc, Q, G, N) (head h reads group h // (H // G), ``jnp.repeat``
-    order), init_state (B, H, N, P) or None for zeros.  Returns (y (B, nc,
-    Q, H, P), final state (B, H, N, P))."""
-    Bsz, nc, Q, H, P = y_intra.shape
-    G, N = Cm.shape[3], Cm.shape[4]
-    cumf = cum.float()
-    tot = cumf[:, :, -1]                                 # (B, nc, H)
-    h = (torch.zeros((Bsz, H, N, P), dtype=torch.float32,
-                     device=y_intra.device)
-         if init_state is None else init_state.float())
-    h_before = []                                        # state before chunk
-    for c in range(nc):
-        h_before.append(h)
-        h = h * tot[:, c].exp()[..., None, None] + S[:, c].float()
-    hb = torch.stack(h_before, dim=1)                    # (B, nc, H, N, P)
-    Ch = Cm.float().repeat_interleave(H // G, dim=3)     # (B, nc, Q, H, N)
-    # y_inter[b,c,q,h,p] = sum_n C[b,c,q,h,n] hb[b,c,h,n,p] exp(cum[b,c,q,h])
-    y_inter = torch.matmul(Ch.transpose(2, 3), hb).transpose(2, 3) \
-        * cumf.exp()[..., None]
-    return y_intra.float() + y_inter, h
+    Cm (B, nc, Q, G, N), init_state (B, H, N, P) or None for zeros.
+    Returns (y (B, nc, Q, H, P), final state (B, H, N, P))."""
+    h_before, h = ssd_state_scan_ref(S, cum, init_state)
+    return ssd_state_out_ref(y_intra, h_before, cum, Cm), h
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor,

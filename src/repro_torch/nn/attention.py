@@ -23,10 +23,9 @@ import torch
 from torch import nn
 
 from ..kernels import ops
+from ..kernels.ref import NEG_INF
 from .layers import Linear, RMSNorm
 from .rope import apply_rope
-
-NEG_INF = -2.0e38
 
 
 class Attention(nn.Module):
@@ -202,8 +201,12 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The reference's rule picks the flash path: ``Sq * Sk > 256 * 2048``
     over the full key length, unless ``force_flash`` says otherwise, and
     never for one query.  On CUDA tensors with ``use_kernels`` it runs the
-    flash kernel on the first ``kv_len`` keys with ``q_offset``; the kernel
-    returns no statistics, so ``return_stats`` raises there."""
+    flash kernel on the first ``kv_len`` keys with ``q_offset``, which
+    returns the statistics too.  Every row the kernel sees has a visible
+    key, except with ``kv_len = 0``: the kernel route then gives m = -2e38
+    and l = 0 where the reference's scan gives l = the masked key count
+    (its exp(NEG_INF - NEG_INF) = 1); either way the row weighs nothing in
+    :func:`merge_attention`."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     G = H // n_kv
@@ -211,14 +214,10 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     use_flash = (Sq * Sk > 256 * 2048) if force_flash is None else force_flash
     if use_flash and Sq > 1:
         if use_kernels and q.device.type == "cuda":
-            if return_stats:
-                raise NotImplementedError(
-                    "multihead_attention: the flash kernel returns no "
-                    "(m, l) statistics, which return_stats (the cache_stack "
-                    "mode) needs; pass use_kernels=False")
             n = Sk if kv_len is None else int(kv_len)
             return ops.flash_attention(q, k[:, :n], v[:, :n], causal=causal,
-                                       q_offset=int(q_offset))
+                                       q_offset=int(q_offset),
+                                       return_stats=return_stats)
         qg = q.reshape(B, Sq, n_kv, G, D)
         out, m, l = _flash_path(qg, k, v, causal=causal,
                                 q_offset=int(q_offset), kv_len=kv_len,

@@ -102,8 +102,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CUDA tensors with ``use_kernels`` run the kernels
     (:func:`repro_torch.kernels.ops.ssd_chunks`) in chunks of
     ``min(chunk, 128)``: ``ssd_chunk_dual`` once per group, then one
-    ``ssd_state_pass``.  The chunk kernel's range (N <= 64) raises;
-    nothing falls back."""
+    ``ssd_state_pass`` (the walk, or the split's two kernels where the
+    walk would leave SMs idle).  The chunk kernel takes 1 <= N <= 128
+    (every registered config: mamba2-370m 128, zamba2-1.2b 64); past 128
+    it raises, and nothing falls back."""
     if not (use_kernels and x.device.type == "cuda"):
         return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk,
                                init_state=init_state)

@@ -100,17 +100,32 @@ def launch_cost(kernel: str, shape: Dict[str, int]) -> Tuple[float, float]:
         return (2.0 * BC * (T * N + T * H * P + Q * H * N * P),
                 float(F32_BYTES * BC * (2 * Q * H * P + Q * H + 2 * Q * N
                                         + H * N * P)))
-    if kernel == "ssd_state_pass":
+    if kernel.startswith("ssd_state_"):
         B, nc, Q, H, P, N, G = (shape[k] for k in
                                 ("B", "nc", "Q", "H", "P", "N", "G"))
         init = shape.get("init", 0)
-        # y_inter = C . h (Q x N x P a head and chunk), the exp scale and
-        # the add, the state update; y_intra in, y out, S, cum, C, the
-        # final state (and the initial one) once each
-        return (2.0 * B * nc * H * (Q * N * P + Q * P + N * P),
-                float(F32_BYTES * (2 * B * nc * Q * H * P + B * nc * H * N * P
-                                   + B * nc * Q * H + B * nc * Q * G * N
-                                   + (1 + init) * B * H * N * P)))
+        states = B * nc * H * N * P             # S, and h_before
+        ends = (1 + init) * B * H * N * P       # the final (initial) state
+        # the split's states: h <- h * exp(tot) + S, a mul and an add an
+        # entry and chunk; S and the chunk totals in, h_before out
+        scan = (2.0 * states,
+                float(F32_BYTES * (2 * states + B * nc * H + ends)))
+        # the split's outputs: y_inter = C . h_before (Q x N x P a head and
+        # chunk), the exp scale and the add; y_intra in, y out, h_before,
+        # cum and C once each
+        out = (2.0 * B * nc * H * (Q * N * P + Q * P),
+               float(F32_BYTES * (2 * B * nc * Q * H * P + states
+                                  + B * nc * Q * H + B * nc * Q * G * N)))
+        if kernel == "ssd_state_scan":
+            return scan
+        if kernel == "ssd_state_out":
+            return out
+        if kernel in ("ssd_state_pass", "ssd_state_walk"):
+            # the whole pass in one kernel: everything once, no h_before
+            return (scan[0] + out[0],
+                    float(F32_BYTES * (2 * B * nc * Q * H * P + states
+                                       + B * nc * Q * H + B * nc * Q * G * N
+                                       + ends)))
     raise KeyError(f"no cost model for kernel {kernel!r}")
 
 

@@ -6,8 +6,10 @@ eager stage function that runs on the one device:
 * ``fc``/``matmul`` layers run the tiled GEMM (:func:`..kernels.ops.matmul`),
   detected (qk, av) score/context pairs run flash attention (the score
   matrix is never materialized), ``*_ssd`` layers run the chunked SSD
-  (:func:`..kernels.ops.ssd_forward`, one ``ssd_chunk_dual`` and one
-  ``ssd_state_pass`` launch per layer), eltwise layers are adds.  With
+  (:func:`..kernels.ops.ssd_forward`, one ``ssd_chunk_dual`` launch and
+  the inter-chunk pass per layer: one ``ssd_state_walk`` launch, or
+  ``ssd_state_scan`` and ``ssd_state_out`` where the walk would leave the
+  card's SMs idle), eltwise layers are adds.  With
   ``use_kernels=False`` the same program routes through the plain versions
   of :mod:`..kernels.ref` (the parity target).  On a CPU device the kernel
   wrappers run those plain versions too.
@@ -50,7 +52,7 @@ import torch.nn.functional as F
 
 from ..core.bridge import MeshPlan, StagePlan
 from ..core.workload import Graph, Layer
-from ..kernels import ops, ref
+from ..kernels import ops, ref, ssd_state
 
 STAGE_AXES = ("h", "w", "b", "k")
 # cube dim order (B, H, W, K) -> grid axis carrying it
@@ -164,13 +166,25 @@ class StageProgram:
     out_layers: Tuple[str, ...]        # cubes later stages / callers need
     # argument shapes: ext cubes, then source-layer ifmaps, then weights
     arg_shapes: List[Tuple[int, ...]] = field(default_factory=list)
-    # kernel launches of one run: (kernel name, shape), from the plan
+    # kernel launches of one run: (kernel name, shape), from the plan; the
+    # layers' work, which the measured side counts
     launches: List[Tuple[str, Dict[str, int]]] = field(default_factory=list)
+    # the SSD inter-chunk pass after each chunk kernel: the kernels of the
+    # route ``ssd_state_pass`` takes on the program's device, with the
+    # pass's shape (B, nc, Q, H, P, N, G).  Launched, but not counted by
+    # the measured side (the chunked SSD's FLOPs are the chunk form's)
+    state_launches: List[Tuple[str, Dict[str, int]]] = field(
+        default_factory=list)
     fn: Callable = None
 
     @property
     def n_devices(self) -> int:
         return len(self.cores)
+
+    @property
+    def kernel_launches(self) -> List[Tuple[str, Dict[str, int]]]:
+        """Every kernel launch of one run on the card."""
+        return self.launches + self.state_launches
 
     def layout(self, shape: Tuple[int, ...]) -> Layout:
         return cube_layout(shape, self.part, self.cores)
@@ -407,6 +421,7 @@ def build_program(g: Graph, plan: MeshPlan,
             arg_shapes.append((cin, lyr.K))
 
         launches: List[Tuple[str, Dict[str, int]]] = []
+        state_launches: List[Tuple[str, Dict[str, int]]] = []
         for name in st.layers:
             lyr = g.layers[name]
             if routes[name].startswith("flash:"):
@@ -417,9 +432,14 @@ def build_program(g: Graph, plan: MeshPlan,
                                   "D": hd, "causal": 1}))   # ops default
             elif routes[name] == "ssd":
                 heads, hd, chunk, N = _ssd_dims(lyr)
+                nc = -(-lyr.H // chunk)
                 launches.append(("ssd_chunk_dual",
-                                 {"BC": bu * -(-lyr.H // chunk), "Q": chunk,
-                                  "H": heads, "P": hd, "N": N}))
+                                 {"BC": bu * nc, "Q": chunk, "H": heads,
+                                  "P": hd, "N": N}))
+                state = {"B": bu, "nc": nc, "Q": chunk, "H": heads, "P": hd,
+                         "N": N, "G": 1}
+                state_launches += [(k, state) for k in ssd_state.route_kernels(
+                    bu, heads, hd, device)]
             elif routes[name] == "matmul":
                 launches.append(("tiled_matmul",
                                  {"M": bu * lyr.H * lyr.W,
@@ -429,6 +449,7 @@ def build_program(g: Graph, plan: MeshPlan,
             index=si, stage=st, part=st.parts[dom], cores=st.cgs[dom],
             routes=routes, ext_inputs=tuple(ext), src_inputs=tuple(src),
             out_layers=tuple(outs), arg_shapes=arg_shapes, launches=launches,
+            state_launches=state_launches,
             fn=_stage_fn(g, st, routes, tuple(ext), tuple(src),
                          tuple(weighted), tuple(outs), bu, use_kernels)))
     return RealizedProgram(graph=g, plan=plan, stages=stages, batch_unit=bu,

@@ -17,8 +17,10 @@ within rel 1e-5 of its plain version and within the reference's parity
 envelope (rel 1e-4, equal bottlenecks) of the exact numpy engine;
 ``segment_replay`` within rel 1e-12 of ``np.bincount`` (float64 atomic
 adds, in an order that changes from run to run).  The model stack's: the
-SSD state pass within 1e-4 of its plain version, the model's chunked SSD
-within 2e-4, flash with ``q_offset`` at the flash tolerances, and the
+SSD state pass within 1e-4 of its plain version on each route (the walk,
+and the split's two kernels), the model's chunked SSD within 2e-4 (at N =
+128 too), flash with ``q_offset`` and with its statistics at the flash
+tolerances, ``cache_stack`` attention within 1e-4 (below), and the
 reduced models' kernel route against ``use_kernels=False`` (below).
 """
 
@@ -183,6 +185,13 @@ def _ssd_inputs(rng, BC, Q, H, P, N, device, offset=False):
     (3, 100, 1, 32, 12, False, "P128 cp.async16"),      # N % 8 != 0
     (1, 128, 3, 130, 20, False, "P128 cp.async4"),      # P = 130
     (1, 70, 7, 60, 50, True, "P128 cp.async4"),
+    # the N <= 128 instance: the mamba2-370m serve shape, N = 100 (16-byte
+    # copies), an odd N, x a float off 16 B, P = 130 in three tiles
+    (32, 128, 32, 64, 128, False, "P64 N128 cp.async16"),
+    (2, 128, 3, 64, 100, False, "P64 N128 cp.async16"),
+    (3, 70, 3, 64, 99, False, "P64 N128 cp.async4"),
+    (1, 100, 5, 64, 128, True, "P64 N128 cp.async4"),
+    (1, 128, 3, 130, 72, False, "P64 N128 cp.async4"),
 ])
 def test_ssd_chunk_kernel_vs_plain(cuda, BC, Q, H, P, N, offset, route):
     """Each copy width of the SSD chunk kernel against the plain version,
@@ -303,6 +312,9 @@ def test_flash_attention_bf16_vs_plain(cuda, B, H, Sq, Sk, D, causal, route):
     (1, 100, 5, 64, 64, "P128 cp.async16 bf16"),      # Q % 16 != 0
     (1, 128, 3, 130, 24, "P128 ld2 bf16"),            # P = 130
     (3, 70, 3, 60, 50, "P128 ld2 bf16"),
+    (32, 128, 32, 64, 128, "P64 N128 cp.async16 bf16"),   # mamba2-370m
+    (2, 128, 3, 64, 100, "P64 N128 ld2 bf16"),            # N % 8 != 0
+    (1, 100, 5, 130, 128, "P64 N128 ld2 bf16"),           # P = 130
 ])
 def test_ssd_chunk_kernel_bf16_vs_plain(cuda, BC, Q, H, P, N, route):
     """bf16 inputs launch the kernel and give f32 outputs, equal to the
@@ -424,8 +436,10 @@ def test_close_loop_on_the_card(cuda, tmp_path, capsys):
     for r in res.realized:
         plan = collections.Counter(
             {"tiled_matmul": 0, "flash_attention_mha": 0,
-             "ssd_chunk_dual": 0, "ssd_state_pass": 0})
-        plan.update(k for sp in r.program.stages for k, _ in sp.launches)
+             "ssd_chunk_dual": 0, "ssd_state_walk": 0, "ssd_state_scan": 0,
+             "ssd_state_out": 0})
+        plan.update(k for sp in r.program.stages
+                    for k, _ in sp.kernel_launches)
         assert r.launches == dict(plan) and plan["tiled_matmul"] > 0
         assert all(st.wall_s > 0 for st in r.report.stages)
     cpu = close_loop(*args, device="cpu", ckpt=tmp_path / "cpu.ck.jsonl",
@@ -569,19 +583,34 @@ def test_family_fixture_kernel_route_vs_plain_route(cuda, fixture, name,
 # in bf16 compute 2e-2 of the largest plain-route logit)
 # ---------------------------------------------------------------------------
 
+def _state_counts():
+    from repro_torch.kernels import ssd_state
+    return tuple(k.launches for k in (ssd_state.ssd_state_walk,
+                                      ssd_state.ssd_state_scan,
+                                      ssd_state.ssd_state_out))
+
+
+# the state-pass kernels a route launches: (walk, scan, out)
+_ROUTE_LAUNCHES = {"walk": (1, 0, 0), "split": (0, 1, 1)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,nc,Q,H,P,N,G,init,route", [
+@pytest.mark.parametrize("route", ["walk", "split"])
+@pytest.mark.parametrize("B,nc,Q,H,P,N,G,init,copies", [
     (4, 8, 128, 64, 64, 64, 1, False, "cp.async16"),    # zamba2 prefill
     (1, 32, 128, 16, 128, 64, 1, False, "cp.async16"),  # mamba2-370m path
+    (4, 8, 128, 32, 64, 128, 1, False, "cp.async16"),   # mamba2-370m serve
     (2, 1, 128, 4, 64, 32, 1, False, "cp.async16"),     # nc = 1
     (2, 3, 70, 4, 130, 50, 2, True, "cp.async4"),       # P, N off 4; G 2
     (1, 5, 128, 6, 32, 128, 3, True, "cp.async16"),     # N 128, G 3
     (2, 4, 100, 4, 64, 13, 2, False, "cp.async4"),
 ])
 def test_ssd_state_pass_kernel_vs_plain(cuda, B, nc, Q, H, P, N, G, init,
-                                        route):
+                                        copies, route):
+    """Each route of the state pass, forced by calling its kernels'
+    wrappers, against the plain version: the route's kernels launch once
+    each, with the copy width named."""
     from repro_torch.kernels import ssd_state
-    from repro_torch.kernels.ssd_state import ssd_state_pass
     rng = np.random.default_rng(B * nc + Q + N)
     y = _on_card(rng, (B, nc, Q, H, P), cuda)
     S = _on_card(rng, (B, nc, H, N, P), cuda) * 0.1
@@ -589,12 +618,74 @@ def test_ssd_state_pass_kernel_vs_plain(cuda, B, nc, Q, H, P, N, G, init,
                        dim=2)
     C = _on_card(rng, (B, nc, Q, G, N), cuda)
     h0 = _on_card(rng, (B, H, N, P), cuda) if init else None
-    assert ssd_state.kernel_route(S, C) == route
-    n0 = ssd_state_pass.launches
-    got = ssd_state_pass(y, S, cum, C, h0)
+    n0 = _state_counts()
+    if route == "walk":
+        got = ssd_state.ssd_state_walk(y, S, cum, C, h0)
+        rows = S
+    else:
+        rows, h = ssd_state.ssd_state_scan(S, cum, h0)
+        got = ssd_state.ssd_state_out(y, rows, cum, C), h
     torch.cuda.synchronize()
-    assert ssd_state_pass.launches == n0 + 1
+    assert ssd_state.copy_width(C, rows) == copies
+    assert tuple(a - b for a, b in zip(_state_counts(), n0)) \
+        == _ROUTE_LAUNCHES[route]
     for a, b in zip(got, ref.ssd_state_ref(y, S, cum, C, h0)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_state_split_kernels_vs_their_plain_versions(cuda):
+    """The split's two kernels each against its own plain version: the
+    states of every chunk and the final state, then the outputs."""
+    from repro_torch.kernels.ssd_state import ssd_state_out, ssd_state_scan
+    rng = np.random.default_rng(11)
+    B, nc, Q, H, P, N, G = 2, 5, 100, 6, 64, 128, 3
+    y = _on_card(rng, (B, nc, Q, H, P), cuda)
+    S = _on_card(rng, (B, nc, H, N, P), cuda) * 0.1
+    cum = torch.cumsum(-_on_card(rng, (B, nc, Q, H), cuda).abs() * 0.05,
+                       dim=2)
+    C = _on_card(rng, (B, nc, Q, G, N), cuda)
+    h0 = _on_card(rng, (B, H, N, P), cuda)
+    got = ssd_state_scan(S, cum, h0)
+    want = ref.ssd_state_scan_ref(S, cum, h0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ssd_state_out(y, want[0], cum, C),
+                               ref.ssd_state_out_ref(y, want[0], cum, C),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,P,route", [
+    (1, 16, 128, "split"),      # the mamba2-370m realization shape: 32
+    (4, 32, 64, "split"),       # its serve wave: 128
+    (4, 64, 64, "walk"),        # the zamba2-1.2b prefill wave: 256
+    (1, 64, 64, "split"),       # a zamba2 wave of one: 64
+])
+def test_state_route_rule_on_the_card(cuda, B, H, P, route):
+    """The rule picks the split where the walk's B * H * ceil(P / 64)
+    blocks are fewer than the card's SMs (132 on an H100 SXM), the plan
+    declares the route's kernels, and ``ssd_state_pass`` launches them and
+    names them in ``kernel_route``."""
+    from repro_torch.kernels import ssd_state
+    sms = ssd_state.sm_count(cuda)
+    assert ssd_state.state_route(B, H, P, sms) == route
+    assert ssd_state.route_kernels(B, H, P, cuda) \
+        == ssd_state.ROUTE_KERNELS[route]
+    rng = np.random.default_rng(B * H + P)
+    nc, Q, N = 2, 64, 16
+    y = _on_card(rng, (B, nc, Q, H, P), cuda)
+    S = _on_card(rng, (B, nc, H, N, P), cuda) * 0.1
+    cum = torch.cumsum(-_on_card(rng, (B, nc, Q, H), cuda).abs() * 0.05,
+                       dim=2)
+    C = _on_card(rng, (B, nc, Q, 1, N), cuda)
+    assert ssd_state.kernel_route(S, C) == f"{route} cp.async16"
+    n0 = _state_counts()
+    got = ssd_state.ssd_state_pass(y, S, cum, C)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_state_counts(), n0)) \
+        == _ROUTE_LAUNCHES[route]
+    for a, b in zip(got, ref.ssd_state_ref(y, S, cum, C)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
@@ -605,9 +696,9 @@ def test_ssd_state_pass_kernel_vs_plain(cuda, B, nc, Q, H, P, N, G, init,
                                             (1024, 1, True, 256)])
 def test_ssd_chunked_kernel_route_vs_plain(cuda, L, G, init, chunk):
     """The model's chunked SSD on the card (the chunk kernel in chunks of
-    at most 128, once per group, then the state pass) against the plain
-    version at the config's chunk, each counted once per call."""
-    from repro_torch.kernels.ssd_state import ssd_state_pass
+    at most 128, once per group, then the state pass: at B 2, H 8 the
+    split's two kernels) against the plain version at the config's chunk,
+    each counted once per call."""
     from repro_torch.nn.mamba2 import ssd_chunked, ssd_chunked_ref
     rng = np.random.default_rng(L + G)
     B, H, P, N = 2, 8, 64, 32
@@ -617,26 +708,51 @@ def test_ssd_chunked_kernel_route_vs_plain(cuda, L, G, init, chunk):
     Bm, Cm = _on_card(rng, (B, L, G, N), cuda), _on_card(rng, (B, L, G, N),
                                                          cuda)
     h0 = _on_card(rng, (B, H, N, P), cuda) if init else None
-    n0 = (ssd_chunk_dual.launches, ssd_state_pass.launches)
+    n0 = (ssd_chunk_dual.launches,) + _state_counts()
     y, h = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0)
     torch.cuda.synchronize()
-    assert (ssd_chunk_dual.launches, ssd_state_pass.launches) == \
-        (n0[0] + G, n0[1] + 1)
+    n1 = (ssd_chunk_dual.launches,) + _state_counts()
+    assert tuple(a - b for a, b in zip(n1, n0)) == (G, 0, 1, 1)
     wy, wh = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0)
     torch.testing.assert_close(y, wy, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(h, wh, atol=2e-4, rtol=2e-4)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("L,G,init", [(300, 1, False), (512, 2, True)])
+def test_ssd_chunked_n128_kernel_route_vs_plain(cuda, L, G, init):
+    """The chunked SSD at mamba2-370m's state width N = 128 (heads of P =
+    64) through the kernels against the plain version, within 2e-4."""
+    from repro_torch.nn.mamba2 import ssd_chunked, ssd_chunked_ref
+    rng = np.random.default_rng(L + 128)
+    B, H, P, N = 2, 32, 64, 128
+    x = _on_card(rng, (B, L, H, P), cuda)
+    dt = _on_card(rng, (B, L, H), cuda).abs() * 0.1
+    A = -_on_card(rng, (H,), cuda).abs()
+    Bm, Cm = _on_card(rng, (B, L, G, N), cuda), _on_card(rng, (B, L, G, N),
+                                                         cuda)
+    h0 = _on_card(rng, (B, H, N, P), cuda) if init else None
+    n0 = ssd_chunk_dual.launches
+    y, h = ssd_chunked(x, dt, A, Bm, Cm, chunk=256, init_state=h0)
+    torch.cuda.synchronize()
+    assert ssd_chunk_dual.launches == n0 + G
+    wy, wh = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=256, init_state=h0)
+    torch.testing.assert_close(y, wy, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(h, wh, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.gpu
 def test_ssd_chunked_refuses_a_state_past_the_chunk_kernels_range(cuda):
-    """N = 128 (mamba2-370m) is past ssd_chunk_dual's N <= 64: it raises,
-    and nothing falls back to the plain version."""
+    """N = 129 is past ssd_chunk_dual's N <= 128: it raises, and nothing
+    falls back to the plain version."""
     from repro_torch.nn.mamba2 import ssd_chunked
     x = torch.zeros((1, 64, 2, 64), device=cuda)
     dt = torch.ones((1, 64, 2), device=cuda)
-    Bm = torch.zeros((1, 64, 1, 128), device=cuda)
-    with pytest.raises(ValueError, match="N <= 64"):
+    Bm = torch.zeros((1, 64, 1, 129), device=cuda)
+    n0 = ssd_chunk_dual.launches
+    with pytest.raises(ValueError, match="N <= 128"):
         ssd_chunked(x, dt, -torch.ones(2, device=cuda), Bm, Bm)
+    assert ssd_chunk_dual.launches == n0
 
 
 @pytest.mark.gpu
@@ -662,6 +778,85 @@ def test_flash_attention_q_offset_vs_plain(cuda, dtype, tol, B, H, Sq, Sk,
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_offset", [
+    (2, 4, 128, 384, 64, True, 256),     # cache mode: q_offset = Sk - Sq
+    (1, 32, 300, 1000, 64, True, 700),
+    (1, 2, 100, 300, 64, True, 0),       # Sq != Sk, top-left aligned
+    (2, 3, 70, 45, 100, False, 0),       # not causal, D off the template
+    (1, 2, 130, 130, 256, True, 0),      # the 256 template
+    (1, 2, 33, 40, 32, True, 7),
+])
+def test_flash_attention_stats_vs_plain(cuda, dtype, tol, B, H, Sq, Sk, D,
+                                        causal, q_offset):
+    """``return_stats``: the output and each row's (m, l), f32 (B, H, Sq),
+    against the plain version on the upcast inputs at the flash
+    tolerances; one launch."""
+    rng = np.random.default_rng(Sq + Sk + D + q_offset)
+    q, k, v = (_on_card(rng, (B, H, n, D), cuda).to(dtype)
+               for n in (Sq, Sk, Sk))
+    n0 = flash_attention_mha.launches
+    out, m, l = flash_attention_mha(q, k, v, causal=causal,
+                                    q_offset=q_offset, return_stats=True)
+    torch.cuda.synchronize()
+    assert flash_attention_mha.launches == n0 + 1
+    assert out.dtype == dtype and m.dtype == l.dtype == torch.float32
+    assert m.shape == l.shape == (B, H, Sq)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             q_offset=q_offset, return_stats=True)
+    for a, b in zip((out.float(), m, l), want):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_stats_with_no_key(cuda):
+    """Sk = 0 (an empty old cache) launches nothing: zeros, m = -2e38 and
+    l = 0, as the plain version gives."""
+    q = torch.ones((1, 2, 70, 64), device=cuda)
+    kv = torch.ones((1, 2, 0, 64), device=cuda)
+    n0 = flash_attention_mha.launches
+    out, m, l = flash_attention_mha(q, kv, kv, causal=False,
+                                    return_stats=True)
+    assert flash_attention_mha.launches == n0
+    assert (out == 0).all() and (m == -2.0e38).all() and (l == 0).all()
+    for a, b in zip((out, m, l), ref.attention_ref(q, kv, kv,
+                                                   return_stats=True)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pos,S", [(0, 1024), (512, 768)])
+def test_attention_block_cache_stack_kernel_vs_plain(cuda, pos, S):
+    """``cache_stack`` on the card (the old pages and the new segment each
+    through the flash kernel with its statistics, merged) against
+    ``use_kernels=False``, f32 compute: within 1e-4 (flash's 2e-5 through
+    the merge and the output projection); the stacks written alike.  At
+    pos = 0 the old cache is empty and only the segment launches."""
+    from repro_torch.nn.attention import Attention
+    rng = np.random.default_rng(pos + S)
+    B, d, H, KV, hd, smax, li = 2, 256, 4, 2, 64, 2048, 1
+    mod = Attention(d, H, KV, hd, device=cuda,
+                    gen=torch.Generator(device=cuda).manual_seed(pos))
+    x = _on_card(rng, (B, S, d), cuda)
+    positions = (pos + torch.arange(S, device=cuda))[None]
+    stacks = [_on_card(rng, (3, B, smax, KV, hd), cuda) for _ in range(2)]
+    got = {}
+    for use_kernels in (True, False):
+        tk, tv = (t.clone() for t in stacks)
+        n0 = flash_attention_mha.launches
+        y, _ = mod(x, positions=positions, cache_stack=(tk, tv, li, pos),
+                   compute_dtype=torch.float32, use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        got[use_kernels] = (y, tk, tv, flash_attention_mha.launches - n0)
+    assert got[True][3] == (1 if pos == 0 else 2) and got[False][3] == 0
+    torch.testing.assert_close(got[True][0], got[False][0], atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(got[True][1], got[False][1])
+    assert torch.equal(got[True][2], got[False][2])
+
+
 def _served_logits(api, params, toks, use_kernels, dev):
     """Prefill of ``toks`` into a 2048-position cache (so attention takes
     the flash path), then two decode steps fed ``toks``' first tokens."""
@@ -679,7 +874,8 @@ def _served_logits(api, params, toks, use_kernels, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-0.6b", "mamba2-370m",
-                                  "zamba2-1.2b", "phi3.5-moe-42b-a6.6b"])
+                                  "mamba2-370m:N=128", "zamba2-1.2b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_reduced_models_kernel_route_vs_plain(cuda, arch):
     """A reduced model's prefill of 300 tokens and two decode steps,
     through the kernels and with ``use_kernels=False`` on the same card.
@@ -690,9 +886,11 @@ def test_reduced_models_kernel_route_vs_plain(cuda, arch):
     the larger of 2e-2 and the plain route's own bf16-vs-f32 gap.  The
     kernels launch on the kernel route only."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd_state import ssd_state_pass
     from repro_torch.models import model_api
-    cfg = get_config(arch).reduced()
+    name, _, n = arch.partition(":N=")
+    cfg = get_config(name).reduced()
+    if n:       # reduced() cuts the state width; the config's own is 128
+        cfg = cfg.replace(ssm_state=int(n))
     if cfg.family == "moe":
         cfg = cfg.replace(capacity_factor=8.0)
     params = model_api(cfg).init_params(
@@ -700,7 +898,7 @@ def test_reduced_models_kernel_route_vs_plain(cuda, arch):
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         1, cfg.vocab, (2, 300)).astype(np.int32)).to(cuda)
     counts = lambda: (flash_attention_mha.launches, ssd_chunk_dual.launches,
-                      ssd_state_pass.launches)
+                      sum(_state_counts()))
     out, launched = {}, {}
     for cdt in ("float32", "bfloat16"):
         api = model_api(cfg.replace(compute_dtype=cdt))

@@ -25,6 +25,7 @@ from repro.kernels.mamba_ssd import ssd_chunk_dual as jssd_chunk_dual
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_mha
 from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
+from repro_torch.kernels import ssd_state
 from repro_torch.kernels.ssd_state import smem_bytes, ssd_state_pass
 from repro_torch.kernels.tiled_matmul import tiled_matmul
 
@@ -128,6 +129,8 @@ def _ssd_inputs(rng, BC, Q, H, P, N):
     (4, 64, 4, 32, 16),
     (1, 128, 8, 64, 32),
     (2, 128, 16, 128, 64),      # the mamba2-370m path's per-chunk shape
+    (2, 128, 8, 64, 128),       # mamba2-370m's own state width, P = 64
+    (2, 100, 3, 64, 100),       # N between 64 and 128, Q off 16
 ])
 def test_ssd_chunk_ref_vs_pallas(BC, Q, H, P, N):
     rng = np.random.default_rng(BC * Q + H + P + N)
@@ -233,16 +236,115 @@ def test_ssd_state_ref_vs_reference_ssd_chunked(nc, G, init):
                                rtol=2e-4)
 
 
+def _split_state_ref(y_intra, S, cum, Cm, init_state=None):
+    """The split route's plain versions composed: the states of every
+    chunk, then the outputs."""
+    h_before, h = ref.ssd_state_scan_ref(S, cum, init_state)
+    return ref.ssd_state_out_ref(y_intra, h_before, cum, Cm), h
+
+
+@pytest.mark.parametrize("nc,G,init,Q", [(1, 1, False, 20), (3, 2, True, 20),
+                                         (4, 3, True, 16), (2, 1, True, 36),
+                                         (3, 3, False, 12)])
+def test_ssd_state_split_refs_vs_reference_ssd_chunked(nc, G, init, Q):
+    """``ops.ssd_chunks`` with the split's plain versions as its state pass
+    (``ssd_state_scan_ref``, then ``ssd_state_out_ref``) against the
+    reference's ``ssd_chunked`` (f32, 1e-4): G 1-3, an initial state,
+    nc = 1, Q off 16; and each half against the whole pass's plain
+    version (equal)."""
+    from repro.nn.mamba2 import ssd_chunked as jssd_chunked
+    rng = np.random.default_rng(nc * 10 + G + Q)
+    B, H, P, N = 2, 6, 8, 12
+    L = nc * Q - 3
+    x = _randn(rng, (B, L, H, P))
+    dt = np.abs(_randn(rng, (B, L, H))) * 0.1
+    A = -np.abs(_randn(rng, (H,)))
+    Bm, Cm = _randn(rng, (B, L, G, N)), _randn(rng, (B, L, G, N))
+    h0 = _randn(rng, (B, H, N, P)) if init else None
+    want_y, want_h = jssd_chunked(
+        *(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)), chunk=Q,
+        init_state=None if h0 is None else jnp.asarray(h0))
+    y, h = ops.ssd_chunks(
+        *(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)), chunk=Q,
+        init_state=None if h0 is None else torch.from_numpy(h0),
+        chunk_dual=ref.ssd_chunk_ref, state_pass=_split_state_ref)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=1e-4,
+                               rtol=1e-4)
+    args = _state_inputs(rng, B, nc, Q, H, P, N, G, init)
+    for a, b in zip(_split_state_ref(*args), ref.ssd_state_ref(*args)):
+        assert torch.equal(a, b)
+
+
+def test_ssd_state_split_refs_vs_reference_ssd_forward():
+    """The split's plain versions under ``ops.ssd_forward`` against the
+    reference's jitted ``ssd_forward`` with its Pallas chunk kernel in
+    interpret mode (f32, 1e-4), at a padded last chunk."""
+    rng = np.random.default_rng(77)
+    B, L, H, P, N, chunk = 2, 70, 4, 16, 8, 32
+    x = _randn(rng, (B, L, H, P))
+    dt = np.abs(_randn(rng, (B, L, H))) * 0.1
+    A = -np.abs(_randn(rng, (H,)))
+    Bm, Cm = _randn(rng, (B, L, 1, N)), _randn(rng, (B, L, 1, N))
+    want, _ = jops.ssd_forward(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)),
+                               chunk=chunk, interpret=True)
+    got, _ = ops.ssd_forward(*(torch.from_numpy(a)
+                               for a in (x, dt, A, Bm, Cm)), chunk=chunk,
+                             state_pass=_split_state_ref)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_state_route_rule_and_declared_kernels():
+    """The walk where its B * H * ceil(P / 64) blocks fill the SMs, else
+    the split; a device that is not a card counts an H100's 132."""
+    assert ssd_state.state_route(1, 16, 128, 132) == "split"    # 32 blocks
+    assert ssd_state.state_route(4, 32, 64, 132) == "split"     # 128
+    assert ssd_state.state_route(4, 64, 64, 132) == "walk"      # 256
+    assert ssd_state.state_route(1, 132, 64, 132) == "walk"     # 132
+    assert ssd_state.state_route(4, 32, 64, 114) == "walk"      # fewer SMs
+    assert ssd_state.sm_count("cpu") == ssd_state.H100_SMS == 132
+    assert ssd_state.route_kernels(1, 16, 128, "cpu") == \
+        ("ssd_state_scan", "ssd_state_out")
+    assert ssd_state.route_kernels(4, 64, 64, "cpu") == ("ssd_state_walk",)
+
+
+def test_ssd_state_split_wrappers_on_the_cpu_and_off_it():
+    """The split's wrappers run their plain versions on CPU tensors,
+    uncounted, and raise for a tensor off the CPU."""
+    rng = np.random.default_rng(3)
+    y, S, cum, C, h0 = _state_inputs(rng, 2, 3, 16, 4, 8, 12, 2, True)
+    n0 = (ssd_state.ssd_state_scan.launches, ssd_state.ssd_state_out.launches)
+    hb, h = ssd_state.ssd_state_scan(S, cum, h0)
+    for a, b in zip((hb, h), ref.ssd_state_scan_ref(S, cum, h0)):
+        assert torch.equal(a, b)
+    assert torch.equal(ssd_state.ssd_state_out(y, hb, cum, C),
+                       ref.ssd_state_out_ref(y, hb, cum, C))
+    assert (ssd_state.ssd_state_scan.launches,
+            ssd_state.ssd_state_out.launches) == n0
+    meta = lambda t: torch.empty(t.shape, device="meta")
+    with pytest.raises(ValueError, match="one card"):
+        ssd_state.ssd_state_scan(meta(S), meta(cum))
+    with pytest.raises(ValueError, match="one card"):
+        ssd_state.ssd_state_out(meta(y), meta(hb), meta(cum), meta(C))
+    with pytest.raises(ValueError, match="do not agree"):
+        ssd_state.ssd_state_out(y, hb[:, :2], cum, C)
+
+
 def test_ssd_state_pass_cpu_dispatch_and_refusals():
     """CPU tensors run the plain version uncounted; a tensor off the CPU
     goes to the kernel or raises; shapes that do not agree raise on every
     device; the shared memory a shape needs is bounded."""
     rng = np.random.default_rng(0)
     args = _state_inputs(rng, 2, 3, 16, 4, 8, 12, 2, True)
-    n0 = ssd_state_pass.launches
+    launches = lambda: [k.launches for k in (ssd_state.ssd_state_walk,
+                                             ssd_state.ssd_state_scan,
+                                             ssd_state.ssd_state_out)]
+    n0 = launches()
     for a, b in zip(ssd_state_pass(*args), ref.ssd_state_ref(*args)):
         assert torch.equal(a, b)
-    assert ssd_state_pass.launches == n0
+    assert launches() == n0
     meta = [torch.empty(a.shape, device="meta") for a in args]
     with pytest.raises(ValueError, match="one card"):
         ssd_state_pass(*meta)
@@ -257,7 +359,7 @@ def test_ssd_state_pass_cpu_dispatch_and_refusals():
                 (y[0], S, cum, C, None)):
         with pytest.raises(ValueError, match="ssd_state_pass: shapes"):
             ssd_state_pass(*bad)
-    assert ssd_state_pass.launches == n0
+    assert launches() == n0
     assert smem_bytes(128, 64) == 4 * (2 * 64 * 64 + 2 * 128 * 68 + 256)
     assert smem_bytes(128, 128) <= 232448 < smem_bytes(128, 256)
 

@@ -54,8 +54,9 @@ def test_close_loop_on_cpu_equals_reference_dse(tmp_path, capsys):
     assert len(res.realized) == 2 and res.overlay.n_stages > 0
     for r in res.realized:
         assert r.launches == {"tiled_matmul": 0, "flash_attention_mha": 0,
-                              "ssd_chunk_dual": 0,
-                              "ssd_state_pass": 0}   # plain versions
+                              "ssd_chunk_dual": 0, "ssd_state_walk": 0,
+                              "ssd_state_scan": 0,
+                              "ssd_state_out": 0}   # plain versions
         assert len(r.report.stages) == len(r.program.stages) > 0
     rwl, rcands, rcfg = _ref_inputs(cands)
     ref = ref_dse.run_dse(rcands, rwl, rcfg)

@@ -19,7 +19,7 @@ from repro.nn import layers as jlayers
 from repro.nn import mamba2 as jmamba
 from repro.nn import moe as jmoe
 from repro.nn import rope as jrope
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.convert import load_tree
 from repro_torch.nn import attention, layers, mamba2, moe, rope
 from repro_torch.nn.params import count_params, param_bytes
@@ -165,6 +165,64 @@ def test_attention_scores_and_flash_block_scan(Sq, Sk, H, KV, causal,
             *(jnp.asarray(a) for a in (q, k, v)), **kw)
         for a, b in zip(got, want):
             assert _rel(a, b) <= TOL
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,q_offset,kv_len", [
+    (16, 48, True, 32, None),      # cache mode: queries at the end
+    (6, 20, False, 0, 13),         # an old cache of 13 keys
+    (5, 9, True, 4, 9),
+    (8, 24, False, 0, 0),          # cache_stack at pos 0: no old key
+])
+def test_attention_stats_vs_reference_flash_path(Sq, Sk, causal, q_offset,
+                                                 kv_len):
+    """The statistics (m, l) of the flash route: ``multihead_attention``
+    with the flash path forced and ``return_stats`` (on the CPU the block
+    scan, the flash kernel's plain version), and ``attention_ref`` with
+    ``return_stats`` (the kernel's plain version) on the first ``kv_len``
+    keys, against the reference's flash path.  With no key (kv_len = 0)
+    the reference's scan leaves l = the masked key count (exp(NEG_INF -
+    NEG_INF) = 1) where the kernel's plain version gives 0; m is NEG_INF in
+    both, so both weigh nothing when merged with a partial attention that
+    has a key, and the merges agree."""
+    rng = np.random.default_rng(Sq + Sk + q_offset)
+    B, H, KV, D, block = 2, 4, 2, 16, 8
+    q, k, v = _qkv(rng, B, Sq, Sk, H, KV, D)
+    kw = dict(n_kv=KV, causal=causal, q_offset=q_offset, kv_len=kv_len,
+              block=block, force_flash=True, return_stats=True)
+    want = jattn.multihead_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                     **kw)
+    got = attention.multihead_attention(*(torch.from_numpy(a)
+                                          for a in (q, k, v)), **kw)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= TOL
+    n = Sk if kv_len is None else kv_len
+    mha = lambda a: torch.from_numpy(a).repeat_interleave(H // KV, dim=2) \
+        .transpose(1, 2)
+    out, m, l = ops.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k[:, :n]),
+        torch.from_numpy(v[:, :n]), causal=causal, q_offset=q_offset,
+        return_stats=True)
+    r_out, r_m, r_l = ref.attention_ref(
+        torch.from_numpy(q).transpose(1, 2), mha(k[:, :n]), mha(v[:, :n]),
+        causal=causal, q_offset=q_offset, return_stats=True)
+    assert torch.equal(out, r_out.transpose(1, 2))
+    assert torch.equal(m, r_m) and torch.equal(l, r_l)
+    if n:
+        for a, b in zip((out, m, l), want):
+            assert _rel(a, b) <= TOL
+        return
+    assert (m == attention.NEG_INF).all() and (l == 0).all()
+    assert np.all(np.asarray(want[1]) == attention.NEG_INF)
+    # merged with the causal self-attention of the same queries
+    q2 = dict(kw, causal=True, kv_len=None, q_offset=0)
+    k2, v2 = k[:, :Sq], v[:, :Sq]
+    part = attention.multihead_attention(
+        *(torch.from_numpy(a) for a in (q, k2, v2)), **q2)
+    jpart = jattn.multihead_attention(
+        *(jnp.asarray(a) for a in (q, k2, v2)), **q2)
+    merged = attention.merge_attention(out, m, l, *part)
+    jmerged = jattn.merge_attention(*want, *jpart)
+    assert _rel(merged, jmerged) <= TOL and _rel(merged, jpart[0]) <= TOL
 
 
 def test_the_flash_rule_is_the_references():
@@ -326,6 +384,28 @@ def test_mamba2_block_with_cache(G):
         assert cache["conv"].dtype == torch.bfloat16
         for key in ("conv", "state"):
             assert _rel(cache[key], jcache[key]) <= TOL
+
+
+def test_mamba2_370m_layer_at_full_width():
+    """One SSM layer of mamba2-370m at full width (d 1024, 32 heads of 64,
+    N 128, the config's chunk 256) on a 300-token sequence (two chunks, the
+    last padded) against the reference's, f32 compute."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-370m")
+    kw = dict(d_state=cfg.ssm_state, headdim=cfg.ssm_headdim,
+              expand=cfg.ssm_expand, n_groups=cfg.ssm_groups,
+              chunk=cfg.ssm_chunk)
+    assert (cfg.d_model, kw["d_state"], kw["headdim"]) == (1024, 128, 64)
+    p, _ = jmamba.init_mamba2(jax.random.PRNGKey(7), cfg.d_model,
+                              d_state=kw["d_state"], headdim=kw["headdim"],
+                              expand=kw["expand"], n_groups=kw["n_groups"])
+    mod = load_tree(mamba2.Mamba2(cfg.d_model, **kw), _tree(p))
+    x = _randn(np.random.default_rng(8), (1, 300, cfg.d_model))
+    y, _ = mod(torch.from_numpy(x), compute_dtype=torch.float32)
+    yj, _ = jmamba.mamba2_block(p, jnp.asarray(x), compute_dtype=jnp.float32,
+                                **kw)
+    assert tuple(y.shape) == (1, 300, cfg.d_model)
+    assert _rel(y, yj) <= TOL
 
 
 @pytest.mark.parametrize("T,groups,cf,top_k", [

@@ -225,6 +225,28 @@ def test_mamba_fixture_plans_and_routes_match_reference():
     assert flops == 2_694_970_343_424
 
 
+def test_mamba_plan_declares_the_state_pass_route():
+    """After each of its 48 chunk launches the mamba2-370m plan declares
+    the state pass's kernels for the route ``ssd_state_pass`` takes: the
+    split at (B 1, H 16, P 128), 32 walk blocks on an H100's 132 SMs (the
+    count a plan on the CPU assumes).  The measured side counts the
+    layers' work (``launches``) only, so the pass's FLOPs stay those of
+    the GEMMs and the chunk form."""
+    g = make_workload("lm:mamba2-370m")
+    (_, plan), = plans_for(load_realize_candidates(
+        MAMBA_FIXTURE, {"MAMBA": g}, top=0, verbose=False))
+    prog = build_program(g, plan, device="cpu")
+    state = [(k, tuple(s.items())) for sp in prog.stages
+             for k, s in sp.state_launches]
+    shape = (("B", 1), ("nc", 32), ("Q", 128), ("H", 16), ("P", 128),
+             ("N", 64), ("G", 1))
+    assert state == [("ssd_state_scan", shape), ("ssd_state_out", shape)] * 48
+    assert sum(len(sp.kernel_launches) for sp in prog.stages) == 96 + 48 + 96
+    flops = sum(launch_cost(k, s)[0] for sp in prog.stages
+                for k, s in sp.launches)
+    assert flops == 2_694_970_343_424
+
+
 def test_corrupt_fixture_mapping_is_refused(tmp_path):
     rec = [json.loads(line) for line in FIXTURE.read_text().splitlines()]
     rec[1]["mapping"][0]["lms"]["l0_q"]["cg"][0] = 99
