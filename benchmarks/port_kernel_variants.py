@@ -28,6 +28,21 @@ For the SSD chunk kernel only:
   memory (both parts kept there, read in place of a split per use; the W
   exchange single-buffered, with a second barrier a round, to make room).
 
+For the SSD state pass (``ssd_state.cu``), its walk and its outputs
+kernel at ``chip_smoke.STATE_PATH``'s three shapes:
+
+* ``as built``;
+* ``plain stores``: y written with plain 16-byte stores in place of
+  streaming ones (``st.global.cs``);
+* ``no L2 prefetch``: the walk without its prefetch of the next chunk's
+  y_intra and S tiles;
+* ``no product``: C . h taken out (zeros): its results are wrong
+  (printed); it shows what the product costs next to the memory traffic.
+
+Then the state pass's two routes, walk and split, through the port's
+wrappers at 8 chunks of 128, P = 64 and a range of block counts at N =
+64 and 128, beside the route ``ssd_state.state_route`` picks.
+
 Prints one JSON line per kernel and shape, then the card's name and power
 limit.
 """
@@ -115,6 +130,26 @@ SPLIT_X = [
      "        }"),
 ]
 SSD_VARIANTS = {"expf mask": EXPF, "x split once": SPLIT_X}
+NO_PRODUCT = """    for (auto& a : acc)
+      for (auto& b : a)
+        for (float& e : b) e = 0.f;"""
+STATE_VARIANTS = {
+    "as built": [],
+    "plain stores": [("        __stcs(reinterpret_cast<float4*>(dst), o);",
+                      "        *reinterpret_cast<float4*>(dst) = o;")],
+    "no L2 prefetch": [("    if (VEC && vec_y && c + 1 < nc) {",
+                        "    if (false) {")],
+    "no product": [("""    if (round8(N) == NMAX) {
+      product<NMAX, true>(acc, Cs, hi, lo, T, Q, N);
+    } else {
+      product<NMAX, false>(acc, Cs, hi, lo, T, Q, N);
+    }""", NO_PRODUCT)],
+}
+# (B, H, N) of the route sweep, at 8 chunks of 128 and P = 64: blocks of
+# the walk from 64 to 256 at N = 128 (one walk an SM) and N = 64 (two)
+STATE_SWEEP = [(2, 32, 128), (3, 32, 128), (2, 56, 128), (4, 30, 128),
+               (4, 32, 128), (5, 32, 128), (4, 64, 128), (2, 32, 64),
+               (3, 32, 64), (4, 32, 64), (5, 32, 64), (4, 64, 64)]
 
 
 def substitute(text: str, subs, what: str) -> str:
@@ -150,6 +185,11 @@ def build_variants() -> dict:
         procs[(variant, "mamba_ssd")] = start_build(
             OUT / f"s{i}", "mamba_ssd", header,
             substitute(source["mamba_ssd"], subs, variant))
+    state = (_build.CSRC / "ssd_state.cu").read_text()
+    for i, (variant, subs) in enumerate(STATE_VARIANTS.items()):
+        procs[(variant, "ssd_state")] = start_build(
+            OUT / f"t{i}", "ssd_state", header,
+            substitute(state, subs, variant))
     libs = {}
     for key, (proc, path) in procs.items():
         log, _ = proc.communicate()
@@ -161,6 +201,70 @@ def build_variants() -> dict:
             fn.restype, fn.argtypes = ctypes.c_int, argtypes
         libs[key] = lib
     return libs
+
+
+def least_ms(fn) -> float:
+    """The least of three device timings of 100 calls each (a first
+    timing in a process can read high)."""
+    return min(chip_smoke.time_ms(fn, reps=100) for _ in range(3))
+
+
+def time_state(libs: dict, randn, stream: int) -> None:
+    """The state pass's variants at chip_smoke.STATE_PATH, then the route
+    sweep (STATE_SWEEP) through the port's wrappers, each time the least
+    of three."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_state
+    sms = ssd_state.sm_count(torch.device("cuda", 0))
+    for shape in chip_smoke.STATE_PATH:
+        B, nc, Q, H, P, N, G, _ = shape
+        y, S, cum, C, _ = chip_smoke.state_inputs(randn, *shape)
+        want = ref.ssd_state_ref(y, S, cum, C)
+        hb, _ = ref.ssd_state_scan_ref(S, cum)
+        want_out = ref.ssd_state_out_ref(y, hb, cum, C)
+        yo, ho = torch.empty_like(y), torch.empty_like(want[1])
+        heads = ssd_state.out_heads(B * nc, H, G, P, sms)
+        line = {"kernel": "ssd_state", "shape": list(shape[:7]),
+                "out_heads": heads}
+        for variant in STATE_VARIANTS:
+            lib = libs[(variant, "ssd_state")]
+            walk = lambda: lib.ssd_state_walk_f32(
+                y.data_ptr(), S.data_ptr(), cum.data_ptr(), C.data_ptr(),
+                None, yo.data_ptr(), ho.data_ptr(), B, nc, Q, H, P, N, G, 0,
+                stream)
+            out = lambda: lib.ssd_state_out_f32(
+                y.data_ptr(), hb.data_ptr(), cum.data_ptr(), C.data_ptr(),
+                yo.data_ptr(), B, nc, Q, H, P, N, G, heads, 0, stream)
+            if walk() != 0:
+                raise RuntimeError(f"{variant}: walk launch failed")
+            torch.cuda.synchronize()
+            walk_err = max((yo - want[0]).abs().max().item(),
+                           (ho - want[1]).abs().max().item())
+            walk_ms = least_ms(walk)
+            if out() != 0:
+                raise RuntimeError(f"{variant}: outputs launch failed")
+            torch.cuda.synchronize()
+            line[variant] = {
+                "walk_ms": walk_ms, "walk_max_abs_err": walk_err,
+                "out_ms": least_ms(out),
+                "out_max_abs_err": (yo - want_out).abs().max().item()}
+        print(json.dumps(line), flush=True)
+    for B, H, N in STATE_SWEEP:
+        args = chip_smoke.state_inputs(randn, B, 8, 128, H, 64, N, 1, False)
+        y, S, cum, C, h0 = args
+
+        def split():
+            hb, h = ssd_state.ssd_state_scan(S, cum, h0)
+            return ssd_state.ssd_state_out(y, hb, cum, C), h
+
+        print(json.dumps({
+            "kernel": "ssd_state_pass", "routes": "walk vs split",
+            "shape": [B, 8, 128, H, 64, N, 1], "walk_blocks": B * H,
+            "walk_slots": ssd_state.walk_slots(N, sms),
+            "rule": ssd_state.state_route(B, H, 64, N, sms),
+            "walk_ms": least_ms(lambda: ssd_state.ssd_state_walk(*args)),
+            "split_ms": least_ms(split)}), flush=True)
 
 
 def main() -> int:
@@ -198,9 +302,10 @@ def main() -> int:
                 "shape": [B, H, Sq, Sk, D, causal]}
         for variant in VARIANTS:
             fn = libs[(variant, "flash_attention")].flash_attention_f32
+            # q_offset 0 and device 0, as the entry point takes them
             launch = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                o.data_ptr(), B, H, Sq, Sk, D, int(causal), 0,
-                                stream)
+                                o.data_ptr(), B, H, Sq, Sk, D, int(causal),
+                                0, 0, stream)
             if launch() != 0:
                 raise RuntimeError(f"{variant}: launch failed")
             torch.cuda.synchronize()
@@ -227,6 +332,7 @@ def main() -> int:
                                  (g - w).abs().max().item()
                                  for g, w in zip((y, s), want))}
         print(json.dumps(line), flush=True)
+    time_state(libs, randn, stream)
     print(chip_smoke.nvidia_smi())
     return 0
 

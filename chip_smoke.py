@@ -14,18 +14,21 @@ phase prints one JSON line:
    (one ``nvcc`` per source, all at once), with seconds and ptxas lines
    (registers, spills).  Then ``sass``: the tensor-core ``HMMA``
    instructions in each built library's SASS, by kernel function, where
-   the toolkit has ``cuobjdump``; a kernel of the three tensor-core
-   sources without ``HMMA`` fails the run (``fused_eval.cu`` and
-   ``ssd_state.cu`` do no tensor-core products: their counts are printed,
-   not gated).
+   the toolkit has ``cuobjdump``; a kernel function that multiplies on
+   the tensor cores without ``HMMA`` fails the run: every function of
+   the three tensor-core sources and, in ``ssd_state.cu``, the walk's and
+   the split outputs' (``ssd_state_walk``, ``ssd_state_out``); the
+   state scan and ``fused_eval.cu`` do no product on the tensor cores,
+   so their counts are printed, not gated.
 3. ``kernel``: one line per kernel and shape.  Each kernel is held against
    its plain PyTorch version on the same inputs on the card, with TF32 off,
    at the tolerances of ``tests/test_kernels.py`` (GEMM atol 1e-3 /
    rtol 1e-4, flash 2e-5, SSD chunk 1e-4; the chunked SSD ``ssd_forward``
    at 2e-4; the SSD state pass, ``ssd_state_pass``, at 1e-4 on each route
    (forced): the walk, ``ssd_state_walk``, and the split,
-   ``ssd_state_scan`` then ``ssd_state_out``, each of those against its own
-   plain version too, every launch counted; the model's chunked SSD through
+   ``ssd_state_scan`` then ``ssd_state_out`` (``out_heads`` heads a
+   block), each of those against its own plain version too, every launch
+   counted; the model's chunked SSD through
    the SSD kernels at 2e-4; flash with ``q_offset = Sk - Sq``, the model's
    cache mode, in f32 and bf16; flash with its statistics (m, l) against
    the plain version's, and at Sk = 0 with no launch; attention with
@@ -40,21 +43,26 @@ phase prints one JSON line:
    each of them.  The realization paths' shapes also get
    the kernel's time, the plain version's, one PyTorch library call's
    (``torch.matmul``, ``scaled_dot_product_attention``; none computes the
-   SSD chunk form, so its ``library_ms`` is null), each as device time
+   SSD chunk form or the state pass, so their ``library_ms`` is null; for
+   ``ssd_state_out`` at G = 1 the reference's own expression, ``y_intra
+   + torch.einsum("bcqn,bchnp,bcqh->bcqhp", C, h_before, exp(cum))``,
+   three calls: exp, einsum, add), each as device time
    (``time_ms``), the kernel's time also as the host issues it
    (``host_issued_ms``: above ``ms`` where the wrapper's host time per
    call exceeds the kernel's), and the least time the card could take:
    ``bound_ms`` at the f32 FMA peak (kept so that rows compare across
    versions), ``bound_3xtf32_ms`` at a third of the TF32 tensor-core
-   peak, the rate of the arithmetic the three kernels now use
-   (``arith``).  Then one ``dtype: bf16`` line per kernel at every path
-   shape and at ragged sizes (odd K and N, D = 40 and 33, P = 130): bf16
-   operands, held against the plain version on the upcast inputs at the
-   reference's bf16 tolerances (GEMM atol 0.5 / rtol 5e-2, flash 2e-2;
-   SSD, whose outputs are f32, 1e-4), each launch counted and the output
-   type checked; at the path shapes also the kernel's, the plain
-   version's and the bf16 library call's time and the bound at bf16
-   rates (989 TFLOP/s dense, 2 bytes an element).
+   peak, the rate of the arithmetic the tensor-core kernels use
+   (``arith``: the three ported Pallas kernels, the state walk and the
+   split's outputs; the state scan does no product).  Then one ``dtype:
+   bf16`` line per kernel at every path shape and at ragged sizes (odd K
+   and N, D = 40 and 33, P = 130): bf16 operands, held against the plain
+   version on the upcast inputs at the reference's bf16 tolerances (GEMM
+   atol 0.5 / rtol 5e-2, flash 2e-2; SSD, whose outputs are f32, 1e-4),
+   each launch counted and the output type checked; at the path shapes
+   also the kernel's, the plain version's and the bf16 library call's
+   time and the bound at bf16 rates (989 TFLOP/s dense, 2 bytes an
+   element).
 4. ``path``, once per realization path: a committed keep_mappings
    checkpoint realized at full width through ``repro_torch.launch.realize
    --calibrate`` (one warm-up pass, then the counted pass, with every
@@ -125,8 +133,8 @@ phase prints one JSON line:
    set to 0 just before: requests, tokens, prefill seconds per wave, the
    median decode step, tokens a second, peak memory, and the launches,
    gated a wave at 7 flash, 38 SSD chunk and 38 state-pass walks
-   (zamba2) and at 48 SSD chunk and 48 of each of the split's two kernels
-   (mamba2-370m: the route the rule takes at 4 x 32 heads); the first
+   (zamba2) and at 48 SSD chunk and 48 state-pass walks (mamba2-370m: the
+   route the rule takes at 4 x 32 heads and N = 128); the first
    wave's prefill and 4 teacher-forced decode steps through the kernels
    against ``use_kernels=False`` on the card: within 2e-2 of the largest
    logit in f32 compute, and in the served bf16 compute within the larger
@@ -175,11 +183,11 @@ FIXTURES = ROOT / "tests" / "data" / "realize"
 REPORTS = ROOT / "results"
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, dense TF32 and bf16 on the tensor cores, and HBM3 bandwidth.  All
-# three kernels multiply in 3xTF32 (three TF32 products per f32 product,
-# f32 accuracy); with bf16 operands, which are exact in TF32, a product of
-# two of them is one TF32 product and a product with an operand computed
-# in f32 two.
+# cores, dense TF32 and bf16 on the tensor cores, and HBM3 bandwidth.
+# Every product of the kernels is taken in 3xTF32 (three TF32 products per
+# f32 product, f32 accuracy); with bf16 operands, which are exact in TF32,
+# a product of two of them is one TF32 product and a product with an
+# operand computed in f32 two.
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BF16_FLOPS = 989e12
@@ -190,11 +198,15 @@ PEAK_F64_FLOPS = 34e12
 ARITH = {"tiled_matmul": "3xTF32 mma.sync",
          "flash_attention_mha": "3xTF32 mma.sync",
          "ssd_chunk_dual": "3xTF32 mma.sync",
-         "ssd_state_walk": "f32 FMA (no tensor cores)",
+         "ssd_state_walk": "3xTF32 mma.sync",
          "ssd_state_scan": "f32 FMA (no tensor cores)",
-         "ssd_state_out": "f32 FMA (no tensor cores)"}
+         "ssd_state_out": "3xTF32 mma.sync"}
 # the state pass's kernels, by route (repro_torch.kernels.ssd_state)
 STATE_KERNELS = ("ssd_state_walk", "ssd_state_scan", "ssd_state_out")
+# the kernel functions of ssd_state.cu whose SASS must hold HMMA: the
+# two that take the product C . h (the scan takes none); every function
+# of _build.TENSOR_CORE_SOURCES must too, none of fused_eval.cu
+STATE_HMMA_KERNELS = ("ssd_state_walk", "ssd_state_out")
 ARITH_BF16 = {
     "tiled_matmul": "bf16 operands, f32 math: 1 TF32 mma.sync a product",
     "flash_attention_mha": "bf16 operands, f32 math: 1 TF32 mma.sync for "
@@ -285,7 +297,9 @@ SSD_FORWARD = [(2, 70, 4, 64, 32, 32), (1, 4096, 16, 128, 64, 128)]
 # layer's shape (a 1024-token wave of 4), the mamba2-370m realization
 # shape and its serve wave's (timed, each on both routes: the walk and the
 # split, forced), then edges, each on both routes: nc = 1, an initial
-# state, G = 2 and 3, P and N off 4 (4-byte copies), N = 128
+# state, G = 2 and 3, P and N off 4 (4-byte copies), N = 128; and two with
+# enough blocks that a block of the split's outputs takes 4 heads (G = 3,
+# Q, P and N ragged) and 2 (G = 8); Q = 200, past one round of rows
 STATE_PATH = [(4, 8, 128, 64, 64, 64, 1, False),
               (1, 32, 128, 16, 128, 64, 1, False),
               (4, 8, 128, 32, 64, 128, 1, False)]
@@ -294,7 +308,10 @@ STATE_EDGE = [(2, 1, 128, 4, 64, 32, 1, False),
               (2, 3, 128, 8, 64, 64, 1, True),
               (2, 3, 70, 4, 130, 50, 2, True),
               (1, 5, 128, 6, 32, 128, 3, True),
-              (2, 4, 100, 4, 64, 13, 2, False)]
+              (2, 4, 100, 4, 64, 13, 2, False),
+              (4, 8, 100, 12, 130, 50, 3, True),
+              (4, 8, 70, 16, 64, 13, 8, False),
+              (1, 3, 200, 4, 64, 64, 1, True)]
 STATE_TOL = SSD_TOL
 # the model's chunked SSD through the kernels against its plain version at
 # the config's chunk (B, L, H, P, G, N, chunk, init): L off the chunk, an
@@ -398,14 +415,14 @@ COST_KERNEL_FILES = {
 # Each wave launches, per SERVE_ARCHS, the flash kernel once an attention
 # application, the SSD chunk kernel once a Mamba-2 layer and the kernels
 # of the route the state pass takes once a Mamba-2 layer (zamba2's waves
-# of 4: the walk, 256 blocks; mamba2-370m's: the split, 128 walk blocks on
-# 132 SMs); decode takes the scores path and the recurrent update.  The
-# first wave's prefill and 4 teacher-forced decode steps through the
-# kernels against use_kernels=False on the card, within 2e-2 of the
-# largest logit (the reference's bf16 serving tolerance) in f32 compute;
-# in the served bf16 compute within the larger of 2e-2 and the plain
-# route's own bf16-vs-f32 gap (bf16 rounding, amplified over 38 random-init
-# layers, moves the logits by more than 2e-2: serve_check)
+# of 4: the walk, 256 blocks at two an SM; mamba2-370m's: the walk too,
+# 128 blocks at one an SM); decode takes the scores path and the recurrent
+# update.  The first wave's prefill and 4 teacher-forced decode steps
+# through the kernels against use_kernels=False on the card, within 2e-2
+# of the largest logit (the reference's bf16 serving tolerance) in f32
+# compute; in the served bf16 compute within the larger of 2e-2 and the
+# plain route's own bf16-vs-f32 gap (bf16 rounding, amplified over 38
+# random-init layers, moves the logits by more than 2e-2: serve_check)
 SERVE_ARCH = "zamba2-1.2b"
 # arch -> (flash launches a wave, Mamba-2 layers, attention heads and head
 # dim of the flash launches, SSD heads, head dim P and state width N)
@@ -659,7 +676,7 @@ def check_state_pass(randn, B, nc, Q, H, P, N, G, init, timed: bool,
     from repro_torch.realize.measure import launch_cost
     args = state_inputs(randn, B, nc, Q, H, P, N, G, init)
     y, S, cum, C, h0 = args
-    rule = ssd_state.state_route(B, H, P, ssd_state.sm_count(y.device))
+    rule = ssd_state.state_route(B, H, P, N, ssd_state.sm_count(y.device))
     route = route or rule
 
     def run():
@@ -708,9 +725,12 @@ def check_state_pass(randn, B, nc, Q, H, P, N, G, init, timed: bool,
     line = {"phase": "kernel", "kernel": "ssd_state_pass", "shape": shape,
             "route": f"{route} {copies}", "rule_route": rule,
             "kernels": list(kernels), "launches": launched,
-            "arith": ARITH["ssd_state_walk"],
+            "arith": ARITH[kernels[-1]],
             "main_path": main_path if timed else False, **STATE_TOL,
             "max_abs_err": err}
+    if route == "split":
+        line["out_heads"] = ssd_state.out_heads(B * nc, H, G, P,
+                                                ssd_state.sm_count(y.device))
     if route == rule and line["route"] != ssd_state.kernel_route(S, C):
         ok = False
     per = {}
@@ -720,6 +740,15 @@ def check_state_pass(randn, B, nc, Q, H, P, N, G, init, timed: bool,
             per[k].update(bounds(*launch_cost(k, shape)), ms=time_ms(fn),
                           plain_ms=time_ms(plain),
                           host_issued_ms=time_ms(fn, device=False))
+    if timed and route == "split" and G == 1:
+        # the reference's own expression (src/repro/kernels/ops.py:95-97)
+        C1 = C[:, :, :, 0]
+        per["ssd_state_out"].update(
+            library_ms=time_ms(lambda: y + torch.einsum(
+                "bcqn,bchnp,bcqh->bcqhp", C1, hb, cum.exp())),
+            library="y_intra + torch.einsum('bcqn,bchnp,bcqh->bcqhp', C, "
+                    "h_before, exp(cum)): the reference's expression, three "
+                    "calls (exp, einsum, add), TF32 off")
     line["per_kernel"] = per
     if timed:
         # the route's bound: its kernels' (the split writes and reads
@@ -764,7 +793,7 @@ def check_chunked(randn) -> None:
         launched = {k: fn.launches - n0[k] for k, fn in wrappers.items()}
         want = ssd_chunked_ref(*args, chunk=chunk, init_state=h0)
         torch.cuda.synchronize()
-        route = ssd_state.route_kernels(B, H, P, args[0].device)
+        route = ssd_state.route_kernels(B, H, P, N, args[0].device)
         expect = {k: G if k == "ssd_chunk_dual" else int(k in route)
                   for k in wrappers}
         ok = all(torch.allclose(g, w, **SSD_FORWARD_TOL)
@@ -1061,7 +1090,7 @@ def profile_ssd_forward(args, chunk: int, timed_line: dict) -> dict:
     x, _, _, Bm, _ = args
     B, _, H, P = x.shape
     line["state_route"] = ssd_state.state_route(
-        B, H, P, ssd_state.sm_count(x.device))
+        B, H, P, Bm.shape[-1], ssd_state.sm_count(x.device))
     line["state_kernels"] = sorted({re.search(r"ssd_state_\w+",
                                               e["name"]).group(0)
                                     for e in groups["state_pass"]})
@@ -1959,8 +1988,9 @@ def run_serve(dev, arch):
     for B, L in shapes:
         nc = -(-L // 128)
         state = (B, nc, 128, H, P, N, 1)
-        kernels = ssd_state.route_kernels(B, H, P, dev)
-        routes.append(ssd_state.state_route(B, H, P, ssd_state.sm_count(dev)))
+        kernels = ssd_state.route_kernels(B, H, P, N, dev)
+        routes.append(ssd_state.state_route(B, H, P, N,
+                                            ssd_state.sm_count(dev)))
         keys += [("flash_attention_mha",
                   (B, heads, L, L, hd, 1, 0, "bf16"))] * n_flash \
             + [("ssd_chunk_dual", (B * nc, 128, H, P, N))] * n_ssm \
@@ -2062,10 +2092,18 @@ def main() -> int:
         emit({"phase": "sass", "HMMA": None,
               "note": "the toolkit has no cuobjdump"})
     else:
+        gated = {name: list(hmma[name])
+                 for name in _build.TENSOR_CORE_SOURCES}
+        gated["ssd_state"] = [fn for fn in hmma["ssd_state"]
+                              if any(k in fn for k in STATE_HMMA_KERNELS)]
         emit({"phase": "sass", "HMMA": hmma,
-              "gated": list(_build.TENSOR_CORE_SOURCES)})
-        for name in _build.TENSOR_CORE_SOURCES:   # fused_eval does no products
-            if not hmma[name] or 0 in hmma[name].values():
+              "gated": {**{name: "every kernel function"
+                           for name in _build.TENSOR_CORE_SOURCES},
+                        "ssd_state": list(STATE_HMMA_KERNELS)}})
+        for name, fns in gated.items():
+            named = STATE_HMMA_KERNELS if name == "ssd_state" else ()
+            if not fns or any(hmma[name][fn] == 0 for fn in fns) \
+                    or not all(any(k in fn for fn in fns) for k in named):
                 raise AssertionError(f"{name}: a kernel without tensor-core "
                                      f"instructions: {hmma[name]}")
 

@@ -27,9 +27,10 @@ from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-# the sources whose products run on the tensor cores (SASS HMMA), each
-# with an f32 and a bf16 launch function; fused_eval and ssd_state do no
-# products on the tensor cores
+# the sources whose every kernel multiplies on the tensor cores (SASS
+# HMMA), each with an f32 and a bf16 launch function; fused_eval does no
+# product, and in ssd_state (f32 only) the walk and the split's outputs do
+# but the scan does not
 TENSOR_CORE_SOURCES = ("tiled_matmul", "flash_attention", "mamba_ssd")
 SOURCES = TENSOR_CORE_SOURCES + ("fused_eval", "ssd_state")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -55,7 +56,7 @@ SIGNATURES = {
                    "segment_replay_f64": [_P, _P, _L, _P, _L, _I, _P]},
     "ssd_state": {"ssd_state_walk_f32": [_P] * 7 + [_I] * 8 + [_P],
                   "ssd_state_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
-                  "ssd_state_out_f32": [_P] * 5 + [_I] * 8 + [_P]},
+                  "ssd_state_out_f32": [_P] * 5 + [_I] * 9 + [_P]},
 }
 # argument types of the functions that name the configuration a launch
 # takes (the last argument the operands' bytes an element); each returns a
@@ -192,6 +193,21 @@ def dtype_suffix(kernel: str, tensors) -> str:
                         f"operands, all of one type; got "
                         f"{[str(t.dtype) for t in tensors]}")
     return DTYPE_SUFFIX[names.pop()]
+
+
+def refuse_grad(kernel: str, tensors) -> None:
+    """Raise where autograd is on and an input (None skipped) requires
+    grad: a kernel fills its outputs through ctypes, outside the graph, so
+    the gradient would be lost without a word.  The wrappers call it for
+    tensors on the card; CPU tensors take the plain, differentiable
+    version."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: an input requires grad and the CUDA "
+                           f"kernel has no backward; run under "
+                           f"torch.no_grad(), or take the plain route "
+                           f"(use_kernels=False) to differentiate")
 
 
 def check(lib: ctypes.CDLL, kernel: str, code: int) -> None:

@@ -46,6 +46,7 @@ def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              return_stats=return_stats)
     if q.device.type != "cuda" or any(x.device != q.device for x in qkv):
         raise ValueError("flash_attention_mha: q, k, v must lie on one card")
+    _build.refuse_grad("flash_attention_mha", qkv)
     suffix = _build.dtype_suffix("flash_attention_mha", qkv)
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:

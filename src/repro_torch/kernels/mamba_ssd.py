@@ -43,6 +43,7 @@ def ssd_chunk_dual(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
     if x.device.type != "cuda" or any(a.device != x.device for a in args):
         raise ValueError("ssd_chunk_dual: x, cum, Bm, Cm must lie on one "
                          "card")
+    _build.refuse_grad("ssd_chunk_dual", args)
     suffix = _build.dtype_suffix("ssd_chunk_dual", args)
     if x.dim() != 4 or cum.dim() != 3 or Bm.dim() != 3 \
             or Bm.shape != Cm.shape or cum.shape != x.shape[:3] \

@@ -5,14 +5,15 @@ inter-chunk output of the jitted ``ssd_forward``
 
 ``ssd_state_pass(y_intra, S, cum, Cm, init_state)`` is the one entry point.
 For tensors on the card it takes one of two routes of ``csrc/ssd_state.cu``
-(f32), by :func:`state_route`: the walk (:func:`ssd_state_walk`, one block
-per (P tile, head, batch) walking the chunks) where that fills the card,
-else the split (:func:`ssd_state_scan`, the states of every chunk, then
-:func:`ssd_state_out`, every chunk's output in parallel).  For tensors on
-the CPU it runs the plain version
-(:func:`repro_torch.kernels.ref.ssd_state_ref`).  A CUDA tensor never
-falls back: what the kernels do not take raises.  Each kernel's wrapper
-counts its launches (``ssd_state_walk.launches``, ...);
+(f32; the product C . h on the tensor cores in 3xTF32), by
+:func:`state_route`: the walk (:func:`ssd_state_walk`, one block per (P
+tile, head, batch) walking the chunks) where its blocks fill the walks the
+card runs at once, else the split (:func:`ssd_state_scan`, the states of
+every chunk, then :func:`ssd_state_out`, every chunk's output in parallel,
+:func:`out_heads` heads a block).  For tensors on the CPU it runs the
+plain version (:func:`repro_torch.kernels.ref.ssd_state_ref`).  A CUDA
+tensor never falls back: what the kernels do not take raises.  Each
+kernel's wrapper counts its launches (``ssd_state_walk.launches``, ...);
 :func:`kernel_route` names the route and copy width a launch takes.
 """
 
@@ -27,6 +28,7 @@ from .ref import ssd_state_out_ref, ssd_state_ref, ssd_state_scan_ref
 
 MAX_SMEM = 232448               # bytes of shared memory a block may take
 P_TILE = 64                     # head-dim columns a block of the kernels takes
+MAX_STATE = 128                 # the largest state width N the kernels take
 # SMs of an H100 SXM, the card the port is written for: the count the
 # route rule assumes where the program's device is not a card (a plan
 # counted on the CPU)
@@ -38,11 +40,11 @@ ROUTE_KERNELS = {"walk": ("ssd_state_walk",),
 
 def smem_bytes(Q: int, N: int) -> int:
     """Shared memory of one block of the walk (a block of the split's
-    outputs takes less): the (N, 64) state and S tiles (N padded to a
-    multiple of 4), two buffers of the chunk's C rows (rows padded by 4
-    floats) and two of its cum."""
-    N4 = -(-N // 4) * 4
-    return 4 * (2 * N4 * P_TILE + 2 * Q * (N4 + 4) + 2 * Q)
+    outputs takes less): the (N, 64) state tile split in its TF32 hi and lo
+    parts (N padded to a multiple of 8, rows of 72 floats), two buffers of
+    the chunk's C rows (rows of N8 + 4 floats) and two of its cum."""
+    N8 = -(-N // 8) * 8
+    return 4 * (2 * N8 * (P_TILE + 8) + 2 * Q * (N8 + 4) + 2 * Q)
 
 
 def sm_count(device: torch.device) -> int:
@@ -54,19 +56,48 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def state_route(B: int, H: int, P: int, sms: int) -> str:
+def walk_slots(N: int, sms: int) -> int:
+    """Blocks of the walk the card runs at once: two an SM at N <= 64 (128
+    registers a thread), one above (a block takes more than half an SM's
+    shared memory)."""
+    return sms * (2 if N <= 64 else 1)
+
+
+def state_route(B: int, H: int, P: int, N: int, sms: int) -> str:
     """The route rule: the walk runs one block per (64-column P tile, head,
-    batch), each a sequential walk over the chunks, so it fills the card
-    only with at least one block an SM.  ``"walk"`` where B * H * ceil(P /
-    64) >= sms, else ``"split"``."""
-    return "walk" if B * H * -(-P // P_TILE) >= sms else "split"
+    batch), each a sequential walk over the chunks, and the blocks of a
+    wave walk in step, so a wave the walk leaves partly empty takes as long
+    as a full one.  ``"walk"`` where its B * H * ceil(P / 64) blocks fill
+    the :func:`walk_slots` of their last wave to at least 5/6, else
+    ``"split"``: on an H100 at 8 chunks the walk was the faster route from
+    112 to 132 blocks and at 256 with N = 128, at 256 with N = 64, and the
+    split below and at 160 (``benchmarks/port_kernel_variants.py``;
+    PERF.md)."""
+    blocks, slots = B * H * -(-P // P_TILE), walk_slots(N, sms)
+    waves = -(-blocks // slots)
+    return "walk" if 6 * blocks >= 5 * waves * slots else "split"
 
 
-def route_kernels(B: int, H: int, P: int, device: torch.device
+def out_heads(BC: int, H: int, G: int, P: int, sms: int) -> int:
+    """Heads one block of :func:`ssd_state_out` takes: C rows and cum of
+    the chunk are copied once for all of them, and the next head's state
+    tile is loaded during the current head's product.  The most of 4, 2
+    and 1 that divides a group's H // G heads and still gives the grid of
+    BC * (H / heads) * ceil(P / 64) blocks about two blocks an SM (at
+    least 15/8: 256 blocks pass on an H100's 132); else 1."""
+    tiles = -(-P // P_TILE)
+    for heads in (4, 2):
+        if (H // G) % heads == 0 \
+                and 8 * BC * (H // heads) * tiles >= 15 * sms:
+            return heads
+    return 1
+
+
+def route_kernels(B: int, H: int, P: int, N: int, device: torch.device
                   ) -> Tuple[str, ...]:
-    """The kernels ``ssd_state_pass`` launches for a (B, H, P) pass on
+    """The kernels ``ssd_state_pass`` launches for a (B, H, P, N) pass on
     ``device``, in order (the plan's declared launches)."""
-    return ROUTE_KERNELS[state_route(B, H, P, sm_count(device))]
+    return ROUTE_KERNELS[state_route(B, H, P, N, sm_count(device))]
 
 
 def _check_card(name: str, args, Q: int, N: int, dims) -> None:
@@ -76,16 +107,18 @@ def _check_card(name: str, args, Q: int, N: int, dims) -> None:
     dev = args[0].device
     if dev.type != "cuda" or any(a.device != dev for a in args):
         raise ValueError(f"{name}: the inputs must lie on one card")
+    _build.refuse_grad(name, args)
     if any(a.dtype != torch.float32 for a in args):
         raise TypeError(f"{name}: the kernel takes float32; got "
                         f"{[str(a.dtype) for a in args]}")
     if not all(a.is_contiguous() for a in args):
         raise ValueError(f"{name}: the inputs must be contiguous")
-    if min(dims) < 1 or max(dims) > 65535 or smem_bytes(Q, N) > MAX_SMEM:
+    if min(dims) < 1 or max(dims) > 65535 or not 1 <= N <= MAX_STATE \
+            or smem_bytes(Q, N) > MAX_SMEM:
         raise ValueError(f"{name}: shape {tuple(dims)} with Q={Q} N={N} out "
                          f"of the kernel's range (B, H, P tiles <= 65535; "
-                         f"Q and N within {MAX_SMEM} bytes of shared "
-                         f"memory)")
+                         f"1 <= N <= {MAX_STATE}; Q and N within {MAX_SMEM} "
+                         f"bytes of shared memory)")
 
 
 def _launch(name: str, lib, *args) -> None:
@@ -173,10 +206,11 @@ def ssd_state_out(y_intra: torch.Tensor, h_before: torch.Tensor,
     _check_card("ssd_state_out", args, Q, N, (H, -(-P // P_TILE)))
     if B * nc > 2**31 - 1:
         raise ValueError(f"ssd_state_out: B * nc = {B * nc} past 2^31 - 1")
+    heads = out_heads(B * nc, H, G, P, sm_count(y_intra.device))
     y = torch.empty_like(y_intra)
     _launch("ssd_state_out", _build.load("ssd_state"), y_intra.data_ptr(),
             h_before.data_ptr(), cum.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-            B, nc, Q, H, P, N, G, y.device.index or 0, _stream(y))
+            B, nc, Q, H, P, N, G, heads, y.device.index or 0, _stream(y))
     ssd_state_out.launches += 1
     return y
 
@@ -222,7 +256,7 @@ def ssd_state_pass(y_intra: torch.Tensor, S: torch.Tensor, cum: torch.Tensor,
             or any(a.device != y_intra.device for a in args):
         raise ValueError("ssd_state_pass: y_intra, S, cum, Cm and "
                          "init_state must lie on one card")
-    if state_route(B, H, P, sm_count(y_intra.device)) == "walk":
+    if state_route(B, H, P, N, sm_count(y_intra.device)) == "walk":
         return ssd_state_walk(y_intra, S, cum, Cm, init_state)
     hb, h = ssd_state_scan(S, cum, init_state)
     return ssd_state_out(y_intra, hb, cum, Cm), h
@@ -246,6 +280,6 @@ def kernel_route(S: torch.Tensor, Cm: torch.Tensor) -> str:
     :func:`ssd_state_scan` allocates, whose alignment a fresh allocation on
     the card shows."""
     B, _, H, N, P = S.shape
-    if state_route(B, H, P, sm_count(S.device)) == "walk":
+    if state_route(B, H, P, N, sm_count(S.device)) == "walk":
         return f"walk {copy_width(Cm, S)}"
     return f"split {copy_width(Cm, S.new_empty((N, P)))}"

@@ -27,6 +27,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"tiled_matmul: operands on {a.device} and "
                          f"{b.device}; the kernel takes both on one card")
+    _build.refuse_grad("tiled_matmul", (a, b))
     suffix = _build.dtype_suffix("tiled_matmul", (a, b))
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"tiled_matmul: shapes {tuple(a.shape)} @ "

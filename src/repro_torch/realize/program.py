@@ -41,6 +41,7 @@ eager stage function that runs on the one device:
 
 from __future__ import annotations
 
+import gc
 import math
 import time
 from dataclasses import dataclass, field
@@ -245,18 +246,27 @@ class RealizedProgram:
         layouts: Dict[str, Layout] = {}
         wall: List[float] = []
         dci_bytes: List[float] = []
-        for sp, own in zip(self.stages, args):
-            ext = [outputs[n] for n in sp.ext_inputs]
-            moved = 0.0
-            for name, x in zip(sp.ext_inputs, ext):
-                if layouts[name] != sp.layout(tuple(x.shape)):
-                    moved += x.numel() * x.element_size()
-            outs, secs = _elapsed(lambda: sp.fn(*ext, *own), self.device)
-            wall.append(secs)
-            dci_bytes.append(moved)
-            for name, x in zip(sp.out_layers, outs):
-                outputs[name] = x
-                layouts[name] = sp.layout(tuple(x.shape))
+        # no cyclic garbage collection while the stages are timed: a full
+        # collection of the host's objects landed inside a stage's wall
+        # and added 0.1-0.16 s to it on an H100's host (PERF.md)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for sp, own in zip(self.stages, args):
+                ext = [outputs[n] for n in sp.ext_inputs]
+                moved = 0.0
+                for name, x in zip(sp.ext_inputs, ext):
+                    if layouts[name] != sp.layout(tuple(x.shape)):
+                        moved += x.numel() * x.element_size()
+                outs, secs = _elapsed(lambda: sp.fn(*ext, *own), self.device)
+                wall.append(secs)
+                dci_bytes.append(moved)
+                for name, x in zip(sp.out_layers, outs):
+                    outputs[name] = x
+                    layouts[name] = sp.layout(tuple(x.shape))
+        finally:
+            if collecting:
+                gc.enable()
         return {"wall_s": wall, "dci_bytes": dci_bytes, "outputs": outputs}
 
 
@@ -439,7 +449,7 @@ def build_program(g: Graph, plan: MeshPlan,
                 state = {"B": bu, "nc": nc, "Q": chunk, "H": heads, "P": hd,
                          "N": N, "G": 1}
                 state_launches += [(k, state) for k in ssd_state.route_kernels(
-                    bu, heads, hd, device)]
+                    bu, heads, hd, N, device)]
             elif routes[name] == "matmul":
                 launches.append(("tiled_matmul",
                                  {"M": bu * lyr.H * lyr.W,

@@ -12,7 +12,8 @@ and 2e-4 for the chunked SSD; for bf16 operands, GEMM atol 0.5 / rtol
 (the SSD kernel returns f32 and keeps 1e-4).  TF32 is off for the plain
 versions.  The three kernels compute in 3xTF32 on the tensor cores; each
 of their tile or head-dim configurations and copy widths is driven here,
-for f32 and for bf16.  The cost model's two kernels: ``fused_eval``
+for f32 and for bf16.  So do the SSD state pass's walk and outputs, whose
+product C . h runs in 3xTF32 too.  The cost model's two kernels: ``fused_eval``
 within rel 1e-5 of its plain version and within the reference's parity
 envelope (rel 1e-4, equal bottlenecks) of the exact numpy engine;
 ``segment_replay`` within rel 1e-12 of ``np.bincount`` (float64 atomic
@@ -21,7 +22,9 @@ SSD state pass within 1e-4 of its plain version on each route (the walk,
 and the split's two kernels), the model's chunked SSD within 2e-4 (at N =
 128 too), flash with ``q_offset`` and with its statistics at the flash
 tolerances, ``cache_stack`` attention within 1e-4 (below), and the
-reduced models' kernel route against ``use_kernels=False`` (below).
+reduced models' kernel route against ``use_kernels=False`` (below), the
+MoE model's bf16 leg with its expert choice held fixed.  Every wrapper
+refuses an input that requires grad (the kernels have no backward).
 """
 
 import numpy as np
@@ -604,6 +607,13 @@ _ROUTE_LAUNCHES = {"walk": (1, 0, 0), "split": (0, 1, 1)}
     (2, 3, 70, 4, 130, 50, 2, True, "cp.async4"),       # P, N off 4; G 2
     (1, 5, 128, 6, 32, 128, 3, True, "cp.async16"),     # N 128, G 3
     (2, 4, 100, 4, 64, 13, 2, False, "cp.async4"),
+    # enough blocks that the split's outputs take several heads a block
+    # (ssd_state.out_heads on 132 SMs): 4 of a group of 4, Q, P, N ragged
+    (4, 8, 100, 12, 130, 50, 3, True, "cp.async4"),
+    (4, 8, 70, 16, 64, 13, 8, False, "cp.async4"),      # 2 of a group of 2
+    # Q past 128: a block's warps take the rows in two rounds
+    (1, 3, 200, 4, 64, 64, 1, True, "cp.async16"),
+    (4, 8, 256, 32, 64, 32, 1, False, "cp.async16"),   # 4 heads a block
 ])
 def test_ssd_state_pass_kernel_vs_plain(cuda, B, nc, Q, H, P, N, G, init,
                                         copies, route):
@@ -656,24 +666,26 @@ def test_ssd_state_split_kernels_vs_their_plain_versions(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,P,route", [
-    (1, 16, 128, "split"),      # the mamba2-370m realization shape: 32
-    (4, 32, 64, "split"),       # its serve wave: 128
-    (4, 64, 64, "walk"),        # the zamba2-1.2b prefill wave: 256
-    (1, 64, 64, "split"),       # a zamba2 wave of one: 64
+@pytest.mark.parametrize("B,H,P,N,route", [
+    (1, 16, 128, 64, "split"),  # the mamba2-370m realization shape: 32
+    (4, 32, 64, 128, "walk"),   # its serve wave: 128 walks, one an SM
+    (4, 64, 64, 64, "walk"),    # the zamba2-1.2b prefill wave: 256, two
+    (1, 64, 64, 64, "split"),   # a zamba2 wave of one: 64
+    (4, 32, 64, 64, "split"),   # 128 walks where two fit an SM
 ])
-def test_state_route_rule_on_the_card(cuda, B, H, P, route):
-    """The rule picks the split where the walk's B * H * ceil(P / 64)
-    blocks are fewer than the card's SMs (132 on an H100 SXM), the plan
+def test_state_route_rule_on_the_card(cuda, B, H, P, N, route):
+    """The rule picks the walk where its B * H * ceil(P / 64) blocks fill
+    their last wave of resident walks (two an SM at N <= 64, one above; an
+    H100 SXM has 132 SMs) to at least 5/6, else the split; the plan
     declares the route's kernels, and ``ssd_state_pass`` launches them and
     names them in ``kernel_route``."""
     from repro_torch.kernels import ssd_state
     sms = ssd_state.sm_count(cuda)
-    assert ssd_state.state_route(B, H, P, sms) == route
-    assert ssd_state.route_kernels(B, H, P, cuda) \
+    assert ssd_state.state_route(B, H, P, N, sms) == route
+    assert ssd_state.route_kernels(B, H, P, N, cuda) \
         == ssd_state.ROUTE_KERNELS[route]
     rng = np.random.default_rng(B * H + P)
-    nc, Q, N = 2, 64, 16
+    nc, Q = 2, 64
     y = _on_card(rng, (B, nc, Q, H, P), cuda)
     S = _on_card(rng, (B, nc, H, N, P), cuda) * 0.1
     cum = torch.cumsum(-_on_card(rng, (B, nc, Q, H), cuda).abs() * 0.05,
@@ -857,6 +869,82 @@ def test_attention_block_cache_stack_kernel_vs_plain(cuda, pos, S):
     assert torch.equal(got[True][2], got[False][2])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["tiled_matmul", "flash_attention_mha",
+                                    "ssd_chunk_dual", "ssd_state_walk",
+                                    "ssd_state_scan", "ssd_state_out"])
+def test_kernel_wrappers_refuse_an_input_that_requires_grad(cuda, kernel):
+    """A kernel fills its outputs outside autograd's graph, so a CUDA input
+    that requires grad raises, naming ``use_kernels=False``, and launches
+    nothing; under ``torch.no_grad()`` the same call launches the kernel."""
+    from repro_torch.kernels import ssd_state
+    rng = np.random.default_rng(21)
+    t = lambda *shape: _on_card(rng, shape, cuda)
+    dec = lambda *shape: torch.cumsum(-t(*shape).abs() * 0.05, dim=-2)
+    calls = {
+        "tiled_matmul": (tiled_matmul, lambda: (t(64, 32), t(32, 16))),
+        "flash_attention_mha": (flash_attention_mha, lambda: (
+            t(1, 2, 64, 32), t(1, 2, 64, 32), t(1, 2, 64, 32))),
+        "ssd_chunk_dual": (ssd_chunk_dual, lambda: (
+            t(2, 16, 2, 8), dec(2, 16, 2), t(2, 16, 4), t(2, 16, 4))),
+        "ssd_state_walk": (ssd_state.ssd_state_walk, lambda: (
+            t(1, 2, 16, 2, 8), t(1, 2, 2, 4, 8), dec(1, 2, 16, 2),
+            t(1, 2, 16, 1, 4))),
+        "ssd_state_scan": (ssd_state.ssd_state_scan, lambda: (
+            t(1, 2, 2, 4, 8), dec(1, 2, 16, 2))),
+        "ssd_state_out": (ssd_state.ssd_state_out, lambda: (
+            t(1, 2, 16, 2, 8), t(1, 2, 2, 4, 8), dec(1, 2, 16, 2),
+            t(1, 2, 16, 1, 4))),
+    }
+    fn, make = calls[kernel]
+    args = [a.clone() for a in make()]
+    args[0].requires_grad_()
+    n0 = fn.launches
+    with pytest.raises(RuntimeError, match="use_kernels=False"):
+        fn(*args)
+    assert fn.launches == n0
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+
+
+@pytest.mark.gpu
+def test_loss_fn_through_the_kernels_refuses_grad(cuda):
+    """``models/lm.py::loss_fn(use_kernels=True)`` on the card, with
+    parameters that require grad, raises at its first kernel (a reduced
+    mamba2-370m: the SSD chunk kernel), naming ``use_kernels=False``; the
+    plain route differentiates (a finite gradient on every parameter that
+    gets one, the SSD layers' included); under ``torch.no_grad()`` both
+    routes give the same loss (f32 compute, rel 1e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_api
+    cfg = get_config("mamba2-370m").reduced().replace(
+        compute_dtype="float32")
+    api = model_api(cfg)
+    params = api.init_params(torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab, (2, 65)).astype(np.int64)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params.requires_grad_(True)
+    n0 = ssd_chunk_dual.launches
+    with pytest.raises(RuntimeError, match="use_kernels=False"):
+        api.loss_fn(params, batch, use_kernels=True)
+    assert ssd_chunk_dual.launches == n0
+    loss, _ = api.loss_fn(params, batch, use_kernels=False)
+    loss.backward()
+    grads = {n: p.grad for n, p in params.named_parameters()}
+    assert any(g is not None for n, g in grads.items() if "mamba" in n)
+    assert all(torch.isfinite(g).all() for g in grads.values()
+               if g is not None)
+    with torch.no_grad():
+        got = api.loss_fn(params, batch, use_kernels=True)[0]
+        want = api.loss_fn(params, batch, use_kernels=False)[0]
+    assert ssd_chunk_dual.launches > n0
+    assert abs(got - want).item() <= 1e-4 * abs(want).item()
+
+
 def _served_logits(api, params, toks, use_kernels, dev):
     """Prefill of ``toks`` into a 2048-position cache (so attention takes
     the flash path), then two decode steps fed ``toks``' first tokens."""
@@ -919,3 +1007,53 @@ def test_reduced_models_kernel_route_vs_plain(cuda, arch):
         gap = rel(out["bfloat16", False], want)
         assert rel(out["bfloat16", True], out["bfloat16", False]) \
             <= max(2e-2, gap)
+
+
+@pytest.mark.gpu
+def test_moe_bf16_kernel_route_vs_plain_with_the_routing_held(cuda,
+                                                              monkeypatch):
+    """The MoE model's bf16 leg, left out above because top-k routing flips
+    on bf16 near ties: every MoE layer's expert choice is taken, call by
+    call, from the plain route's f32 pass, in both routes and both compute
+    types (each route keeps its own gate values at those experts).  The
+    reduced phi3.5-moe's prefill of 300 tokens and two decode steps: f32
+    within 1e-3 of the plain route, bf16 within the larger of 2e-2 and the
+    plain route's own bf16-vs-f32 gap, as the other models'."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_api
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced().replace(
+        capacity_factor=8.0)
+    params = model_api(cfg).init_params(
+        torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 300)).astype(np.int32)).to(cuda)
+    topk = torch.topk
+    routing = {"chosen": [], "replay": None}
+
+    def held_topk(probs, k, dim=-1):
+        if routing["replay"] is None:
+            vals, idx = topk(probs, k, dim=dim)
+            routing["chosen"].append(idx)
+            return vals, idx
+        idx = routing["replay"].pop(0)
+        return probs.gather(dim, idx), idx
+
+    monkeypatch.setattr(torch, "topk", held_topk)
+    api = {c: model_api(cfg.replace(compute_dtype=c))
+           for c in ("float32", "bfloat16")}
+    out = {("float32", False): _served_logits(api["float32"], params, toks,
+                                              False, cuda)}
+    assert routing["chosen"]
+    n0 = flash_attention_mha.launches
+    for key in (("float32", True), ("bfloat16", False), ("bfloat16", True)):
+        routing["replay"] = list(routing["chosen"])
+        out[key] = _served_logits(api[key[0]], params, toks, key[1], cuda)
+        assert routing["replay"] == []
+    assert flash_attention_mha.launches > n0
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    want = out["float32", False]
+    assert rel(out["float32", True], want) <= 1e-3
+    gap = rel(out["bfloat16", False], want)
+    assert torch.isfinite(out["bfloat16", True]).all()
+    assert rel(out["bfloat16", True], out["bfloat16", False]) \
+        <= max(2e-2, gap)

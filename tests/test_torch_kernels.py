@@ -1,7 +1,8 @@
 """PyTorch port kernels: the plain versions against the reference Pallas
-kernels (interpret mode on the CPU), the CPU dispatch of the wrappers, the
-3xTF32 arithmetic of the three CUDA kernels emulated on the CPU, and the
-build's library naming.  The CUDA kernels themselves are held against
+kernels (interpret mode on the CPU), the CPU dispatch of the wrappers and
+their refusal of inputs that require grad, the 3xTF32 arithmetic of the
+CUDA kernels emulated on the CPU, the state pass's route rules and shared
+memory, and the build's library naming.  The CUDA kernels themselves are held against
 the plain versions on the card by ``tests/test_torch_gpu.py`` and
 ``chip_smoke.py``.
 
@@ -297,17 +298,28 @@ def test_ssd_state_split_refs_vs_reference_ssd_forward():
 
 
 def test_state_route_rule_and_declared_kernels():
-    """The walk where its B * H * ceil(P / 64) blocks fill the SMs, else
-    the split; a device that is not a card counts an H100's 132."""
-    assert ssd_state.state_route(1, 16, 128, 132) == "split"    # 32 blocks
-    assert ssd_state.state_route(4, 32, 64, 132) == "split"     # 128
-    assert ssd_state.state_route(4, 64, 64, 132) == "walk"      # 256
-    assert ssd_state.state_route(1, 132, 64, 132) == "walk"     # 132
-    assert ssd_state.state_route(4, 32, 64, 114) == "walk"      # fewer SMs
+    """The walk where its B * H * ceil(P / 64) blocks fill their last wave
+    of resident walks (two an SM at N <= 64, one above) to at least 5/6,
+    else the split; a device that is not a card counts an H100's 132."""
+    route = ssd_state.state_route
+    assert route(1, 16, 128, 64, 132) == "split"    # 32 of 264
+    assert route(4, 64, 64, 64, 132) == "walk"      # zamba2 wave: 256 of 264
+    assert route(4, 32, 64, 128, 132) == "walk"     # mamba2-370m: 128 of 132
+    assert route(4, 32, 64, 64, 132) == "split"     # 128 of 264
+    assert route(2, 56, 64, 128, 132) == "walk"     # 112 of 132
+    assert route(3, 32, 64, 128, 132) == "split"    # 96 of 132
+    assert route(5, 32, 64, 128, 132) == "split"    # 160: 28 in a second wave
+    assert route(4, 64, 64, 128, 132) == "walk"     # 256 in two of 132
+    assert route(4, 32, 64, 128, 114) == "split"    # fewer SMs: 128 of 228
+    assert ssd_state.walk_slots(64, 132) == 264
+    assert ssd_state.walk_slots(128, 132) == 132
     assert ssd_state.sm_count("cpu") == ssd_state.H100_SMS == 132
-    assert ssd_state.route_kernels(1, 16, 128, "cpu") == \
+    assert ssd_state.route_kernels(1, 16, 128, 64, "cpu") == \
         ("ssd_state_scan", "ssd_state_out")
-    assert ssd_state.route_kernels(4, 64, 64, "cpu") == ("ssd_state_walk",)
+    assert ssd_state.route_kernels(4, 64, 64, 64, "cpu") == \
+        ("ssd_state_walk",)
+    assert ssd_state.route_kernels(4, 32, 64, 128, "cpu") == \
+        ("ssd_state_walk",)
 
 
 def test_ssd_state_split_wrappers_on_the_cpu_and_off_it():
@@ -360,8 +372,41 @@ def test_ssd_state_pass_cpu_dispatch_and_refusals():
         with pytest.raises(ValueError, match="ssd_state_pass: shapes"):
             ssd_state_pass(*bad)
     assert launches() == n0
-    assert smem_bytes(128, 64) == 4 * (2 * 64 * 64 + 2 * 128 * 68 + 256)
+    assert smem_bytes(128, 64) == 4 * (2 * 64 * 72 + 2 * 128 * 68 + 256)
     assert smem_bytes(128, 128) <= 232448 < smem_bytes(128, 256)
+
+
+def test_state_pass_shared_memory_of_the_split_state_layout():
+    """The walk's shared memory: the state tile split in hi and lo (N
+    padded to 8, rows of 72 floats), two C buffers (rows of N8 + 4 floats)
+    and two cum buffers.  At Q = 128 and N = 64 (zamba2) it stays under
+    113 KB, so two blocks share an SM and the 256 walks of the prefill
+    wave run in one wave; N = 128 (mamba2-370m) still fits a block; N
+    past 128 is out of the kernels' range on the card."""
+    assert smem_bytes(128, 64) == 107_520 <= 113 * 1024
+    assert smem_bytes(128, 128) == 209_920 <= ssd_state.MAX_SMEM
+    assert smem_bytes(70, 13) == 4 * (2 * 16 * 72 + 2 * 70 * 20 + 140)
+    assert ssd_state.MAX_STATE == 128
+
+
+@pytest.mark.parametrize("BC,H,G,P,sms,heads", [
+    (32, 32, 1, 64, 132, 4),    # mamba2-370m serve wave: 256 blocks
+    (32, 16, 1, 128, 132, 4),   # mamba2-370m realization: 256
+    (32, 64, 1, 64, 132, 4),    # zamba2-1.2b prefill wave, split: 512
+    (32, 16, 1, 128, 114, 4),   # fewer SMs
+    (8, 32, 1, 64, 132, 1),     # one chunk of 4 slots: 256 only at 1 head
+    (32, 16, 8, 64, 132, 2),    # G = 8: groups of 2 heads
+    (32, 12, 3, 130, 132, 4),   # G = 3: groups of 4, three P tiles
+    (64, 12, 2, 64, 132, 2),    # G = 2: groups of 6, 4 does not divide
+    (32, 12, 2, 64, 132, 1),    # G = 2: 2 a block would leave 192 blocks
+    (32, 6, 3, 64, 132, 1),     # G = 3: groups of 2, too few blocks
+    (6, 4, 2, 130, 132, 1),     # the edge shapes: one head a block
+])
+def test_out_heads_rule(BC, H, G, P, sms, heads):
+    """``ssd_state_out`` takes the most of 4, 2 and 1 heads a block that
+    divides a group's heads and keeps at least 15/8 blocks an SM."""
+    assert ssd_state.out_heads(BC, H, G, P, sms) == heads
+    assert (H // G) % heads == 0
 
 
 def test_flash_refuses_a_negative_or_fractional_q_offset():
@@ -374,6 +419,30 @@ def test_flash_refuses_a_negative_or_fractional_q_offset():
 # ---------------------------------------------------------------------------
 # wrapper dispatch: plain version only for CPU tensors, never a fallback
 # ---------------------------------------------------------------------------
+
+def test_refuse_grad_rule_on_cpu_tensors():
+    """The wrappers' autograd rule (``_build.refuse_grad``, called for
+    tensors on the card): an input that requires grad raises, naming
+    ``use_kernels=False``, where autograd is on; not under
+    ``torch.no_grad()``, nor where no input requires grad (None skipped).
+    CPU tensors that require grad take the plain version, which
+    differentiates."""
+    a = torch.ones((4, 4), requires_grad=True)
+    b = torch.full((4, 3), 2.0)
+    with pytest.raises(RuntimeError, match="use_kernels=False"):
+        _build.refuse_grad("tiled_matmul", (b, None, a))
+    with torch.no_grad():
+        _build.refuse_grad("tiled_matmul", (a, b))
+    _build.refuse_grad("tiled_matmul", (a.detach(), b, None))
+    tiled_matmul(a, b).sum().backward()
+    assert torch.equal(a.grad, torch.full((4, 4), 6.0))
+    rng = np.random.default_rng(4)
+    y, S, cum, C, h0 = _state_inputs(rng, 1, 2, 16, 2, 8, 4, 1, True)
+    S.requires_grad_()
+    out, h = ssd_state_pass(y, S, cum, C, h0)
+    (out.sum() + h.sum()).backward()
+    assert S.grad is not None and torch.isfinite(S.grad).all()
+
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
     rng = np.random.default_rng(0)
@@ -575,6 +644,49 @@ def test_3xtf32_ssd_chunk_meets_the_f32_tolerance_and_one_product_does_not():
         torch.testing.assert_close(g3, w, atol=1e-4, rtol=1e-4)
         assert not torch.allclose(g1, w, atol=1e-4, rtol=1e-4)
     assert (got1[0] - want[0]).abs().max() > 1e-2
+
+
+def _state_pass_tf32(y_intra, S, cum, Cm, products: int):
+    """The walk's arithmetic, emulated (G = 1): the state held as its TF32
+    split, hi and lo = h - hi whole (``csrc/ssd_state.cu`` keeps no other
+    copy); per chunk y = y_intra + exp(cum) * (C . h) with the product in
+    one TF32 product or the kernels' three (the state's lo cut to TF32 as
+    the tensor core reads it), then h = (hi + lo) * exp(cum_last) + S in
+    f32.  Returns (y, final state) and whether hi + lo gave back every
+    state exactly."""
+    B, nc, Q, H, P = y_intra.shape
+    h = torch.zeros(B, H, S.shape[3], P)
+    exact, ys = True, []
+    for c in range(nc):
+        hi = _tf32(h)
+        lo = h - hi
+        exact = exact and torch.equal(hi + lo, h)
+        C = Cm[:, c, :, 0]                                  # (B, Q, N)
+        e = cum[:, c].exp()                                 # (B, Q, H)
+        prod = torch.stack([_mm_tf32(C, hi[:, k] + lo[:, k], products)
+                            for k in range(H)], dim=2)      # (B, Q, H, P)
+        ys.append(y_intra[:, c] + e[..., None] * prod)
+        h = (hi + lo) * cum[:, c, -1].exp()[..., None, None] + S[:, c]
+    return torch.stack(ys, dim=1), h, exact
+
+
+def test_3xtf32_state_pass_meets_the_f32_tolerance_and_one_product_does_not():
+    """At the mamba2-370m serve state width (Q = 128, N = 128, P = 64; 8
+    chunks, 2 heads, the GPU tests' value ranges) the state pass with its
+    product C . h in 3xTF32 stays within 1e-4 of the plain version (y
+    about 2e-6 off, |y| up to ~6); with one TF32 product it misses (about
+    1.6e-3).  The split state gives back h exactly, so
+    the walk's f32 recurrence is the plain version's."""
+    rng = np.random.default_rng(128)
+    y, S, cum, C, _ = _state_inputs(rng, 1, 8, 128, 2, 64, 128, 1, False)
+    want = ref.ssd_state_ref(y, S, cum, C)
+    got3 = _state_pass_tf32(y, S, cum, C, 3)
+    got1 = _state_pass_tf32(y, S, cum, C, 1)
+    assert got3[2] and got1[2]
+    for g3, w in zip(got3[:2], want):
+        torch.testing.assert_close(g3, w, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got1[1], got3[1])   # the states are f32 either way
+    assert not torch.allclose(got1[0], want[0], atol=1e-4, rtol=1e-4)
 
 
 def test_ssd_chunk_mask_is_a_select_so_a_steep_decay_stays_finite():

@@ -564,6 +564,37 @@ def test_one_layer_ssd_plan_builds_and_runs():
     assert tuple(out.shape) == (1, 32, 1, 64) and torch.isfinite(out).all()
 
 
+def test_execute_times_its_stages_with_garbage_collection_paused(
+        monkeypatch):
+    """A full collection of the host's objects inside a timed stage would
+    count in its wall, so ``execute`` pauses cyclic garbage collection
+    while it runs the stages and restores the caller's setting after."""
+    import gc
+
+    from repro_torch.core.bridge import MeshPlan, StagePlan
+    from repro_torch.core.workload import Graph, Layer
+    from repro_torch.realize import program
+    g = Graph("ssd")
+    g.add(Layer(name="l0_ssd", kind="matmul", K=64, H=32, C=64))
+    plan = MeshPlan(stages=[StagePlan(layers=("l0_ssd",), devices=(0,),
+                                      parts={"l0_ssd": (1, 1, 1, 1)},
+                                      cgs={"l0_ssd": (0,)})], batch_unit=1)
+    prog = build_program(g, plan, device="cpu")
+    seen = []
+    elapsed = program._elapsed
+    monkeypatch.setattr(program, "_elapsed", lambda fn, device: (
+        seen.append(gc.isenabled()) or elapsed(fn, device)))
+    assert gc.isenabled()
+    prog.execute(seed=0)
+    assert seen == [False] and gc.isenabled()
+    gc.disable()
+    try:
+        prog.execute(seed=0)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 def test_simba_arch_matches_reference():
     assert simba_arch().label() == ref_simba().label()
     assert simba_arch().n_cores == ref_simba().n_cores
