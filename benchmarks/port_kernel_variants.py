@@ -43,6 +43,23 @@ Then the state pass's two routes, walk and split, through the port's
 wrappers at 8 chunks of 128, P = 64 and a range of block counts at N =
 64 and 128, beside the route ``ssd_state.state_route`` picks.
 
+For the evaluator's fused pass (``fused_eval.cu``), at the four shapes of
+``chip_smoke.py``'s ``fused_eval`` lines (two layouts, batches of 4 and
+64), against the plain version:
+
+* ``as built``;
+* ``T threads, U a lane``: the block size and the stream entries each
+  lane has in flight (one pair is the source as built);
+* ``no warp aggregation``: each entry added to its cell by its own
+  shared-memory atomicAdd, without first summing a warp's entries for
+  the same cell (``__match_any_sync``);
+* ``no stream`` and ``no row math``: the stream's adds, or everything
+  after them, taken out.  Their results are wrong (printed): they show
+  what each part of the kernel costs next to the launch and its loads.
+
+Then the row length (``buf_len`` cells) of the archs the repo builds,
+beside the most cells a ``fused_eval`` row may have on the card.
+
 Prints one JSON line per kernel and shape, then the card's name and power
 limit.
 """
@@ -51,6 +68,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -145,6 +163,40 @@ STATE_VARIANTS = {
       product<NMAX, false>(acc, Cs, hi, lo, T, Q, N);
     }""", NO_PRODUCT)],
 }
+FUSED_SHAPE = re.compile(r"constexpr int kThreads = \d+;.*\n"
+                         r"constexpr int kUnroll = \d+;")
+FUSED_AGGREGATE = """  unsigned peers = __match_any_sync(0xffffffffu, c);
+  const int first = __ffs(peers) - 1;
+  int rel = __popc(peers & ((1u << lane) - 1u));   // peers below this lane
+  peers &= ~((2u << lane) - 1u);                   // peers above it
+  while (__any_sync(0xffffffffu, peers != 0u)) {
+    const int next = __ffs(peers);                 // 0: none left
+    const float t = __shfl_sync(0xffffffffu, v, (next - 1) & 31);
+    if (next) v += t;
+    peers &= ~__ballot_sync(0xffffffffu, rel & 1);
+    rel >>= 1;
+  }
+  if (c >= 0 && lane == first) atomicAdd(cells + c, v);"""
+FUSED_STREAM = "  for (long long base = lo + (tid - lane);"
+FUSED_MATH = "  float acc[N_ACC];\n"
+
+
+def fused_variants(source: str) -> dict:
+    """{variant: substitutions} of fused_eval.cu."""
+    built, = FUSED_SHAPE.findall(source)
+    out = {"as built": []}
+    for t, u in ((256, 8), (512, 2), (512, 4), (1024, 2), (1024, 4)):
+        out[f"{t} threads, {u} a lane"] = [
+            (built, f"constexpr int kThreads = {t};\n"
+                    f"constexpr int kUnroll = {u};")]
+    out["no warp aggregation"] = [
+        (FUSED_AGGREGATE, "  if (c >= 0) atomicAdd(cells + c, v);")]
+    out["no stream"] = [(FUSED_STREAM, "  for (long long base = hi;")]
+    out["no row math"] = [(FUSED_MATH, "  if (buf_len > 0) return;\n"
+                                       + FUSED_MATH)]
+    return out
+
+
 # (B, H, N) of the route sweep, at 8 chunks of 128 and P = 64: blocks of
 # the walk from 64 to 256 at N = 128 (one walk an SM) and N = 64 (two)
 STATE_SWEEP = [(2, 32, 128), (3, 32, 128), (2, 56, 128), (4, 30, 128),
@@ -190,6 +242,11 @@ def build_variants() -> dict:
         procs[(variant, "ssd_state")] = start_build(
             OUT / f"t{i}", "ssd_state", header,
             substitute(state, subs, variant))
+    fused = (_build.CSRC / "fused_eval.cu").read_text()
+    for i, (variant, subs) in enumerate(fused_variants(fused).items()):
+        procs[(variant, "fused_eval")] = start_build(
+            OUT / f"f{i}", "fused_eval", header,
+            substitute(fused, subs, variant))
     libs = {}
     for key, (proc, path) in procs.items():
         log, _ = proc.communicate()
@@ -267,6 +324,78 @@ def time_state(libs: dict, randn, stream: int) -> None:
             "split_ms": least_ms(split)}), flush=True)
 
 
+def time_fused(libs: dict, stream: int) -> None:
+    """fused_eval's variants at chip_smoke.py's fused_eval shapes, each
+    time the least of three, with the largest error relative to the plain
+    version."""
+    import torch
+
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda", 0)
+    variants = fused_variants((_build.CSRC / "fused_eval.cu").read_text())
+    for layout, arch, g in chip_smoke.cost_layouts():
+        for B in chip_smoke.FUSED_B:
+            reqs = chip_smoke.cost_requests(arch, g, B, seed=B)
+            ev = Evaluator(arch, g, fused_device=dev)
+            plan = ev.fused_plan()
+            x = ev._fused_inputs(reqs, chip_smoke.FUSED_TOTAL_BATCH)
+            args = [torch.from_numpy(a.copy()).to(dev) for a in x]
+            off, idx, vals, npass, depth, wts = args
+            want, _ = ref.fused_eval_ref(
+                *args, spans=plan.spans, d2d_mask=plan.d2d_mask,
+                consts=plan.consts, has_d2d=plan.has_d2d,
+                buf_len=plan.buf_len)
+            out = torch.empty_like(want)
+            bn = torch.empty(B, dtype=torch.int32, device=dev)
+            line = {"kernel": "fused_eval", "layout": layout, "B": B,
+                    "stream": idx.numel(), "buf_len": plan.buf_len}
+            for variant in variants:
+                fn = libs[(variant, "fused_eval")].fused_eval_f32
+                launch = lambda: fn(
+                    off.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+                    idx.numel(), B, plan.buf_len, npass.data_ptr(),
+                    depth.data_ptr(), wts.data_ptr(), plan.spans.data_ptr(),
+                    plan.d2d_mask.data_ptr(), plan.consts.data_ptr(),
+                    int(plan.has_d2d), out.data_ptr(), bn.data_ptr(), 0,
+                    stream)
+                if launch() != 0:
+                    raise RuntimeError(f"{variant}: launch failed")
+                torch.cuda.synchronize()
+                line[variant] = {
+                    "ms": least_ms(launch),
+                    "max_rel_err": ((out - want).abs()
+                                    / want.abs().clamp_min(1e-30))
+                    .max().item()}
+            print(json.dumps(line), flush=True)
+
+
+def fused_rows_fit() -> None:
+    """``buf_len`` of S-Arch, the 72-TOPS Gemini arch and the most-cored
+    ``grid_candidates`` at 72 to 1024 TOPS (the analyzer's layout, which
+    depends on the arch alone), against ``fused_eval.max_cells``."""
+    import torch
+
+    from repro_torch.core.analyzer import Analyzer
+    from repro_torch.core.dse import grid_candidates
+    from repro_torch.core.hw import gemini_arch_72t, simba_arch
+    from repro_torch.core.workloads import make_workload
+    from repro_torch.kernels.fused_eval import max_cells
+    g = make_workload("tf-paper")
+    archs = {"simba_arch": simba_arch(), "gemini_arch_72t": gemini_arch_72t()}
+    for tops in (72, 128, 512, 1024):
+        archs[f"grid_candidates({tops}), most cores"] = max(
+            grid_candidates(tops), key=lambda a: a.n_cores)
+    rows = {name: {"cores": a.n_cores,
+                   "buf_len": Analyzer(a, g, fused_device="cpu")._buf_len}
+            for name, a in archs.items()}
+    limit = max_cells(torch.device("cuda", 0))
+    print(json.dumps({"kernel": "fused_eval", "rows": rows,
+                      "max_cells": limit,
+                      "all_fit": all(r["buf_len"] <= limit
+                                     for r in rows.values())}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -333,6 +462,8 @@ def main() -> int:
                                  for g, w in zip((y, s), want))}
         print(json.dumps(line), flush=True)
     time_state(libs, randn, stream)
+    time_fused(libs, stream)
+    fused_rows_fit()
     print(chip_smoke.nvidia_smi())
     return 0
 

@@ -110,16 +110,23 @@ phase prints one JSON line:
    ``moe-quick``, S-Arch with the granite graph) at the batch of a
    lockstep SA iteration and of a screen: ``fused_eval`` held against its
    plain version on the card and the exact numpy engine (rel 1e-4, the
-   same bottleneck, the reference's parity envelope); ``segment_replay``
+   same bottleneck, the reference's parity envelope), both through the
+   wrapper on the batch's tensors and through the evaluator's own route
+   (``eval_requests_batch(backend="fused")``); ``segment_replay``
    against ``np.bincount`` (rtol 2e-4 / atol 1e-2); each with its device
    time, the plain version's, its time as the host issues it, the library
    call's (``index_add_`` for the replay, none for the fused pass), a
    bound from the bytes it must move at the HBM rate, and for the fused
-   pass the host time of one whole batch evaluation on each backend.
+   pass the real (unpadded) stream length, the parent version's bound on
+   its padded stream, the block size and shared memory of the launch, the
+   device time of an empty kernel (``launch_floor_ms``) and the host time
+   of one whole batch evaluation on each backend.
    Then ``fused``: replica-exchange SA on the granite graph (S-Arch, four
    chains in lockstep), once on the exact numpy engine and once scoring
    proposals with the fused pass on the card, with the cost kernels'
-   counts set to 0 just before; proposals a second each way, each winner
+   counts set to 0 just before (``fused_eval`` must launch once an
+   iteration that has a proposal not in the cache: 198-200 times);
+   proposals a second each way, each winner
    re-evaluated exactly (it must equal the reported cost to the bit); then
    ``analyze_requests(backend="fused")`` of a screen-sized batch through
    ``segment_replay`` against the exact replay.
@@ -1535,11 +1542,33 @@ def _bound(flops: float, peak: float, nbytes: float) -> dict:
             "bound_bytes": nbytes, "bound_ops": flops}
 
 
+def cell_counts(x) -> dict:
+    """How the fused inputs ``x`` crowd onto cells: the most entries one
+    cell takes in a row, as a count and as a share of that row, and the
+    mean over the warps' loads (32 consecutive entries of a row) of the
+    most entries that go to one cell, the adds one atomic instruction
+    would serialize without warp aggregation."""
+    import numpy as np
+    most, share, warp = 0, 0.0, []
+    for lo, hi in zip(x.off[:-1], x.off[1:]):
+        row = x.idx[lo:hi]
+        if row.size:
+            top = int(np.bincount(row).max())
+            most, share = max(most, top), max(share, top / row.size)
+            warp += [int(np.bincount(row[i:i + 32]).max())
+                     for i in range(0, row.size, 32)]
+    return {"max_cell_entries": most, "max_cell_share": share,
+            "warp_same_cell_mean": float(np.mean(warp)) if warp else 0.0}
+
+
 def check_cost_kernels(dev) -> dict:
     """``fused_eval`` and ``segment_replay`` at the batch sizes of a
     lockstep SA iteration and of a screen, on both layouts.  ``fused_eval``
     is held against its plain version on the same inputs on the card and
-    against the exact numpy engine (rel 1e-4, equal bottleneck);
+    against the exact numpy engine (rel 1e-4, equal bottleneck), called
+    on the batch's tensors and through the evaluator's fused route, which
+    launches it on views of the plan's packed buffers
+    (``max_rel_err_path_vs_plain``, ``max_rel_err_vs_exact``);
     ``segment_replay`` against ``np.bincount`` on the same stream
     (rtol 2e-4 / atol 1e-2; it adds in float64).  Each line has the
     kernel's device time, the plain version's, the kernel's as the host
@@ -1547,25 +1576,35 @@ def check_cost_kernels(dev) -> dict:
     PyTorch call computes the fused pass), the bound (the stream read
     once, the outputs written once, at the HBM rate) and the host time of
     one whole batch evaluation each way (``eval_batch_ms``: numpy against
-    fused, streams and caches warm).  Returns the lines by (kernel,
-    layout, B)."""
+    fused, streams and caches warm).  A ``fused_eval`` line also has its
+    stream's real length (no pads), the bound the parent version's padded
+    stream would have had (``parent_bound_ms``: the stream padded to a
+    power of two), the block size and dynamic shared memory of its launch,
+    and ``launch_floor_ms``: the device time of one empty kernel
+    (``torch.cuda._sleep(0)``: one block of one thread), timed the same
+    way.  Returns the lines by (kernel, layout, B)."""
     import numpy as np
     import torch
 
     from repro_torch.core.evaluator import Evaluator
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.fused_eval import fused_eval, segment_replay
 
     names = ("compute", "noc", "d2d", "dram")
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", (
+        _build.CSRC / "fused_eval.cu").read_text()).group(1))
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0))
     timed = {}
     for layout, arch, g in cost_layouts():
         for B in FUSED_B:
             reqs = cost_requests(arch, g, B, seed=B)
             ev = Evaluator(arch, g, fused_device=dev)
             exact = ev.eval_requests_batch(reqs, FUSED_TOTAL_BATCH)
+            path = ev.eval_requests_batch(reqs, FUSED_TOTAL_BATCH,
+                                          backend="fused")
             plan = ev.fused_plan()
             host = ev._fused_inputs(reqs, FUSED_TOTAL_BATCH)
-            args = [torch.from_numpy(a).to(dev) for a in host]
+            args = [torch.from_numpy(a.copy()).to(dev) for a in host]
             kw = dict(spans=plan.spans, d2d_mask=plan.d2d_mask,
                       consts=plan.consts, has_d2d=plan.has_d2d,
                       buf_len=plan.buf_len)
@@ -1574,27 +1613,47 @@ def check_cost_kernels(dev) -> dict:
             torch.cuda.synchronize()
             scale = want.abs().clamp_min(1e-30)
             rel_plain = ((out - want).abs() / scale).max().item()
-            got = out.cpu().numpy()
-            bn_host = bn.cpu().numpy()
+            # the main path's route: evaluate_rows on the packed buffers
+            rows = torch.tensor(
+                [[ge.delay_s, ge.energy_j, ge.stage_time_s,
+                  ge.glb_overflow_bytes, *ge.energy_breakdown.values()]
+                 for ge, _ in path], dtype=torch.float64).T
+            rel_path = ((rows - want.double().cpu()).abs()
+                        / scale.double().cpu()).max().item()
             rel_exact = max(
-                max(abs(float(got[r, b]) - v) / abs(v) for r, v in
-                    ((0, ge.delay_s), (1, ge.energy_j), (2, ge.stage_time_s)))
-                for b, (ge, _) in enumerate(exact))
-            same_bn = all(names[int(bn_host[b])] == ge.bottleneck
-                          for b, (ge, _) in enumerate(exact))
-            nbytes = sum(a.nbytes for a in host) + out.numel() * 4 + B * 4
+                abs(getattr(gf, f) - getattr(ge, f)) / abs(getattr(ge, f))
+                for (ge, _), (gf, _) in zip(exact, path)
+                for f in ("delay_s", "energy_j", "stage_time_s"))
+            wbn_host = wbn.cpu().tolist()
+            same_bn = all(gf.bottleneck == ge.bottleneck
+                          == names[wbn_host[b]]
+                          for b, ((ge, _), (gf, _)) in enumerate(zip(exact,
+                                                                     path)))
+            n = int(host.idx.size)
+            n_pad = 1 << max(4, (max(n, 1) - 1).bit_length())
+            hot = cell_counts(host)
+            outputs = out.numel() * 4 + B * 4
+            nbytes = sum(a.nbytes for a in host) + outputs
             line = {"phase": "kernel", "kernel": "fused_eval",
                     "layout": layout, "arch": arch.label(), "B": B,
-                    "buf_len": plan.buf_len, "stream": int(host[0].size),
+                    "buf_len": plan.buf_len, "stream": n,
                     "main_path": (layout, B) == ("granite", FUSED_CHAINS),
                     "rel_tol": FUSED_REL_TOL,
                     "max_abs_err": (out - want).abs().max().item(),
                     "max_rel_err_vs_plain": rel_plain,
+                    "max_rel_err_path_vs_plain": rel_path,
                     "max_rel_err_vs_exact": rel_exact,
                     "bottleneck_equal": same_bn,
-                    **_bound(host[0].size + 2 * B * plan.buf_len,
-                             PEAK_F32_FLOPS, nbytes),
+                    **_bound(n + 2 * B * plan.buf_len, PEAK_F32_FLOPS,
+                             nbytes),
+                    "parent_stream": n_pad,
+                    "parent_bound_ms": _bound(
+                        n_pad + 2 * B * plan.buf_len, PEAK_F32_FLOPS,
+                        8 * n_pad + 12 * B + outputs)["bound_ms"],
+                    "threads": threads, "smem_bytes": 4 * plan.buf_len,
+                    **hot,
                     "ms": time_ms(lambda: fused_eval(plan, *args)),
+                    "launch_floor_ms": floor_ms,
                     "host_issued_ms": time_ms(lambda: fused_eval(plan, *args),
                                               device=False),
                     "plain_ms": time_ms(
@@ -1608,10 +1667,11 @@ def check_cost_kernels(dev) -> dict:
             timed[("fused_eval", layout, B)] = line
             emit(line)
             if not (rel_plain <= FUSED_REL_TOL and torch.equal(bn, wbn)
+                    and rel_path <= FUSED_REL_TOL
                     and rel_exact <= FUSED_REL_TOL and same_bn):
                 raise AssertionError(f"fused_eval disagrees at {layout} "
-                                     f"B={B}: {rel_plain}, {rel_exact}, "
-                                     f"bottleneck {same_bn}")
+                                     f"B={B}: {rel_plain}, {rel_path}, "
+                                     f"{rel_exact}, bottleneck {same_bn}")
 
             idx, vals, _ = ev.analyzer._request_streams(reqs,
                                                         FUSED_TOTAL_BATCH)
@@ -1669,7 +1729,8 @@ def run_fused(dev) -> dict:
     reported cost, energy and delay to the bit.  Then the analyzer replay
     on the card: ``analyze_requests(backend="fused")`` of a screen-sized
     batch against the exact replay (rtol 2e-4 / atol 1e-2).  Fails unless
-    both kernels launched."""
+    both kernels launched, ``fused_eval`` once an iteration (an iteration
+    whose proposals are all cached launches none: 198-200 of 200)."""
     import numpy as np
 
     from repro_torch.core.evaluator import CachedEvaluator, Evaluator
@@ -1729,7 +1790,8 @@ def run_fused(dev) -> dict:
     if not (np.allclose(fused.buf, exact.buf, **REPLAY_TOL)
             and replay["weight_totals_equal"]):
         raise AssertionError(f"fused replay disagrees: {replay}")
-    if not all(launches.values()):
+    if not (all(launches.values()) and FUSED_ITERS - 2
+            <= launches["fused_eval"] <= FUSED_ITERS):
         raise AssertionError(f"the fused phase launched {launches}")
     return {"phase": "fused", "workload": FUSED_SPEC, "arch": arch.label(),
             "groups": len(groups), "chains": FUSED_CHAINS,

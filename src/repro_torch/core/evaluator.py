@@ -293,41 +293,35 @@ class Evaluator:
         return out
 
     def _fused_inputs(self, requests: Sequence[Tuple[LayerGroup, LMS]],
-                      total_batch: int) -> Tuple[np.ndarray, ...]:
-        """The fused pass's inputs for a batch: ``(idx int32, vals f32,
-        passes int32, depth int32, weight totals f32)``.
+                      total_batch: int):
+        """The fused pass's inputs for a batch, written into the staging
+        buffer of :meth:`fused_plan`: a
+        :class:`~repro_torch.kernels.fused_eval.FusedInputs` of numpy
+        views ``(off int32, idx int32, vals f32, npass int32, depth int32,
+        weight totals f32)``.
 
         Construction is the same batched engine the exact path uses
-        (``_prefetch_contribs`` + cached ``row_stream`` downcasts), row
-        ``b``'s stream offset into its ``buf_len`` window.  Streams are
-        padded to power-of-two lengths (pad entries scatter into a dump
-        cell past the last row), as in the reference, so stream shapes
-        repeat under SA stepping."""
+        (``_prefetch_contribs`` + cached ``row_stream`` downcasts).  Each
+        row's stream keeps its row-local cell indices; the B + 1 offsets
+        say where each row's entries start.  Nothing is padded: the
+        reference pads to power-of-two lengths so that ``jit`` retraces
+        stay rare, and a CUDA launch has no trace to keep."""
         an = self.analyzer
         an._prefetch_contribs(requests, total_batch)
-        B = len(requests)
-        buf_len = an._buf_len
-        idx_parts: List[np.ndarray] = []
-        val_parts: List[np.ndarray] = []
-        wts = np.empty(B, dtype=np.float32)
-        npass = np.empty(B, dtype=np.int32)
-        dep = np.empty(B, dtype=np.int32)
-        for b, (grp, lms) in enumerate(requests):
-            i, v, wt = an.row_stream(grp, lms, total_batch)
-            idx_parts.append(i + np.int32(b * buf_len) if b else i)
-            val_parts.append(v)
-            wts[b] = wt
-            npass[b] = max(1, -(-total_batch // grp.batch_unit))
-            dep[b] = self._group_depth(grp)
-        idx = np.concatenate(idx_parts)
-        vals = np.concatenate(val_parts)
-        n = idx.size
-        n_pad = 1 << max(4, (max(n, 1) - 1).bit_length())
-        if n_pad != n:
-            dump = np.int32(B * buf_len)
-            idx = np.concatenate([idx, np.full(n_pad - n, dump, np.int32)])
-            vals = np.concatenate([vals, np.zeros(n_pad - n, np.float32)])
-        return idx, vals, npass, dep, wts
+        streams = [an.row_stream(grp, lms, total_batch)
+                   for grp, lms in requests]
+        x = self.fused_plan().stage(len(requests),
+                                    sum(i.size for i, _, _ in streams))
+        x.off[0] = end = 0
+        for b, ((grp, _), (i, v, wt)) in enumerate(zip(requests, streams)):
+            start, end = end, end + i.size
+            x.idx[start:end] = i
+            x.vals[start:end] = v
+            x.off[b + 1] = end
+            x.wts[b] = wt
+            x.npass[b] = max(1, -(-total_batch // grp.batch_unit))
+            x.depth[b] = self._group_depth(grp)
+        return x
 
     def fused_plan(self):
         """This evaluator's :class:`~repro_torch.kernels.fused_eval.
@@ -345,8 +339,11 @@ class Evaluator:
                              total_batch: int
                              ) -> List[Tuple[GroupEval, GroupAnalysis]]:
         """The fused construct->replay->eval pass (``backend="fused"``):
-        :meth:`_fused_inputs`, then the replay and the entire delay/energy
-        pipeline as ONE ``fused_eval`` launch on ``fused_device``.
+        :meth:`_fused_inputs` fills the plan's staging buffer, then
+        :func:`~repro_torch.kernels.fused_eval.evaluate_rows` runs the
+        replay and the entire delay/energy pipeline as ONE ``fused_eval``
+        launch on ``fused_device`` (on the card: one copy there, the
+        launch, one copy back).
 
         Returns ``(GroupEval, None)`` tuples: the fused path never
         materializes per-row :class:`GroupAnalysis` views.  Results carry
@@ -356,21 +353,22 @@ class Evaluator:
         if not requests:
             return []
         from ..kernels.fused_eval import evaluate_rows
-        plan = self.fused_plan()
-        idx, vals, npass, dep, wts = self._fused_inputs(requests,
-                                                        total_batch)
-        out = evaluate_rows(plan, idx, vals, npass, dep, wts)
+        x = self._fused_inputs(requests, total_batch)
+        npass, dep = x.npass.tolist(), x.depth.tolist()
+        out = evaluate_rows(self.fused_plan(), x)
         names = ("compute", "noc", "d2d", "dram")
         ekeys = ("mac", "glb", "noc", "d2d", "dram")
+        delay, energy, stage, over, bn, parts = (
+            a.tolist() for a in (out.delay, out.energy, out.stage,
+                                 out.overflow, out.bottleneck,
+                                 out.energy_parts.T))
         res: List[Tuple[GroupEval, GroupAnalysis]] = []
         for b in range(len(requests)):
             ge = GroupEval(
-                delay_s=float(out.delay[b]), energy_j=float(out.energy[b]),
-                stage_time_s=float(out.stage[b]), n_passes=int(npass[b]),
-                depth=int(dep[b]), bottleneck=names[int(out.bottleneck[b])],
-                glb_overflow_bytes=float(out.overflow[b]),
-                energy_breakdown={k: float(out.energy_parts[j, b])
-                                  for j, k in enumerate(ekeys)})
+                delay_s=delay[b], energy_j=energy[b], stage_time_s=stage[b],
+                n_passes=npass[b], depth=dep[b], bottleneck=names[bn[b]],
+                glb_overflow_bytes=over[b],
+                energy_breakdown=dict(zip(ekeys, parts[b])))
             res.append((ge, None))
         return res
 

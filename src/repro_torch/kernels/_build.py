@@ -51,7 +51,7 @@ SIGNATURES = {
                         "flash_attention_stats_f32": _FLASH_STATS,
                         "flash_attention_stats_bf16": _FLASH_STATS},
     "mamba_ssd": {"ssd_chunk_dual_f32": _SSD, "ssd_chunk_dual_bf16": _SSD},
-    "fused_eval": {"fused_eval_f32": [_P, _P, _L, _I, _I] + [_P] * 7
+    "fused_eval": {"fused_eval_f32": [_P] * 3 + [_L, _I, _I] + [_P] * 6
                    + [_I, _P, _P, _I, _P],
                    "segment_replay_f64": [_P, _P, _L, _P, _L, _I, _P]},
     "ssd_state": {"ssd_state_walk_f32": [_P] * 7 + [_I] * 8 + [_P],
@@ -66,6 +66,10 @@ ROUTES = {
     "flash_attention": {"flash_attention_route": [_I] + [_P] * 3 + [_I]},
     "mamba_ssd": {"ssd_chunk_dual_route": [_I] * 2 + [_P] * 3 + [_I]},
     "ssd_state": {"ssd_state_pass_route": [_I] * 2 + [_P] * 2},
+}
+# argument types of the functions that report a count (an int)
+QUERIES = {
+    "fused_eval": {"fused_eval_max_cells": [_I]},
 }
 # the suffix of a launch function's name, by operand dtype name
 DTYPE_SUFFIX = {"float32": "f32", "bfloat16": "bf16"}
@@ -138,7 +142,8 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
-        for symbol, argtypes in SIGNATURES[name].items():
+        for symbol, argtypes in {**SIGNATURES[name],
+                                 **QUERIES.get(name, {})}.items():
             fn = getattr(lib, symbol)
             fn.restype, fn.argtypes = _I, argtypes
         for symbol, argtypes in ROUTES.get(name, {}).items():

@@ -17,24 +17,41 @@
 // row's cells are read once; there is no reuse to exploit, so both are
 // bound by bytes (8 bytes an entry for fused_eval, 16 for segment_replay,
 // over the card's HBM rate).  At the batch sizes the search gives (a few
-// to a hundred rows of a few hundred cells, streams of 10^4-10^6 entries)
-// launch latency is as large as that bound.
+// to a hundred rows of a few hundred cells, streams of 10^3-10^5 entries)
+// launch latency is far larger than that bound, so fused_eval is one
+// launch that keeps everything between its inputs and its outputs on chip.
 //
-// Design: pass 1 zeroes the accumulator (cudaMemsetAsync) and scatters the
-// stream into it with atomicAdd, a grid-stride loop over the entries; pad
-// entries aim at the dump cell past the last row.  An index outside the
-// accumulator is skipped (the analyzer never emits one; the CPU plain
-// version raises on it).  Pass 2 (fused_eval only) runs one block of 256
-// threads per row: each thread strides over the row's spans (core time,
-// the edges with their amortized part split by the D2D mask into NoC and
-// D2D, the DRAM ports with theirs, the GLB footprint against capacity,
-// the MACs, the core inputs), keeps four maxima and six sums, and the
-// block reduces them with warp shuffles and a shared-memory step; thread 0
-// then finishes the row.  Ties between the four times go to the first
-// maximum, as `jnp.argmax` does.  Atomic adds land in an order that changes
-// from run to run, and the row sums are taken in another order than the
+// fused_eval's design: one block of kThreads threads per row.  The block
+// zeroes the row's buf_len cells in dynamic shared memory, streams its
+// slice [off[b], off[b+1]) of the row-local index stream in with
+// read-once loads (__ldcs), kUnroll entries a lane in flight, and adds
+// each entry to its cell with a shared-memory atomicAdd.  One cell takes
+// up to 4-6 % of a row's entries, and the 32 entries of a warp's load
+// hold about six for one cell on average (chip_smoke.py's max_cell_share
+// and warp_same_cell_mean), so a warp first sums the entries it holds for
+// the same cell (__match_any_sync, then a tree over the peers) and one
+// lane adds the sum.  512 threads with 4 entries a lane, and the
+// aggregation, come from benchmarks/port_kernel_variants.py's fused_eval
+// lines.  After a barrier each thread strides over the row's
+// spans (core time, the edges with their amortized part split by the D2D
+// mask into NoC and D2D, the DRAM ports with theirs, the GLB footprint
+// against capacity, the MACs, the core inputs), keeps four maxima and six
+// sums; each warp reduces them with shuffles, warp 0 the warps' partials,
+// and thread 0 finishes the row from them and from the row's small inputs
+// (read into shared memory while the cells are zeroed).  There is no
+// memset, no scratch in device memory and no padding: an empty row
+// (off[b] == off[b+1]) is a row of zeros.  An index outside [0, buf_len)
+// is skipped (the analyzer never emits one; the CPU plain version raises
+// on it).  A row above 48 KB of cells opts in to the larger dynamic shared
+// memory; one above the block's limit (fused_eval_max_cells) is refused by
+// the wrapper.  Ties between the four times go to the first maximum, as
+// `jnp.argmax` does.  Atomic adds land in an order that changes from run
+// to run, and the row sums are taken in another order than the
 // reference's, so results agree with it within float32 rounding (the
 // reference's parity envelope is 1e-4 relative), never bit for bit.
+//
+// segment_replay zeroes its output (cudaMemsetAsync) and scatters the
+// stream into it with float64 atomicAdd, a grid-stride loop.
 //
 // The spans, the D2D mask and the constants (bandwidths, GLB capacity,
 // unit energies) are fixed per evaluator: the caller uploads them once.
@@ -51,7 +68,7 @@ enum {
 // slots of the constants array (fused_eval.py CONSTS)
 enum {
   C_NOC_BW, C_D2D_BW, C_DRAM_PORT_BW, C_DRAM_BW, C_GLB_CAP, C_GLB_TOTAL,
-  C_E_MAC, C_E_GLB, C_E_NOC, C_E_D2D, C_E_DRAM
+  C_E_MAC, C_E_GLB, C_E_NOC, C_E_D2D, C_E_DRAM, N_CONSTS
 };
 // rows of the output (fused_eval.py OUT_ROWS)
 enum {
@@ -64,21 +81,12 @@ enum {
   N_ACC
 };
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;    // fused_eval's block: one row
+constexpr int kUnroll = 4;       // stream entries a lane has in flight
 constexpr int kWarps = kThreads / 32;
 constexpr int kScatterThreads = 256;
-
-__global__ void scatter_f32(const int* __restrict__ idx,
-                            const float* __restrict__ vals, long long n,
-                            float* __restrict__ buf, long long n_cells) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const long long c = idx[i];
-    if (c >= 0 && c < n_cells) atomicAdd(buf + c, vals[i]);
-  }
-}
+constexpr int kDefaultSmem = 48 * 1024;   // dynamic smem without opt-in
+constexpr int kMaxDevices = 64;
 
 __global__ void scatter_f64(const long long* __restrict__ idx,
                             const double* __restrict__ vals, long long n,
@@ -94,20 +102,96 @@ __global__ void scatter_f64(const long long* __restrict__ idx,
 
 __device__ __forceinline__ bool is_max(int a) { return a < S_NOC; }
 
+// Add v into cells[c] once for each distinct c among the warp's lanes
+// (c < 0: nothing to add).  Every lane of the warp calls it.  The lanes
+// that hold the same cell first sum their values in a tree, log2 of their
+// count rounds (the lowest lane ends with the sum), and that lane adds it.
+__device__ __forceinline__ void add_peers(float* cells, int c, float v,
+                                          int lane) {
+  unsigned peers = __match_any_sync(0xffffffffu, c);
+  const int first = __ffs(peers) - 1;
+  int rel = __popc(peers & ((1u << lane) - 1u));   // peers below this lane
+  peers &= ~((2u << lane) - 1u);                   // peers above it
+  while (__any_sync(0xffffffffu, peers != 0u)) {
+    const int next = __ffs(peers);                 // 0: none left
+    const float t = __shfl_sync(0xffffffffu, v, (next - 1) & 31);
+    if (next) v += t;
+    peers &= ~__ballot_sync(0xffffffffu, rel & 1);
+    rel >>= 1;
+  }
+  if (c >= 0 && lane == first) atomicAdd(cells + c, v);
+}
+
+// One row's entry i, or (a key no other lane holds, 0) past the row's end
+// or off its cells.
+__device__ __forceinline__ void load_entry(const int* __restrict__ idx,
+                                           const float* __restrict__ vals,
+                                           long long i, long long hi,
+                                           int buf_len, int lane, int& c,
+                                           float& v) {
+  c = -1 - lane;
+  v = 0.f;
+  if (i < hi) {
+    const int k = __ldcs(idx + i);
+    v = __ldcs(vals + i);
+    if (static_cast<unsigned>(k) < static_cast<unsigned>(buf_len)) c = k;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-rows_f32(const float* __restrict__ buf, int buf_len,
-         const int* __restrict__ spans, const float* __restrict__ d2d_mask,
-         const float* __restrict__ consts, int has_d2d,
-         const int* __restrict__ npass, const int* __restrict__ depth,
-         const float* __restrict__ wts, int B, float* __restrict__ out,
-         int* __restrict__ bottleneck) {
+fused_rows(const int* __restrict__ off, const int* __restrict__ idx,
+           const float* __restrict__ vals, long long n, int buf_len,
+           const int* __restrict__ spans, const float* __restrict__ d2d_mask,
+           const float* __restrict__ consts, int has_d2d,
+           const int* __restrict__ npass, const int* __restrict__ depth,
+           const float* __restrict__ wts, int B, float* __restrict__ out,
+           int* __restrict__ bottleneck) {
+  extern __shared__ float row[];                   // buf_len cells
   __shared__ int sp[2 * N_TARGETS];
+  __shared__ float sc[N_CONSTS];
+  __shared__ float s_wts;
+  __shared__ int s_npass, s_depth;
   __shared__ float part[kWarps][N_ACC];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  if (tid < 2 * N_TARGETS) sp[tid] = spans[tid];
+  const int lane = tid & 31;
+  // the row's small inputs, each from its own warp, in flight while the
+  // block zeroes its cells
+  if (tid < 2 * N_TARGETS) {
+    sp[tid] = spans[tid];
+  } else if (tid >= 32 && tid < 32 + N_CONSTS) {
+    sc[tid - 32] = consts[tid - 32];
+  } else if (tid == 64) {
+    s_npass = npass[b];
+    s_depth = depth[b];
+    s_wts = wts[b];
+  }
+  long long lo = off[b], hi = off[b + 1];
+  lo = lo < 0 ? 0 : lo;
+  hi = hi > n ? n : hi;
+  for (int i = tid; i < buf_len; i += kThreads) row[i] = 0.f;
   __syncthreads();
-  const float* row = buf + static_cast<long long>(b) * buf_len;
+  // this thread's first edge's D2D flag, read while the stream streams
+  const int e0 = sp[2 * T_EDGE], ea = sp[2 * T_EDGE_AM];
+  const int ne = sp[2 * T_EDGE + 1] - e0;
+  const float mask0 = tid < ne ? d2d_mask[tid] : 0.f;
+
+  // the row's stream, kUnroll entries a lane in flight; the loop bounds
+  // are the same for the 32 lanes of a warp
+  for (long long base = lo + (tid - lane); base < hi;
+       base += kUnroll * kThreads) {
+    int c[kUnroll];
+    float v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      load_entry(idx, vals, base + u * kThreads + lane, hi, buf_len, lane,
+                 c[u], v[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (base + u * kThreads < hi) add_peers(row, c[u], v[u], lane);
+  }
+  __syncthreads();
+
   float acc[N_ACC];
 #pragma unroll
   for (int a = 0; a < N_ACC; ++a) acc[a] = 0.f;   // max with initial 0.0
@@ -115,11 +199,9 @@ rows_f32(const float* __restrict__ buf, int buf_len,
   for (int i = sp[2 * T_CORE_TIME] + tid; i < sp[2 * T_CORE_TIME + 1];
        i += kThreads)
     acc[A_COMP] = fmaxf(acc[A_COMP], row[i]);
-  const int e0 = sp[2 * T_EDGE], ea = sp[2 * T_EDGE_AM];
-  const int ne = sp[2 * T_EDGE + 1] - e0;
   for (int j = tid; j < ne; j += kThreads) {
     const float tot = row[e0 + j] + row[ea + j];
-    const bool d2d = d2d_mask[j] != 0.f;
+    const bool d2d = (j == tid ? mask0 : d2d_mask[j]) != 0.f;
     const float noc = d2d ? 0.f : tot;
     const float dd = d2d ? tot : 0.f;
     acc[A_NOC] = fmaxf(acc[A_NOC], noc);
@@ -133,7 +215,7 @@ rows_f32(const float* __restrict__ buf, int buf_len,
     acc[A_DRAM] = fmaxf(acc[A_DRAM], row[d0 + j] + row[da + j]);
     acc[S_DRAM] += row[d0 + j];
   }
-  const float glb_cap = consts[C_GLB_CAP];
+  const float glb_cap = sc[C_GLB_CAP];
   for (int i = sp[2 * T_GLB] + tid; i < sp[2 * T_GLB + 1]; i += kThreads)
     acc[S_OVER] += fmaxf(row[i] - glb_cap, 0.f);
   for (int i = sp[2 * T_CORE_MACS] + tid; i < sp[2 * T_CORE_MACS + 1];
@@ -143,6 +225,7 @@ rows_f32(const float* __restrict__ buf, int buf_len,
        i += kThreads)
     acc[S_IN] += row[i];
 
+  // each warp's partials, then warp 0 over the warps' partials
 #pragma unroll
   for (int a = 0; a < N_ACC; ++a) {
     float v = acc[a];
@@ -151,23 +234,27 @@ rows_f32(const float* __restrict__ buf, int buf_len,
       const float w = __shfl_xor_sync(0xffffffffu, v, o);
       v = is_max(a) ? fmaxf(v, w) : v + w;
     }
-    if ((tid & 31) == 0) part[tid >> 5][a] = v;
+    if (lane == 0) part[tid >> 5][a] = v;
   }
   __syncthreads();
-  if (tid != 0) return;
+  if (tid >= 32) return;
 #pragma unroll
   for (int a = 0; a < N_ACC; ++a) {
-    float v = part[0][a];
-    for (int w = 1; w < kWarps; ++w)
-      v = is_max(a) ? fmaxf(v, part[w][a]) : v + part[w][a];
+    float v = lane < kWarps ? part[lane][a] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float w = __shfl_xor_sync(0xffffffffu, v, o);
+      v = is_max(a) ? fmaxf(v, w) : v + w;
+    }
     acc[a] = v;
   }
+  if (tid != 0) return;
 
   // evaluator.py:143-177, in its order
   const float t_comp = acc[A_COMP];
-  const float t_noc = acc[A_NOC] / consts[C_NOC_BW];
-  const float t_d2d = has_d2d ? acc[A_D2D] / consts[C_D2D_BW] : 0.f;
-  const float t_dram = acc[A_DRAM] / consts[C_DRAM_PORT_BW];
+  const float t_noc = acc[A_NOC] / sc[C_NOC_BW];
+  const float t_d2d = has_d2d ? acc[A_D2D] / sc[C_D2D_BW] : 0.f;
+  const float t_dram = acc[A_DRAM] / sc[C_DRAM_PORT_BW];
   const float times[4] = {t_comp, t_noc, t_d2d, t_dram};
   int bi = 0;
   float bv = times[0];
@@ -180,22 +267,22 @@ rows_f32(const float* __restrict__ buf, int buf_len,
   float stage = fmaxf(bv, 1e-12f);
   const float overflow = acc[S_OVER];
   const float spill = overflow * 2.f;
-  stage = stage * (1.f + overflow / consts[C_GLB_TOTAL]);
-  stage = stage + spill / consts[C_DRAM_BW];
-  const float np_f = static_cast<float>(npass[b]);
-  const float delay = stage * (np_f + static_cast<float>(depth[b]) - 1.f);
+  stage = stage * (1.f + overflow / sc[C_GLB_TOTAL]);
+  stage = stage + spill / sc[C_DRAM_BW];
+  const float np_f = static_cast<float>(s_npass);
+  const float delay = stage * (np_f + static_cast<float>(s_depth) - 1.f);
 
   const float noc_bytes = acc[S_NOC] * np_f;
   const float d2d_bytes = acc[S_D2D] * np_f;
-  const float dram_b = acc[S_DRAM] * np_f + wts[b] + spill * np_f;
+  const float dram_b = acc[S_DRAM] * np_f + s_wts + spill * np_f;
   const float macs = acc[S_MACS] * np_f;
   const int rw = sp[2 * T_GLB_RW];
-  const float e_mac = macs * consts[C_E_MAC];
+  const float e_mac = macs * sc[C_E_MAC];
   const float e_glb =
-      (row[rw] + row[rw + 1] + acc[S_IN]) * np_f * consts[C_E_GLB];
-  const float e_noc = (noc_bytes + d2d_bytes) * consts[C_E_NOC];
-  const float e_d2d = d2d_bytes * consts[C_E_D2D];
-  const float e_dram = dram_b * consts[C_E_DRAM];
+      (row[rw] + row[rw + 1] + acc[S_IN]) * np_f * sc[C_E_GLB];
+  const float e_noc = (noc_bytes + d2d_bytes) * sc[C_E_NOC];
+  const float e_d2d = d2d_bytes * sc[C_E_D2D];
+  const float e_dram = dram_b * sc[C_E_DRAM];
   const float energy = e_mac + e_glb + e_noc + e_d2d + e_dram;
 
   out[O_DELAY * B + b] = delay;
@@ -216,34 +303,52 @@ int scatter_blocks(long long n) {
   return blocks < 1 ? 1 : static_cast<int>(blocks);
 }
 
+// the dynamic shared memory fused_rows may take on each device so far
+int g_smem_set[kMaxDevices] = {0};
+
 }  // namespace
 
 extern "C" {
 
+// The most cells a fused_eval row may have on `device` (the block's
+// opt-in shared memory less fused_rows' static shared memory, in floats),
+// or the negated cudaError_t.
+int fused_eval_max_cells(int device) {
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fused_rows);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return (optin - static_cast<int>(attr.sharedSizeBytes)) /
+         static_cast<int>(sizeof(float));
+}
+
 // Launch on `stream` (a cudaStream_t from the caller) and return the
-// launch's cudaError_t: 0 when every step was accepted.  `buf` is scratch
-// of B * buf_len + 1 floats (the last one the dump cell); `out` is
-// (9, B) f32 in OUT_ROWS order and `bottleneck` (B,) int32.
-int fused_eval_f32(const void* idx, const void* vals, long long n, int B,
-                   int buf_len, void* buf, const void* npass,
+// launch's cudaError_t: 0 when it was accepted.  Row b's entries are
+// idx[off[b]:off[b+1]] (cells 0 .. buf_len-1 of that row) and the same
+// slice of vals; n is the streams' length.  `out` is (9, B) f32 in
+// OUT_ROWS order and `bottleneck` (B,) int32.  One launch of B blocks.
+int fused_eval_f32(const void* off, const void* idx, const void* vals,
+                   long long n, int B, int buf_len, const void* npass,
                    const void* depth, const void* wts, const void* spans,
                    const void* d2d_mask, const void* consts, int has_d2d,
                    void* out, void* bottleneck, int device, void* stream) {
+  if (device < 0 || device >= kMaxDevices || B < 1 || buf_len < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_cells = static_cast<long long>(B) * buf_len + 1;
-  err = cudaMemsetAsync(buf, 0, n_cells * sizeof(float), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    scatter_f32<<<scatter_blocks(n), kScatterThreads, 0, st>>>(
-        static_cast<const int*>(idx), static_cast<const float*>(vals), n,
-        static_cast<float*>(buf), n_cells);
-    err = cudaGetLastError();
+  const int smem = buf_len * static_cast<int>(sizeof(float));
+  if (smem > kDefaultSmem && smem > g_smem_set[device]) {
+    err = cudaFuncSetAttribute(
+        fused_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
+    g_smem_set[device] = smem;
   }
-  rows_f32<<<B, kThreads, 0, st>>>(
-      static_cast<const float*>(buf), buf_len,
+  fused_rows<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(off), static_cast<const int*>(idx),
+      static_cast<const float*>(vals), n, buf_len,
       static_cast<const int*>(spans), static_cast<const float*>(d2d_mask),
       static_cast<const float*>(consts), has_d2d,
       static_cast<const int*>(npass), static_cast<const int*>(depth),

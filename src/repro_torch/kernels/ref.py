@@ -150,16 +150,18 @@ def segment_replay_ref(idx: torch.Tensor, vals: torch.Tensor,
         .scatter_add_(0, idx.long(), vals)
 
 
-def fused_eval_ref(idx: torch.Tensor, vals: torch.Tensor,
-                   npass: torch.Tensor, depth: torch.Tensor,
-                   wts: torch.Tensor, *, spans: torch.Tensor,
-                   d2d_mask: torch.Tensor, consts: torch.Tensor,
-                   has_d2d: bool, buf_len: int
+def fused_eval_ref(off: torch.Tensor, idx: torch.Tensor,
+                   vals: torch.Tensor, npass: torch.Tensor,
+                   depth: torch.Tensor, wts: torch.Tensor, *,
+                   spans: torch.Tensor, d2d_mask: torch.Tensor,
+                   consts: torch.Tensor, has_d2d: bool, buf_len: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The evaluator's fused pass (oracle of ``fused_eval``), f32.
 
-    Replays the stream into ``B * buf_len + 1`` cells (the last the dump
-    cell of the pad entries), then per row the math of the reference's
+    Sums row ``b``'s entries ``idx[off[b]:off[b+1]]`` (cells of that row,
+    in ``[0, buf_len)``; raises on offsets that do not run from 0 up to
+    the stream's length and on an index outside the row) into ``B`` rows
+    of ``buf_len`` cells, then per row the math of the reference's
     ``_build_fused_fn`` (``src/repro/core/evaluator.py:131-177``): the four
     resource times (maxima with initial 0), stage time, first-max
     bottleneck, GLB-overflow penalty, delay and the five energies.
@@ -167,9 +169,21 @@ def fused_eval_ref(idx: torch.Tensor, vals: torch.Tensor,
     D2D links among the edges, ``consts`` the slots of
     :data:`repro_torch.kernels.fused_eval.CONSTS`.  Returns ``(out (9, B)
     f32 in OUT_ROWS order, bottleneck (B,) int32)``."""
-    B = npass.shape[0]
-    buf = segment_replay_ref(idx, vals.float(), B * buf_len + 1)
-    buf = buf[:-1].reshape(B, buf_len)
+    B, n = npass.shape[0], idx.shape[0]
+    off = off.long()
+    counts = off.diff()
+    if off.shape[0] != B + 1 or int(off[0]) != 0 or int(off[-1]) != n \
+            or bool((counts < 0).any()):
+        raise ValueError(f"fused_eval: offsets {off.tolist()[:8]}... do "
+                         f"not run from 0 up to the stream's {n} entries "
+                         f"over {B} rows")
+    if n and (int(idx.min()) < 0 or int(idx.max()) >= buf_len):
+        raise ValueError(f"fused_eval: an index outside [0, {buf_len}) of "
+                         f"its row")
+    rows = torch.repeat_interleave(
+        torch.arange(B, device=idx.device), counts.to(idx.device))
+    buf = segment_replay_ref(rows * buf_len + idx.long(), vals.float(),
+                             B * buf_len).reshape(B, buf_len)
     sp = spans.tolist()
     tgt = lambda t: buf[:, sp[t][0]:sp[t][1]]
     (noc_bw, d2d_bw, dram_port_bw, dram_bw, glb_cap, glb_total,

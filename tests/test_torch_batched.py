@@ -15,7 +15,8 @@ Tolerances, each with its reason:
 * the fused pass (here the plain PyTorch version of the ``fused_eval``
   kernel, which the wrapper runs for CPU tensors) computes in float32, so
   it is held to the reference's parity envelope, rel 1e-4 with the same
-  bottleneck (``tests/test_fused_eval.py``);
+  bottleneck (``tests/test_fused_eval.py``), against the exact engine and
+  against the reference's jitted ``_build_fused_fn`` itself;
 * the fused replay is held to ``np.bincount`` at the reference's rtol 2e-4
   / atol 1e-2 (its kernel adds in float64 with atomics in no fixed order).
 """
@@ -235,20 +236,54 @@ def test_fused_pass_on_the_default_device_raises_without_a_card(monkeypatch):
         ev.eval_requests_batch(reqs, 8, backend="fused")
 
 
+@pytest.mark.parametrize("spec", ZOO)
+def test_fused_pass_equals_the_reference_jax_function(spec):
+    """The port's fused pass (its plain version, on the CPU) against the
+    reference's jitted ``_build_fused_fn`` itself (``backend="jax"``, on
+    the CPU), on the same seeded requests: rel 1e-4 on every value, the
+    same bottleneck, pass count and depth."""
+    (a, g, reqs), (ra, rg, rreqs) = _pair(spec, seed=5)
+    ours = Evaluator(a, g, fused_device="cpu").eval_requests_batch(
+        reqs, 8, backend="fused")
+    theirs = RefEvaluator(ra, rg).eval_requests_batch(rreqs, 8,
+                                                      backend="jax")
+    assert len(ours) == len(theirs) == len(reqs)
+    for (gf, anf), (gj, anj) in zip(ours, theirs):
+        assert anf is None and anj is None
+        for f in ("delay_s", "energy_j", "stage_time_s"):
+            assert _rel(getattr(gf, f), getattr(gj, f)) < REL_TOL, f
+        assert (gf.bottleneck, gf.n_passes, gf.depth) \
+            == (gj.bottleneck, gj.n_passes, gj.depth)
+        assert gf.energy_breakdown.keys() == gj.energy_breakdown.keys()
+        for k, v in gj.energy_breakdown.items():
+            assert abs(gf.energy_breakdown[k] - v) <= REL_TOL * max(
+                abs(v), 1e-12), k
+
+
 def test_fused_plain_version_on_padded_streams():
-    """``fused_eval``'s plain version on one batch's padded streams (pad
-    entries in the dump cell) against the exact engine, through the
-    wrapper, with no kernel launch on the CPU."""
+    """``fused_eval``'s inputs carry no padding: the offsets run from 0 up
+    to the stream's length, each row's slice is its ``row_stream`` with
+    row-local indices in ``[0, buf_len)`` (no dump cell), and the plain
+    version on them, through the wrapper and with no kernel launch on the
+    CPU, agrees with the exact engine."""
     (a, g, reqs), _ = _pair("moe-quick", seed=6, n=2)
     ev = Evaluator(a, g, fused_device="cpu")
-    idx, vals, npass, dep, wts = ev._fused_inputs(reqs, 8)
+    x = ev._fused_inputs(reqs, 8)
     B, L = len(reqs), ev.analyzer._buf_len
-    assert idx.size & (idx.size - 1) == 0         # a power of two
-    assert (idx == B * L).sum() > 0               # pads in the dump cell
+    streams = [ev.analyzer.row_stream(grp, lms, 8) for grp, lms in reqs]
+    n = sum(i.size for i, _, _ in streams)
+    assert x.off.shape == (B + 1,) and x.npass.shape == (B,)
+    assert x.off[0] == 0 and x.off[-1] == n == x.idx.size == x.vals.size
+    assert (np.diff(x.off) >= 0).all()
+    assert 0 <= x.idx.min() and x.idx.max() < L
+    for b, (i, v, wt) in enumerate(streams):
+        np.testing.assert_array_equal(x.idx[x.off[b]:x.off[b + 1]], i)
+        np.testing.assert_array_equal(x.vals[x.off[b]:x.off[b + 1]], v)
+        assert x.wts[b] == np.float32(wt)
     plan = ev.fused_plan()
     assert plan is ev.fused_plan()                # uploaded once
     n0 = fe.fused_eval.launches
-    rows = fe.evaluate_rows(plan, idx, vals, npass, dep, wts)
+    rows = fe.evaluate_rows(plan, x)
     assert fe.fused_eval.launches == n0       # the plain version launches none
     exact = ev.eval_requests_batch(reqs, 8)
     for b, (ge, _) in enumerate(exact):
@@ -257,6 +292,78 @@ def test_fused_plain_version_on_padded_streams():
         assert ("compute", "noc", "d2d", "dram")[rows.bottleneck[b]] \
             == ge.bottleneck
     assert rows.energy_parts.shape == (5, B)
+
+
+def _fused_args(ev, reqs):
+    """One batch's fused inputs as CPU tensors, and the plan's keywords of
+    the plain version."""
+    x = ev._fused_inputs(reqs, 8)
+    plan = ev.fused_plan()
+    kw = dict(spans=plan.spans, d2d_mask=plan.d2d_mask, consts=plan.consts,
+              has_d2d=plan.has_d2d, buf_len=plan.buf_len)
+    return [torch.from_numpy(a.copy()) for a in x], kw
+
+
+def test_fused_plain_version_refuses_bad_inputs():
+    """An index outside ``[0, buf_len)`` of its row, and offsets that do
+    not run from 0 up to the stream's length, raise in the plain version
+    (and through ``evaluate_rows``); so does a batch the plan did not
+    stage last."""
+    (a, g, reqs), _ = _pair("tf-quick", seed=3, n=1)
+    ev = Evaluator(a, g, fused_device="cpu")
+    args, kw = _fused_args(ev, reqs)
+    L = kw["buf_len"]
+    off, idx = args[0], args[1]
+    for bad in (L, -1):
+        i2 = idx.clone()
+        i2[len(i2) // 2] = bad
+        with pytest.raises(ValueError, match="outside"):
+            fe.fused_eval_ref(off, i2, *args[2:], **kw)
+    for o2 in (off + 1, off.flip(0), off[:-1]):
+        with pytest.raises(ValueError, match="offsets"):
+            fe.fused_eval_ref(o2, *args[1:], **kw)
+    x = ev._fused_inputs(reqs, 8)
+    x.off[-1] -= 1
+    with pytest.raises(ValueError, match="offsets"):
+        fe.evaluate_rows(ev.fused_plan(), x)
+    stale = ev._fused_inputs(reqs, 8)
+    ev._fused_inputs(reqs, 8)
+    with pytest.raises(ValueError, match="stage"):
+        fe.evaluate_rows(ev.fused_plan(), stale)
+
+
+def test_fused_empty_row_gives_the_zero_row_math():
+    """A row with an empty stream (``off[b] == off[b+1]``) evaluates as a
+    row of zeros: stage time 1e-12, compute the bottleneck (the first of
+    four equal maxima), no overflow, energy the weights' DRAM energy; the
+    same as a row whose one entry adds 0."""
+    (a, g, reqs), _ = _pair("moe-quick", seed=8, n=1)
+    ev = Evaluator(a, g, fused_device="cpu")
+    args, kw = _fused_args(ev, reqs[:3])
+    off, idx, vals, npass, dep, wts = args
+    # row 1 emptied: its entries dropped, the offsets after it moved down
+    lo, hi = int(off[1]), int(off[2])
+    keep = torch.cat([torch.arange(lo), torch.arange(hi, len(idx))])
+    off_e = torch.cat([off[:2], off[2:] - (hi - lo)])
+    out, bn = fe.fused_eval_ref(off_e, idx[keep], vals[keep], npass, dep,
+                                wts, **kw)
+    full, fbn = fe.fused_eval_ref(*args, **kw)
+    for b in (0, 2):                  # the other rows are untouched
+        assert torch.equal(out[:, b], full[:, b]) and bn[b] == fbn[b]
+    stage = np.float32(1e-12)
+    e_dram = np.float32(wts[1]) * np.float32(kw["consts"][-1])
+    want = [stage * np.float32(npass[1] + dep[1] - 1), e_dram, stage, 0.0,
+            0.0, 0.0, 0.0, 0.0, e_dram]
+    np.testing.assert_allclose(out[:, 1].numpy(), want, rtol=1e-6)
+    assert bn[1] == 0
+    # one entry of 0.0 in row 1 gives the same row
+    idx_z = torch.cat([idx[keep][:lo], torch.zeros(1, dtype=idx.dtype),
+                       idx[keep][lo:]])
+    vals_z = torch.cat([vals[keep][:lo], torch.zeros(1), vals[keep][lo:]])
+    off_z = torch.cat([off_e[:2], off_e[2:] + 1])
+    out_z, bn_z = fe.fused_eval_ref(off_z, idx_z, vals_z, npass, dep, wts,
+                                    **kw)
+    assert torch.equal(out_z[:, 1], out[:, 1]) and bn_z[1] == bn[1]
 
 
 def test_cached_evaluator_keeps_fused_results_separate():

@@ -496,28 +496,112 @@ def test_fused_eval_kernel_vs_exact_engine(cuda, spec, n):
                                                                  1e-12)
 
 
-@pytest.mark.gpu
-def test_fused_eval_kernel_vs_plain(cuda):
-    """Kernel against its plain version on the same inputs on the card,
-    pads in the dump cell included: rel 1e-5 (float32 atomic adds in no
-    fixed order), the same bottleneck."""
+def _fused_kernel_vs_plain(plan, args):
+    """``fused_eval`` on the card against its plain version on the same
+    inputs: rel 1e-5 (float32 atomic adds in no fixed order), the same
+    bottleneck, one launch."""
     from repro_torch.kernels import fused_eval as fe
-    ev, reqs = _zoo_batch("moe-quick", 4)
-    idx, vals, npass, dep, wts = ev._fused_inputs(reqs, 8)
-    assert (idx == idx.max()).sum() > 1          # pads in the dump cell
-    plan, L = ev.fused_plan(), ev.analyzer._buf_len
-    t = lambda x: torch.from_numpy(x).to(cuda)
-    out, bn = fe.fused_eval(plan, t(idx), t(vals), t(npass), t(dep), t(wts))
+    n0 = fe.fused_eval.launches
+    out, bn = fe.fused_eval(plan, *args)
+    assert fe.fused_eval.launches == n0 + 1
     want, wbn = ref.fused_eval_ref(
-        t(idx), t(vals), t(npass), t(dep), t(wts), spans=plan.spans,
-        d2d_mask=plan.d2d_mask, consts=plan.consts, has_d2d=plan.has_d2d,
-        buf_len=L)
+        *args, spans=plan.spans, d2d_mask=plan.d2d_mask, consts=plan.consts,
+        has_d2d=plan.has_d2d, buf_len=plan.buf_len)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want, rtol=1e-5, atol=0.0)
     assert torch.equal(bn, wbn)
+
+
+@pytest.mark.gpu
+def test_fused_eval_kernel_vs_plain(cuda):
+    """Kernel against its plain version on the same unpadded inputs on the
+    card; a wrong dtype raises."""
+    from repro_torch.kernels import fused_eval as fe
+    ev, reqs = _zoo_batch("moe-quick", 4)
+    x = ev._fused_inputs(reqs, 8)
+    plan = ev.fused_plan()
+    t = lambda a: torch.from_numpy(a.copy()).to(cuda)
+    args = [t(a) for a in x]
+    _fused_kernel_vs_plain(plan, args)
     with pytest.raises(TypeError, match="dtypes"):
-        fe.fused_eval(plan, t(idx.astype(np.int64)), t(vals), t(npass),
-                      t(dep), t(wts))
+        fe.fused_eval(plan, args[0], args[1].long(), *args[2:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,empty", [(1, None), (200, None), (5, 2),
+                                     (3, 0)])
+def test_fused_eval_kernel_vs_plain_batch_sizes(cuda, B, empty):
+    """One row, 200 rows (more blocks than the card has SMs), and a batch
+    with one row's stream emptied (``off[b] == off[b+1]``)."""
+    ev, reqs = _zoo_batch("mla-quick", 8)
+    reqs = (reqs * (B // len(reqs) + 1))[:B]
+    x = ev._fused_inputs(reqs, 8)
+    off, idx, vals = (a.copy() for a in x[:3])
+    if empty is not None:
+        lo, hi = off[empty], off[empty + 1]
+        assert hi > lo
+        keep = np.r_[0:lo, hi:len(idx)]
+        idx, vals = idx[keep], vals[keep]
+        off[empty + 1:] -= hi - lo
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    _fused_kernel_vs_plain(ev.fused_plan(),
+                           [t(a) for a in (off, idx, vals, *x[3:])])
+
+
+@pytest.mark.gpu
+def test_fused_eval_rows_above_48kb_and_above_the_limit(cuda):
+    """A row of 20,000 cells (80 KB of shared memory, past the 48 KB a
+    launch gets without opting in) and one of exactly the limit run and
+    agree with the plain version; one cell more raises, naming
+    ``buf_len``."""
+    import dataclasses
+
+    from repro_torch.kernels import fused_eval as fe
+    ev, reqs = _zoo_batch("moe-quick", 2)
+    x = ev._fused_inputs(reqs, 8)
+    args = [torch.from_numpy(a.copy()).to(cuda) for a in x]
+    plan = ev.fused_plan()
+    limit = fe.max_cells(plan.device)
+    assert 48 * 1024 // 4 < 20_000 < limit
+    for cells in (20_000, limit):
+        _fused_kernel_vs_plain(dataclasses.replace(plan, buf_len=cells),
+                               args)
+    n0 = fe.fused_eval.launches
+    with pytest.raises(ValueError, match="buf_len"):
+        fe.fused_eval(dataclasses.replace(plan, buf_len=limit + 1), *args)
+    assert fe.fused_eval.launches == n0
+
+
+@pytest.mark.gpu
+def test_evaluate_rows_is_one_kernel_and_one_copy_each_way(cuda, tmp_path):
+    """One ``evaluate_rows`` on the card, traced by ``torch.profiler``:
+    exactly one kernel (``fused_rows``), one copy host to device, one
+    device to host, and no memset."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import fused_eval as fe
+    ev, reqs = _zoo_batch("moe-quick", 3)
+    plan = ev.fused_plan()
+    fe.evaluate_rows(plan, ev._fused_inputs(reqs, 8))      # buffers grown
+    x = ev._fused_inputs(reqs, 8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rows = fe.evaluate_rows(plan, x)
+    trace = tmp_path / "evaluate_rows.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    cats = [e.get("cat") for e in events]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    copies = [e["name"] for e in events if e.get("cat") == "gpu_memcpy"]
+    assert len(kernels) == 1 and "fused_rows" in kernels[0], kernels
+    assert len(copies) == 2, copies
+    assert sum("HtoD" in c for c in copies) == 1
+    assert sum("DtoH" in c for c in copies) == 1
+    assert "gpu_memset" not in cats
+    assert rows.delay.shape == (len(reqs),)
 
 
 @pytest.mark.gpu
