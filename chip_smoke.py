@@ -147,7 +147,29 @@ phase prints one JSON line:
    logit in f32 compute, and in the served bf16 compute within the larger
    of 2e-2 and the plain route's own bf16-vs-f32 gap (``serve_check``).
    Kernel lines at each serve phase's launch shapes (flash in bf16, the
-   SSD kernels in f32) give their times.  Then ``serve_cli``: the two
+   SSD kernels in f32) give their times.  Then ``serve:whisper-small``,
+   the encoder-decoder at full width and depth (12 encoder and 12 decoder
+   layers, d 768, 12 heads, vocab 51,865, about 0.24 B parameters), served
+   the same requests (a wave's frames are its padded prompt length L, as
+   the reference's serve loop gives them), its flash launches a wave gated
+   at the reference's rule for that wave's L (12 encoder launches where L
+   x L > 256 x 2048, 12 decoder self-attention launches where L x 2048
+   is, 12 cross-attention launches where L x L is), the same kernel-vs-
+   plain gates; then whisper's own shape, 4 clips of 1500 frames (30 s of
+   audio) and 448 decoder tokens in one prefill: 24 flash launches (12 at
+   1500 x 1500, 12 at 448 x 1500), the prefill and 4 decode steps against
+   the plain route, and a kernel line at each of the two shapes.  Then
+   ``serve_trace``: ``repro_torch.launch.serve --arch mamba2-370m --trace
+   poisson:rate=8,n=16,plen=300..1024,new=16 --report --measure`` in this
+   process, on the card; the two virtual sections (numpy on the host) held
+   to the reference's values pinned in ``SERVE_TRACE_PINNED``, the
+   measured replay through the port's ``ModelWaveExecutor`` answering all
+   16 requests with each wave's launches gated (48 SSD chunk launches and
+   48 of each kernel of the state pass's route at the wave's shape: the
+   walk for a wave of 4, the split below); its line carries p50/p95/p99
+   TTFT and end-to-end latency of each section, the saturation estimates,
+   the measured/virtual p99 ratio and the phase's seconds.  Then
+   ``serve_cli``: the two
    serving entry points, ``repro_torch.launch.serve`` and
    ``repro_torch.examples.serve_lm``, with ``--arch zamba2-1.2b`` at their
    defaults, and ``launch.serve --arch mamba2-370m``; each must answer
@@ -162,8 +184,8 @@ phase prints one JSON line:
    launches on the paths, the loop and the serve phases, its numbers
    summed over one pass of each path, of each realized loop candidate
    (``loop#1``, ``loop#2``) and of each serve phase (``serve``,
-   ``serve:mamba2-370m``), and each one's share apart (both bounds,
-   ``arith``); under
+   ``serve:mamba2-370m``, ``serve:whisper-small``, ``serve_trace``), and
+   each one's share apart (both bounds, ``arith``); under
    ``bf16`` the realization launches' sums with bf16 operands.  The cost
    model's two kernels carry their launches in the ``fused`` phase and
    one launch's numbers at that phase's shape.
@@ -442,6 +464,48 @@ SERVE_MAX_NEW = 16
 SERVE_PROMPT = (300, 1024)
 SERVE_CHECK_STEPS = 4
 SERVE_TOL = 2e-2
+# the reference's rule for the flash path (src/repro/nn/attention.py:160):
+# Sq * Sk above it, over the full key length
+FLASH_RULE = 256 * 2048
+# the encoder-decoder served at full width and depth (whisper-small,
+# arXiv:2212.04356): arch -> (encoder layers, decoder layers, d_model,
+# heads, head dim, d_ff, vocab).  It serves the same requests (a wave's
+# frames are its padded prompt length L, as the reference's serve loop
+# gives them); its flash launches a wave follow the rule at that wave's L
+# (serve_wave_keys).  Then whisper's own shape: WHISPER_SLOTS clips of
+# 1500 frames (30 s of audio) and 448 decoder tokens in one prefill
+SERVE_ENCDEC = {"whisper-small": (12, 12, 768, 12, 64, 3072, 51865)}
+WHISPER_SLOTS = 4
+WHISPER_FRAMES = 1500
+WHISPER_TEXT = 448
+# the serve phases, in order
+SERVE_PHASES = (*SERVE_ARCHS, *SERVE_ENCDEC)
+# serve_trace: the trace-replay entry point on the card, its virtual
+# sections held to the reference's values (tests/test_torch_serve_trace.py
+# holds these equal to both packages' CPU output)
+SERVE_TRACE_ARCH = "mamba2-370m"
+SERVE_TRACE_SPEC = "poisson:rate=8,n=16,plen=300..1024,new=16"
+SERVE_TRACE_ARGV = ["--arch", SERVE_TRACE_ARCH, "--trace", SERVE_TRACE_SPEC,
+                    "--max-batch", str(SERVE_MAX_BATCH), "--max-seq",
+                    str(SERVE_MAX_SEQ), "--report", "--measure"]
+SERVE_TRACE_PINNED = {
+    "serve_loop": {
+        "ttft_s.p50": 2.370865802182241, "ttft_s.p95": 3.573761805509585,
+        "ttft_s.p99": 3.585983146676628, "e2e_s.p50": 2.401203399622241,
+        "e2e_s.p95": 3.604099402949585, "e2e_s.p99": 3.616320744116628,
+        "makespan_s": 5.864257585152,
+        "saturation.sat_rate_rps": 5880.577219754148,
+        "saturation.sat_throughput_tok_s": 43.65428978566338},
+    "realized": {
+        "ttft_s.p50": 0.00028239999999990495,
+        "ttft_s.p95": 0.0004068999999999323,
+        "ttft_s.p99": 0.0004090599999999944,
+        "e2e_s.p50": 0.00028839999999841215,
+        "e2e_s.p95": 0.00041290000000010485,
+        "e2e_s.p99": 0.00041506000000016694,
+        "makespan_s": 2.4228904337275288,
+        "saturation.sat_rate_rps": 5880.577219754148,
+        "saturation.sat_throughput_tok_s": 54452.36881143569}}
 
 
 def emit(obj) -> None:
@@ -1831,93 +1895,143 @@ def cost_kernel_summary(cost_timed: dict, launches: dict) -> list:
     return out
 
 
-def serve_kernel_lines(dev, arch, waves) -> dict:
-    """Kernel lines at a serve phase's launch shapes, one set per wave (B
-    slots, prompts padded to L), by ``SERVE_ARCHS[arch]``: flash on bf16
-    (B, heads, L, L, head dim), causal, as the prefill runs it, where the
-    arch has attention; the SSD chunk kernel on f32 (B * ceil(L / 128),
-    128, H, P, N); the state pass on (B, ceil(L / 128), 128, H, P, N, G =
-    1) by the route the rule picks.  Each against its plain version on the
-    same inputs (flash on the upcast inputs, 2e-2; the SSD kernels 1e-4),
-    with its device time, the plain version's, the library call's (bf16
-    ``scaled_dot_product_attention``; none for the SSD kernels) and the
-    bound (bf16 rates for flash).  Returns them by launch key."""
+def flash_bf16_line(randn, B, heads, Sq, Sk, hd, causal, main_path) -> dict:
+    """One bf16 flash kernel line at a serve shape: (B, heads, Sq, Sk, hd)
+    from ``randn``, ``causal`` or not, q_offset 0, against the plain
+    version on the upcast inputs (2e-2), with its device time, the plain
+    version's, bf16 ``scaled_dot_product_attention``'s and the bound at
+    bf16 rates."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention, mamba_ssd, ref
+    from repro_torch.kernels import flash_attention, ref
     from repro_torch.kernels.flash_attention import flash_attention_mha
+
+    q = randn(B, heads, Sq, hd).bfloat16()
+    k, v = (randn(B, heads, Sk, hd).bfloat16() for _ in range(2))
+    got = flash_attention_mha(q, k, v, causal=causal)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    shape = {"B": B, "H": heads, "Sq": Sq, "Sk": Sk, "D": hd,
+             "causal": int(causal)}
+    line = {"phase": "kernel", "kernel": "flash_attention_mha",
+            "dtype": "bf16", "shape": shape, "q_offset": 0,
+            "route": flash_attention.kernel_route(q, k, v),
+            "arith": ARITH_BF16["flash_attention_mha"],
+            "main_path": main_path, **FLASH_BF16_TOL,
+            "max_abs_err": (got.float() - want).abs().max().item(),
+            **bf16_bounds("flash_attention_mha", shape)}
+    line["bound_3xtf32_ms"] = line["bound_ms"]           # bf16 operands
+    line["ms"] = time_ms(lambda: flash_attention_mha(q, k, v, causal=causal))
+    line["host_issued_ms"] = time_ms(
+        lambda: flash_attention_mha(q, k, v, causal=causal), device=False)
+    line["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v,
+                                                         causal=causal))
+    line["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+    emit(line)
+    if not torch.allclose(got.float(), want, **FLASH_BF16_TOL):
+        raise AssertionError(f"serve flash disagrees at {shape}")
+    return line
+
+
+def serve_kernel_lines(dev, keys, main_path) -> dict:
+    """Kernel lines at a serve phase's launch shapes, once per distinct
+    launch key (``serve_wave_keys``): flash on bf16 (B, heads, Sq, Sk, head
+    dim), causal or not, as the prefill runs it; the SSD chunk kernel on
+    f32 (B * ceil(L / 128), 128, H, P, N); the state pass on (B, ceil(L /
+    128), 128, H, P, N, G = 1) by the route the rule picks.  Each against
+    its plain version on the same inputs (flash on the upcast inputs,
+    2e-2; the SSD kernels 1e-4), with its device time, the plain
+    version's, the library call's (bf16 ``scaled_dot_product_attention``;
+    none for the SSD kernels) and the bound (bf16 rates for flash).
+    Returns them by launch key."""
+    import torch
+
+    from repro_torch.kernels import mamba_ssd, ref
     from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
     from repro_torch.realize.measure import launch_cost
 
-    n_flash, _, heads, hd, H, P, N = SERVE_ARCHS[arch]
-    main_path = serve_path(arch)
     gen = torch.Generator(device=dev).manual_seed(2)
     randn = lambda *s: torch.randn(*s, device=dev, generator=gen)
     timed = {}
-    for B, L in sorted(set(waves)):
-        nc = -(-L // 128)
-        if n_flash:
-            q, k, v = (randn(B, heads, L, hd).bfloat16() for _ in range(3))
-            got = flash_attention_mha(q, k, v, causal=True)
-            want = ref.attention_ref(q.float(), k.float(), v.float(),
-                                     causal=True)
+    for key in sorted(set(keys), key=repr):
+        kernel, shp = key
+        if key in timed:
+            continue
+        if kernel == "flash_attention_mha":
+            B, heads, Sq, Sk, hd, causal = shp[:6]
+            timed[key] = flash_bf16_line(randn, B, heads, Sq, Sk, hd,
+                                         bool(causal), main_path)
+        elif kernel == "ssd_chunk_dual":
+            BC, Q, H, P, N = shp
+            x = randn(BC, Q, H, P)
+            cum = torch.cumsum(-randn(BC, Q, H).abs() * 0.1, dim=1)
+            Bm, Cm = randn(BC, Q, N), randn(BC, Q, N)
+            got = ssd_chunk_dual(x, cum, Bm, Cm)
+            want = ref.ssd_chunk_ref(x, cum, Bm, Cm)
             torch.cuda.synchronize()
-            shape = {"B": B, "H": heads, "Sq": L, "Sk": L, "D": hd,
-                     "causal": 1}
-            line = {"phase": "kernel", "kernel": "flash_attention_mha",
-                    "dtype": "bf16", "shape": shape, "q_offset": 0,
-                    "route": flash_attention.kernel_route(q, k, v),
-                    "arith": ARITH_BF16["flash_attention_mha"],
-                    "main_path": main_path, **FLASH_BF16_TOL,
-                    "max_abs_err": (got.float() - want).abs().max().item(),
-                    **bf16_bounds("flash_attention_mha", shape)}
-            line["bound_3xtf32_ms"] = line["bound_ms"]   # bf16 operands
-            line["ms"] = time_ms(lambda: flash_attention_mha(q, k, v))
+            shape = {"BC": BC, "Q": Q, "H": H, "P": P, "N": N}
+            line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
+                    "shape": shape,
+                    "route": mamba_ssd.kernel_route(x, Bm, Cm),
+                    "arith": ARITH["ssd_chunk_dual"], "main_path": main_path,
+                    **SSD_TOL, "max_abs_err": max(
+                        (g - w).abs().max().item()
+                        for g, w in zip(got, want)),
+                    **bounds(*launch_cost("ssd_chunk_dual", shape))}
+            line["ms"] = time_ms(lambda: ssd_chunk_dual(x, cum, Bm, Cm))
             line["host_issued_ms"] = time_ms(
-                lambda: flash_attention_mha(q, k, v), device=False)
-            line["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v))
-            line["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True))
+                lambda: ssd_chunk_dual(x, cum, Bm, Cm), device=False)
+            line["plain_ms"] = time_ms(
+                lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm))
+            line["library_ms"] = None
+            line["library"] = "none: no single PyTorch call computes it"
             emit(line)
-            if not torch.allclose(got.float(), want, **FLASH_BF16_TOL):
-                raise AssertionError(f"serve flash disagrees at {shape}")
-            timed[("flash_attention_mha",
-                   (B, heads, L, L, hd, 1, 0, "bf16"))] = line
-            del q, k, v, got, want
-
-        x = randn(B * nc, 128, H, P)
-        cum = torch.cumsum(-randn(B * nc, 128, H).abs() * 0.1, dim=1)
-        Bm, Cm = randn(B * nc, 128, N), randn(B * nc, 128, N)
-        got = ssd_chunk_dual(x, cum, Bm, Cm)
-        want = ref.ssd_chunk_ref(x, cum, Bm, Cm)
-        torch.cuda.synchronize()
-        shape = {"BC": B * nc, "Q": 128, "H": H, "P": P, "N": N}
-        line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
-                "shape": shape, "route": mamba_ssd.kernel_route(x, Bm, Cm),
-                "arith": ARITH["ssd_chunk_dual"], "main_path": main_path,
-                **SSD_TOL, "max_abs_err": max((g - w).abs().max().item()
-                                              for g, w in zip(got, want)),
-                **bounds(*launch_cost("ssd_chunk_dual", shape))}
-        line["ms"] = time_ms(lambda: ssd_chunk_dual(x, cum, Bm, Cm))
-        line["host_issued_ms"] = time_ms(
-            lambda: ssd_chunk_dual(x, cum, Bm, Cm), device=False)
-        line["plain_ms"] = time_ms(lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm))
-        line["library_ms"] = None
-        line["library"] = "none: no single PyTorch call computes it"
-        emit(line)
-        if not all(torch.allclose(g, w, **SSD_TOL)
-                   for g, w in zip(got, want)):
-            raise AssertionError(f"serve ssd_chunk_dual disagrees at {shape}")
-        timed[("ssd_chunk_dual", tuple(shape.values()))] = line
-        del x, cum, Bm, Cm, got, want
-        state = (B, nc, 128, H, P, N, 1)
-        for kernel, line in check_state_pass(
-                randn, *state, False, timed=True,
-                main_path=main_path).items():
-            timed[(kernel, state)] = line
+            if not all(torch.allclose(g, w, **SSD_TOL)
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"serve ssd_chunk_dual disagrees at "
+                                     f"{shape}")
+            timed[key] = line
+            del x, cum, Bm, Cm, got, want
+        elif kernel in STATE_KERNELS:
+            for k, line in check_state_pass(
+                    randn, *shp, False, timed=True,
+                    main_path=main_path).items():
+                timed[(k, shp)] = line
     return timed
+
+
+def serve_wave_keys(arch, B, L, dev) -> list:
+    """The (kernel, shape) of every kernel launch of one served wave of B
+    slots with prompts padded to L.  A decoder LM, by ``SERVE_ARCHS``:
+    flash once an attention application, the SSD chunk kernel and the
+    kernels of the route the state pass takes (at the wave's shape) once
+    a Mamba-2 layer.  The encoder-decoder, by the reference's flash rule
+    (``Sq * Sk > FLASH_RULE`` over the full key length): the encoder's
+    self-attention on the wave's L frames (L x L), each decoder layer's
+    self-attention on the ``SERVE_MAX_SEQ``-position cache (L x max_seq;
+    the kernel reads the L written keys) and cross-attention (L x L);
+    decode steps take the scores path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_state
+    cfg = get_config(arch)
+    if cfg.family == "encdec":
+        flash = lambda causal: ("flash_attention_mha", (
+            B, cfg.n_heads, L, L, cfg.hd, causal, 0, "bf16"))
+        square = L * L > FLASH_RULE
+        return [flash(0)] * (cfg.n_enc_layers if square else 0) \
+            + [flash(1)] * (cfg.n_layers if L * SERVE_MAX_SEQ > FLASH_RULE
+                            else 0) \
+            + [flash(0)] * (cfg.n_layers if square else 0)
+    n_flash, n_ssm, heads, hd, H, P, N = SERVE_ARCHS[arch]
+    nc = -(-L // 128)
+    state = (B, nc, 128, H, P, N, 1)
+    return [("flash_attention_mha", (B, heads, L, L, hd, 1, 0, "bf16"))] \
+        * n_flash \
+        + [("ssd_chunk_dual", (B * nc, 128, H, P, N))] * n_ssm \
+        + [(k, state) for k in ssd_state.route_kernels(B, H, P, N, dev)] \
+        * n_ssm
 
 
 def serve_path(arch: str) -> str:
@@ -1926,28 +2040,28 @@ def serve_path(arch: str) -> str:
     return "serve" if arch == SERVE_ARCH else f"serve:{arch}"
 
 
-def serve_check(cfg, params, toks, dev) -> dict:
-    """The first wave's prefill and ``SERVE_CHECK_STEPS`` decode steps
-    four ways on the card, each on its own cache and all fed the greedy
-    tokens of the first: through the kernels and with
+def serve_check(cfg, params, batch, dev, max_seq=SERVE_MAX_SEQ) -> dict:
+    """The prefill of ``batch`` and ``SERVE_CHECK_STEPS`` decode steps
+    four ways on the card, each on its own ``max_seq`` cache and all fed
+    the greedy tokens of the first: through the kernels and with
     ``use_kernels=False``, in the config's bf16 compute and in f32 compute
     (the same parameters).  Per step, the largest difference relative to
     the largest logit of: kernels against plain in f32 (the kernels'
     error: gated at ``SERVE_TOL``); kernels against plain in bf16; and
     the plain route's bf16 against its f32 (the bf16 rounding the served
-    numerics carry, which a 38-layer random-init model amplifies: the
-    bf16 gap is gated at the larger of ``SERVE_TOL`` and that)."""
+    numerics carry, which a deep random-init model amplifies: the bf16
+    gap is gated at the larger of ``SERVE_TOL`` and that)."""
     import torch
 
     from repro_torch.models import model_api
     rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    slots = batch["tokens"].shape[0]
     feed, logits = None, {}
     for cdt in ("bfloat16", "float32"):
         api = model_api(cfg.replace(compute_dtype=cdt))
         for uk in (True, False):
-            cache = api.init_cache(toks.shape[0], SERVE_MAX_SEQ, device=dev)
-            lg, cache = api.prefill(params, {"tokens": toks}, cache,
-                                    use_kernels=uk)
+            cache = api.init_cache(slots, max_seq, device=dev)
+            lg, cache = api.prefill(params, batch, cache, use_kernels=uk)
             out, cur_feed = [lg], []
             for step in range(SERVE_CHECK_STEPS):
                 cur = (lg.argmax(dim=-1).to(torch.int32)[:, None]
@@ -1969,7 +2083,7 @@ def serve_check(cfg, params, toks, dev) -> dict:
             for k, (x, y) in pairs.items()}
     bf16_bound = [max(SERVE_TOL, g) for g in line["bf16_plain_vs_f32_plain"]]
     line.update({
-        "rel_tol": SERVE_TOL, "slots": int(toks.shape[0]),
+        "rel_tol": SERVE_TOL, "slots": int(slots),
         "max_rel_err": max(line["f32_kernels_vs_plain"]),
         "bf16_within_rounding": all(
             e <= b for e, b in zip(line["bf16_kernels_vs_plain"],
@@ -1981,16 +2095,80 @@ def serve_check(cfg, params, toks, dev) -> dict:
     return line
 
 
+def serve_gate(name: str, check: dict) -> None:
+    """Raise unless ``serve_check``'s kernel route is within its gates."""
+    if check["max_rel_err"] > SERVE_TOL or not check["bf16_within_rounding"]:
+        raise AssertionError(f"{name}: the kernel route against the plain "
+                             f"route: {check}")
+
+
+def whisper_shape_check(cfg, params, dev) -> dict:
+    """The encoder-decoder at whisper's own shape: ``WHISPER_SLOTS``
+    clips of ``WHISPER_FRAMES`` seeded frame embeddings (30 s of audio)
+    and ``WHISPER_TEXT`` decoder tokens (whisper's text context) in one
+    prefill, through the kernels in the served bf16 compute, with the
+    launch counts set to 0 just before: 12 encoder flash launches at
+    1500 x 1500 and 12 cross-attention launches at 448 x 1500, none for
+    the decoder's self-attention (448 x 452 is under the rule).  The cache
+    holds ``WHISPER_TEXT + SERVE_CHECK_STEPS`` positions, so that the
+    checked decode steps have room.  Then the prefill and the decode steps
+    against the plain route (``serve_check``) and a kernel line at each of
+    the two flash shapes."""
+    import torch
+
+    from repro_torch.models import model_api
+    from repro_torch.models.frontends import fake_audio_frames
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, frames, T = WHISPER_SLOTS, WHISPER_FRAMES, WHISPER_TEXT
+    batch = {"embeds": fake_audio_frames(gen, B, frames, cfg.d_model, dev),
+             "tokens": torch.randint(1, cfg.vocab, (B, T), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    max_seq = T + SERVE_CHECK_STEPS
+    api = model_api(cfg)
+    wrappers = kernel_wrappers()
+    cache = api.init_cache(B, max_seq, device=dev)
+    api.prefill(params, batch, cache)                # warm-up, not counted
+    cache = api.init_cache(B, max_seq, device=dev)
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    del cache
+    flash = lambda Sq: ("flash_attention_mha", (B, cfg.n_heads, Sq, frames,
+                                                cfg.hd, 0, 0, "bf16"))
+    keys = [flash(frames)] * cfg.n_enc_layers + [flash(T)] * cfg.n_layers
+    want = {k: sum(1 for key in keys if key[0] == k) for k in wrappers}
+    check = serve_check(cfg, params, batch, dev, max_seq=max_seq)
+    lines = serve_kernel_lines(dev, keys, "whisper-shape")
+    line = {"slots": B, "frames": frames, "tokens": T, "max_seq": max_seq,
+            "prefill_s": prefill_s, "launches": launches,
+            "launches_want": want,
+            "logits_finite": bool(torch.isfinite(logits).all().item()),
+            "kernel_vs_plain": check,
+            "flash_ms": {f"{k[1][2]}x{k[1][3]}": ln["ms"]
+                         for k, ln in lines.items()}}
+    if launches != want or not line["logits_finite"]:
+        raise AssertionError(f"whisper shape: launched {launches}, not "
+                             f"{want}, or logits not finite")
+    serve_gate("whisper shape", check)
+    return line
+
+
 def run_serve(dev, arch):
     """A ``serve`` phase (``SERVE_*``): ``arch`` at full width and depth
     from the port's seeded ``init_params`` on the card, a ``Server``
     answering ``SERVE_REQUESTS`` requests, after one short warm-up wave
     (library handles, the allocator), with the launch counts set to 0 just
     before the counted run.  Gates: every request answered, the launches a
-    wave by ``SERVE_ARCHS`` (the state pass's by the route it takes at the
-    wave's shape), the kernel route within ``SERVE_TOL`` of the plain
-    route.  Returns the line, the (B, L) of each wave and the launch keys
-    of the run."""
+    wave by ``serve_wave_keys`` (the state pass's by the route it takes at
+    the wave's shape; the encoder-decoder's flash by the reference's
+    rule), the kernel route within ``SERVE_TOL`` of the plain route; for
+    the encoder-decoder also ``whisper_shape_check``.  Returns the line,
+    the (B, L) of each wave and the launch keys of the run."""
     import statistics
 
     import numpy as np
@@ -2004,11 +2182,18 @@ def run_serve(dev, arch):
 
     t_phase = time.perf_counter()
     cfg = get_config(arch)
-    n_flash, n_ssm, heads, hd, H, P, N = SERVE_ARCHS[arch]
-    if (cfg.n_layers, cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim,
-            cfg.ssm_headdim, cfg.ssm_state) != (n_ssm, H, P, N):
-        raise AssertionError(f"SERVE_ARCHS[{arch!r}] does not match the "
-                             f"config")
+    encdec = cfg.family == "encdec"
+    if encdec:
+        if (cfg.n_enc_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+                cfg.hd, cfg.d_ff, cfg.vocab) != SERVE_ENCDEC[arch]:
+            raise AssertionError(f"SERVE_ENCDEC[{arch!r}] does not match "
+                                 f"the config")
+    else:
+        _, n_ssm, _, _, H, P, N = SERVE_ARCHS[arch]
+        if (cfg.n_layers, cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim,
+                cfg.ssm_headdim, cfg.ssm_state) != (n_ssm, H, P, N):
+            raise AssertionError(f"SERVE_ARCHS[{arch!r}] does not match the "
+                                 f"config")
     api = model_api(cfg)
     t0 = time.perf_counter()
     params = api.init_params(torch.Generator(device=dev).manual_seed(0), dev)
@@ -2046,22 +2231,20 @@ def run_serve(dev, arch):
     waves = [prompts[i:i + SERVE_MAX_BATCH]
              for i in range(0, SERVE_REQUESTS, SERVE_MAX_BATCH)]
     shapes = [(len(w), max(len(p) for p in w)) for w in waves]
-    keys, routes = [], []
-    for B, L in shapes:
-        nc = -(-L // 128)
-        state = (B, nc, 128, H, P, N, 1)
-        kernels = ssd_state.route_kernels(B, H, P, N, dev)
-        routes.append(ssd_state.state_route(B, H, P, N,
-                                            ssd_state.sm_count(dev)))
-        keys += [("flash_attention_mha",
-                  (B, heads, L, L, hd, 1, 0, "bf16"))] * n_flash \
-            + [("ssd_chunk_dual", (B * nc, 128, H, P, N))] * n_ssm \
-            + [(k, state) for k in kernels] * n_ssm
+    keys = [key for B, L in shapes for key in serve_wave_keys(arch, B, L,
+                                                              dev)]
+    routes = [] if encdec else [
+        ssd_state.state_route(B, H, P, N, ssd_state.sm_count(dev))
+        for B, _ in shapes]
     want = {k: sum(1 for key in keys if key[0] == k) for k in wrappers}
     n_tok = sum(len(r.tokens) for r in results)
     steps = [t for c in costs for t in c.step_s]
-    check = serve_check(cfg, params, torch.from_numpy(
-        srv.executor._pad_wave(waves[0])).to(dev), dev)
+    toks = srv.executor._pad_wave(waves[0])
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    if cfg.frontend in ("patch", "audio"):
+        batch["embeds"] = torch.zeros(toks.shape + (cfg.d_model,),
+                                      dtype=torch.bfloat16, device=dev)
+    check = serve_check(cfg, params, batch, dev)
     line = {"phase": "serve", "arch": arch, "n_layers": cfg.n_layers,
             "d_model": cfg.d_model, "params": count_params(params),
             "param_gb": param_bytes(params) / 1e9,
@@ -2080,17 +2263,123 @@ def run_serve(dev, arch):
             "state_routes": routes,
             "peak_mem_gb": peak / 1e9, "kernel_vs_plain": check,
             "clock": "host seconds around work that ends in a synchronize"}
+    if encdec:
+        line["n_enc_layers"] = cfg.n_enc_layers
+        line["flash_per_wave"] = [
+            len(serve_wave_keys(arch, B, L, dev)) for B, L in shapes]
     if len(results) != SERVE_REQUESTS \
             or sorted(r.rid for r in results) != list(range(SERVE_REQUESTS)) \
             or not all(len(r.tokens) for r in results):
         raise AssertionError(f"serve: answered {len(results)} requests")
     if launches != want:
         raise AssertionError(f"serve launched {launches}, not {want}")
-    if check["max_rel_err"] > SERVE_TOL or not check["bf16_within_rounding"]:
-        raise AssertionError(f"serve: the kernel route against the plain "
-                             f"route: {check}")
+    serve_gate("serve", check)
+    if encdec:
+        line["whisper_shape"] = whisper_shape_check(cfg, params, dev)
     line["seconds_phase"] = time.perf_counter() - t_phase
     return line, shapes, keys
+
+
+def run_serve_trace(dev):
+    """``serve_trace``: ``python -m repro_torch.launch.serve`` with
+    ``SERVE_TRACE_ARGV`` in this process, on the card: the trace's two
+    virtual sections (numpy on the host), each held to
+    ``SERVE_TRACE_PINNED`` (the reference's values, which
+    tests/test_torch_serve_trace.py holds equal to the port's on the CPU),
+    and the measured replay through the port's ``ModelWaveExecutor``,
+    which must answer every request, with the launch counts set to 0 just
+    before and each wave's launches gated at ``serve_wave_keys`` (48 SSD
+    chunk launches and 48 of each kernel of the state pass's route at the
+    wave's shape).  Returns the line and the launch keys of the run."""
+    import io
+
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.runtime import serve_loop
+
+    t_phase = time.perf_counter()
+    out_path = REPORTS / "serve_trace.jsonl"
+    argv = [*SERVE_TRACE_ARGV, "--out", str(out_path)]
+    wrappers = kernel_wrappers()
+    cls = serve_loop.ModelWaveExecutor
+    run_wave, waves = cls.run_wave, []
+
+    def counted(self, wave):
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        out = run_wave(self, wave)
+        L = max(len(self._prompt_of(r)) for r in wave)
+        waves.append(((len(wave), L),
+                      {k: fn.launches - before[k]
+                       for k, fn in wrappers.items()}))
+        return out
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    cls.run_wave = counted
+    try:
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+    finally:
+        cls.run_wave = run_wave
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    torch.cuda.synchronize()
+    sections = {d["section"]: d for d in map(
+        json.loads, out_path.read_text().splitlines())}
+    keys, per_wave = [], []
+    for (B, L), got in waves:
+        wk = serve_wave_keys(SERVE_TRACE_ARCH, B, L, dev)
+        want = {k: sum(1 for key in wk if key[0] == k) for k in wrappers}
+        per_wave.append({"shape": [B, L], "launches": got,
+                         "launches_want": want})
+        keys += wk
+    pct = lambda s: {k: s[k] for k in ("ttft_s", "e2e_s", "makespan_s",
+                                       "n_waves", "mean_occupancy")}
+    line = {"phase": "serve_trace", "argv": argv,
+            "stdout": buf.getvalue().splitlines(), "sections": {}}
+    pinned_equal = {}
+    for name, doc in sections.items():
+        entry = pct(doc)
+        entry["timing"], entry["n"] = doc["timing"], doc["trace"]["n"]
+        if "saturation" in doc:
+            entry["saturation"] = {k: doc["saturation"][k] for k in (
+                "sat_rate_rps", "sat_throughput_rps", "sat_throughput_tok_s",
+                "saturated", "ref_p99_e2e_s")}
+        line["sections"][name] = entry
+        if name in SERVE_TRACE_PINNED:
+            pin = SERVE_TRACE_PINNED[name]
+            pinned_equal[name] = {
+                "bit_equal": all(_nested(entry, k) == v
+                                 for k, v in pin.items()),
+                "within_1e-12": all(abs(_nested(entry, k) - v)
+                                    <= 1e-12 * abs(v)
+                                    for k, v in pin.items())}
+    measured = sections.get("serve_loop_measured", {})
+    ratio = (measured["e2e_s"]["p99"] / sections["serve_loop"]["e2e_s"]["p99"]
+             if measured else None)
+    line.update({"pinned": pinned_equal, "measured_over_virtual_p99": ratio,
+                 "waves": per_wave, "launches": launches,
+                 "seconds": time.perf_counter() - t_phase})
+    n = int(SERVE_TRACE_SPEC.split("n=")[1].split(",")[0])
+    if set(pinned_equal) != set(SERVE_TRACE_PINNED) \
+            or not all(p["within_1e-12"] for p in pinned_equal.values()):
+        raise AssertionError(f"serve_trace: the virtual sections are not "
+                             f"the pinned values: {line['sections']}")
+    if not measured or measured["trace"]["n"] != n \
+            or sum(B for (B, _), _ in waves) != n:
+        raise AssertionError(f"serve_trace: the measured replay answered "
+                             f"{measured.get('trace')} of {n} requests")
+    if any(w["launches"] != w["launches_want"] for w in per_wave):
+        raise AssertionError(f"serve_trace: per-wave launches {per_wave}")
+    return line, keys
+
+
+def _nested(doc: dict, path: str):
+    """``doc["a"]["b"]`` for ``path`` ``"a.b"``."""
+    for k in path.split("."):
+        doc = doc[k]
+    return doc
 
 
 def run_serve_cli() -> dict:
@@ -2180,12 +2469,17 @@ def main() -> int:
     cost_timed = check_cost_kernels(dev)
     fused_line = run_fused(dev)
     emit(fused_line)
-    for arch in SERVE_ARCHS:
-        serve_line, serve_waves, serve_keys = run_serve(dev, arch)
+    for arch in SERVE_PHASES:
+        serve_line, _, serve_keys = run_serve(dev, arch)
         emit(serve_line)
         torch.cuda.empty_cache()
-        timed.update(serve_kernel_lines(dev, arch, serve_waves))
+        timed.update(serve_kernel_lines(dev, serve_keys, serve_path(arch)))
         runs[serve_path(arch)] = (serve_line["launches"], serve_keys)
+    trace_line, trace_keys = run_serve_trace(dev)
+    emit(trace_line)
+    torch.cuda.empty_cache()
+    timed.update(serve_kernel_lines(dev, trace_keys, "serve_trace"))
+    runs["serve_trace"] = (trace_line["launches"], trace_keys)
     emit(run_serve_cli())
     torch.cuda.empty_cache()
     emit(profile_ssd_forward(*layer))

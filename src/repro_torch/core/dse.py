@@ -10,9 +10,7 @@ Sec. VII-B) and sharded sweeps merged via
 ``explore.merge_checkpoints``.
 
 Copy of ``src/repro/core/dse.py``.  ``objective="slo"`` scores a sweep by
-the serving stack's SLO model (``repro.serve.slo``), which the port does
-not have yet: every entry point refuses it with ``NotImplementedError``
-and never scores such a sweep as ``geomean``.
+the serving stack's SLO model (``repro_torch.serve.slo``, numpy only).
 """
 
 from __future__ import annotations
@@ -45,6 +43,9 @@ class DSEPoint:
     objective: float
     per_workload: Dict[str, Tuple[float, float]] = field(default_factory=dict)
     mappings: Dict[str, Mapping] = field(default_factory=dict)
+    # predicted serving metrics (objective="slo" sweeps only): p50/95/99
+    # TTFT + e2e seconds, throughput, occupancy — see repro_torch.serve.slo
+    slo: Optional[Dict[str, float]] = None
 
     @property
     def edp(self) -> float:
@@ -65,18 +66,18 @@ class DSEConfig:
     # bit-identical to it but stamp a ``:w=`` segment into the sweep
     # fingerprint.  Missing names default to weight 1.0.
     workload_weights: Optional[Dict[str, float]] = None
-    # scoring mode: "geomean" (MC^a * E^b * D^g).  The reference's "slo"
-    # (predicted p99 latency of the candidate serving ``traffic``) needs
-    # the serving stack and raises NotImplementedError in the port.
+    # scoring mode: "geomean" (historical MC^a * E^b * D^g; the default
+    # keeps every existing sweep bit-identical) or "slo", which replaces
+    # the raw delay term with the predicted p99 end-to-end latency of the
+    # candidate serving ``traffic`` (a repro_torch.serve.slo.TrafficModel,
+    # a registered model name, or a raw trace spec).  Queueing over the
+    # traffic's arrival process makes p99 convex in D, so E/D trade-offs
+    # rank differently than under the raw-delay objective.  Tasks (E, D)
+    # are computed identically in both modes — only the reduction differs
+    # — but the engine stamps an ``obj=`` fingerprint segment so
+    # differently-scored sweep artifacts are never conflated.
     objective: str = "geomean"
     traffic: Optional[object] = None
-
-
-def refuse_slo() -> None:
-    raise NotImplementedError(
-        "objective='slo' scores candidates by the serving stack's SLO model "
-        "(repro.serve.slo), which the PyTorch port does not have yet "
-        "(ROADMAP queue 1, slice 4); use objective='geomean'")
 
 
 @dataclass
@@ -194,15 +195,27 @@ def reduce_tasks(arch: ArchConfig, cfg: DSEConfig,
         else max(1, len(task_results))
     E = math.exp(logE / n)
     D = math.exp(logD / n)
+    slo: Optional[Dict[str, float]] = None
     if cfg.objective == "slo":
-        refuse_slo()
+        # tail-latency scoring: the geomean delay becomes a per-token
+        # service model replayed over the traffic model's arrival process
+        # (deterministic, cached); p99 e2e replaces D in the objective
+        from ..serve.slo import SLO_SCALAR_KEY, predict_slo
+        if cfg.traffic is None:
+            raise ValueError(
+                "objective='slo' needs cfg.traffic (a TrafficModel, a "
+                "registered name, or a trace spec — see "
+                "repro_torch.serve.slo)")
+        slo = predict_slo(D, cfg.traffic, cfg.batch)
+        obj = (mc ** cfg.alpha) * (E ** cfg.beta) \
+            * (slo[SLO_SCALAR_KEY] ** cfg.gamma)
     elif cfg.objective == "geomean":
         obj = (mc ** cfg.alpha) * (E ** cfg.beta) * (D ** cfg.gamma)
     else:
         raise ValueError(
             f"unknown DSE objective {cfg.objective!r}: 'geomean' or 'slo'")
     return DSEPoint(arch=arch, mc=mc, energy_j=E, delay_s=D, objective=obj,
-                    per_workload=per, mappings=maps)
+                    per_workload=per, mappings=maps, slo=slo)
 
 
 def evaluate_candidate(arch: ArchConfig, workloads: Dict[str, Graph],
@@ -258,8 +271,11 @@ def run_dse(candidates: Sequence[ArchConfig], workloads: Dict[str, Graph],
       give each shard its own checkpoint and reconstruct the full sweep
       with ``explore.merge_checkpoints`` — the merged result is
       bit-identical to an unsharded run.
-    * ``objective``/``traffic`` override ``cfg.objective``/``cfg.traffic``;
-      ``"slo"`` raises ``NotImplementedError`` in the port.
+    * ``objective="slo"`` with ``traffic=...`` scores candidates by
+      predicted p99 end-to-end latency under the traffic model instead of
+      the raw geomean delay (convenience overrides for
+      ``cfg.objective``/``cfg.traffic``); left at ``None`` the sweep —
+      and its checkpoint fingerprint — is untouched.
     * ``indices=[...]`` evaluates exactly the listed global candidate
       indices with no screening stage — the multi-host supervisor's
       screen-once dispatch form (``shard_label`` names the shard in
@@ -313,8 +329,10 @@ def joint_reuse_dse(chiplet_grid: Sequence[ArchConfig],
     header ``:w=`` segment), so differently-weighted portfolios never
     share checkpoint records.
 
-    ``objective="slo"`` raises ``NotImplementedError`` in the port (see
-    :func:`run_dse`).
+    ``objective="slo"`` with ``traffic=...`` scores each scale by
+    predicted tail latency under the traffic model (see :func:`run_dse`);
+    the product over scales then selects the chiplet whose tilings best
+    keep the deployment's p99 in budget rather than its raw delay.
     """
     if objective is not None:
         cfg = replace(cfg, objective=objective)

@@ -45,8 +45,8 @@ resumes and merges the other's.  Left out: the ``repro.obs`` spans,
 counters, manifests and worker telemetry (the port has no ``obs`` yet);
 the engine's diagnostic lines go to stderr with the reference's tags
 (``[explore]``, ``[screen]``, ``[sweep]``, ``[merge]``).  ``objective="slo"``
-needs the serving stack's SLO model, which the port does not have yet, and
-raises ``NotImplementedError``.
+scores through ``repro_torch.serve.slo`` and stamps the reference's
+``obj=slo(<traffic fingerprint>):`` header segment.
 """
 
 from __future__ import annotations
@@ -1032,7 +1032,15 @@ class ExplorationEngine:
             raise ValueError(
                 f"unknown DSE objective {obj!r}: 'geomean' or 'slo'")
         if obj == "slo":
-            _dse.refuse_slo()
+            # resolve eagerly: a typo'd traffic name must fail before the
+            # sweep burns hours of SA, not in the final reduction
+            from ..serve.slo import resolve_traffic
+            if cfg.traffic is None:
+                raise ValueError(
+                    "objective='slo' needs cfg.traffic (a TrafficModel, "
+                    "registered name, or trace spec — see "
+                    "repro_torch.serve.slo)")
+            resolve_traffic(cfg.traffic)
         self.n_workers = max(1, int(n_workers))
         self.checkpoint = checkpoint
         self.progress = progress
@@ -1102,15 +1110,22 @@ class ExplorationEngine:
             ww = c.workload_weights
             w = "w=" + ",".join(f"{n}:{float(ww.get(n, 1.0)):g}"
                                 for n in self._wl_names) + ":"
-        # the reference stamps an ``obj=`` segment here for non-default
-        # objectives; the port refuses them in __init__, so the header is
-        # always the default mode's
+        # non-default objective modes stamp their own segment (also before
+        # :wl=): an SLO-scored sweep under one traffic model never shares
+        # artifacts with the raw-delay sweep or a re-trafficked one, while
+        # the default mode keeps the historical header byte-identical
+        obj = ""
+        if getattr(c, "objective", "geomean") != "geomean":
+            from ..serve.slo import resolve_traffic
+            tfp = (resolve_traffic(c.traffic).fingerprint()
+                   if c.traffic is not None else "none")
+            obj = f"obj={c.objective}({tfp}):"
         return (f"dse:v{schema}:a{c.alpha:g}:b{c.beta:g}:g{c.gamma:g}:"
                 f"B{c.batch}:"
                 f"sa({c.sa.iters},{c.sa.t0:g},{c.sa.t_end:g},{c.sa.seed},"
                 f"{c.sa.beta:g},{c.sa.gamma:g},{c.sa.n_chains},"
                 f"{swap},{ladder:g}):sa={int(use_sa)}:"
-                f"{w}wl={wl}")
+                f"{obj}{w}wl={wl}")
 
     def _open_sweep(self, checkpoint: Union[str, Path],
                     use_sa: bool) -> ResumableSweep:

@@ -4,8 +4,9 @@
 * ``--arch NAME`` + ``--reduced``: a model config from
   ``repro_torch.configs.get_config`` (``--reduced`` applies the CPU-sized
   variant);
-* ``--workload NAME=SPEC`` bindings (``workload_bindings``,
-  ``resolve_workloads``);
+* ``--workload NAME=SPEC`` bindings (``add_workload_args``,
+  ``workload_bindings``, ``resolve_workloads``);
+* repeated ``NAME=VALUE`` options (``parse_kv``);
 * ``--out PATH`` / ``--seed N``: artifact path and base RNG seed.
 """
 
@@ -40,6 +41,17 @@ def add_out_arg(ap: argparse.ArgumentParser, default: Optional[str] = None,
 def add_seed_arg(ap: argparse.ArgumentParser, default: int = 0) -> None:
     ap.add_argument("--seed", type=int, default=default,
                     help=f"base RNG seed (default {default})")
+
+
+def add_workload_args(ap: argparse.ArgumentParser,
+                      help_extra: str = "") -> None:
+    ap.add_argument(
+        "--workload", action="append", default=[], metavar="NAME=SPEC",
+        help="workload graph binding (repeatable); SPEC is a registry "
+             "preset (tf-quick, moe-quick, mla-quick, ...) or a "
+             "parameterized spec ('transformer:k=v,...', 'moe:...', "
+             "'mla:...', 'lm:<config>') — see "
+             "repro_torch.core.workloads.make_workload. " + help_extra)
 
 
 def workload_bindings(items: Sequence[str],
@@ -80,3 +92,20 @@ def resolve_workloads(bindings: Dict[str, str],
     if builder is None:
         from ..core.workloads import make_workload as builder
     return {name: builder(spec) for name, spec in bindings.items()}
+
+
+def parse_kv(items: Optional[Sequence[str]], cast: Callable = str,
+             flag: str = "option") -> Optional[Dict[str, object]]:
+    """Parse repeated ``NAME=VALUE`` flags; None when nothing was given."""
+    if not items:
+        return None
+    out: Dict[str, object] = {}
+    for item in items:
+        name, sep, val = item.partition("=")
+        if not sep:
+            raise SystemExit(f"{flag} {item!r} is not NAME=VALUE")
+        try:
+            out[name] = cast(val)
+        except ValueError as e:
+            raise SystemExit(f"{flag} {item!r}: {e}")
+    return out

@@ -1,9 +1,9 @@
-"""Model zoo: one decoder LM covering dense / moe / ssm / hybrid.
+"""Model zoo: one decoder LM covering dense / moe / ssm / hybrid + an
+enc-dec.
 
 Port of ``src/repro/models/__init__.py``.  ``model_api(cfg)`` returns the
 family's (init, loss, prefill, decode_step, init_cache) bundle so
-launchers never branch on family.  The encoder-decoder family
-(``models/encdec.py``) is not ported yet.
+launchers never branch on family.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..configs.base import ModelConfig
-from . import lm
+from . import encdec, lm
 
 
 @dataclass(frozen=True)
@@ -30,11 +30,27 @@ def model_api(cfg: ModelConfig) -> ModelAPI:
     ``init_cache(batch, max_seq, enc_len=None, device=None)`` (a decoder
     LM ignores ``enc_len``, as the reference does), ``prefill(params,
     batch, cache)`` and ``decode_step(params, tokens, cache)``; the last
-    three take ``use_kernels`` (default True)."""
+    three take ``use_kernels`` (default True).  The encoder-decoder's
+    ``init_cache`` holds an ``enc_len`` (default ``min(max_seq, 1500)``)
+    frame ``enc_out``, which its ``prefill`` replaces with the encoder
+    states of ``batch["embeds"]``."""
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family (models/encdec.py) is "
-            f"not ported yet; it comes with slice 4b of the port")
+        def init_cache(batch, max_seq, enc_len=None, device=None):
+            return encdec.init_cache(cfg, batch, max_seq,
+                                     enc_len or min(max_seq, 1500), device)
+
+        return ModelAPI(
+            cfg=cfg,
+            init_params=lambda generator, device=None:
+                encdec.init_params(cfg, generator, device),
+            loss_fn=lambda p, b, use_kernels=True:
+                encdec.loss_fn(cfg, p, b, use_kernels),
+            init_cache=init_cache,
+            prefill=lambda p, b, c, use_kernels=True:
+                encdec.prefill(cfg, p, b, c, use_kernels),
+            decode_step=lambda p, t, c, use_kernels=True:
+                encdec.decode_step(cfg, p, t, c, use_kernels),
+        )
     return ModelAPI(
         cfg=cfg,
         init_params=lambda generator, device=None:

@@ -2,8 +2,9 @@
 numpy arrays, into the port's modules.
 
 The port's parameter names are the reference's pytree paths joined with
-dots, with the layer index after ``blocks`` (the reference stacks the
-layers on a leading axis), so conversion is a name walk.  Dtypes are kept:
+dots, with the layer index after ``blocks`` (``enc_blocks`` and
+``dec_blocks`` for the encoder-decoder; the reference stacks the layers
+on a leading axis), so conversion is a name walk.  Dtypes are kept:
 a bfloat16 array (numpy's ``bfloat16`` extension type) is carried bit for
 bit.
 """
@@ -17,6 +18,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from .encdec import EncDec
 from .lm import LM
 
 
@@ -62,19 +64,24 @@ def load_tree(module: nn.Module, tree: Mapping[str, Any],
     return module
 
 
-def split_blocks(tree: Mapping[str, Any]) -> Dict[str, Any]:
-    """The reference's stacked ``blocks`` (leading layer axis) as
-    ``{"blocks": {"0": ..., "1": ...}}``."""
+def split_blocks(tree: Mapping[str, Any], key: str = "blocks"
+                 ) -> Dict[str, Any]:
+    """The reference's stacked ``tree[key]`` (leading layer axis) as
+    ``{key: {"0": ..., "1": ...}}``."""
     out = dict(tree)
-    flat = flatten_tree(tree["blocks"])
+    flat = flatten_tree(tree[key])
     n = len(next(iter(flat.values())))
-    out["blocks"] = {str(i): {k: np.asarray(v)[i] for k, v in flat.items()}
-                     for i in range(n)}
+    out[key] = {str(i): {k: np.asarray(v)[i] for k, v in flat.items()}
+                for i in range(n)}
     return out
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any],
-                    device=None) -> LM:
+                    device=None) -> nn.Module:
     """The port's model holding the reference's ``init_params`` pytree
-    (numpy arrays), split along the stacked layer axis."""
+    (numpy arrays), split along the stacked layer axes: an ``LM``, or an
+    ``EncDec`` for ``family="encdec"``."""
+    if cfg.family == "encdec":
+        tree = split_blocks(split_blocks(tree, "enc_blocks"), "dec_blocks")
+        return load_tree(EncDec(cfg, device=device), tree, device)
     return load_tree(LM(cfg, device=device), split_blocks(tree), device)

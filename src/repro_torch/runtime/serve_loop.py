@@ -19,7 +19,10 @@ different decode steps, so latencies differ across a mixed-length wave.
 
 As in the reference, ``init_cache(B, max_seq, cache_len)`` hands
 ``cache_len`` to the model as the encoder length, which a decoder-only
-model ignores: its KV cache holds ``max_seq`` positions.
+model ignores: its KV cache holds ``max_seq`` positions.  The
+encoder-decoder's prefill replaces those ``cache_len`` frames with the
+encoder states of the wave's own (B, L, d) frame embeddings (zeros, as
+the reference's loop gives them).
 """
 
 from __future__ import annotations

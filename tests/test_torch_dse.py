@@ -377,26 +377,118 @@ def test_port_dse_writes_the_committed_fixture(tmp_path, fixture, name, spec):
 
 
 # ---------------------------------------------------------------------------
-# refusals
+# objective="slo": the serving stack's SLO model scores the sweep
 # ---------------------------------------------------------------------------
 
-def test_slo_objective_is_refused_everywhere():
-    cands, _ = small_grid()
+# the reference's re-ranking traffic (tests/test_serve_harness.py): its
+# rate sits near the quick grid's service capacity, so the queueing tail
+# bites
+RERANK_TRAFFIC = "poisson:rate=71267.4,n=48,seed=0,plen=4..32,new=8..32"
+
+
+def slo_tuple(p):
+    return point_tuple(p) + (sorted(p.slo.items()),)
+
+
+def ref_slo_tuple(p):
+    return ref_point_tuple(p) + (sorted(p.slo.items()),)
+
+
+def quick_dse():
+    """The reference's SLO test grid: 16 72-TOPS candidates, a two-layer
+    transformer, batch 8, SA 150 iterations."""
+    from repro.core.workloads import transformer as ref_transformer
+    from repro_torch.core.workloads import transformer
+    kw = dict(mac_options=(512, 1024), cut_options=(1, 2),
+              dram_per_tops=(2.0,), noc_options=(16, 32), d2d_ratio=(0.5,),
+              glb_options=(1024, 2048))
+    tf = dict(n_layers=2, d_model=128, d_ff=256, seq=64, name="tf-s")
+    return (dse.grid_candidates(72.0, **kw), {"TF": transformer(**tf)},
+            dse.DSEConfig(batch=8, sa=sa.SAConfig(iters=150, seed=0)),
+            ref_dse.grid_candidates(72.0, **kw),
+            {"TF": ref_transformer(**tf)},
+            ref_dse.DSEConfig(batch=8, sa=ref_sa.SAConfig(iters=150, seed=0)))
+
+
+def test_slo_objective_is_accepted_everywhere():
+    """``run_dse``, ``reduce_tasks`` and ``joint_reuse_dse`` score
+    ``objective="slo"`` as the reference does, to the bit, with each
+    point's predicted SLO metrics; an unknown objective still raises."""
+    cands, rcands = small_grid()
     wl = {"A": make_workload(SMALL)}
-    cfg, _ = small_cfg()
-    with pytest.raises(NotImplementedError, match="slo"):
-        dse.run_dse(cands[:2], wl, cfg, objective="slo", traffic="chat")
-    slo_cfg = dse.DSEConfig(batch=4, objective="slo", traffic="chat")
-    with pytest.raises(NotImplementedError, match="slo"):
-        explore.ExplorationEngine(wl, slo_cfg)
-    with pytest.raises(NotImplementedError, match="slo"):
-        dse.reduce_tasks(cands[0], slo_cfg,
-                         {"A": dse.TaskResult(energy_j=1.0, delay_s=1.0)})
-    with pytest.raises(NotImplementedError, match="slo"):
-        dse.joint_reuse_dse(cands[:1], (1,), wl, cfg, objective="slo")
+    rwl = {"A": ref_workload(SMALL)}
+    cfg, rcfg = small_cfg()
+    mine = dse.run_dse(cands[:4], wl, cfg, use_sa=False, objective="slo",
+                       traffic="chat-quick")
+    ref = ref_dse.run_dse(rcands[:4], rwl, rcfg, use_sa=False,
+                          objective="slo", traffic="chat-quick")
+    assert [slo_tuple(p) for p in mine] == [ref_slo_tuple(p) for p in ref]
+    slo_cfg, rslo_cfg = small_cfg(objective="slo", traffic="diurnal-quick")
+    tasks = {"A": (1.5e-3, 2e-4), "B": (3e-3, 5e-4)}
+    got = dse.reduce_tasks(cands[0], slo_cfg, {
+        k: dse.TaskResult(energy_j=e, delay_s=d) for k, (e, d) in
+        tasks.items()})
+    want = ref_dse.reduce_tasks(rcands[0], rslo_cfg, {
+        k: ref_dse.TaskResult(energy_j=e, delay_s=d) for k, (e, d) in
+        tasks.items()})
+    assert slo_tuple(got) == ref_slo_tuple(want)
+    base = [hw.ArchConfig(x_cores=2, y_cores=2, xcut=1, ycut=1, noc_bw=32,
+                          d2d_bw=16, dram_bw=32, glb_kb=512)]
+    joint = dse.joint_reuse_dse(base, (1, 2), wl, cfg, objective="slo",
+                                traffic="chat-quick")
+    rjoint = ref_dse.joint_reuse_dse([ref_arch(a) for a in base], (1, 2),
+                                     rwl, rcfg, objective="slo",
+                                     traffic="chat-quick")
+    assert [(explore.candidate_key(a), v) for a, v in joint] == \
+        [(ref_explore.candidate_key(a), v) for a, v in rjoint]
+    assert all(p.slo is None for p in dse.run_dse(cands[:2], wl, cfg,
+                                                  use_sa=False))
     with pytest.raises(ValueError, match="unknown DSE objective"):
         explore.ExplorationEngine(wl, dse.DSEConfig(objective="p99"))
 
+
+def test_slo_objective_requires_traffic():
+    """Without ``traffic`` each entry point raises the reference's
+    ``ValueError`` before any task runs."""
+    cands, _, cfg, rcands, _, rcfg = quick_dse()
+    wl = {"A": make_workload(SMALL)}
+    rwl = {"A": ref_workload(SMALL)}
+    for run, c, w, conf in ((dse.run_dse, cands, wl, cfg),
+                            (ref_dse.run_dse, rcands, rwl, rcfg)):
+        with pytest.raises(ValueError, match="needs cfg.traffic"):
+            run(c[:2], w, conf, use_sa=False, objective="slo")
+    with pytest.raises(ValueError, match="needs cfg.traffic"):
+        dse.reduce_tasks(cands[0], dse.DSEConfig(objective="slo"),
+                         {"A": dse.TaskResult(energy_j=1.0, delay_s=1.0)})
+    with pytest.raises(KeyError, match="unknown traffic model"):
+        explore.ExplorationEngine(wl, dse.DSEConfig(objective="slo",
+                                                    traffic="no-such"))
+
+
+def test_slo_objective_reranks_sa_grid():
+    """The reference's acceptance recipe, on the port: with SA mappings
+    the quick grid's (E, D) order is not monotone in D, so the convex
+    queueing tail re-ranks the candidates; every point equals the
+    reference's SLO sweep to the bit."""
+    grid, wl, cfg, rgrid, rwl, rcfg = quick_dse()
+    base = dse.run_dse(grid, wl, cfg, use_sa=True)
+    slo = dse.run_dse(grid, wl, cfg, use_sa=True, objective="slo",
+                      traffic=RERANK_TRAFFIC)
+    ref = ref_dse.run_dse(rgrid, rwl, rcfg, use_sa=True, objective="slo",
+                          traffic=RERANK_TRAFFIC)
+    assert sorted((p.arch.label(), p.energy_j, p.delay_s) for p in base) \
+        == sorted((p.arch.label(), p.energy_j, p.delay_s) for p in slo)
+    assert [p.arch.label() for p in base] != [p.arch.label() for p in slo]
+    assert [slo_tuple(p) for p in slo] == [ref_slo_tuple(p) for p in ref]
+    from repro_torch.serve.slo import SLO_SCALAR_KEY
+    for p in slo:
+        assert p.objective == pytest.approx(
+            p.mc * p.energy_j * p.slo[SLO_SCALAR_KEY])
+
+
+# ---------------------------------------------------------------------------
+# refusals
+# ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("n_chains", [1, 3])
 def test_jax_backend_is_refused(n_chains):

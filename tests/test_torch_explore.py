@@ -134,6 +134,59 @@ def test_each_package_resumes_the_others_checkpoint(tmp_path, monkeypatch):
         [ref_explore.mapping_to_jsonable(p.mappings["A"]) for p in ref]
 
 
+SLO_TRAFFIC = "poisson:rate=8,n=32,seed=0,plen=4..32,new=8..32"
+
+
+@pytest.mark.parametrize("traffic", ["chat-quick", SLO_TRAFFIC])
+def test_slo_checkpoint_equals_reference_checkpoint(tmp_path, monkeypatch,
+                                                    traffic):
+    """An ``objective="slo"`` sweep writes the reference's checkpoint byte
+    for byte (its header's ``obj=slo(<traffic fingerprint>):`` segment
+    included), and each package resumes the other's."""
+    cands, rcands = grid()
+    (cfg, rcfg), (wl, rwl) = cfgs(), workloads()
+    kw = dict(objective="slo", traffic=traffic)
+    mine = dse.run_dse(cands, wl, cfg, checkpoint=tmp_path / "port.jsonl",
+                       **kw)
+    ref = ref_dse.run_dse(rcands, rwl, rcfg,
+                          checkpoint=tmp_path / "ref.jsonl", **kw)
+    text = (tmp_path / "port.jsonl").read_text()
+    assert text == (tmp_path / "ref.jsonl").read_text()
+    assert ":obj=slo(" in text.splitlines()[0]
+    assert objectives(mine, explore) == objectives(ref, ref_explore)
+    assert [sorted(p.slo.items()) for p in mine] == \
+        [sorted(p.slo.items()) for p in ref]
+    forbid_evaluation(monkeypatch, dse)
+    forbid_evaluation(monkeypatch, ref_dse)
+    again = dse.run_dse(cands, wl, cfg, checkpoint=tmp_path / "ref.jsonl",
+                        **kw)
+    theirs = ref_dse.run_dse(rcands, rwl, rcfg,
+                             checkpoint=tmp_path / "port.jsonl", **kw)
+    assert objectives(again, explore) == objectives(theirs, ref_explore) \
+        == objectives(ref, ref_explore)
+
+
+def test_fingerprint_obj_segment_equals_reference():
+    """The default objective stamps no ``obj=`` segment; ``"slo"`` stamps
+    the reference's, before ``:wl=``, naming the traffic model's
+    fingerprint (``adhoc.<sha1>`` for a raw spec)."""
+    import dataclasses
+    (cfg, rcfg), (wl, rwl) = cfgs(), workloads()
+    with explore.ExplorationEngine(wl, cfg) as eng:
+        fp = eng._fingerprint(True)
+    assert ":obj=" not in fp and ":wl=" in fp
+    for traffic in ("chat-quick", SLO_TRAFFIC):
+        with explore.ExplorationEngine(wl, dataclasses.replace(
+                cfg, objective="slo", traffic=traffic)) as eng:
+            mine = eng._fingerprint(True)
+        with ref_explore.ExplorationEngine(rwl, dataclasses.replace(
+                rcfg, objective="slo", traffic=traffic)) as eng:
+            assert mine == eng._fingerprint(True)
+        assert mine.index(":obj=slo(") < mine.index(":wl=")
+        assert mine.split(":wl=")[1] == fp.split(":wl=")[1]
+    assert ":obj=slo(adhoc." in mine
+
+
 def test_partial_resume_recomputes_only_missing_tasks(tmp_path, monkeypatch):
     cands, rcands = grid()
     (cfg, rcfg), (wl, rwl) = cfgs(), workloads()

@@ -23,7 +23,10 @@ and the split's two kernels), the model's chunked SSD within 2e-4 (at N =
 128 too), flash with ``q_offset`` and with its statistics at the flash
 tolerances, ``cache_stack`` attention within 1e-4 (below), and the
 reduced models' kernel route against ``use_kernels=False`` (below), the
-MoE model's bf16 leg with its expert choice held fixed.  Every wrapper
+MoE model's bf16 leg with its expert choice held fixed, the
+encoder-decoder's three attention modes (flash at whisper-small's shapes
+in bf16, and a reduced whisper through the kernels), and the trace replay
+over the model executor on the card.  Every wrapper
 refuses an input that requires grad (the kernels have no backward).
 """
 
@@ -1141,3 +1144,101 @@ def test_moe_bf16_kernel_route_vs_plain_with_the_routing_held(cuda,
     assert torch.isfinite(out["bfloat16", True]).all()
     assert rel(out["bfloat16", True], out["bfloat16", False]) \
         <= max(2e-2, gap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", [
+    (4, 12, 1500, 1500, 64, False),     # whisper's encoder: 30 s of audio
+    (4, 12, 448, 1500, 64, False),      # its cross-attention, 448 tokens
+    (4, 12, 916, 916, 64, True)])       # a served wave's decoder prefill
+def test_flash_attention_at_whispers_shapes_bf16_vs_plain(cuda, B, H, Sq, Sk,
+                                                          D, causal):
+    """bf16 flash at whisper-small's shapes (D = 64, H = 12; Sk = 1500 is
+    not a multiple of the kv tile) against the plain version on the upcast
+    inputs, at the bf16 tolerance."""
+    rng = np.random.default_rng(Sq * Sk + causal)
+    q = torch.from_numpy(_randn(rng, (B, H, Sq, D))).to(cuda).bfloat16()
+    k, v = (torch.from_numpy(_randn(rng, (B, H, Sk, D))).to(cuda).bfloat16()
+            for _ in range(2))
+    n0 = flash_attention_mha.launches
+    got = flash_attention_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_mha.launches == n0 + 1 and got.dtype == q.dtype
+    torch.testing.assert_close(
+        got.float(), ref.attention_ref(q.float(), k.float(), v.float(),
+                                       causal=causal), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_reduced_whisper_kernel_route_vs_plain(cuda):
+    """A reduced ``whisper-small``'s prefill of 800 frames and 700 tokens
+    into a 2048-position cache (every attention mode takes the flash path:
+    the encoder at 800 x 800, the decoder's self-attention at 700 x 2048,
+    cross-attention at 700 x 800) and two decode steps, through the
+    kernels and with ``use_kernels=False`` on the same card: within 1e-3
+    of the largest plain-route logit in f32 compute, and in bf16 within
+    the larger of 2e-2 and the plain route's own bf16-vs-f32 gap.  The
+    kernel route launches flash 3 times a layer pair; the plain, never."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_api
+    cfg = get_config("whisper-small").reduced()
+    params = model_api(cfg).init_params(
+        torch.Generator(device=cuda).manual_seed(0), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"embeds": torch.randn((2, 800, cfg.d_model), generator=gen,
+                                   device=cuda) * 0.02,
+             "tokens": torch.randint(1, cfg.vocab, (2, 700), generator=gen,
+                                     device=cuda, dtype=torch.int32)}
+    out, launched = {}, {}
+    for cdt in ("float32", "bfloat16"):
+        api = model_api(cfg.replace(compute_dtype=cdt))
+        for use_kernels in (True, False):
+            n0 = flash_attention_mha.launches
+            cache = api.init_cache(2, 2048, device=cuda)
+            lg, cache = api.prefill(params, batch, cache,
+                                    use_kernels=use_kernels)
+            steps = [lg]
+            for t in range(2):
+                lg, cache = api.decode_step(
+                    params, batch["tokens"][:, t:t + 1], cache,
+                    use_kernels=use_kernels)
+                steps.append(lg)
+            torch.cuda.synchronize()
+            out[cdt, use_kernels] = torch.stack(steps)
+            launched[use_kernels] = flash_attention_mha.launches - n0
+    assert launched == {True: cfg.n_enc_layers + 2 * cfg.n_layers,
+                        False: 0}
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    want = out["float32", False]
+    assert torch.isfinite(out["float32", True]).all()
+    assert rel(out["float32", True], want) <= 1e-3
+    gap = rel(out["bfloat16", False], want)
+    assert rel(out["bfloat16", True], out["bfloat16", False]) \
+        <= max(2e-2, gap)
+
+
+@pytest.mark.gpu
+def test_trace_replay_over_the_model_executor_on_the_card(cuda):
+    """``replay`` of a seeded trace over the port's ``ModelWaveExecutor``
+    on the card: every request answered in the wave policy, on measured
+    wall time, through the SSD kernels (a reduced ``mamba2-370m``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_api
+    from repro_torch.runtime.serve_loop import ModelWaveExecutor
+    from repro_torch.serve import WaveExecutor, make_trace, replay
+    cfg = get_config("mamba2-370m").reduced()
+    params = model_api(cfg).init_params(
+        torch.Generator(device=cuda).manual_seed(0), cuda)
+    ex = ModelWaveExecutor(cfg, params, max_batch=4, max_seq=512)
+    assert isinstance(ex, WaveExecutor) and ex.device.type == "cuda"
+    trace = make_trace("poisson:rate=50,n=10,seed=0,plen=40..300,new=2..6")
+    n0 = ssd_chunk_dual.launches
+    rep = replay(trace, ex, mode="wave")
+    assert ssd_chunk_dual.launches > n0
+    assert len(rep.requests) == 10 and rep.n_waves >= 3
+    assert sorted(tl.rid for tl in rep.requests) == list(range(10))
+    for tl in rep.requests:
+        assert tl.enqueue_t <= tl.start_t <= tl.first_token_t <= tl.finish_t
+        assert 1 <= tl.n_tokens <= trace.requests[tl.rid].max_new
+    s = rep.summary()
+    assert s["e2e_s"]["p99"] >= s["ttft_s"]["p99"] > 0

@@ -111,3 +111,32 @@ def test_the_walks_cover_the_model_and_serving_stack():
                     if isinstance(node, ast.Import) else [node.module or ""]
                 assert not any(n.split(".")[0] == "torch" for n in names), \
                     path
+
+
+def test_the_walks_cover_the_trace_replay_and_the_encoder_decoder():
+    """The ``ast`` walk and the clean-interpreter import see the trace,
+    harness and SLO modules and the encoder-decoder; ``repro_torch.serve``
+    (which ``repro_torch.core`` imports for ``objective="slo"``) loads no
+    torch."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    for rel in ("serve/trace.py", "serve/harness.py", "serve/slo.py",
+                "models/encdec.py", "launch/cli.py"):
+        assert rel in files, rel
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'src')!r})\n"
+        "import repro_torch.serve, repro_torch.core.dse\n"
+        "import repro_torch.core.explore\n"
+        "from repro_torch.core.dse import DSEConfig, reduce_tasks, "
+        "TaskResult\n"
+        "from repro_torch.core.hw import simba_arch\n"
+        "reduce_tasks(simba_arch(), DSEConfig(objective='slo', "
+        "traffic='chat-quick'), {'A': TaskResult(1.0, 1e-3)})\n"
+        "print(json.dumps(sorted(n for n in sys.modules"
+        " if n.split('.')[0] == 'torch')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.splitlines()[-1]) == []

@@ -244,6 +244,23 @@ def test_params_from_jax_keeps_bf16_parameters_bit_for_bit():
     assert torch.isfinite(lm.forward(pc, m, {"tokens": toks})[0]).all()
 
 
-def test_encdec_is_refused_naming_the_slice():
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        model_api(get_config("whisper-small").reduced())
+def test_encdec_model_api_builds_whisper():
+    """``model_api`` builds the encoder-decoder family (``whisper-small``):
+    its cache holds ``enc_len`` frames, by default ``min(max_seq, 1500)``
+    as the reference's, and a prefill of frames and tokens gives the last
+    position's logits (``tests/test_torch_encdec.py`` holds its numbers to
+    the reference's)."""
+    cfg = get_config("whisper-small").reduced()
+    api = model_api(cfg)
+    m = api.init_params(torch.Generator().manual_seed(0))
+    for max_seq, enc_len, want in ((64, None, 64), (2000, None, 1500),
+                                   (64, 7, 7)):
+        cache = api.init_cache(2, max_seq, enc_len)
+        assert cache["enc_out"].shape == (2, want, cfg.d_model)
+        assert cache["kv"]["k"].shape == (cfg.n_layers, 2, max_seq,
+                                          cfg.n_kv, cfg.hd)
+    batch = {"embeds": torch.zeros((2, 5, cfg.d_model)),
+             "tokens": torch.ones((2, 5), dtype=torch.int32)}
+    logits, cache = api.prefill(m, batch, api.init_cache(2, 16))
+    assert logits.shape == (2, cfg.padded_vocab) and cache["pos"] == 5
+    assert torch.isfinite(logits).all()

@@ -151,9 +151,25 @@ def test_launch_serve_and_the_example_on_the_cpu(capsys):
 @pytest.mark.parametrize("flag", [["--trace", "poisson:rate=8"], ["--report"],
                                   ["--measure"], ["--out", "x.jsonl"],
                                   ["--ckpt", "x.jsonl"]])
-def test_launch_serve_refuses_the_trace_replay(flag):
-    with pytest.raises(SystemExit, match="slice 4b"):
-        launch_serve.main(["--device", "cpu", "--reduced"] + flag)
+def test_launch_serve_takes_the_trace_replay(flag, capsys):
+    """The trace-replay flags: ``--trace`` replays the trace's virtual
+    sections; ``--report``, ``--measure`` and ``--out`` need a trace, as in
+    the reference; ``--ckpt`` is read by the trace mode only, so the demo
+    ignores it (``tests/test_torch_serve_trace.py`` holds the sections to
+    the reference's)."""
+    argv = ["--device", "cpu", "--reduced", "--requests", "2",
+            "--max-new", "2"] + flag
+    if flag[0] in ("--report", "--measure", "--out"):
+        with pytest.raises(SystemExit, match="need --trace"):
+            launch_serve.main(argv)
+        return
+    launch_serve.main(argv)
+    out = capsys.readouterr().out
+    if flag[0] == "--trace":
+        assert "[serve:serve_loop] mode=wave timing=virtual n=64" in out
+        assert "[serve:realized] mode=continuous" in out
+    else:
+        assert "[serve] 2 requests, 4 tokens" in out
 
 
 def test_the_card_is_the_default_device():
