@@ -174,6 +174,30 @@ phase prints one JSON line:
    ``repro_torch.examples.serve_lm``, with ``--arch zamba2-1.2b`` at their
    defaults, and ``launch.serve --arch mamba2-370m``; each must answer
    every request.
+   Then ``train``, twice: ``smollm-135m`` (30 layers, d 576, 9/3 heads,
+   vocab 49,152, about 0.135 B parameters) and ``mamba2-370m`` at full
+   width and depth (f32 parameters, bf16 compute, remat on), each trained
+   by ``repro_torch.runtime.train_loop.Trainer`` at batch 4 and sequence
+   1024 for 12 steps (AdamW lr 6e-4, warmup 2, cosine to step 12) with a
+   checkpoint at step 6 and at the end, every launch count set to 0 just
+   before; then the step-12 checkpoint dropped and steps 6-11 run again
+   from the step-6 one (``run(resume=True)``).  Gates: the steps launch
+   no kernel (the plain routes: the kernels have no backward); every loss
+   and grad_norm finite; the mean of the last 3 losses below the mean of
+   the first 3; the resumed losses equal to the straight run's within
+   rel 1e-3 (the line says whether bit-equal).  Then the final parameters
+   on the next batch through the kernels and the plain routes, in bf16
+   and in f32 compute, no grad (``train_eval``): the launches exactly the
+   eval's (30 flash for ``smollm-135m``; 48 SSD chunk and 48 of the state
+   pass's route for ``mamba2-370m``), the kernel route's NLL and logits
+   within the serve gate of the plain route's, and the kernel route under
+   autograd refused.  Not gated: step ms (each and the median), tokens a
+   second, peak memory, checkpoint save (blocking), wait and restore
+   seconds and ``nvidia-smi``'s name and power limit.  Kernel lines at
+   the eval's launch shapes (``main_path: "train:<arch>"``).  Then one
+   ``profile`` line a trained model (not gated): one more train step
+   under ``torch.profiler``, its device time, idle share against the
+   median step and the kernels that take the most device time.
    Then ``profile`` (not gated): the timed ``ops.ssd_forward`` call at the
    ``mamba2-370m`` SSD layer's shape once more, under ``torch.profiler``:
    the device time of its kernels, the device's idle share over its
@@ -181,11 +205,13 @@ phase prints one JSON line:
    the chunk kernel, the state pass (``recurrence_launches``; its route
    and kernels) and the rest of the eager glue.
 5. ``kernels``: every kernel (the state pass's three apart) with its
-   launches on the paths, the loop and the serve phases, its numbers
+   launches on the paths, the loop, the serve phases and the train
+   phases' eval forwards, its numbers
    summed over one pass of each path, of each realized loop candidate
-   (``loop#1``, ``loop#2``) and of each serve phase (``serve``,
-   ``serve:mamba2-370m``, ``serve:whisper-small``, ``serve_trace``), and
-   each one's share apart (both bounds, ``arith``); under
+   (``loop#1``, ``loop#2``), of each serve phase (``serve``,
+   ``serve:mamba2-370m``, ``serve:whisper-small``, ``serve_trace``) and
+   of each train phase's eval forward (``train:smollm-135m``,
+   ``train:mamba2-370m``), and each one's share apart (both bounds, ``arith``); under
    ``bf16`` the realization launches' sums with bf16 operands.  The cost
    model's two kernels carry their launches in the ``fused`` phase and
    one launch's numbers at that phase's shape.
@@ -199,7 +225,9 @@ it exits non-zero before printing anything.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -506,6 +534,32 @@ SERVE_TRACE_PINNED = {
         "makespan_s": 2.4228904337275288,
         "saturation.sat_rate_rps": 5880.577219754148,
         "saturation.sat_throughput_tok_s": 54452.36881143569}}
+
+# train: two models at full width and depth trained through
+# repro_torch.runtime.train_loop.Trainer (the launcher's), f32 parameters
+# and bf16 compute as configured, remat on, at the reference example's
+# batch of 4 (examples/train_lm.py) and sequence 1024, where the
+# reference's rule takes the block-scan (flash) path (Sq * Sk > FLASH_RULE;
+# at the example's 512 neither the step nor the eval forward would reach
+# it).  AdamW as the example sets it (lr 6e-4), warmup 2, cosine over the
+# phase's TRAIN_STEPS.  The step takes the plain routes (the kernels have
+# no backward; the reference differentiates its jnp twins) and must launch
+# no kernel.  A straight run of TRAIN_STEPS checkpoints at the middle;
+# the second half runs again from that checkpoint and must give the
+# straight run's losses within TRAIN_RESUME_RTOL (the line says whether
+# bit-equal).  Then the final parameters evaluate the next batch once
+# through the kernels (no grad): the loss within the serve gate of the
+# plain route's, the launches exactly the eval's plan (train_eval_keys).
+# arch -> (layers, d_model, heads, kv heads, head dim, vocab) of the
+# config; the SSD model's SSD numbers are in SERVE_ARCHS
+TRAIN_ARCHS = {"smollm-135m": (30, 576, 9, 3, 64, 49152),
+               "mamba2-370m": (48, 1024, 32, 32, 32, 50280)}
+TRAIN_BATCH = 4
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 12
+TRAIN_LR = 6e-4
+TRAIN_WARMUP = 2
+TRAIN_RESUME_RTOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -2291,8 +2345,6 @@ def run_serve_trace(dev):
     before and each wave's launches gated at ``serve_wave_keys`` (48 SSD
     chunk launches and 48 of each kernel of the state pass's route at the
     wave's shape).  Returns the line and the launch keys of the run."""
-    import io
-
     import torch
 
     from repro_torch.launch import serve
@@ -2389,8 +2441,6 @@ def run_serve_cli() -> dict:
     512-position cache; 10 of 4-47, 256), then ``launch.serve --arch
     mamba2-370m``: each serves at full width on the card and answers every
     request."""
-    import io
-
     from repro_torch.examples import serve_lm
     from repro_torch.launch import serve
     out, secs = {}, {}
@@ -2411,6 +2461,266 @@ def run_serve_cli() -> dict:
             raise AssertionError(f"{name} {argv}: {out[name]}")
     return {"phase": "serve_cli", "arch": [SERVE_ARCH, "mamba2-370m"],
             "stdout": out, "seconds": secs}
+
+
+def train_eval_keys(arch: str, B: int, L: int, dev) -> list:
+    """The (kernel, shape) of every launch of one eval forward of (B, L)
+    tokens through the kernels: a dense model's attention once a layer,
+    on the flash kernel where the reference's rule takes the flash path
+    (bf16, the kv heads repeated to the query heads); an SSD model's
+    launches of a served wave of the same shape (``serve_wave_keys``)."""
+    from repro_torch.configs import get_config
+    if arch in SERVE_ARCHS:
+        return serve_wave_keys(arch, B, L, dev)
+    cfg = get_config(arch)
+    return [("flash_attention_mha", (B, cfg.n_heads, L, L, cfg.hd, 1, 0,
+                                     "bf16"))] \
+        * (cfg.n_layers if L * L > FLASH_RULE else 0)
+
+
+def train_eval(cfg, params, batch, keys) -> dict:
+    """The trained parameters on ``batch`` four ways under
+    ``torch.no_grad``: the kernels and the plain routes, in the config's
+    bf16 compute and in f32 compute, the launch counts set to 0 just
+    before the first (the kernels, bf16) and read just after.  Each gives
+    the logits (``models.lm.forward``, ``mode="train"``) and from them the
+    NLL as ``loss_fn`` takes it.  Gates, the serve gate: the kernel
+    route's NLL (relative) and logits (relative to the largest plain
+    logit) within ``SERVE_TOL`` of the plain route's in f32 compute and,
+    in bf16, within the larger of ``SERVE_TOL`` and the plain route's own
+    bf16-vs-f32 gap; every NLL finite; the launches exactly ``keys``.
+    Also: the kernel route under autograd raises (the kernels have no
+    backward)."""
+    import torch
+
+    from repro_torch.models import lm, model_api
+    from repro_torch.nn.layers import softmax_cross_entropy
+    wrappers = kernel_wrappers()
+    logits, nll = {}, {}
+    for cdt in ("bfloat16", "float32"):
+        c = cfg.replace(compute_dtype=cdt)
+        for uk in (True, False):
+            if (cdt, uk) == ("bfloat16", True):
+                for fn in wrappers.values():
+                    fn.launches = 0
+            with torch.no_grad():
+                lg, _, _ = lm.forward(c, params, batch, mode="train",
+                                      use_kernels=uk)
+                nll[(cdt, uk)] = softmax_cross_entropy(
+                    lg, batch["labels"], batch.get("mask")).item()
+            logits[(cdt, uk)] = lg
+            if (cdt, uk) == ("bfloat16", True):
+                launches = {k: fn.launches for k, fn in wrappers.items()}
+    pairs = {"f32_kernels_vs_plain": (("float32", True), ("float32", False)),
+             "bf16_kernels_vs_plain": (("bfloat16", True),
+                                       ("bfloat16", False)),
+             "bf16_plain_vs_f32_plain": (("bfloat16", False),
+                                         ("float32", False))}
+    line = {"batch": list(batch["labels"].shape), "rel_tol": SERVE_TOL,
+            "nll": {f"{c}/{'kernels' if uk else 'plain'}": v
+                    for (c, uk), v in nll.items()}}
+    for what, rel in (
+            ("nll", lambda a, b: abs(nll[a] - nll[b]) / abs(nll[b])),
+            ("logits", lambda a, b: ((logits[a] - logits[b]).abs().max()
+                                     / logits[b].abs().max()).item())):
+        errs = {k: rel(*ab) for k, ab in pairs.items()}
+        line[f"{what}_rel"] = errs
+        if not errs["f32_kernels_vs_plain"] <= SERVE_TOL \
+                or not errs["bf16_kernels_vs_plain"] <= max(
+                    SERVE_TOL, errs["bf16_plain_vs_f32_plain"]):
+            raise AssertionError(f"train eval: the kernel route's {what} "
+                                 f"against the plain route's: {line}")
+    del logits
+    want = {k: sum(1 for key in keys if key[0] == k) for k in wrappers}
+    one = {k: v[:1] for k, v in batch.items()}
+    try:
+        model_api(cfg).loss_fn(params, one, use_kernels=True)
+        refused = False
+    except RuntimeError as e:
+        refused = "no backward" in str(e)
+    line.update({"launches": launches, "launches_want": want,
+                 "kernel_route_under_grad_raises": refused})
+    if launches != want or not refused \
+            or not all(math.isfinite(v) for v in nll.values()):
+        raise AssertionError(f"train eval: {line}")
+    return line
+
+
+def profile_train_step(cfg, params, batch, step_ms: float) -> dict:
+    """One more train step (``make_train_step``, the config's AdamW at
+    ``TRAIN_LR``) of the trained parameters on ``batch`` under
+    ``torch.profiler`` (device activity only): the device time of its
+    kernels and copies, the device's idle share over the phase's median
+    step wall without the profiler (``step_ms``), the profiled wall, the
+    kernel launches and the kernels that take the most device time, by
+    name.  Not gated.  It runs after the train phases' timed steps and
+    before ``profile``: launches that follow a profiler session were
+    slower (``profile_ssd_forward``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_train_step, train_state
+    from repro_torch.optim.adamw import AdamWConfig
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
+    state = train_state(params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        loss = metrics["loss"].item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    REPORTS.mkdir(parents=True, exist_ok=True)
+    trace = REPORTS / f"chip_smoke.train.{cfg.name}.trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events
+              if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
+    device_ms = sum(e["dur"] for e in kernels + copies) / 1e3
+    by_name = {}
+    for e in kernels:
+        n, ms = by_name.get(e["name"][:80], (0, 0.0))
+        by_name[e["name"][:80]] = (n + 1, ms + e["dur"] / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    trace.unlink()
+    return {"phase": "profile", "via": "train_step", "arch": cfg.name,
+            "gated": False, "loss": loss, "step_ms_median": step_ms,
+            "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": 1.0 - device_ms / step_ms,
+            "kernel_launches": len(kernels), "copies": len(copies),
+            "top_kernels": [{"name": k, "launches": n, "device_ms": ms}
+                            for k, (n, ms) in top]}
+
+
+def run_train(dev, arch):
+    """A ``train`` phase (``TRAIN_*``): ``arch`` at full width and depth
+    from the port's seeded ``init_params`` on the card, trained by
+    ``Trainer`` for ``TRAIN_STEPS`` steps with a checkpoint at the middle,
+    every kernel's launch count set to 0 just before; then the newest
+    checkpoint dropped and the second half run again from the middle one
+    (``Trainer.run(resume=True)``).  Gates: no kernel launched by the
+    steps, every loss and grad_norm finite, the mean of the last 3 losses
+    below the mean of the first 3, the resumed losses equal to the
+    straight run's within ``TRAIN_RESUME_RTOL``, and ``train_eval`` of the
+    final parameters.  Not gated: step ms (median), tokens a second, peak
+    memory, the seconds the loop blocked on each checkpoint save (the
+    snapshot to host; the write runs in a thread) and waiting for the last
+    write, and the restore's seconds.  Returns the line, the eval's
+    launch keys and (config, trained parameters, eval batch)."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.steps import to_device
+    from repro_torch.nn.params import count_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+            cfg.vocab) != TRAIN_ARCHS[arch]:
+        raise AssertionError(f"TRAIN_ARCHS[{arch!r}] does not match the "
+                             f"config")
+    B, S, half = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS // 2
+    data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    ckdir = REPORTS / "train_ckpt" / arch
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, ckpt_every=half,
+                       ckpt_dir=str(ckdir), keep=2, log_every=1,
+                       opt=AdamWConfig(lr=TRAIN_LR,
+                                       warmup_steps=TRAIN_WARMUP,
+                                       total_steps=TRAIN_STEPS))
+    timing = {"save_s": [], "wait_s": [], "restore_s": []}
+
+    def timed(trainer, name, key):
+        fn = getattr(trainer.mgr, name)
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            timing[key].append(time.perf_counter() - t0)
+            return out
+        setattr(trainer.mgr, name, wrapper)
+
+    wrappers = kernel_wrappers()
+    runs, logs = [], []
+    for resume in (False, True):
+        trainer = Trainer(cfg, data, tcfg, device=dev)
+        for name, key in (("save", "save_s"), ("wait", "wait_s"),
+                          ("restore_latest", "restore_s")):
+            timed(trainer, name, key)
+        if resume:
+            for suffix in (".npz", ".json"):
+                trainer.mgr._path(TRAIN_STEPS).with_suffix(suffix).unlink()
+        else:
+            for fn in wrappers.values():
+                fn.launches = 0
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = trainer.run(resume=resume)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not resume:
+            peak = torch.cuda.max_memory_allocated(dev)
+            params = out["state"]["params"]
+            n_params = count_params(params)
+        runs.append({"seconds": seconds, "losses": out["losses"],
+                     "stdout": buf.getvalue().splitlines()[:2]})
+        logs.append(trainer.metrics_log)
+        del trainer, out
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    straight, resumed = runs
+    dts = [r["dt"] for r in logs[0]]
+    step_s = statistics.median(dts)
+    a, b = straight["losses"][half:], resumed["losses"]
+    resume_err = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    line = {"phase": "train", "arch": arch, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": n_params,
+            "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+            "batch": B, "seq": S, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+            "warmup": TRAIN_WARMUP, "losses": straight["losses"],
+            "grad_norm": [r["grad_norm"] for r in logs[0]],
+            "lr_steps": [r["lr"] for r in logs[0]],
+            "resumed_from": half, "resumed_losses": b,
+            "resume_max_rel_err": resume_err,
+            "resume_rtol": TRAIN_RESUME_RTOL, "resume_bit_equal": a == b,
+            "resume_stdout": resumed["stdout"],
+            "step_ms": [d * 1e3 for d in dts],
+            "step_ms_median": step_s * 1e3,
+            "tokens_per_s": B * S / step_s,
+            "peak_mem_gb": peak / 1e9, "seconds": straight["seconds"],
+            "seconds_resumed": resumed["seconds"],
+            "ckpt_save_blocking_s": timing["save_s"],
+            "ckpt_wait_s": timing["wait_s"],
+            "ckpt_restore_s": timing["restore_s"],
+            "step_launches": launches,
+            "nvidia_smi": nvidia_smi(),
+            "clock": "host seconds around work that ends in a "
+                     "synchronize (the step's loss is read to the host)"}
+    finite = all(math.isfinite(x) for x in straight["losses"] + b
+                 + line["grad_norm"]
+                 + [r["grad_norm"] for r in logs[1]])
+    first, last = straight["losses"][:3], straight["losses"][-3:]
+    if any(launches.values()):
+        raise AssertionError(f"train steps launched kernels: {launches}")
+    if not finite or sum(last) >= sum(first) \
+            or resume_err > TRAIN_RESUME_RTOL or len(b) != half \
+            or f"[trainer] resumed from step {half}" not in resumed["stdout"]:
+        raise AssertionError(f"train: {line}")
+    keys = train_eval_keys(arch, B, S, dev)
+    batch = to_device(make_batch(data, TRAIN_STEPS), dev)
+    line["eval"] = train_eval(cfg, params, batch, keys)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    line["seconds_phase"] = time.perf_counter() - t_phase
+    return line, keys, (cfg, params, batch)
 
 
 def main() -> int:
@@ -2481,6 +2791,18 @@ def main() -> int:
     timed.update(serve_kernel_lines(dev, trace_keys, "serve_trace"))
     runs["serve_trace"] = (trace_line["launches"], trace_keys)
     emit(run_serve_cli())
+    torch.cuda.empty_cache()
+    trained = []
+    for arch in TRAIN_ARCHS:
+        train_line, train_keys, model = run_train(dev, arch)
+        emit(train_line)
+        torch.cuda.empty_cache()
+        timed.update(serve_kernel_lines(dev, train_keys, f"train:{arch}"))
+        runs[f"train:{arch}"] = (train_line["eval"]["launches"], train_keys)
+        trained.append((*model, train_line["step_ms_median"]))
+    for model in trained:
+        emit(profile_train_step(*model))
+    del trained, model
     torch.cuda.empty_cache()
     emit(profile_ssd_forward(*layer))
     emit({"kernels": per_pass_summary(timed, timed_bf16, runs)

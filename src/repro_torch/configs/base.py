@@ -2,9 +2,10 @@
 hybrid and encdec families, plus reduced variants for CPU runs.
 
 Copy of ``src/repro/configs/base.py`` without the run shapes
-(``ShapeConfig``, ``SHAPES``, ``cells_for``) and without ``remat``: the
-port's model stack serves and does not train yet.  Field names, defaults,
-``param_count`` and ``reduced`` are the reference's.  Numpy-free and
+(``ShapeConfig``, ``SHAPES``, ``cells_for``).  Field names, defaults,
+``param_count`` and ``reduced`` are the reference's; ``remat`` recomputes
+each block in the backward pass of a training step
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.  Numpy-free and
 torch-free: the workload exporter (:mod:`repro_torch.core`) loads it.
 """
 
@@ -50,6 +51,7 @@ class ModelConfig:
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    remat: bool = True
     source: str = ""             # provenance note
 
     @property
@@ -112,6 +114,7 @@ class ModelConfig:
             attn_every=2 if self.attn_every else 0,
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0,
+            remat=False,
         )
         return dataclasses.replace(self, **kw)
 

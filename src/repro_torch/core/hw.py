@@ -1,7 +1,8 @@
 """Hardware template for Gemini (paper Sec. III) + technology constants.
 
 Reduced copy of ``src/repro/core/hw.py``: ``Tech``, ``TECH_12NM``,
-``ArchConfig`` (fields, ``n_cores``, ``n_chiplets``, ``label()``, and the
+``ArchConfig`` (fields, ``n_cores``, ``n_chiplets``, ``tops``, ``label()``,
+and the
 geometry the cost model reads, ``:148-210``: ``core_glb_bytes``,
 ``replace``, ``grid_w``/``grid_h``, ``core_node``, ``core_xy``,
 ``dram_node``, ``chiplet_of_core``, ``node_chiplet``), the D2D interface
@@ -111,6 +112,11 @@ class ArchConfig:
     @property
     def n_chiplets(self) -> int:
         return self.xcut * self.ycut
+
+    @property
+    def tops(self) -> float:
+        """Peak int8 TOPS (2 ops per MAC)."""
+        return self.n_cores * self.macs_per_core * 2 * self.freq_ghz / 1e3
 
     @property
     def core_glb_bytes(self) -> int:

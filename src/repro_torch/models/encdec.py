@@ -28,7 +28,11 @@ cache's tensors in place and returns the cache with ``pos`` advanced.
 
 ``use_kernels`` (default True) routes CUDA tensors through the port's
 flash kernel where the reference's rule takes the flash path; False runs
-the plain versions on any device.
+the plain versions on any device (a training step's route: the kernel
+has no backward).  With ``cfg.remat`` each encoder layer, and each
+decoder layer of a forward without a cache, is recomputed in the backward
+pass (``torch.utils.checkpoint``), where the reference wraps the scan
+body in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..nn.attention import Attention, init_kv_cache, multihead_attention
 from ..nn.layers import Embedding, LayerNorm, dtype_of, softmax_cross_entropy
-from .lm import MLP
+from .lm import MLP, remat_call
 
 Cache = Dict[str, Any]
 
@@ -126,11 +130,15 @@ def encode(cfg: ModelConfig, params: EncDec, embeds: torch.Tensor,
     h = embeds.to(cdt) + sinusoidal(S, cfg.d_model,
                                     device=embeds.device).to(cdt)[None]
     positions = torch.arange(S, device=h.device)[None, :]
-    for bp in params.enc_blocks:
+
+    def layer(h, bp):
         y, _ = bp.attn(bp.norm1(h), positions=positions, causal=False,
                        compute_dtype=cdt, use_kernels=use_kernels)
         h = h + y
-        h = h + bp.mlp(bp.norm2(h), cdt)
+        return h + bp.mlp(bp.norm2(h), cdt)
+
+    for bp in params.enc_blocks:
+        h = remat_call(cfg.remat, layer, h, bp)
     return params.enc_norm(h)
 
 
@@ -163,17 +171,21 @@ def decode(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
     h = params.embed(tokens, cdt) + sinusoidal(
         S, cfg.d_model, pos0, device=tokens.device).to(cdt)[None]
     positions = pos0 + torch.arange(S, device=h.device)[None, :]
-    for li, bp in enumerate(params.dec_blocks):
-        page = None if cache is None else {
-            "k": cache["kv"]["k"][li], "v": cache["kv"]["v"][li],
-            "pos": pos0}
+
+    def layer(h, bp, page):
         y, _ = bp.self_attn(bp.norm1(h), positions=positions, cache=page,
                             update_cache=update_cache, compute_dtype=cdt,
                             use_kernels=use_kernels)
         h = h + y
         h = h + _cross_attend(cfg, bp, bp.norm_x(h), enc_out, cdt,
                               use_kernels)
-        h = h + bp.mlp(bp.norm2(h), cdt)
+        return h + bp.mlp(bp.norm2(h), cdt)
+
+    for li, bp in enumerate(params.dec_blocks):
+        page = None if cache is None else {
+            "k": cache["kv"]["k"][li], "v": cache["kv"]["v"][li],
+            "pos": pos0}
+        h = remat_call(cfg.remat and cache is None, layer, h, bp, page)
     new_cache = None
     if cache is not None and update_cache:
         new_cache = dict(cache, pos=pos0 + S)

@@ -7,8 +7,10 @@ parameter's name is its pytree path with the layer index inserted
 (``blocks.<i>.mamba.in_proj.w``).  The hybrid family (zamba2) has ONE
 shared attention+MLP block (``shared``), applied every ``cfg.attn_every``
 layers (an ``if`` where the reference has ``lax.cond``) with one KV cache
-per application.  There is no remat: this port serves and does not train
-yet.
+per application.  With ``cfg.remat``, a training forward (``mode="train"``
+with autograd on) recomputes each layer in the backward pass
+(``torch.utils.checkpoint``), where the reference wraps its scan body in
+``jax.checkpoint``.
 
 Caches keep the reference's stacked layout ({"ssm": {"conv", "state"}
 stacked over layers, "kv": {"k", "v"} stacked over layers or shared-block
@@ -20,7 +22,9 @@ copy.
 
 ``use_kernels`` (default True) routes CUDA tensors through the port's
 kernels (flash attention, the SSD chunk kernel and state pass); False
-runs the plain versions on any device.
+runs the plain versions on any device.  The kernels have no backward: a
+training step takes ``use_kernels=False``, the jnp paths the reference
+differentiates (its Pallas kernels have no VJP either).
 
 Batch dicts:
   train   {"tokens"|"embeds", "labels", optional "mask"} -> scalar loss
@@ -34,6 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..nn.attention import Attention, init_kv_cache
@@ -45,6 +50,14 @@ from ..nn.moe import MoE
 Cache = Dict[str, Any]
 
 AUX_LOSS_WEIGHT = 0.01
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass where ``remat`` and
+    autograd is on (a forward without grad saves nothing to recompute)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class MLP(nn.Module):
@@ -135,12 +148,14 @@ class LM(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 cache: Optional[Cache] = None, update_cache: bool = False,
-                use_kernels: bool = True, cfg: Optional[ModelConfig] = None
+                use_kernels: bool = True, cfg: Optional[ModelConfig] = None,
+                remat: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
         """Returns (logits (B, S, padded_vocab) f32, aux_loss, new_cache).
         ``cfg`` (default: the one the model was built with) supplies the
         numerics and flags, as the reference's ``forward(cfg, params)``
-        does; its shapes must be the model's."""
+        does; its shapes must be the model's.  ``remat`` recomputes each
+        layer in the backward pass (:func:`remat_call`)."""
         cfg = cfg or self.cfg
         cdt = dtype_of(cfg.compute_dtype)
         if cache is not None and not update_cache:
@@ -161,17 +176,13 @@ class LM(nn.Module):
             if cache is None and update_cache:
                 raise ValueError("update_cache requires an initialized cache")
             kvs = cache.get("kv") if cache is not None else None
-            for li, bp in enumerate(self.blocks):
-                ssm_c = None if cache is None else {
-                    k: cache["ssm"][k][li] for k in ("conv", "state")}
+
+            def ssm_layer(h, li, bp, ssm_c):
                 y, new_ssm = bp.mamba(
                     bp.norm1(h), cache=ssm_c,
                     update_cache=update_cache or ssm_c is not None,
                     compute_dtype=cdt, use_kernels=use_kernels)
                 h = h + y
-                if ssm_c is not None:
-                    for k in ("conv", "state"):
-                        cache["ssm"][k][li] = new_ssm[k]
                 if cfg.family == "hybrid" and li % cfg.attn_every == 0:
                     sp = self.shared
                     app = li // cfg.attn_every
@@ -180,11 +191,17 @@ class LM(nn.Module):
                     y, _ = sp.attn(sp.norm1(h), cache=page, **attn_kw)
                     h = h + y
                     h = h + sp.mlp(sp.norm2(h), cdt)
-        else:
+                return h, new_ssm
+
             for li, bp in enumerate(self.blocks):
-                page = None if cache is None else {
-                    "k": cache["kv"]["k"][li], "v": cache["kv"]["v"][li],
-                    "pos": pos0}
+                ssm_c = None if cache is None else {
+                    k: cache["ssm"][k][li] for k in ("conv", "state")}
+                h, new_ssm = remat_call(remat, ssm_layer, h, li, bp, ssm_c)
+                if ssm_c is not None:
+                    for k in ("conv", "state"):
+                        cache["ssm"][k][li] = new_ssm[k]
+        else:
+            def attn_layer(h, aux, bp, page):
                 y, _ = bp.attn(bp.norm1(h), cache=page, **attn_kw)
                 h = h + y
                 hin = bp.norm2(h)
@@ -197,7 +214,13 @@ class LM(nn.Module):
                     aux = aux + a
                 else:
                     y2 = bp.mlp(hin, cdt)
-                h = h + y2
+                return h + y2, aux
+
+            for li, bp in enumerate(self.blocks):
+                page = None if cache is None else {
+                    "k": cache["kv"]["k"][li], "v": cache["kv"]["v"][li],
+                    "pos": pos0}
+                h, aux = remat_call(remat, attn_layer, h, aux, bp, page)
 
         new_cache = None
         if cache is not None and update_cache:
@@ -261,11 +284,12 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor],
             *, cache: Optional[Cache] = None, update_cache: bool = False,
             mode: str = "train", use_kernels: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
-    """Returns (logits, aux_loss, new_cache).  ``mode`` is the reference's
-    (it selects remat there) and changes nothing here."""
-    del mode
+    """Returns (logits, aux_loss, new_cache).  Each layer is recomputed in
+    the backward pass where ``cfg.remat and mode == "train"``, the
+    reference's rule."""
     return params(batch, cache=cache, update_cache=update_cache,
-                  use_kernels=use_kernels, cfg=cfg)
+                  use_kernels=use_kernels, cfg=cfg,
+                  remat=cfg.remat and mode == "train")
 
 
 def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor],

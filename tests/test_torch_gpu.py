@@ -27,7 +27,9 @@ MoE model's bf16 leg with its expert choice held fixed, the
 encoder-decoder's three attention modes (flash at whisper-small's shapes
 in bf16, and a reduced whisper through the kernels), and the trace replay
 over the model executor on the card.  Every wrapper
-refuses an input that requires grad (the kernels have no backward).
+refuses an input that requires grad (the kernels have no backward); the
+training path (below) takes the plain routes on the card, launches no
+kernel, and its async checkpoint holds the state of the step it saved.
 """
 
 import numpy as np
@@ -1242,3 +1244,92 @@ def test_trace_replay_over_the_model_executor_on_the_card(cuda):
         assert 1 <= tl.n_tokens <= trace.requests[tl.rid].max_new
     s = rep.summary()
     assert s["e2e_s"]["p99"] >= s["ttft_s"]["p99"] > 0
+
+
+def _kernel_counts():
+    from repro_torch.kernels import ssd_state
+    return {"tiled_matmul": tiled_matmul.launches,
+            "flash_attention_mha": flash_attention_mha.launches,
+            "ssd_chunk_dual": ssd_chunk_dual.launches,
+            **{k: getattr(ssd_state, k).launches
+               for k in ("ssd_state_walk", "ssd_state_scan",
+                         "ssd_state_out")}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,seq", [("smollm-135m", 768),
+                                      ("mamba2-370m", 256)])
+def test_trainer_steps_on_the_card_through_the_plain_routes(cuda, arch, seq,
+                                                            tmp_path):
+    """``Trainer`` on the card, a reduced config at a length where the
+    eval forward takes the kernels (smollm: the flash rule; mamba2: the
+    SSD kernels): two steps with a checkpoint after each, finite losses,
+    no kernel launched; then ``loss_fn(use_kernels=True)`` with the
+    trained parameters under autograd raises, and under ``torch.no_grad``
+    launches the kernels and agrees with the plain route (f32 compute,
+    rel 1e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.steps import to_device
+    from repro_torch.models import model_api
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+    cfg = get_config(arch).reduced().replace(compute_dtype="float32",
+                                             remat=True)
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=2)
+    tr = Trainer(cfg, data, TrainConfig(
+        steps=2, ckpt_every=1, ckpt_dir=str(tmp_path), log_every=1,
+        opt=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)),
+        device=cuda)
+    n0 = _kernel_counts()
+    out = tr.run(resume=False)
+    assert _kernel_counts() == n0
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+    assert all(np.isfinite(r["grad_norm"]) for r in tr.metrics_log)
+    assert tr.mgr.steps() == [1, 2]
+    params = out["state"]["params"]
+    assert params.embed.embedding.is_cuda and params.embed.embedding \
+        .requires_grad
+    batch = to_device(make_batch(data, 2), cuda)
+    api = model_api(cfg)
+    with pytest.raises(RuntimeError, match="no backward"):
+        api.loss_fn(params, batch, use_kernels=True)
+    with torch.no_grad():
+        got = api.loss_fn(params, batch, use_kernels=True)[0]
+        want = api.loss_fn(params, batch, use_kernels=False)[0]
+    assert _kernel_counts() != n0
+    assert abs(got - want).item() <= 1e-4 * abs(want).item()
+
+
+@pytest.mark.gpu
+def test_async_checkpoint_of_a_card_state_holds_the_saved_step(cuda,
+                                                                tmp_path):
+    """The async writer writes the state of the step ``save`` was given,
+    though the next train step updates the card's tensors in place before
+    the write ends."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager, to_host
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.steps import (make_train_step, state_tree,
+                                          to_device, train_state)
+    from repro_torch.models import model_api
+    cfg = get_config("smollm-135m").reduced()
+    params = model_api(cfg).init_params(
+        torch.Generator(device=cuda).manual_seed(0), cuda)
+    state = train_state(params)
+    step = make_train_step(cfg)
+    data = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2)
+    state, _ = step(state, to_device(make_batch(data, 0), cuda))
+    want = {k: to_host(v) for k, v in state_tree(state)["params"].items()}
+    mgr = CheckpointManager(tmp_path, async_write=True)
+    mgr.save(state_tree(state), 1)
+    state, _ = step(state, to_device(make_batch(data, 1), cuda))
+    mgr.wait()
+    moved = state_tree(state)["params"]
+    assert any(not np.array_equal(to_host(moved[k]), want[k]) for k in want)
+    got, at = mgr.restore_latest(state_tree(state))
+    assert at == 1
+    for k, v in want.items():
+        assert got["params"][k].is_cuda
+        np.testing.assert_array_equal(to_host(got["params"][k]), v)
+    assert int(got["opt"]["step"]) == 1

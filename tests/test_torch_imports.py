@@ -140,3 +140,30 @@ def test_the_walks_cover_the_trace_replay_and_the_encoder_decoder():
                        text=True, timeout=120, env=env, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
     assert json.loads(r.stdout.splitlines()[-1]) == []
+
+
+def test_the_walks_cover_the_training_modules_and_the_examples():
+    """The ``ast`` walk and the clean-interpreter import see the optimizer,
+    the checkpoints, the data pipeline, the train step and loop, the
+    training entry points and the two top-level examples; the data
+    pipeline, a numpy copy, loads no torch."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    for rel in ("optim/__init__.py", "optim/adamw.py",
+                "checkpoint/__init__.py", "checkpoint/ckpt.py",
+                "data/__init__.py", "data/pipeline.py", "launch/steps.py",
+                "runtime/train_loop.py", "launch/train.py",
+                "examples/train_lm.py", "examples/quickstart.py",
+                "examples/dse_demo.py"):
+        assert rel in files, rel
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'src')!r})\n"
+        "import repro_torch.data.pipeline\n"
+        "print(json.dumps(sorted(n for n in sys.modules"
+        " if n.split('.')[0] == 'torch')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.splitlines()[-1]) == []
