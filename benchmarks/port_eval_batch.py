@@ -11,11 +11,11 @@ CUDA toolkit:
 (default: this checkout's), so that two versions of the port, each
 unpacked with ``git archive``, are timed by the same code: run it once a
 tree, parent, change, change, parent, in one session on the card.  At the
-shapes of ``chip_smoke.py``'s ``fused_eval`` lines (two layouts, batches
-of 4 and 64) it times ``Evaluator.eval_requests_batch(reqs, 4,
-backend=be)``, a call every version of the port has: per backend one
-warm-up call, then the mean host milliseconds of 20 calls, in the order
-numpy, fused, fused, numpy.  Prints one JSON line a shape, then the card's
+shapes of ``chip_smoke.py``'s ``fused_eval`` lines (three layouts, batches
+of 4 and 64) it times ``Evaluator.eval_requests_batch(reqs, batch,
+backend=be)`` at the layout's total batch, a call every version of the
+port has: per backend one warm-up call, then the mean host milliseconds
+of 20 calls, in the order numpy, fused, fused, numpy.  Prints one JSON line a shape, then the card's
 name and power limit.
 """
 
@@ -50,13 +50,14 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    for layout, arch, g in chip_smoke.cost_layouts():
+    for layout, arch, g, batch in chip_smoke.cost_layouts():
         for B in chip_smoke.FUSED_B:
-            reqs = chip_smoke.cost_requests(arch, g, B, seed=B)
+            reqs = chip_smoke.cost_requests(arch, g, B, seed=B,
+                                            total_batch=batch)
             ev = Evaluator(arch, g, fused_device=dev)
             runs = [chip_smoke.host_ms(
                 lambda: ev.eval_requests_batch(
-                    reqs, chip_smoke.FUSED_TOTAL_BATCH, backend=be),
+                    reqs, batch, backend=be),
                 reps=REPS) for be in ORDER]
             mean = {be: sum(ms for b, ms in zip(ORDER, runs) if b == be) / 2
                     for be in ("numpy", "fused")}

@@ -43,8 +43,8 @@ Then the state pass's two routes, walk and split, through the port's
 wrappers at 8 chunks of 128, P = 64 and a range of block counts at N =
 64 and 128, beside the route ``ssd_state.state_route`` picks.
 
-For the evaluator's fused pass (``fused_eval.cu``), at the four shapes of
-``chip_smoke.py``'s ``fused_eval`` lines (two layouts, batches of 4 and
+For the evaluator's fused pass (``fused_eval.cu``), at the six shapes of
+``chip_smoke.py``'s ``fused_eval`` lines (three layouts, batches of 4 and
 64), against the plain version:
 
 * ``as built``;
@@ -176,8 +176,8 @@ FUSED_AGGREGATE = """  unsigned peers = __match_any_sync(0xffffffffu, c);
     peers &= ~__ballot_sync(0xffffffffu, rel & 1);
     rel >>= 1;
   }
-  if (c >= 0 && lane == first) atomicAdd(cells + c, v);"""
-FUSED_STREAM = "  for (long long base = lo + (tid - lane);"
+  if (c >= 0 && lane == first) cells[c] += v;"""
+FUSED_STREAM = "    for (long long base = lo + 32 * warp;"
 FUSED_MATH = "  float acc[N_ACC];\n"
 
 
@@ -191,7 +191,7 @@ def fused_variants(source: str) -> dict:
                     f"constexpr int kUnroll = {u};")]
     out["no warp aggregation"] = [
         (FUSED_AGGREGATE, "  if (c >= 0) atomicAdd(cells + c, v);")]
-    out["no stream"] = [(FUSED_STREAM, "  for (long long base = hi;")]
+    out["no stream"] = [(FUSED_STREAM, "    for (long long base = hi;")]
     out["no row math"] = [(FUSED_MATH, "  if (buf_len > 0) return;\n"
                                        + FUSED_MATH)]
     return out
@@ -331,15 +331,21 @@ def time_fused(libs: dict, stream: int) -> None:
     import torch
 
     from repro_torch.core.evaluator import Evaluator
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import fused_eval, ref
     dev = torch.device("cuda", 0)
-    variants = fused_variants((_build.CSRC / "fused_eval.cu").read_text())
-    for layout, arch, g in chip_smoke.cost_layouts():
+    source = (_build.CSRC / "fused_eval.cu").read_text()
+    variants = fused_variants(source)
+    # a variant's block sums a row into as many copies as it has warps
+    warps = {v: int(re.search(r"constexpr int kThreads = (\d+);",
+                              substitute(source, subs, v)).group(1)) // 32
+             for v, subs in variants.items()}
+    for layout, arch, g, batch in chip_smoke.cost_layouts():
         for B in chip_smoke.FUSED_B:
-            reqs = chip_smoke.cost_requests(arch, g, B, seed=B)
+            reqs = chip_smoke.cost_requests(arch, g, B, seed=B,
+                                            total_batch=batch)
             ev = Evaluator(arch, g, fused_device=dev)
             plan = ev.fused_plan()
-            x = ev._fused_inputs(reqs, chip_smoke.FUSED_TOTAL_BATCH)
+            x = ev._fused_inputs(reqs, batch)
             args = [torch.from_numpy(a.copy()).to(dev) for a in x]
             off, idx, vals, npass, depth, wts = args
             want, _ = ref.fused_eval_ref(
@@ -348,17 +354,21 @@ def time_fused(libs: dict, stream: int) -> None:
                 buf_len=plan.buf_len)
             out = torch.empty_like(want)
             bn = torch.empty(B, dtype=torch.int32, device=dev)
+            if fused_eval.splits(dev, plan.buf_len) != 1:
+                raise RuntimeError("the variants time one launch a row")
             line = {"kernel": "fused_eval", "layout": layout, "B": B,
                     "stream": idx.numel(), "buf_len": plan.buf_len}
             for variant in variants:
                 fn = libs[(variant, "fused_eval")].fused_eval_f32
+                copies = min(warps[variant],
+                             fused_eval.max_cells(dev) // plan.buf_len)
                 launch = lambda: fn(
                     off.data_ptr(), idx.data_ptr(), vals.data_ptr(),
                     idx.numel(), B, plan.buf_len, npass.data_ptr(),
                     depth.data_ptr(), wts.data_ptr(), plan.spans.data_ptr(),
                     plan.d2d_mask.data_ptr(), plan.consts.data_ptr(),
-                    int(plan.has_d2d), out.data_ptr(), bn.data_ptr(), 0,
-                    stream)
+                    int(plan.has_d2d), copies, 1, None, out.data_ptr(),
+                    bn.data_ptr(), 0, stream)
                 if launch() != 0:
                     raise RuntimeError(f"{variant}: launch failed")
                 torch.cuda.synchronize()

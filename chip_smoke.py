@@ -130,6 +130,25 @@ phase prints one JSON line:
    re-evaluated exactly (it must equal the reported cost to the bit); then
    ``analyze_requests(backend="fused")`` of a screen-sized batch through
    ``segment_replay`` against the exact replay.
+   Then ``sweep:quick`` and ``sweep:fused``: the supervised sweep
+   (``repro_torch.launch.sweep_ctl launch``, two local shard children).
+   ``sweep:quick`` is the reference's CI chaos sweep (the quick spec on
+   the numpy engine) once for each fault kind (kill, stall, corrupt, dup,
+   slow; fault seed 0), each of which must exit 0 and print
+   ``verify-clean: OK`` (its merged records equal to a clean in-process
+   run's, bit for bit).  ``sweep:fused`` sweeps ``tf-paper`` at its
+   published width over the quick spec's 72-TOPS grid (6 candidates),
+   replica-exchange SA of 4 chains x 200 iterations scoring on the fused
+   pass, batch 8, 2 shards: one clean in-process ``run_dse`` on the card,
+   then supervised runs with ``kill`` and with ``dup`` and tracing on
+   (each child into its own run dir), each of which must merge with no
+   candidate left and equal the clean run bit for bit (``fused_eval``
+   sums in a fixed order, so the duplicate twins' records merge without
+   conflict), its children's metrics snapshots showing
+   ``group_eval_fused.misses`` and ``fused_eval.launches`` above 0, and
+   ``obs_report`` rendering every run dir.  The lines carry the seconds
+   of each run, candidates a second, the children's launches and one
+   child's time-in-phase rows.
    Then ``serve``, twice: ``zamba2-1.2b`` at full width and depth (38
    layers, about 1.2 B parameters from the port's seeded ``init_params``,
    f32 parameters and bf16 compute), then ``mamba2-370m`` at full width
@@ -213,8 +232,10 @@ phase prints one JSON line:
    of each train phase's eval forward (``train:smollm-135m``,
    ``train:mamba2-370m``), and each one's share apart (both bounds, ``arith``); under
    ``bf16`` the realization launches' sums with bf16 operands.  The cost
-   model's two kernels carry their launches in the ``fused`` phase and
-   one launch's numbers at that phase's shape.
+   model's two kernels carry their launches in the ``fused`` phase and in
+   the fused sweep's shard children (``per_path``: ``fused``,
+   ``sweep:fused``, read from the children's metrics snapshots) and one
+   launch's numbers at the ``fused`` phase's shape.
 
 Then the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -225,10 +246,12 @@ it exits non-zero before printing anything.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -444,9 +467,10 @@ LOOP_SCREEN_KEEP = 0.6
 # the cost model's kernels: the fused phase's SA (replica exchange on the
 # granite graph, S-Arch, the fixtures' batch), its lockstep batch (one
 # proposal a chain) and a screen-sized batch; the layouts of the kernel
-# lines (the reference's fused-pass test arch with moe-quick, and S-Arch
-# with granite); the reference's tolerances (tests/test_fused_eval.py:
-# rel 1e-4 for the fused pass, rtol 2e-4 / atol 1e-2 for the replay)
+# lines (the reference's fused-pass test arch with moe-quick, S-Arch with
+# granite, and the sweep's: below); the reference's tolerances
+# (tests/test_fused_eval.py: rel 1e-4 for the fused pass, rtol 2e-4 /
+# atol 1e-2 for the replay)
 FUSED_SPEC = "lm:granite-moe-3b-a800m:seq=4096,n_layers=2"
 FUSED_TOTAL_BATCH = 4
 FUSED_CHAINS = 4
@@ -462,6 +486,28 @@ COST_KERNEL_FILES = {
     "segment_replay": ("src/repro_torch/kernels/csrc/fused_eval.cu",
                        "src/repro/core/analyzer.py:60"),
 }
+# the sweep phase: the supervised sweep (repro_torch.launch.sweep_ctl), two
+# local shard children.  sweep:quick is the reference's CI chaos sweep (the
+# quick spec, numpy) once for each fault kind, fault seed 0, merged and
+# held bit-identical to a clean in-process run (--verify-clean); a short
+# heartbeat deadline keeps the stall kind's wait short.  sweep:fused is the
+# paper's Table-I Transformer at its published width (tf-paper) on the
+# quick spec's 72-TOPS grid (6 candidates: the grid_candidates options of
+# quick_spec, of the 2,700 of the full 72-TOPS grid), replica-exchange SA
+# of 4 chains x 200 iterations scoring on the fused pass (fused_eval on the
+# card), batch 8, 2 shards: one clean in-process run_dse on the card, then
+# supervised runs with each of SWEEP_FUSED_FAULTS and tracing on, each
+# child tracing into its own run dir under the supervisor's
+SWEEP_QUICK_ARGV = ["--quick", "--hosts", "2", "--fault-seed", "0",
+                    "--hb-timeout", "10", "--poll", "0.15", "--verify-clean"]
+SWEEP_FUSED_SPEC = {
+    "workloads": {"tf": "tf-paper"},
+    "grid": dict(tops=72.0, mac_options=[512, 1024], cut_options=[1, 2],
+                 dram_per_tops=[2.0], noc_options=[16, 32], d2d_ratio=[0.5],
+                 glb_options=[1024]),
+    "sa": dict(iters=200, seed=0, n_chains=4, backend="fused"),
+    "cfg": dict(batch=8), "n_shards": 2}
+SWEEP_FUSED_FAULTS = ("kill", "dup")
 # the serve phase: zamba2-1.2b at full width and depth (38 Mamba-2 layers,
 # the shared attention block applied every 6: 7 times), then mamba2-370m
 # at full width and depth (48 Mamba-2 layers, d 1024, 32 heads of 64, N
@@ -1628,18 +1674,32 @@ def cost_wrappers() -> dict:
     return {"fused_eval": fused_eval, "segment_replay": segment_replay}
 
 
+def sweep_arch():
+    """The widest candidate of ``sweep:fused``'s grid: 70 cores on two
+    chiplets (a row of 952 cells with ``tf-paper``)."""
+    from repro_torch.core.dse import grid_candidates
+    return grid_candidates(**SWEEP_FUSED_SPEC["grid"])[2]
+
+
 def cost_layouts() -> list:
-    """(name, arch, graph) of the cost kernels' lines: the reference's
-    fused-pass test arch (4x3 cores, two chiplets) with ``moe-quick``, and
-    S-Arch with the granite graph of the fused phase."""
+    """(name, arch, graph, total batch) of the cost kernels' lines: the
+    reference's fused-pass test arch (4x3 cores, two chiplets) with
+    ``moe-quick`` and S-Arch with the granite graph of the fused phase, at
+    the fused phase's batch; and ``sweep:fused``'s rows, ``tf-paper`` on
+    :func:`sweep_arch` at the sweep's batch."""
     from repro_torch.core.hw import ArchConfig, simba_arch
     from repro_torch.core.workloads import make_workload
     return [("zoo:moe-quick", ArchConfig(**ZOO_ARCH),
-             make_workload("moe-quick")),
-            ("granite", simba_arch(), make_workload(FUSED_SPEC))]
+             make_workload("moe-quick"), FUSED_TOTAL_BATCH),
+            ("granite", simba_arch(), make_workload(FUSED_SPEC),
+             FUSED_TOTAL_BATCH),
+            ("sweep:tf-paper", sweep_arch(),
+             make_workload(SWEEP_FUSED_SPEC["workloads"]["tf"]),
+             SWEEP_FUSED_SPEC["cfg"]["batch"])]
 
 
-def cost_requests(arch, g, n: int, seed: int) -> list:
+def cost_requests(arch, g, n: int, seed: int,
+                  total_batch: int = FUSED_TOTAL_BATCH) -> list:
     """``n`` (group, random LMS) requests over the graph's partition, as a
     lockstep iteration or a screen hands them to the evaluator."""
     import numpy as np
@@ -1647,7 +1707,7 @@ def cost_requests(arch, g, n: int, seed: int) -> list:
     from repro_torch.core.encoding import random_lms
     from repro_torch.core.graph_partition import partition_graph
     rng = np.random.default_rng(seed)
-    groups = partition_graph(g, arch, FUSED_TOTAL_BATCH)
+    groups = partition_graph(g, arch, total_batch)
     return [(grp, random_lms(grp, g, arch.n_cores, arch.n_dram, rng))
             for grp in (groups[int(i)]
                         for i in rng.integers(len(groups), size=n))]
@@ -1681,7 +1741,8 @@ def cell_counts(x) -> dict:
 
 def check_cost_kernels(dev) -> dict:
     """``fused_eval`` and ``segment_replay`` at the batch sizes of a
-    lockstep SA iteration and of a screen, on both layouts.  ``fused_eval``
+    lockstep SA iteration and of a screen, on the three layouts of
+    :func:`cost_layouts`.  ``fused_eval``
     is held against its plain version on the same inputs on the card and
     against the exact numpy engine (rel 1e-4, equal bottleneck), called
     on the batch's tensors and through the evaluator's fused route, which
@@ -1697,8 +1758,9 @@ def check_cost_kernels(dev) -> dict:
     fused, streams and caches warm).  A ``fused_eval`` line also has its
     stream's real length (no pads), the bound the parent version's padded
     stream would have had (``parent_bound_ms``: the stream padded to a
-    power of two), the block size and dynamic shared memory of its launch,
-    and ``launch_floor_ms``: the device time of one empty kernel
+    power of two), the block size, the copies of the row a block sums
+    into, the parts a row is split into (1: one launch) and the dynamic
+    shared memory of its launch, and ``launch_floor_ms``: the device time of one empty kernel
     (``torch.cuda._sleep(0)``: one block of one thread), timed the same
     way.  Returns the lines by (kernel, layout, B)."""
     import numpy as np
@@ -1706,22 +1768,23 @@ def check_cost_kernels(dev) -> dict:
 
     from repro_torch.core.evaluator import Evaluator
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.fused_eval import copies as fe_copies
     from repro_torch.kernels.fused_eval import fused_eval, segment_replay
+    from repro_torch.kernels.fused_eval import splits as fe_splits
 
     names = ("compute", "noc", "d2d", "dram")
     threads = int(re.search(r"constexpr int kThreads = (\d+);", (
         _build.CSRC / "fused_eval.cu").read_text()).group(1))
     floor_ms = time_ms(lambda: torch.cuda._sleep(0))
     timed = {}
-    for layout, arch, g in cost_layouts():
+    for layout, arch, g, batch in cost_layouts():
         for B in FUSED_B:
-            reqs = cost_requests(arch, g, B, seed=B)
+            reqs = cost_requests(arch, g, B, seed=B, total_batch=batch)
             ev = Evaluator(arch, g, fused_device=dev)
-            exact = ev.eval_requests_batch(reqs, FUSED_TOTAL_BATCH)
-            path = ev.eval_requests_batch(reqs, FUSED_TOTAL_BATCH,
-                                          backend="fused")
+            exact = ev.eval_requests_batch(reqs, batch)
+            path = ev.eval_requests_batch(reqs, batch, backend="fused")
             plan = ev.fused_plan()
-            host = ev._fused_inputs(reqs, FUSED_TOTAL_BATCH)
+            host = ev._fused_inputs(reqs, batch)
             args = [torch.from_numpy(a.copy()).to(dev) for a in host]
             kw = dict(spans=plan.spans, d2d_mask=plan.d2d_mask,
                       consts=plan.consts, has_d2d=plan.has_d2d,
@@ -1753,7 +1816,8 @@ def check_cost_kernels(dev) -> dict:
             outputs = out.numel() * 4 + B * 4
             nbytes = sum(a.nbytes for a in host) + outputs
             line = {"phase": "kernel", "kernel": "fused_eval",
-                    "layout": layout, "arch": arch.label(), "B": B,
+                    "layout": layout, "arch": arch.label(),
+                    "total_batch": batch, "B": B,
                     "buf_len": plan.buf_len, "stream": n,
                     "main_path": (layout, B) == ("granite", FUSED_CHAINS),
                     "rel_tol": FUSED_REL_TOL,
@@ -1768,7 +1832,11 @@ def check_cost_kernels(dev) -> dict:
                     "parent_bound_ms": _bound(
                         n_pad + 2 * B * plan.buf_len, PEAK_F32_FLOPS,
                         8 * n_pad + 12 * B + outputs)["bound_ms"],
-                    "threads": threads, "smem_bytes": 4 * plan.buf_len,
+                    "threads": threads,
+                    "copies": fe_copies(plan.device, plan.buf_len),
+                    "splits": fe_splits(plan.device, plan.buf_len),
+                    "smem_bytes": 4 * plan.buf_len
+                    * fe_copies(plan.device, plan.buf_len),
                     **hot,
                     "ms": time_ms(lambda: fused_eval(plan, *args)),
                     "launch_floor_ms": floor_ms,
@@ -1780,7 +1848,7 @@ def check_cost_kernels(dev) -> dict:
                     "library": "none: no single PyTorch call computes it"}
             line["eval_batch_ms"] = {
                 be: host_ms(lambda: ev.eval_requests_batch(
-                    reqs, FUSED_TOTAL_BATCH, backend=be))
+                    reqs, batch, backend=be))
                 for be in ("numpy", "fused")}
             timed[("fused_eval", layout, B)] = line
             emit(line)
@@ -1791,8 +1859,7 @@ def check_cost_kernels(dev) -> dict:
                                      f"B={B}: {rel_plain}, {rel_path}, "
                                      f"{rel_exact}, bottleneck {same_bn}")
 
-            idx, vals, _ = ev.analyzer._request_streams(reqs,
-                                                        FUSED_TOTAL_BATCH)
+            idx, vals, _ = ev.analyzer._request_streams(reqs, batch)
             n_cells = B * ev.analyzer._buf_len
             ti, tv = torch.from_numpy(idx).to(dev), torch.from_numpy(
                 vals).to(dev)
@@ -1924,19 +1991,175 @@ def run_fused(dev) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
-def cost_kernel_summary(cost_timed: dict, launches: dict) -> list:
+def run_sweep() -> tuple:
+    """The ``sweep`` phase: ``sweep:quick`` then ``sweep:fused`` (the
+    constants above), through ``repro_torch.launch.sweep_ctl``'s ``launch``
+    in this process.  Gates: every quick fault kind exits 0 and prints
+    ``verify-clean: OK``; each winner of the clean fused run, re-evaluated
+    by an independent exact evaluator, gives the run's energy and delay
+    to the bit (as the ``fused`` phase checks its winners); each fused
+    supervised run exits 0, merges with no candidate left, and its
+    results equal the clean run's bit for bit (``sweep_ctl._sig``, as
+    ``--verify-clean`` compares them); the children's metrics snapshots
+    show ``group_eval_fused.misses`` above 0 and each child's
+    ``fused_eval.launches`` within (iterations - 2) and iterations times
+    the tasks it ran (``engine.tasks``: an iteration whose proposals are
+    all cached launches none); ``obs_report`` renders the supervisor's
+    run dir and each child's.  A child a ``kill`` fault ends writes no
+    snapshot, so the launches counted are those of the children that
+    finished.  Not gated: seconds, candidates a second and the report's
+    phase rows.  Returns the two lines and the finished children's
+    ``fused_eval`` and ``segment_replay`` launches over the fused runs."""
+    from repro_torch import obs
+    from repro_torch.core.dse import run_dse
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.core.explore import remaining_candidate_indices
+    from repro_torch.dist.faults import FAULT_KINDS
+    from repro_torch.dist.supervisor import (SweepSpec, read_state,
+                                             supervised_results)
+    from repro_torch.launch import sweep_ctl
+    from repro_torch.obs import report as obs_report
+
+    root = REPORTS / "sweep"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    def launch(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = sweep_ctl.main(["launch", *argv])
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    def events(out):
+        counts = {}
+        for e in read_state(out / "supervisor_state.jsonl")["events"]:
+            counts[e["ev"]] = counts.get(e["ev"], 0) + 1
+        return counts
+
+    t_phase = time.perf_counter()
+    quick = {}
+    for kind in FAULT_KINDS:
+        out = root / f"quick-{kind}"
+        rc, text, secs = launch(["--out", str(out), "--fault", kind,
+                                 *SWEEP_QUICK_ARGV])
+        quick[kind] = {"rc": rc, "seconds": secs,
+                       "verify_clean": "verify-clean: OK" in text,
+                       "events": events(out)}
+        if rc != 0 or not quick[kind]["verify_clean"]:
+            raise AssertionError(f"sweep:quick, fault {kind}: rc {rc}\n"
+                                 f"{text[-2000:]}")
+    quick_line = {"phase": "sweep:quick", "argv": SWEEP_QUICK_ARGV,
+                  "faults": quick,
+                  "seconds": time.perf_counter() - t_phase}
+
+    t_fused = time.perf_counter()
+    spec = SweepSpec(**SWEEP_FUSED_SPEC)
+    spec_path = root / "fused.spec.json"
+    spec_path.write_text(spec.to_json() + "\n")
+    cands, wls, cfg = (spec.build_candidates(), spec.build_workloads(),
+                       spec.build_cfg())
+    t0 = time.perf_counter()
+    clean = run_dse(cands, wls, dataclasses.replace(cfg, keep_mappings=True),
+                    use_sa=spec.use_sa, screen_keep=spec.screen_keep)
+    clean_s = time.perf_counter() - t0
+    want = sweep_ctl._sig(clean)
+    for p in clean:
+        for name, got in p.per_workload.items():
+            r = Evaluator(p.arch, wls[name]).evaluate(p.mappings[name],
+                                                      cfg.batch)
+            if got != (r.energy_j, r.delay_s):
+                raise AssertionError(f"sweep:fused, the clean run's winner "
+                                     f"on {p.arch.label()} reports {got}, "
+                                     f"the exact re-evaluation "
+                                     f"{(r.energy_j, r.delay_s)}")
+    iters = SWEEP_FUSED_SPEC["sa"]["iters"]
+    runs, launched = {}, {"fused_eval": 0, "segment_replay": 0}
+    for kind in SWEEP_FUSED_FAULTS:
+        out, run_dir = root / f"fused-{kind}", root / f"fused-{kind}.obs"
+        obs.enable(run_dir)
+        try:
+            rc, text, secs = launch(["--spec", str(spec_path), "--out",
+                                     str(out), "--hosts", "2", "--fault",
+                                     kind, "--fault-seed", "0"])
+        finally:
+            obs.disable()
+            obs.metrics.reset()
+        if rc != 0:
+            raise AssertionError(f"sweep:fused, fault {kind}: rc {rc}\n"
+                                 f"{text[-2000:]}")
+        merged = out / "merged.jsonl"
+        left = remaining_candidate_indices(cands, wls, cfg, merged,
+                                           use_sa=spec.use_sa)
+        got = sweep_ctl._sig(supervised_results(spec, merged))
+        children = {d.name: json.loads((d / "metrics.json").read_text())
+                    for d in sorted(run_dir.iterdir())
+                    if (d / "metrics.json").exists()}
+        count = lambda key: sum(int(m["counters"].get(key, 0))
+                                for m in children.values())
+        ckpts = sorted(str(p) for p in out.glob("shard*.jsonl"))
+        reports = {name: obs_report.render_report(run=run_dir / name,
+                                                  ckpts=ckpts)
+                   for name in ["", *children]}
+        first = next(iter(children))
+        per_child = {name: {
+            "tasks": int(m["counters"].get("engine.tasks", 0)),
+            "fused_eval_launches": int(m["counters"].get(
+                "fused_eval.launches", 0))} for name, m in children.items()}
+        runs[kind] = {
+            "seconds": secs, "candidates_per_s": len(cands) / secs,
+            "remaining": len(left), "verify_clean": got == want,
+            "events": events(out), "children": sorted(children),
+            "group_eval_fused_misses": count("group_eval_fused.misses"),
+            "fused_eval_launches": count("fused_eval.launches"),
+            "segment_replay_launches": count("segment_replay.launches"),
+            "per_child": per_child,
+            "report_lines": {k or "supervisor": len(v.splitlines())
+                             for k, v in reports.items()},
+            "phase_rows": {first: obs_report.phase_rows(children[first])}}
+        for k in launched:
+            launched[k] += runs[kind][f"{k}_launches"]
+        launched_per_task = all(
+            c["tasks"] and (iters - 2) * c["tasks"]
+            <= c["fused_eval_launches"] <= iters * c["tasks"]
+            for c in per_child.values())
+        if left or got != want or not runs[kind]["group_eval_fused_misses"] \
+                or not launched_per_task:
+            raise AssertionError(f"sweep:fused, fault {kind}: {runs[kind]}")
+    fused_line = {"phase": "sweep:fused", "spec": SWEEP_FUSED_SPEC,
+                  "candidates": len(cands), "shards": spec.n_shards,
+                  "clean_seconds": clean_s,
+                  "clean_candidates_per_s": len(cands) / clean_s,
+                  "winners_equal_exact": True,
+                  "runs": runs, "fused_eval_launches": launched["fused_eval"],
+                  "launches_of": "the shard children that finished (a child "
+                                 "a kill fault ends writes no snapshot)",
+                  "clock": "host seconds on the machine that holds the card",
+                  "seconds": time.perf_counter() - t_fused}
+    return quick_line, fused_line, launched
+
+
+def cost_kernel_summary(cost_timed: dict, launches: dict,
+                        sweep_launches: dict) -> list:
     """The ``kernels`` entries of the cost model's kernels: ``launches``
-    from the fused phase, the other numbers from the kernel line at the
-    phase's shape (granite layout; the lockstep batch for ``fused_eval``,
-    the screen batch the phase replays for ``segment_replay``), one
-    launch; ``max_abs_err`` over all of the kernel's lines."""
+    summed over the fused phase and the fused sweep's shard children that
+    finished (``per_path`` splits them; a child a ``kill`` fault ends
+    writes no snapshot), the other numbers from the kernel line at
+    the fused phase's shape (granite layout; the lockstep batch for
+    ``fused_eval``, the screen batch the phase replays for
+    ``segment_replay``), one launch; ``max_abs_err`` over all of the
+    kernel's lines."""
     out = []
     for name, (source, replaces) in COST_KERNEL_FILES.items():
         lines = [ln for (k, _, _), ln in cost_timed.items() if k == name]
         main, = [ln for ln in lines if ln["main_path"]]
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + sweep_launches[name],
+            "per_path": {"fused": launches[name],
+                         "sweep:fused": sweep_launches[name]},
+            "sweep_launches_of": "the shard children that finished",
             "max_abs_err": max(ln["max_abs_err"] for ln in lines),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -2779,6 +3002,9 @@ def main() -> int:
     cost_timed = check_cost_kernels(dev)
     fused_line = run_fused(dev)
     emit(fused_line)
+    *sweep_lines, sweep_launches = run_sweep()
+    for line in sweep_lines:
+        emit(line)
     for arch in SERVE_PHASES:
         serve_line, _, serve_keys = run_serve(dev, arch)
         emit(serve_line)
@@ -2806,7 +3032,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(profile_ssd_forward(*layer))
     emit({"kernels": per_pass_summary(timed, timed_bf16, runs)
-          + cost_kernel_summary(cost_timed, fused_line["launches"])})
+          + cost_kernel_summary(cost_timed, fused_line["launches"],
+                                sweep_launches)})
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

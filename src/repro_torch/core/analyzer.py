@@ -20,7 +20,10 @@ The reference's jitted ``segment_sum`` replay (``_jax_replay``,
 :func:`_fused_replay` runs the ``segment_replay`` CUDA kernel of
 :mod:`repro_torch.kernels.fused_eval` on the analyzer's ``fused_device``
 (the card unless the caller asks for the CPU, where the kernel's plain
-version runs).  The port's copy records no metrics.
+version runs).  The process-wide geometry cache counts its hits, misses
+and evictions and ``PREFETCH_STATS`` its batched and scalar builds, both
+harvested by ``repro_torch.obs`` collectors under the reference's names
+(``:392-480``).
 
 Given a layer group, an ``LMS`` and an ``ArchConfig`` it produces per-core
 compute work (MACs) and buffer footprints, per-directed-link feature-map
@@ -42,12 +45,14 @@ scale at 1.0 replay the dense streams exactly.
 
 from __future__ import annotations
 
+import os
 import sys
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ..obs import metrics as _obs_metrics
 from .encoding import (LMS, LMSBatch, MS, Region, parse_regions_arrays,
                        unpack_lms_batch)
 from .hw import ArchConfig
@@ -373,6 +378,59 @@ class _LRU(dict):
         return value
 
 
+class _StatLRU(_LRU):
+    """:class:`_LRU` + native hit/miss/eviction counters.
+
+    Used only for the process-wide ``_GEO_CACHE``: that table is consulted
+    on *first-level* cache misses, so the extra integer increments sit off
+    the hot all-hits path.  The per-analyzer first-level caches stay plain
+    ``_LRU`` — instrumenting them would tax every analyze call.  The obs
+    layer harvests these through a collector at snapshot time; nothing
+    here ever checks the ``REPRO_OBS`` switch.
+    """
+
+    __slots__ = ("hits", "misses", "evictions")
+
+    def __init__(self, maxsize: int):
+        super().__init__(maxsize)
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key, default=None):
+        val = dict.get(self, key, _LRU._MISS)
+        if val is _LRU._MISS:
+            self.misses += 1
+            return default
+        self.hits += 1
+        if len(self) * 2 >= self.maxsize:
+            del self[key]
+            dict.__setitem__(self, key, val)
+        return val
+
+    def put(self, key, value):
+        if key not in self and len(self) >= self.maxsize:
+            self.pop(next(iter(self)))
+            self.evictions += 1
+        self[key] = value
+        return value
+
+
+def _geo_cache_cap(default: int = 262_144) -> int:
+    """Size cap of the process-wide geometry cache.
+
+    Overridable via ``REPRO_GEO_CACHE_CAP`` (entries, not bytes) so
+    memory-constrained sweeps can shrink it; evicted entries rebuild
+    bit-identically (pure geometry), so the cap only trades memory for
+    recompute time.
+    """
+    raw = os.environ.get("REPRO_GEO_CACHE_CAP", "")
+    try:
+        cap = int(raw)
+    except ValueError:
+        return default
+    return cap if cap > 0 else default
+
 
 # Process-wide second-level cache for PURE LAYER GEOMETRY artifacts (region
 # tables, needed-ifmap rows, sibling labels, overlap counts, intra-core
@@ -382,7 +440,28 @@ class _LRU(dict):
 # caches keep the hot hit path on small-int keys.  Entries are read-only
 # by contract; the reference's default cap bounds it, and an eviction only
 # costs recompute time (the geometry rebuilds bit-identically).
-_GEO_CACHE = _LRU(262_144)
+_GEO_CACHE = _StatLRU(_geo_cache_cap())
+
+# Batched-vs-scalar contribution construction counts: how much of the
+# stream building went through the vectorized prefetch builders
+# (``_prefetch_contribs``) vs the scalar fallbacks.  Native increments
+# (one per *built* piece, i.e. per first-level cache miss), harvested by
+# the obs collector below.
+PREFETCH_STATS: Dict[str, int] = {
+    "prefetch.batched_builds": 0,
+    "prefetch.scalar_builds": 0,
+}
+
+_obs_metrics.register_collector(lambda: {
+    "geo_cache.hits": _GEO_CACHE.hits,
+    "geo_cache.misses": _GEO_CACHE.misses,
+    "geo_cache.evictions": _GEO_CACHE.evictions,
+    **PREFETCH_STATS,
+})
+_obs_metrics.register_collector(lambda: {
+    "geo_cache.size": len(_GEO_CACHE),
+    "geo_cache.cap": _GEO_CACHE.maxsize,
+}, kind="gauge")
 
 
 class Analyzer:
@@ -699,6 +778,7 @@ class Analyzer:
         hit = self._layer_cache.get(key)
         if hit is not None:
             return hit
+        PREFETCH_STATS["prefetch.scalar_builds"] += 1
         g, in_group = self.g, set(group.names)
         lyr = g.layers[name]
         cores, rarr, _ = self._region_arrays(name, ms, bu)
@@ -790,6 +870,7 @@ class Analyzer:
                self._layer_idx[cname], cms.geo, bu)
         hit = self._dep_cache.get(key)
         if hit is None:
+            PREFETCH_STATS["prefetch.scalar_builds"] += 1
             contrib = Contribution()
             self._dep_traffic(contrib, pname, pms, cname, cms, bu)
             hit = self._dep_cache.put(key, contrib.seal(self._offsets))
@@ -830,6 +911,9 @@ class Analyzer:
                     if dkey not in dep_jobs \
                             and self._dep_cache.get(dkey) is None:
                         dep_jobs[dkey] = (p, pms, name, ms, bu)
+        if layer_jobs or dep_jobs:
+            PREFETCH_STATS["prefetch.batched_builds"] \
+                += len(layer_jobs) + len(dep_jobs)
         if layer_jobs:
             self._layer_contribs_batched(layer_jobs)
         if dep_jobs:

@@ -11,7 +11,9 @@ Reduced copy of the scalar path of ``src/repro/core/evaluator.py``:
 ``eval_groups_batched`` (``:456``).  The arithmetic is the reference's,
 float64 and in the same order, so every ``GroupEval`` equals the
 reference's scalar one and every batched row the reference's batched row.
-The port's copy records no metrics.
+``CACHE_STATS`` counts the GroupEval caches' hits, misses and evictions
+under the reference's names, harvested by a ``repro_torch.obs`` collector
+(``:56-67``).
 
 The reference's opt-in ``backend="jax"`` (``_build_fused_fn``, ``:97-179``,
 and ``_eval_requests_fused``, ``:376``) is the port's ``backend="fused"``:
@@ -45,12 +47,26 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs import metrics as _obs_metrics
 from .analyzer import (T_CORE_IN, T_CORE_MACS, T_CORE_TIME, T_DRAM,
                        T_DRAM_AM, T_EDGE, T_EDGE_AM, T_GLB, T_GLB_RW,
                        Analyzer, GroupAnalysis, router_grid)
 from .encoding import LMS
 from .hw import ArchConfig
 from .workload import Graph, LayerGroup
+
+# Process-wide cache economics, summed over every CachedEvaluator this
+# process ever built (the per-instance hits/misses reset with each
+# candidate's evaluator; sweep-level rates need the union).  Plain-dict
+# increments on the hit path cost nanoseconds against a cache lookup and
+# keep the counters alive when instances are GC'd; the obs layer harvests
+# them through a collector, so REPRO_OBS never touches this path.
+CACHE_STATS: Dict[str, int] = {
+    "group_eval.hits": 0, "group_eval.misses": 0, "group_eval.evictions": 0,
+    "group_eval_fused.hits": 0, "group_eval_fused.misses": 0,
+    "group_eval_fused.evictions": 0,
+}
+_obs_metrics.register_collector(lambda: dict(CACHE_STATS))
 
 
 def analysis_signature(arch: ArchConfig) -> Tuple:
@@ -537,12 +553,15 @@ class CachedEvaluator(Evaluator):
         if hit is not None:
             self._cache.move_to_end(key)
             self.hits += 1
+            CACHE_STATS["group_eval.hits"] += 1
             return hit
         self.misses += 1
+        CACHE_STATS["group_eval.misses"] += 1
         out = super().eval_group(group, lms, total_batch)
         self._cache[key] = out
         if len(self._cache) > self.maxsize:
             self._cache.popitem(last=False)
+            CACHE_STATS["group_eval.evictions"] += 1
         return out
 
     def eval_groups_batched(self, requests: Sequence[Tuple[LayerGroup, LMS]],
@@ -556,6 +575,7 @@ class CachedEvaluator(Evaluator):
         (``backend="fused"``) results resolve against a separate cache —
         parity-grade values never leak into exact-path lookups."""
         cache = self._fused_cache if backend == "fused" else self._cache
+        stats = "group_eval_fused" if backend == "fused" else "group_eval"
         keys = [(grp.names, grp.batch_unit, lms.cache_key(), total_batch)
                 for grp, lms in requests]
         out: List[Optional[Tuple[GroupEval, GroupAnalysis]]] \
@@ -577,8 +597,10 @@ class CachedEvaluator(Evaluator):
             else:
                 n_hits += 1                # duplicate of an in-batch miss
         self.hits += n_hits
+        CACHE_STATS[stats + ".hits"] += n_hits
         if miss_reqs:
             self.misses += len(miss_reqs)
+            CACHE_STATS[stats + ".misses"] += len(miss_reqs)
             for key, res in zip(miss_keys,
                                 self.eval_requests_batch(miss_reqs,
                                                          total_batch,
@@ -587,6 +609,7 @@ class CachedEvaluator(Evaluator):
                 cache[key] = res
                 if len(cache) > self.maxsize:
                     cache.popitem(last=False)
+                    CACHE_STATS[stats + ".evictions"] += 1
         for i, key in enumerate(keys):
             if out[i] is None:
                 out[i] = fresh[key]

@@ -41,12 +41,13 @@ evaluation:
 
 Copy of ``src/repro/core/explore.py``.  A checkpoint either package writes
 is byte-for-byte what the other writes for the same sweep, and each
-resumes and merges the other's.  Left out: the ``repro.obs`` spans,
-counters, manifests and worker telemetry (the port has no ``obs`` yet);
-the engine's diagnostic lines go to stderr with the reference's tags
-(``[explore]``, ``[screen]``, ``[sweep]``, ``[merge]``).  ``objective="slo"``
-scores through ``repro_torch.serve.slo`` and stamps the reference's
-``obj=slo(<traffic fingerprint>):`` header segment.
+resumes and merges the other's.  The reference's spans, counters,
+manifests and worker telemetry go through the port's
+:mod:`repro_torch.obs` under the reference's names, and the engine's
+diagnostics are its ``vlog`` lines with the reference's tags and text
+(``[explore]``, ``[screen]``, ``[sweep]``, ``[merge]``).
+``objective="slo"`` scores through ``repro_torch.serve.slo`` and stamps
+the reference's ``obj=slo(<traffic fingerprint>):`` header segment.
 """
 
 from __future__ import annotations
@@ -55,7 +56,6 @@ import hashlib
 import json
 import math
 import os as _os
-import sys
 import time as _time
 from collections import OrderedDict
 from concurrent.futures import FIRST_COMPLETED, ProcessPoolExecutor, wait
@@ -66,6 +66,7 @@ from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
 
 import numpy as np
 
+from .. import obs as _obs
 from .encoding import LMS, MS
 from .evaluator import (CachedEvaluator, Evaluator, analysis_signature,
                         evaluator_for)
@@ -79,11 +80,6 @@ from .workload import Graph, LayerGroup
 # resolved lazily through the module so tests can monkeypatch
 # dse.evaluate_task and observe the engine's serial path
 from . import dse as _dse
-
-
-def _log(tag: str, msg: str) -> None:
-    """A diagnostic line, ``[tag] msg``, on stderr."""
-    print(f"[{tag}] {msg}", file=sys.stderr, flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +215,23 @@ def replica_exchange_sa(g: Graph, arch: ArchConfig,
     res.proposed = sum(c.proposed for c in chains)
     res.swap_attempts = swap_attempts
     res.swap_accepts = swap_accepts
+    if _obs.enabled():
+        # once per SA run, strictly after the result is fixed: the obs
+        # layer observes counters the chains already kept, it never adds
+        # RNG draws or float ops to the trajectory (bit-identity contract)
+        m = _obs.metrics
+        m.counter("sa.runs").inc()
+        m.counter("sa.proposed").inc(res.proposed)
+        m.counter("sa.accepted").inc(res.accepted)
+        m.counter("sa.swap_attempts").inc(sum(swap_attempts))
+        m.counter("sa.swap_accepts").inc(sum(swap_accepts))
+        for c in chains:
+            if c.proposed:
+                m.histogram("sa.acceptance_rate").observe(
+                    c.accepted / c.proposed)
+        for a, s in zip(swap_attempts, swap_accepts):
+            if a:
+                m.histogram("sa.swap_rate").observe(s / a)
     return res
 
 
@@ -498,7 +511,7 @@ class ResumableSweep:
                 break
             n += 1
         self.path.replace(bak)
-        _log("sweep", f"previous file kept at {bak}")
+        _obs.vlog("sweep", f"previous file kept at {bak}")
 
     @classmethod
     def read(cls, path: Union[str, Path]) -> "ResumableSweep":
@@ -536,11 +549,11 @@ class ResumableSweep:
                     # torn by a concurrent heartbeat writer: drop just the
                     # damaged line(s); the repair rewrite below heals the
                     # file and the seed gate recomputes the lost record
-                    _log("sweep", f"{self.path}: line {i + 1} torn by a "
-                         "concurrent heartbeat writer; dropped")
+                    _obs.vlog("sweep", f"{self.path}: line {i + 1} torn by "
+                              "a concurrent heartbeat writer; dropped")
                     continue
-                _log("sweep", f"{self.path}: corrupt line {i + 1}; "
-                     "discarding checkpoint")
+                _obs.vlog("sweep", f"{self.path}: corrupt line {i + 1}; "
+                          "discarding checkpoint")
                 if readonly:
                     continue                  # salvage what parses
                 self._records.clear()        # discard means ALL records
@@ -553,8 +566,8 @@ class ResumableSweep:
                         migrate = self._legacy[rec["_config"]]
                         saw_header = True
                         continue
-                    _log("sweep", f"{self.path}: config changed; "
-                         "discarding checkpoint")
+                    _obs.vlog("sweep", f"{self.path}: config changed; "
+                              "discarding checkpoint")
                     return False
                 saw_header = True
                 valid.append(line)
@@ -567,8 +580,8 @@ class ResumableSweep:
                 and self._records:
             # a fingerprinted sweep whose header is gone (e.g. killed while
             # writing it) can no longer prove the records match this config
-            _log("sweep", f"{self.path}: missing config header; "
-                 "discarding checkpoint")
+            _obs.vlog("sweep", f"{self.path}: missing config header; "
+                      "discarding checkpoint")
             self._records.clear()
             return False
         if migrate is not None and not readonly:
@@ -577,8 +590,9 @@ class ResumableSweep:
             for key, rec in old.items():
                 for k2, r2 in migrate(key, rec):
                     self._records[k2] = r2
-            _log("sweep", f"{self.path}: migrated {len(old)} legacy "
-                 f"records -> {len(self._records)} under the current schema")
+            _obs.vlog("sweep", f"{self.path}: migrated {len(old)} legacy "
+                      f"records -> {len(self._records)} under the current "
+                      "schema")
             self._rewrite()
             return True
         # a killed-mid-write trailing fragment (or missing final newline)
@@ -748,7 +762,7 @@ def merge_checkpoints(shards: Sequence[Union[str, Path]],
             fp, recs = _parse_checkpoint_shard(p)
         except (ValueError, OSError) as e:
             if verbose:
-                _log("merge", f"{p}: {e}; shard set aside")
+                _obs.vlog("merge", f"{p}: {e}; shard set aside")
             skipped.append((p, str(e)))
             continue
         parsed.append((p, fp, recs))
@@ -782,7 +796,8 @@ def merge_checkpoints(shards: Sequence[Union[str, Path]],
                f"task must reproduce identical records")
         if on_conflict == "error":
             raise ValueError(f"merge_checkpoints: {msg}")
-        _log("merge", f"WARNING: {msg}")
+        _obs.vlog("merge", f"WARNING: {msg}", n_conflicts=len(conflicts))
+        _obs.metrics.counter("merge.conflicts").inc(len(conflicts))
     report = MergeReport(fingerprint=fingerprint, records=records,
                          merged=[p for p, _, _ in parsed], skipped=skipped,
                          conflicts=conflicts)
@@ -799,9 +814,12 @@ def merge_checkpoints(shards: Sequence[Union[str, Path]],
         report.out = out
     if verbose:
         note = f" ({len(skipped)} shard(s) set aside)" if skipped else ""
-        _log("merge",
-             f"{len(records)} records from {len(report.merged)} "
-             f"shard(s){' -> ' + str(out) if out is not None else ''}{note}")
+        _obs.vlog(
+            "merge",
+            f"{len(records)} records from {len(report.merged)} "
+            f"shard(s){' -> ' + str(out) if out is not None else ''}{note}",
+            n_records=len(records), n_shards=len(report.merged),
+            n_skipped=len(skipped))
     return report
 
 
@@ -970,21 +988,36 @@ def pareto_frontier(points: Sequence["_dse.DSEPoint"],
 _WORKER_STATE: Dict[str, Any] = {}
 
 
-def _worker_init(workloads: Dict[str, Graph],
-                 cfg: "_dse.DSEConfig") -> None:
+def _worker_init(workloads: Dict[str, Graph], cfg: "_dse.DSEConfig",
+                 obs_state: Optional[Dict[str, Any]] = None) -> None:
     _WORKER_STATE["workloads"] = workloads
     _WORKER_STATE["cfg"] = cfg
+    # spawned workers don't inherit a programmatic obs.enable(); the
+    # parent ships its switch + run dir through the initializer so worker
+    # trace streams land in the same run directory
+    _obs.import_state(obs_state)
 
 
 def _worker_eval(task: Tuple[int, int, ArchConfig, str, int, bool]
-                 ) -> Tuple[int, int, "_dse.TaskResult"]:
+                 ) -> Tuple[int, int, "_dse.TaskResult",
+                            Optional[Dict[str, Any]]]:
     ci, wi, arch, wl_name, seed, use_sa = task
+    obs_on = _obs.enabled()
+    t_start = _time.time() if obs_on else 0.0
     cfg = _WORKER_STATE["cfg"]
     tr = _dse.evaluate_task(arch, _WORKER_STATE["workloads"][wl_name], cfg,
                             use_sa=use_sa, seed=seed)
     if not cfg.keep_mappings:
         tr.mapping = None       # don't pickle mappings nobody asked for
-    return ci, wi, tr
+    payload: Optional[Dict[str, Any]] = None
+    if obs_on:
+        # piggyback this worker's metrics delta on the result: counters +
+        # collector harvest since the previous task, plus wall-clock task
+        # bounds the parent turns into queue-wait/wall-time telemetry
+        _obs.flush()
+        payload = {"pid": _os.getpid(), "t_start": t_start,
+                   "t_end": _time.time(), "metrics": _obs.metrics.drain()}
+    return ci, wi, tr, payload
 
 
 # ---------------------------------------------------------------------------
@@ -1015,6 +1048,7 @@ class ExplorationEngine:
                  n_workers: int = 1, checkpoint: Union[str, Path, None] = None,
                  progress: bool = False, mp_context: str = "spawn",
                  batched_screen: bool = True,
+                 verbosity: Optional[int] = None,
                  hb_every: Optional[float] = None):
         self.workloads = dict(workloads)
         self._wl_names = sorted(self.workloads)
@@ -1045,6 +1079,9 @@ class ExplorationEngine:
         self.checkpoint = checkpoint
         self.progress = progress
         self.mp_context = mp_context
+        # diagnostics verbosity: the kwarg overrides REPRO_VERBOSITY
+        # (default 1 — historical output); 0 silences the [stage] lines
+        self.verbosity = verbosity
         # batched T-Map screening (bit-identical to the per-candidate
         # loop); False keeps the per-task path for A/B tests + benchmarks
         self.batched_screen = batched_screen
@@ -1085,8 +1122,11 @@ class ExplorationEngine:
                 max_workers=self.n_workers,
                 mp_context=mp.get_context(self.mp_context),
                 initializer=_worker_init,
-                initargs=(self.workloads, self.cfg))
+                initargs=(self.workloads, self.cfg, _obs.export_state()))
         return self._pool
+
+    def _log(self, tag: str, msg: str, **fields: Any) -> None:
+        _obs.vlog(tag, msg, verbosity=self.verbosity, **fields)
 
     # -- fingerprint for checkpoint compatibility ----------------------
     def _fingerprint(self, use_sa: bool, schema: int = 2,
@@ -1199,15 +1239,17 @@ class ExplorationEngine:
                 try:
                     results[(ci, wi)] = task_from_dict(rec)
                 except (KeyError, ValueError, TypeError) as e:
-                    _log(stage, f"checkpoint record for {arch.label()} x "
-                         f"{wl} unusable ({e}); recomputing")
+                    self._log(stage, f"checkpoint record for "
+                              f"{arch.label()} x {wl} unusable ({e}); "
+                              "recomputing")
             if n_nomap:
-                _log(stage, f"{n_nomap} checkpointed tasks lack serialized "
-                     "mappings (metrics-only records, keep_mappings sweep); "
-                     "recomputing them")
+                self._log(stage, f"{n_nomap} checkpointed tasks lack "
+                          "serialized mappings (metrics-only records, "
+                          "keep_mappings sweep); recomputing them")
             if results and self.progress:
-                _log(stage, f"resumed {len(results)}/{len(tasks)} tasks "
-                     f"from {sweep.path}")
+                self._log(stage, f"resumed {len(results)}/{len(tasks)} "
+                          f"tasks from {sweep.path}")
+            _obs.metrics.counter("engine.tasks_resumed").inc(len(results))
         pending = [t for t in tasks if (t[0], t[1]) not in results]
         done_n = len(results)
         t_stage0 = _time.time()
@@ -1231,19 +1273,25 @@ class ExplorationEngine:
             if self.progress:
                 print(f"[{stage} {done_n}/{len(tasks)}] {arch.label()} "
                       f"x {wl} E={tr.energy_j:.3e}J D={tr.delay_s:.3e}s",
-                      file=sys.stderr, flush=True)
+                      flush=True)
 
+        obs_on = _obs.enabled()
         if self.n_workers <= 1 or len(pending) <= 1:
             for ci, wi, arch, wl, seed in pending:
-                tr = _dse.evaluate_task(arch, self.workloads[wl], self.cfg,
-                                        use_sa=use_sa, seed=seed)
+                with _obs.span("task", arch=arch.label(), wl=wl,
+                               queue_s=0.0):
+                    tr = _dse.evaluate_task(arch, self.workloads[wl],
+                                            self.cfg, use_sa=use_sa,
+                                            seed=seed)
                 if not keep:
                     # mirror the worker path: results live for the whole
                     # sweep, so unrequested mappings must not accumulate
                     tr.mapping = None
+                _obs.metrics.counter("engine.tasks").inc()
                 _record(ci, wi, arch, wl, seed, tr)
         else:
             pool = self._get_pool()
+            submit_t = _time.time() if obs_on else 0.0
             futs = {pool.submit(_worker_eval, (*t, use_sa)): t
                     for t in pending}
             not_done = set(futs)
@@ -1252,15 +1300,42 @@ class ExplorationEngine:
                     done, not_done = wait(not_done,
                                           return_when=FIRST_COMPLETED)
                     for fut in done:
-                        ci, wi, tr = fut.result()
+                        ci, wi, tr, payload = fut.result()
                         t = futs[fut]
+                        if obs_on and payload is not None:
+                            self._absorb_task_payload(t, payload, stage,
+                                                      submit_t)
                         _record(ci, wi, t[2], t[3], t[4], tr)
             except BaseException:
                 # surface the failure now, not after the queue drains
                 for fut in not_done:
                     fut.cancel()
                 raise
+            finally:
+                if obs_on:
+                    _obs.metrics.histogram("engine.pool_batch_s").observe(
+                        _time.time() - submit_t)
         return results
+
+    def _absorb_task_payload(self, task: _Task, payload: Dict[str, Any],
+                             stage: str, submit_t: float) -> None:
+        """Fold one worker's piggybacked telemetry into the parent: merge
+        its metrics delta, emit a ``task`` span on the worker's behalf
+        (wall-clock bounds measured in the worker; queue-wait derived from
+        the submit stamp), and feed the queue-wait/wall-time histograms."""
+        _obs.metrics.absorb(payload.get("metrics"))
+        _obs.metrics.counter("engine.tasks").inc()
+        t_start = float(payload.get("t_start", 0.0))
+        t_end = float(payload.get("t_end", t_start))
+        queue_s = max(0.0, t_start - submit_t)
+        dur = max(0.0, t_end - t_start)
+        _obs.metrics.histogram("engine.task_wall_s").observe(dur)
+        _obs.metrics.histogram("engine.queue_wait_s").observe(queue_s)
+        _obs.metrics.histogram("phase.task").observe(dur)
+        _obs.emit({"ev": "span", "name": "task",
+                   "pid": payload.get("pid"), "t0": t_start, "dur": dur,
+                   "attrs": {"arch": task[2].label(), "wl": task[3],
+                             "stage": stage, "queue_s": queue_s}})
 
     # -- batched T-Map screening ---------------------------------------
     def _screen_tasks(self, indexed: Sequence[Tuple[int, ArchConfig]]
@@ -1308,9 +1383,9 @@ class ExplorationEngine:
                         energy_j=float(e_c), delay_s=float(d_c),
                         mapping=mapping if keep else None)
         if self.progress:
-            _log("screen", f"batched: {len(indexed)} candidates x "
-                 f"{len(self._wl_names)} workloads in {n_sigs} "
-                 "signature group(s)")
+            self._log("screen", f"batched: {len(indexed)} candidates x "
+                      f"{len(self._wl_names)} workloads in {n_sigs} "
+                      "signature group(s)")
         return results
 
     # -- public API ----------------------------------------------------
@@ -1320,17 +1395,30 @@ class ExplorationEngine:
         order* — for callers that reduce positionally (``joint_reuse_dse``)
         rather than rank by objective."""
         indexed = list(enumerate(archs))
-        results = self._map_tasks(self._tasks(indexed), use_sa=use_sa,
-                                  checkpoint=self.checkpoint, stage="map")
-        return self._reduce(indexed, results)
+        with _obs.span("map", n_archs=len(indexed)):
+            results = self._map_tasks(self._tasks(indexed), use_sa=use_sa,
+                                      checkpoint=self.checkpoint,
+                                      stage="map")
+            out = self._reduce(indexed, results)
+        self._finalize_obs()
+        return out
 
     def screen(self, candidates: Sequence[ArchConfig]
                ) -> List["_dse.DSEPoint"]:
         """T-Map-only scoring pass (no SA), sorted best-objective first."""
         indexed = list(enumerate(candidates))
-        results = self._screen_tasks(indexed)
+        with _obs.span("screen", n_candidates=len(indexed)):
+            results = self._screen_tasks(indexed)
         return sorted(self._reduce(indexed, results),
                       key=lambda p: p.objective)
+
+    def _finalize_obs(self) -> None:
+        """Land the metrics snapshot + flush trace buffers (no-op while
+        disabled); called at the end of every public sweep entry point so
+        a killed-later process still leaves a parseable run dir."""
+        if _obs.enabled():
+            _obs.metrics.write_snapshot()
+            _obs.flush()
 
     def run(self, candidates: Sequence[ArchConfig], use_sa: bool = True,
             screen_keep: Union[float, str] = 1.0,
@@ -1392,6 +1480,15 @@ class ExplorationEngine:
                     raise ValueError(f"candidate index {i} outside the "
                                      f"grid (0..{len(candidates) - 1})")
         self._shard_label = shard_label or f"{si}/{sn}"
+        if _obs.enabled():
+            _obs.manifest.write_manifest({
+                "stage": "run", "fingerprint": self._fingerprint(use_sa),
+                "seed": self.cfg.sa.seed, "grid": len(candidates),
+                "n_workloads": len(self._wl_names),
+                "shard": self._shard_label, "n_workers": self.n_workers,
+                "screen_keep": screen_keep,
+                "checkpoint": (str(self.checkpoint)
+                               if self.checkpoint is not None else None)})
         indexed = list(enumerate(candidates))
         self.last_screen = None
         if use_sa and screen_keep == "auto" and len(candidates) > 1:
@@ -1409,8 +1506,9 @@ class ExplorationEngine:
                 f"screen_keep must be a fraction or 'auto', "
                 f"got {screen_keep!r}")
         if use_sa and screen_keep < 1.0 and len(candidates) > 1:
-            screen_results = self._screen_tasks(indexed)
-            screen_pts = self._reduce(indexed, screen_results)
+            with _obs.span("screen", n_candidates=len(indexed)):
+                screen_results = self._screen_tasks(indexed)
+                screen_pts = self._reduce(indexed, screen_results)
             order = sorted(range(len(indexed)),
                            key=lambda i: screen_pts[i].objective)
             # epsilon guard: fraction-derived keeps like 6/n can float up
@@ -1418,26 +1516,34 @@ class ExplorationEngine:
             keep = max(1, min(len(indexed),
                               math.ceil(screen_keep * len(indexed) - 1e-9)))
             kept = sorted(order[:keep])
-            _log("explore", f"screening kept {keep}/{len(indexed)} "
-                 f"candidates (pruned {len(indexed) - keep})")
+            self._log("explore", f"screening kept {keep}/{len(indexed)} "
+                      f"candidates (pruned {len(indexed) - keep})")
+            _obs.metrics.counter("screen.kept").inc(keep)
+            _obs.metrics.counter("screen.pruned").inc(len(indexed) - keep)
             self.last_screen = [screen_pts[i] for i in order]
             indexed = [indexed[i] for i in kept]
         if indices is not None:
             want = set(idx)
             indexed = [(ci, arch) for ci, arch in indexed if ci in want]
-            _log("explore",
-                 f"shard {self._shard_label}: {len(indexed)} assigned "
-                 f"candidates ({len(indexed) * len(self._wl_names)} tasks)")
+            self._log("explore",
+                      f"shard {self._shard_label}: {len(indexed)} assigned "
+                      f"candidates ({len(indexed) * len(self._wl_names)} "
+                      "tasks)")
         if sn > 1:
             mine = [(ci, arch) for ci, arch in indexed if ci % sn == si]
-            _log("explore",
-                 f"shard {si}/{sn}: {len(mine)}/{len(indexed)} "
-                 f"candidates ({len(mine) * len(self._wl_names)} tasks)")
+            self._log("explore",
+                      f"shard {si}/{sn}: {len(mine)}/{len(indexed)} "
+                      f"candidates ({len(mine) * len(self._wl_names)} tasks)")
             indexed = mine
-        results = self._map_tasks(self._tasks(indexed), use_sa=use_sa,
-                                  checkpoint=self.checkpoint, stage="dse")
-        return sorted(self._reduce(indexed, results),
-                      key=lambda p: p.objective)
+        with _obs.span("dse", shard=self._shard_label,
+                       n_candidates=len(indexed)):
+            results = self._map_tasks(self._tasks(indexed), use_sa=use_sa,
+                                      checkpoint=self.checkpoint,
+                                      stage="dse")
+            out = sorted(self._reduce(indexed, results),
+                         key=lambda p: p.objective)
+        self._finalize_obs()
+        return out
 
     def _run_adaptive(self, indexed: List[Tuple[int, ArchConfig]]
                       ) -> List["_dse.DSEPoint"]:
@@ -1483,9 +1589,13 @@ class ExplorationEngine:
             pt = self._reduce([(ci, arch)], res)[0]
             gain_max = max(gain_max, math.log(screen_pts[oi].objective)
                            - math.log(pt.objective))
-        _log("explore",
-             f"adaptive screening kept {len(kept)}/{len(indexed)} "
-             f"candidates (largest SA gain {gain_max:.3g} in log-objective; "
-             f"pruned {len(indexed) - len(kept)})")
-        return sorted(self._reduce(sorted(kept), results),
-                      key=lambda p: p.objective)
+        self._log("explore",
+                  f"adaptive screening kept {len(kept)}/{len(indexed)}"
+                  f" candidates (largest SA gain {gain_max:.3g} in "
+                  f"log-objective; pruned {len(indexed) - len(kept)})")
+        _obs.metrics.counter("screen.kept").inc(len(kept))
+        _obs.metrics.counter("screen.pruned").inc(len(indexed) - len(kept))
+        out = sorted(self._reduce(sorted(kept), results),
+                     key=lambda p: p.objective)
+        self._finalize_obs()
+        return out

@@ -23,7 +23,8 @@ trajectory.  ``step_chains_lockstep`` scores each iteration's proposals in
 one batched pass (``eval_groups_batched``) on ``SAConfig.backend``:
 ``"numpy"``, the exact engine, or ``"fused"``, the port's name for the
 reference's ``"jax"``: the ``fused_eval`` kernel on the evaluator's
-``fused_device``.  The port records no ``obs`` metrics.
+``fused_device``.  ``sa_optimize`` records the reference's ``sa.*``
+metrics once a run, after the result is fixed (``repro_torch.obs``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs as _obs
 from .encoding import LMS, MS, Mapping, factor_parts
 from .evaluator import CachedEvaluator, Evaluator, GroupEval
 from .hw import ArchConfig
@@ -483,4 +485,12 @@ def _sa_chain(g: Graph, arch: ArchConfig, groups: Sequence[LayerGroup],
         # not on how many proposals happened to be applicable
         if cfg.log_every and it % cfg.log_every == 0:
             history.append(chain.cost)
-    return chain.finalize(history)
+    res = chain.finalize(history)
+    if _obs.enabled():                     # once per SA run, post-result
+        _obs.metrics.counter("sa.runs").inc()
+        _obs.metrics.counter("sa.proposed").inc(res.proposed)
+        _obs.metrics.counter("sa.accepted").inc(res.accepted)
+        if res.proposed:
+            _obs.metrics.histogram("sa.acceptance_rate").observe(
+                res.accepted / res.proposed)
+    return res

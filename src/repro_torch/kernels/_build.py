@@ -52,7 +52,7 @@ SIGNATURES = {
                         "flash_attention_stats_bf16": _FLASH_STATS},
     "mamba_ssd": {"ssd_chunk_dual_f32": _SSD, "ssd_chunk_dual_bf16": _SSD},
     "fused_eval": {"fused_eval_f32": [_P] * 3 + [_L, _I, _I] + [_P] * 6
-                   + [_I, _P, _P, _I, _P],
+                   + [_I] * 3 + [_P] * 3 + [_I, _P],
                    "segment_replay_f64": [_P, _P, _L, _P, _L, _I, _P]},
     "ssd_state": {"ssd_state_walk_f32": [_P] * 7 + [_I] * 8 + [_P],
                   "ssd_state_scan_f32": [_P] * 5 + [_I] * 7 + [_P],

@@ -19,39 +19,61 @@
 // over the card's HBM rate).  At the batch sizes the search gives (a few
 // to a hundred rows of a few hundred cells, streams of 10^3-10^5 entries)
 // launch latency is far larger than that bound, so fused_eval is one
-// launch that keeps everything between its inputs and its outputs on chip.
+// launch that keeps everything between its inputs and its outputs on chip
+// (two for the widest rows, below).
 //
-// fused_eval's design: one block of kThreads threads per row.  The block
-// zeroes the row's buf_len cells in dynamic shared memory, streams its
-// slice [off[b], off[b+1]) of the row-local index stream in with
-// read-once loads (__ldcs), kUnroll entries a lane in flight, and adds
-// each entry to its cell with a shared-memory atomicAdd.  One cell takes
-// up to 4-6 % of a row's entries, and the 32 entries of a warp's load
-// hold about six for one cell on average (chip_smoke.py's max_cell_share
-// and warp_same_cell_mean), so a warp first sums the entries it holds for
-// the same cell (__match_any_sync, then a tree over the peers) and one
-// lane adds the sum.  512 threads with 4 entries a lane, and the
-// aggregation, come from benchmarks/port_kernel_variants.py's fused_eval
-// lines.  After a barrier each thread strides over the row's
+// fused_eval's design: one block of kThreads threads per row.  The row is
+// summed in a fixed order, so the same inputs give the same bits on every
+// run (a supervised sweep's shard children must write the records a clean
+// run writes).  The block keeps n_copies copies of the row's buf_len cells
+// in dynamic shared memory, one for each of its first n_copies warps (16,
+// or as many as fit the block's shared memory: one for the widest rows),
+// zeroes them, and those warps stream the block's slice [off[b], off[b+1])
+// of the row-local index stream in with read-once loads (__ldcs), kUnroll
+// entries a lane in flight, warp w taking entries w*32 .. w*32+31 of
+// every n_copies*32.  One cell takes up to 4-6 % of a row's entries, and
+// the 32 entries of a warp's load hold about six for one cell on average
+// (chip_smoke.py's max_cell_share and warp_same_cell_mean), so a warp
+// first sums the entries it holds for the same cell (__match_any_sync,
+// then a tree over the peers, always in the same lane order) and one lane
+// adds the sum to the warp's own copy: no other warp touches that copy, so
+// no atomic is needed and each cell takes its adds in the warp's program
+// order.  After a barrier every cell sums its copies in warp order into
+// copy 0.  512 threads with 4 entries a lane, and the aggregation, come
+// from benchmarks/port_kernel_variants.py's fused_eval lines, measured
+// when all 16 warps added into one copy with shared-memory atomics (an
+// order that changed from launch to launch once several blocks shared an
+// SM).  A row too wide for 16 copies (above a sixteenth of the block's
+// shared memory: 3,619 cells on an H100) would stream through fewer
+// warps; the caller then gives splits = ceil(16 / n_copies) parts: a
+// first launch of B * splits blocks sums part k of each row (the k-th
+// of splits equal runs of its entries) into the part's slot of a scratch
+// buffer, and a second launch of B blocks sums a row's slots in part
+// order into shared memory and goes on as below.  The parts depend on
+// buf_len and the card only, never on B, so a row's bits do not depend
+// on the batch it came in.  Then each thread strides over the row's
 // spans (core time, the edges with their amortized part split by the D2D
 // mask into NoC and D2D, the DRAM ports with theirs, the GLB footprint
 // against capacity, the MACs, the core inputs), keeps four maxima and six
 // sums; each warp reduces them with shuffles, warp 0 the warps' partials,
 // and thread 0 finishes the row from them and from the row's small inputs
 // (read into shared memory while the cells are zeroed).  There is no
-// memset, no scratch in device memory and no padding: an empty row
+// memset and no padding, and no scratch in device memory outside the
+// split rows' parts: an empty row
 // (off[b] == off[b+1]) is a row of zeros.  An index outside [0, buf_len)
 // is skipped (the analyzer never emits one; the CPU plain version raises
 // on it).  A row above 48 KB of cells opts in to the larger dynamic shared
-// memory; one above the block's limit (fused_eval_max_cells) is refused by
-// the wrapper.  Ties between the four times go to the first maximum, as
-// `jnp.argmax` does.  Atomic adds land in an order that changes from run
-// to run, and the row sums are taken in another order than the
-// reference's, so results agree with it within float32 rounding (the
-// reference's parity envelope is 1e-4 relative), never bit for bit.
+// memory; one above the block's limit (fused_eval_max_cells, one copy) is
+// refused by the wrapper.  Ties between the four times go to the first
+// maximum, as `jnp.argmax` does.  The row sums are taken in another order
+// than the reference's, so results agree with it within float32 rounding
+// (the reference's parity envelope is 1e-4 relative), never bit for bit;
+// run to run they agree to the bit (the order depends only on the row's
+// stream, buf_len and the card's shared memory).
 //
 // segment_replay zeroes its output (cudaMemsetAsync) and scatters the
-// stream into it with float64 atomicAdd, a grid-stride loop.
+// stream into it with float64 atomicAdd, a grid-stride loop; its adds land
+// in an order that changes from run to run (it is on no search path).
 //
 // The spans, the D2D mask and the constants (bandwidths, GLB capacity,
 // unit energies) are fixed per evaluator: the caller uploads them once.
@@ -103,9 +125,11 @@ __global__ void scatter_f64(const long long* __restrict__ idx,
 __device__ __forceinline__ bool is_max(int a) { return a < S_NOC; }
 
 // Add v into cells[c] once for each distinct c among the warp's lanes
-// (c < 0: nothing to add).  Every lane of the warp calls it.  The lanes
-// that hold the same cell first sum their values in a tree, log2 of their
-// count rounds (the lowest lane ends with the sum), and that lane adds it.
+// (c < 0: nothing to add); `cells` is this warp's own copy.  Every lane of
+// the warp calls it.  The lanes that hold the same cell first sum their
+// values in a tree, log2 of their count rounds (the lowest lane ends with
+// the sum), and that lane adds it; the closing __syncwarp orders the
+// warp's adds to one cell from one call to the next.
 __device__ __forceinline__ void add_peers(float* cells, int c, float v,
                                           int lane) {
   unsigned peers = __match_any_sync(0xffffffffu, c);
@@ -119,7 +143,8 @@ __device__ __forceinline__ void add_peers(float* cells, int c, float v,
     peers &= ~__ballot_sync(0xffffffffu, rel & 1);
     rel >>= 1;
   }
-  if (c >= 0 && lane == first) atomicAdd(cells + c, v);
+  if (c >= 0 && lane == first) cells[c] += v;
+  __syncwarp();
 }
 
 // One row's entry i, or (a key no other lane holds, 0) past the row's end
@@ -138,21 +163,27 @@ __device__ __forceinline__ void load_entry(const int* __restrict__ idx,
   }
 }
 
+// What one launch of fused_rows does: a whole row a block (ROW), part
+// `blockIdx.x % splits` of row `blockIdx.x / splits` into that part's
+// slot of `partial` (PART), or a row from its parts' slots (FINISH).
+enum { ROW, PART, FINISH };
+
 __global__ void __launch_bounds__(kThreads)
 fused_rows(const int* __restrict__ off, const int* __restrict__ idx,
            const float* __restrict__ vals, long long n, int buf_len,
            const int* __restrict__ spans, const float* __restrict__ d2d_mask,
            const float* __restrict__ consts, int has_d2d,
            const int* __restrict__ npass, const int* __restrict__ depth,
-           const float* __restrict__ wts, int B, float* __restrict__ out,
-           int* __restrict__ bottleneck) {
-  extern __shared__ float row[];                   // buf_len cells
+           const float* __restrict__ wts, int B, int n_copies, int splits,
+           int mode, float* __restrict__ partial,
+           float* __restrict__ out, int* __restrict__ bottleneck) {
+  extern __shared__ float row[];      // n_copies copies of buf_len cells
   __shared__ int sp[2 * N_TARGETS];
   __shared__ float sc[N_CONSTS];
   __shared__ float s_wts;
   __shared__ int s_npass, s_depth;
   __shared__ float part[kWarps][N_ACC];
-  const int b = blockIdx.x;
+  const int b = mode == PART ? blockIdx.x / splits : blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   // the row's small inputs, each from its own warp, in flight while the
@@ -169,28 +200,69 @@ fused_rows(const int* __restrict__ off, const int* __restrict__ idx,
   long long lo = off[b], hi = off[b + 1];
   lo = lo < 0 ? 0 : lo;
   hi = hi > n ? n : hi;
-  for (int i = tid; i < buf_len; i += kThreads) row[i] = 0.f;
+  if (mode == PART) {                 // this part's share of the entries
+    const long long per = (hi - lo + splits - 1) / splits;
+    const long long start = lo + (blockIdx.x % splits) * per;
+    lo = start < hi ? start : hi;
+    hi = lo + per < hi ? lo + per : hi;
+  }
+  if (mode == FINISH) {               // the parts' sums, in part order
+    const float* p = partial + static_cast<long long>(b) * splits * buf_len;
+    for (int i = tid; i < buf_len; i += kThreads) {
+      float t = __ldcg(p + i);
+      for (int k = 1; k < splits; ++k)
+        t += __ldcg(p + static_cast<long long>(k) * buf_len + i);
+      row[i] = t;
+    }
+  } else {
+    const int n_cells = n_copies * buf_len;
+    for (int i = tid; i < n_cells; i += kThreads) row[i] = 0.f;
+  }
   __syncthreads();
   // this thread's first edge's D2D flag, read while the stream streams
   const int e0 = sp[2 * T_EDGE], ea = sp[2 * T_EDGE_AM];
   const int ne = sp[2 * T_EDGE + 1] - e0;
   const float mask0 = tid < ne ? d2d_mask[tid] : 0.f;
 
-  // the row's stream, kUnroll entries a lane in flight; the loop bounds
-  // are the same for the 32 lanes of a warp
-  for (long long base = lo + (tid - lane); base < hi;
-       base += kUnroll * kThreads) {
-    int c[kUnroll];
-    float v[kUnroll];
+  // the row's stream, kUnroll entries a lane in flight, into this warp's
+  // copy; the loop bounds are the same for the 32 lanes of a warp
+  const int warp = tid >> 5;
+  if (mode != FINISH && warp < n_copies) {
+    float* mine = row + warp * buf_len;
+    const int span = 32 * n_copies;
+    for (long long base = lo + 32 * warp; base < hi;
+         base += kUnroll * span) {
+      int c[kUnroll];
+      float v[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      load_entry(idx, vals, base + u * kThreads + lane, hi, buf_len, lane,
-                 c[u], v[u]);
+      for (int u = 0; u < kUnroll; ++u)
+        load_entry(idx, vals, base + u * span + lane, hi, buf_len, lane,
+                   c[u], v[u]);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (base + u * kThreads < hi) add_peers(row, c[u], v[u], lane);
+      for (int u = 0; u < kUnroll; ++u)
+        if (base + u * span < hi) add_peers(mine, c[u], v[u], lane);
+    }
   }
   __syncthreads();
+  // the copies, summed in warp order into copy 0 (a part's sum goes to
+  // its slot instead)
+  if (mode == PART) {
+    float* p = partial + static_cast<long long>(blockIdx.x) * buf_len;
+    for (int i = tid; i < buf_len; i += kThreads) {
+      float t = row[i];
+      for (int w = 1; w < n_copies; ++w) t += row[w * buf_len + i];
+      __stcg(p + i, t);
+    }
+    return;
+  }
+  if (mode == ROW && n_copies > 1) {
+    for (int i = tid; i < buf_len; i += kThreads) {
+      float t = row[i];
+      for (int w = 1; w < n_copies; ++w) t += row[w * buf_len + i];
+      row[i] = t;
+    }
+    __syncthreads();
+  }
 
   float acc[N_ACC];
 #pragma unroll
@@ -305,6 +377,8 @@ int scatter_blocks(long long n) {
 
 // the dynamic shared memory fused_rows may take on each device so far
 int g_smem_set[kMaxDevices] = {0};
+// fused_eval_max_cells of each device, once known (0: not yet)
+int g_max_cells[kMaxDevices] = {0};
 
 }  // namespace
 
@@ -329,31 +403,66 @@ int fused_eval_max_cells(int device) {
 // launch's cudaError_t: 0 when it was accepted.  Row b's entries are
 // idx[off[b]:off[b+1]] (cells 0 .. buf_len-1 of that row) and the same
 // slice of vals; n is the streams' length.  `out` is (9, B) f32 in
-// OUT_ROWS order and `bottleneck` (B,) int32.  One launch of B blocks.
+// OUT_ROWS order and `bottleneck` (B,) int32.  Each block sums its
+// entries into n_copies copies of the row (1 .. 16; n_copies * buf_len
+// cells must fit fused_eval_max_cells).  splits == 1: one launch of B
+// blocks.  splits > 1: B * splits blocks each sum a part of a row's
+// entries into `partial` (B * splits * buf_len floats on the card), then
+// B blocks sum each row's parts in part order and finish the rows.
 int fused_eval_f32(const void* off, const void* idx, const void* vals,
                    long long n, int B, int buf_len, const void* npass,
                    const void* depth, const void* wts, const void* spans,
                    const void* d2d_mask, const void* consts, int has_d2d,
-                   void* out, void* bottleneck, int device, void* stream) {
-  if (device < 0 || device >= kMaxDevices || B < 1 || buf_len < 1)
+                   int n_copies, int splits, void* partial, void* out,
+                   void* bottleneck, int device, void* stream) {
+  if (device < 0 || device >= kMaxDevices || B < 1 || buf_len < 1 ||
+      n_copies < 1 || n_copies > kWarps || splits < 1 ||
+      static_cast<long long>(B) * splits > 0x7fffffffLL ||
+      (splits > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = buf_len * static_cast<int>(sizeof(float));
+  if (g_max_cells[device] == 0) {
+    const int cells = fused_eval_max_cells(device);
+    if (cells < 0) return -cells;
+    g_max_cells[device] = cells;
+  }
+  if (static_cast<long long>(n_copies) * buf_len > g_max_cells[device])
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = n_copies * buf_len * static_cast<int>(sizeof(float));
   if (smem > kDefaultSmem && smem > g_smem_set[device]) {
     err = cudaFuncSetAttribute(
         fused_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     g_smem_set[device] = smem;
   }
-  fused_rows<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(off), static_cast<const int*>(idx),
-      static_cast<const float*>(vals), n, buf_len,
-      static_cast<const int*>(spans), static_cast<const float*>(d2d_mask),
-      static_cast<const float*>(consts), has_d2d,
-      static_cast<const int*>(npass), static_cast<const int*>(depth),
-      static_cast<const float*>(wts), B, static_cast<float*>(out),
-      static_cast<int*>(bottleneck));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ioff = static_cast<const int*>(off);
+  const int* iidx = static_cast<const int*>(idx);
+  const float* fvals = static_cast<const float*>(vals);
+  const int* isp = static_cast<const int*>(spans);
+  const float* fmask = static_cast<const float*>(d2d_mask);
+  const float* fc = static_cast<const float*>(consts);
+  const int* inp = static_cast<const int*>(npass);
+  const int* idp = static_cast<const int*>(depth);
+  const float* fw = static_cast<const float*>(wts);
+  float* fp = static_cast<float*>(partial);
+  float* fo = static_cast<float*>(out);
+  int* ibn = static_cast<int*>(bottleneck);
+  if (splits == 1) {
+    fused_rows<<<B, kThreads, smem, st>>>(
+        ioff, iidx, fvals, n, buf_len, isp, fmask, fc, has_d2d, inp, idp,
+        fw, B, n_copies, 1, ROW, fp, fo, ibn);
+    return static_cast<int>(cudaGetLastError());
+  }
+  fused_rows<<<B * splits, kThreads, smem, st>>>(
+      ioff, iidx, fvals, n, buf_len, isp, fmask, fc, has_d2d, inp, idp, fw,
+      B, n_copies, splits, PART, fp, fo, ibn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_rows<<<B, kThreads, buf_len * sizeof(float), st>>>(
+      ioff, iidx, fvals, n, buf_len, isp, fmask, fc, has_d2d, inp, idp, fw,
+      B, 1, splits, FINISH, fp, fo, ibn);
   return static_cast<int>(cudaGetLastError());
 }
 

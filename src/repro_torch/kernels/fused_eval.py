@@ -4,8 +4,13 @@ analyzer's segment replay.
 ``fused_eval`` is the port of the jitted ``fused`` function of
 ``_build_fused_fn`` (``src/repro/core/evaluator.py:97-179``): one launch of
 ``csrc/fused_eval.cu``, one block a row, sums each row's slice of a
-float32 contribution stream in shared memory and computes every row's
-delay, energy, stage time, GLB overflow, bottleneck and five energy parts.
+float32 contribution stream in shared memory, in an order fixed by the
+row's inputs (the same inputs give the same bits on every run), and
+computes every row's delay, energy, stage time, GLB overflow, bottleneck
+and five energy parts.  A row too wide for 16 copies in one block's
+shared memory (:func:`copies`) is summed in :func:`splits` parts by as
+many blocks, into a scratch buffer the plan owns, and a second launch
+adds the parts in order and finishes the rows.
 The stream is not padded: row ``b``'s entries are ``idx[off[b]:off[b+1]]``
 and the same slice of ``vals``, each index a cell of that row, in ``[0,
 buf_len)``.  ``segment_replay`` is the port of ``_jax_replay``
@@ -13,8 +18,11 @@ buf_len)``.  ``segment_replay`` is the port of ``_jax_replay``
 index stream.  Both launch their kernel for tensors on the card and run
 the plain versions of :mod:`.ref` for tensors on the CPU; a CUDA tensor
 never falls back, and what the kernel does not take raises.
-``fused_eval.launches`` and ``segment_replay.launches`` count kernel
-launches.
+``fused_eval.launches`` and ``segment_replay.launches`` count the calls
+that launch a kernel (a call on rows too wide for one block launches
+``fused_eval``'s twice); a :mod:`repro_torch.obs` collector harvests both under those
+names, so a traced process's metrics snapshot (a shard child's, say)
+says how often it ran each kernel.
 
 What an evaluator fixes once (the analyzer's target spans, the D2D mask
 over the edges, bandwidths, GLB capacity and unit energies) lives in a
@@ -37,6 +45,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs import metrics as _obs_metrics
 from . import _build
 from .ref import fused_eval_ref, segment_replay_ref
 
@@ -50,6 +59,7 @@ N_TARGETS = 10
 _INT_MAX = 2**31 - 1
 _MIN_WORDS = 1 << 12              # the buffers' first capacity, 4-byte words
 _MAX_CELLS: Dict[int, int] = {}   # device index -> fused_eval_max_cells
+_WARPS = 16                       # a block's warps (csrc/fused_eval.cu kWarps)
 
 
 def _device(device) -> torch.device:
@@ -118,6 +128,8 @@ class FusedEvalPlan:
                                             repr=False)
     host_out: Optional[torch.Tensor] = field(default=None, init=False,
                                              repr=False)
+    dev_partial: Optional[torch.Tensor] = field(default=None, init=False,
+                                                repr=False)
     staged: Optional[FusedInputs] = field(default=None, init=False,
                                           repr=False)
 
@@ -171,6 +183,21 @@ def max_cells(device: torch.device) -> int:
     return cells
 
 
+def copies(device: torch.device, buf_len: int) -> int:
+    """The shared-memory copies of a row of ``buf_len`` cells that a
+    :func:`fused_eval` block sums on the card ``device``: one for each of
+    the block's first warps, 16 or as many as fit (the launch's dynamic
+    shared memory is ``4 * copies * buf_len`` bytes)."""
+    return min(_WARPS, max_cells(device) // int(buf_len))
+
+
+def splits(device: torch.device, buf_len: int) -> int:
+    """The parts, one block each, that :func:`fused_eval` sums a row of
+    ``buf_len`` cells in on the card ``device``: 1 where 16 copies fit,
+    else enough blocks that 16 warps stream each row."""
+    return -(-_WARPS // copies(device, buf_len))
+
+
 def fused_eval(plan: FusedEvalPlan, off: torch.Tensor, idx: torch.Tensor,
                vals: torch.Tensor, npass: torch.Tensor, depth: torch.Tensor,
                wts: torch.Tensor,
@@ -222,13 +249,20 @@ def fused_eval(plan: FusedEvalPlan, off: torch.Tensor, idx: torch.Tensor,
                          f"fit one block's shared memory ({limit} cells); "
                          f"the kernel sums a row on chip and has no "
                          f"fallback")
-    if B < 1 or B > _INT_MAX:
+    parts = splits(plan.device, plan.buf_len)
+    if B < 1 or B * parts > _INT_MAX:
         raise ValueError(f"fused_eval: {B} rows out of the kernel's range")
+    partial = None
+    if parts > 1:
+        plan.dev_partial = _grow(plan.dev_partial, B * parts * plan.buf_len,
+                                 device=plan.device)
+        partial = plan.dev_partial.data_ptr()
     lib = _build.load("fused_eval")
     code = lib.fused_eval_f32(
         *(t.data_ptr() for t in tensors[:3]), idx.numel(), B, plan.buf_len,
         *(t.data_ptr() for t in tensors[3:6]), plan.spans.data_ptr(),
         plan.d2d_mask.data_ptr(), plan.consts.data_ptr(), int(plan.has_d2d),
+        copies(plan.device, plan.buf_len), parts, partial,
         out[0].data_ptr(), out[1].data_ptr(), plan.device.index or 0,
         torch.cuda.current_stream(plan.device).cuda_stream)
     _build.check(lib, "fused_eval", code)
@@ -259,7 +293,8 @@ class FusedRows:
 def evaluate_rows(plan: FusedEvalPlan, x: FusedInputs) -> FusedRows:
     """:func:`fused_eval` of the batch ``x`` that ``plan.stage`` handed
     out last and the caller filled: on the card one copy of the packed
-    inputs to the card, one launch on views of them, one copy of the
+    inputs to the card, one launch on views of them (two for rows too
+    wide for one block), one copy of the
     packed outputs ``[out | bottleneck]`` back and one synchronize of the
     stream; on the CPU the plain version.  Raises on a batch the plan did
     not stage last, and on offsets that do not run from 0 up to the
@@ -321,3 +356,8 @@ def segment_replay(idx: torch.Tensor, vals: torch.Tensor,
 
 
 segment_replay.launches = 0
+
+_obs_metrics.register_collector(lambda: {
+    "fused_eval.launches": fused_eval.launches,
+    "segment_replay.launches": segment_replay.launches,
+})

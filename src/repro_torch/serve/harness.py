@@ -29,9 +29,10 @@ analytical executor the whole replay — and therefore the report — is
 deterministic for a fixed trace seed.
 
 Port of ``src/repro/serve/harness.py``, numpy only.  The reference's
-``repro.obs`` calls (metrics, spans and timeline events in ``replay``,
-``_replay_waves`` and ``_replay_continuous``) are left out until the port
-has an ``obs`` package; no report field depends on them.
+``obs`` calls (metrics, spans and the ``serve`` timeline events of
+``replay``, ``_replay_waves`` and ``_replay_continuous``) go through
+``repro_torch.obs`` under the same names; no report field depends on
+them.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from typing import (Callable, Dict, List, Optional, Protocol, Sequence,
 
 import numpy as np
 
+from .. import obs as _obs
 from .trace import Trace, TraceRequest
 
 PCTS = (50.0, 95.0, 99.0)
@@ -300,6 +302,22 @@ def _replay_waves(trace: Trace, executor: WaveExecutor) -> ServeReport:
         rep.requests.extend(tls)
         rep.n_waves += 1
         rep.occupancy.append(len(wave) / executor.max_batch)
+        if _obs.enabled():
+            # queue depth = arrived-but-unadmitted backlog at wave launch;
+            # simulated time, so the timeline is deterministic per trace
+            depth = 0
+            j = i
+            while j < len(pending) and pending[j].arrival_s <= now:
+                depth += 1
+                j += 1
+            _obs.metrics.counter("serve.requests").inc(len(wave))
+            _obs.metrics.histogram("serve.queue_depth").observe(depth)
+            _obs.metrics.histogram("serve.occupancy").observe(
+                rep.occupancy[-1])
+            _obs.emit({"ev": "serve", "mode": "wave", "t_sim": now,
+                       "wave": rep.n_waves, "batch": len(wave),
+                       "queue_depth": depth,
+                       "occupancy": rep.occupancy[-1]})
         now = end
     rep.requests.sort(key=lambda r: r.rid)
     return rep
@@ -343,6 +361,22 @@ def _replay_continuous(trace: Trace, model: ServiceModel,
             now += dt
             rep.n_waves += 1                   # machine ops, here: steps
             rep.occupancy.append(len(active) / max_batch)
+            if _obs.enabled():
+                _obs.metrics.histogram("serve.occupancy").observe(
+                    rep.occupancy[-1])
+                depth = 0
+                j = i
+                while j < len(pending) and pending[j].arrival_s <= now:
+                    depth += 1
+                    j += 1
+                _obs.metrics.histogram("serve.queue_depth").observe(depth)
+                # decode steps are plentiful (one per generated token
+                # across the batch); thin the timeline to every 32nd op
+                if rep.n_waves % 32 == 1:
+                    _obs.emit({"ev": "serve", "mode": "continuous",
+                               "t_sim": now, "step": rep.n_waves,
+                               "active": len(active), "queue_depth": depth,
+                               "occupancy": rep.occupancy[-1]})
             still = []
             for ent in active:
                 ent[1] -= 1
@@ -372,7 +406,9 @@ def replay(trace: Trace, executor: Union[WaveExecutor, ServiceModel],
         if isinstance(executor, ServiceModel):
             executor = AnalyticalWaveExecutor(executor,
                                               max_batch=max_batch or 8)
-        return _replay_waves(trace, executor)
+        with _obs.span("serve.replay", mode=mode,
+                       n_requests=len(trace.requests)):
+            return _replay_waves(trace, executor)
     if mode == "continuous":
         if isinstance(executor, ServiceModel):
             model, mb = executor, max_batch or 8
@@ -384,7 +420,11 @@ def replay(trace: Trace, executor: Union[WaveExecutor, ServiceModel],
                 "only a ServiceModel (or AnalyticalWaveExecutor) supports; "
                 f"got {type(executor).__name__} — use mode='wave' for real "
                 "executors")
-        return _replay_continuous(trace, model, mb)
+        with _obs.span("serve.replay", mode=mode,
+                       n_requests=len(trace.requests)):
+            rep = _replay_continuous(trace, model, mb)
+        _obs.metrics.counter("serve.requests").inc(len(rep.requests))
+        return rep
     raise ValueError(f"unknown replay mode {mode!r}: 'wave' or 'continuous'")
 
 

@@ -15,7 +15,10 @@ of their tile or head-dim configurations and copy widths is driven here,
 for f32 and for bf16.  So do the SSD state pass's walk and outputs, whose
 product C . h runs in 3xTF32 too.  The cost model's two kernels: ``fused_eval``
 within rel 1e-5 of its plain version and within the reference's parity
-envelope (rel 1e-4, equal bottlenecks) of the exact numpy engine;
+envelope (rel 1e-4, equal bottlenecks) of the exact numpy engine, and
+bit-reproducible launch after launch (its rows sum in a fixed order; the
+supervised fused sweep, with a killed child and with a duplicate
+dispatch, equals a clean fused run bit for bit);
 ``segment_replay`` within rel 1e-12 of ``np.bincount`` (float64 atomic
 adds, in an order that changes from run to run).  The model stack's: the
 SSD state pass within 1e-4 of its plain version on each route (the walk,
@@ -503,8 +506,8 @@ def test_fused_eval_kernel_vs_exact_engine(cuda, spec, n):
 
 def _fused_kernel_vs_plain(plan, args):
     """``fused_eval`` on the card against its plain version on the same
-    inputs: rel 1e-5 (float32 atomic adds in no fixed order), the same
-    bottleneck, one launch."""
+    inputs: rel 1e-5 (float32 sums in another order than the plain
+    version's), the same bottleneck, one launch."""
     from repro_torch.kernels import fused_eval as fe
     n0 = fe.fused_eval.launches
     out, bn = fe.fused_eval(plan, *args)
@@ -575,6 +578,107 @@ def test_fused_eval_rows_above_48kb_and_above_the_limit(cuda):
     with pytest.raises(ValueError, match="buf_len"):
         fe.fused_eval(dataclasses.replace(plan, buf_len=limit + 1), *args)
     assert fe.fused_eval.launches == n0
+
+
+def _sweep_batch(B):
+    """A fused-pass batch at the supervised fused sweep's shapes: the
+    ``tf-paper`` graph on the 70-core, two-chiplet candidate of the quick
+    spec's 72-TOPS grid (``repro_torch.dist.supervisor.quick_spec``), at
+    the sweep's batch of 8, ``B`` rows of random mappings."""
+    from repro_torch.core.dse import grid_candidates
+    from repro_torch.core.encoding import random_lms
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.core.graph_partition import partition_graph
+    from repro_torch.core.workloads import make_workload
+    a = grid_candidates(72.0, mac_options=[512, 1024], cut_options=[1, 2],
+                        dram_per_tops=[2.0], noc_options=[16, 32],
+                        d2d_ratio=[0.5], glb_options=[1024])[2]
+    assert a.n_cores == 70 and a.n_chiplets == 2
+    g = make_workload("tf-paper")
+    rng = np.random.default_rng(B)
+    groups = partition_graph(g, a, 8)
+    reqs = [(groups[i % len(groups)],
+             random_lms(groups[i % len(groups)], g, a.n_cores, a.n_dram,
+                        rng)) for i in range(B)]
+    return Evaluator(a, g, fused_device="cuda"), reqs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,cells", [(4, None), (64, None), (600, None),
+                                     (4, 20_000), (4, "limit")])
+def test_fused_eval_rows_are_bit_reproducible(cuda, B, cells):
+    """``fused_eval`` on identical inputs gives identical rows, bit for
+    bit, launch after launch: at the supervised fused sweep's shapes (the
+    lockstep batch of 4 chains and a screen's 64 rows), at 600 rows
+    (several blocks an SM: where the shared-memory atomics of the
+    kernel's first design added in an order that changed from launch to
+    launch) and on rows wide enough to sum in fewer shared-memory copies
+    and several parts (20,000 cells) or in one copy (the limit).  A
+    sweep's shard children must write the records a clean run writes, so
+    no tolerance: ``torch.equal``.  The first launch's rows are also held
+    against the plain version (``_fused_kernel_vs_plain``'s rel 1e-5)."""
+    import dataclasses
+
+    from repro_torch.kernels import fused_eval as fe
+    ev, reqs = _sweep_batch(B)
+    plan = ev.fused_plan()
+    if cells is not None:
+        cells = fe.max_cells(plan.device) if cells == "limit" else cells
+        plan = dataclasses.replace(plan, buf_len=cells)
+    args = [torch.from_numpy(a.copy()).to(cuda)
+            for a in ev._fused_inputs(reqs, 8)]
+    first = [t.clone() for t in fe.fused_eval(plan, *args)]
+    want, wbn = ref.fused_eval_ref(
+        *args, spans=plan.spans, d2d_mask=plan.d2d_mask, consts=plan.consts,
+        has_d2d=plan.has_d2d, buf_len=plan.buf_len)
+    torch.testing.assert_close(first[0], want, rtol=1e-5, atol=0.0)
+    assert torch.equal(first[1], wbn)
+    for _ in range(20):
+        out = fe.fused_eval(plan, *args)
+        assert all(torch.equal(a, b) for a, b in zip(first, out))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tops,cells,parts", [(512, 6_638, 2),
+                                              (1024, 13_138, 4)])
+def test_fused_eval_wide_rows_in_parts(cuda, tops, cells, parts):
+    """Rows too wide for 16 shared-memory copies (``tf-paper`` on the
+    most-cored candidate of ``grid_candidates(tops)``, 4 rows at the
+    sweep's batch of 8) are summed in parts: within the reference's
+    parity envelope of the exact numpy engine (rel 1e-4, same
+    bottleneck), one counted call, and the same bits launch after
+    launch."""
+    from repro_torch.core.dse import grid_candidates
+    from repro_torch.core.encoding import random_lms
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.core.graph_partition import partition_graph
+    from repro_torch.core.workloads import make_workload
+    from repro_torch.kernels import fused_eval as fe
+    a = max(grid_candidates(float(tops)), key=lambda a: a.n_cores)
+    g = make_workload("tf-paper")
+    rng = np.random.default_rng(tops)
+    groups = partition_graph(g, a, 8)
+    reqs = [(groups[i], random_lms(groups[i], g, a.n_cores, a.n_dram, rng))
+            for i in rng.integers(len(groups), size=4)]
+    ev = Evaluator(a, g, fused_device="cuda")
+    plan = ev.fused_plan()
+    assert plan.buf_len == cells and fe.splits(plan.device, cells) == parts
+    exact = ev.eval_requests_batch(reqs, 8)
+    n0 = fe.fused_eval.launches
+    fused = ev.eval_requests_batch(reqs, 8, backend="fused")
+    assert fe.fused_eval.launches == n0 + 1
+    for (ge, _), (gf, _) in zip(exact, fused):
+        assert ge.bottleneck == gf.bottleneck
+        for f in ("delay_s", "energy_j", "stage_time_s"):
+            x, y = getattr(ge, f), getattr(gf, f)
+            assert abs(x - y) <= 1e-4 * abs(x), f
+    args = [torch.from_numpy(x.copy()).to(cuda)
+            for x in ev._fused_inputs(reqs, 8)]
+    first = [t.clone() for t in fe.fused_eval(plan, *args)]
+    for _ in range(5):
+        out = fe.fused_eval(plan, *args)
+        assert all(torch.equal(x, y) for x, y in zip(first, out))
 
 
 @pytest.mark.gpu
@@ -1333,3 +1437,79 @@ def test_async_checkpoint_of_a_card_state_holds_the_saved_step(cuda,
         assert got["params"][k].is_cuda
         np.testing.assert_array_equal(to_host(got["params"][k]), v)
     assert int(got["opt"]["step"]) == 1
+
+
+# ---------------------------------------------------------------------------
+# the supervised sweep scoring on the card (chip_smoke.py's sweep:fused)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def fused_sweep():
+    """The fused sweep's spec (``chip_smoke.SWEEP_FUSED_SPEC``: tf-paper on
+    the quick spec's grid, 4 chains x 200 iterations on the fused pass)
+    and its clean in-process run's results, each winner's energy and delay
+    equal to the bit to an independent exact evaluator's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from repro_torch.core.dse import run_dse
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.dist.supervisor import SweepSpec
+    from repro_torch.launch.sweep_ctl import _sig
+    spec = SweepSpec(
+        workloads={"tf": "tf-paper"},
+        grid=dict(tops=72.0, mac_options=[512, 1024], cut_options=[1, 2],
+                  dram_per_tops=[2.0], noc_options=[16, 32],
+                  d2d_ratio=[0.5], glb_options=[1024]),
+        sa=dict(iters=200, seed=0, n_chains=4, backend="fused"),
+        cfg=dict(batch=8), n_shards=2)
+    wls, cfg = spec.build_workloads(), spec.build_cfg()
+    clean = run_dse(spec.build_candidates(), wls,
+                    dataclasses.replace(cfg, keep_mappings=True))
+    for p in clean:
+        for name, got in p.per_workload.items():
+            r = Evaluator(p.arch, wls[name]).evaluate(p.mappings[name],
+                                                      cfg.batch)
+            assert got == (r.energy_j, r.delay_s)
+    return spec, _sig(clean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["kill", "dup"])
+def test_fused_supervised_sweep_equals_the_clean_fused_run(cuda, fused_sweep,
+                                                           tmp_path, kind):
+    """Two shard children scoring on ``fused_eval`` on the card, one fault
+    injected (a killed child's work re-dispatched; a duplicate dispatch
+    whose twin records must merge without conflict): the merged results
+    equal the clean fused run's bit for bit, and each child that finished
+    launched the kernel once an iteration of each task it ran, less at
+    most 2 a task whose proposals were all cached (its metrics
+    snapshot; a killed child writes none)."""
+    import json
+
+    from repro_torch import obs
+    from repro_torch.dist.hosts import LocalProcessHost
+    from repro_torch.dist.supervisor import Supervisor, supervised_results
+    from repro_torch.launch.sweep_ctl import _sig
+    spec, want = fused_sweep
+    obs.enable(tmp_path / "obs")
+    try:
+        s = Supervisor(spec, out_dir=tmp_path / "out",
+                       hosts=[LocalProcessHost(name=f"local{i}",
+                                               retry_seed=100 + i)
+                              for i in range(2)],
+                       poll_s=0.2, fault_kind=kind, fault_seed=0)
+        merged = s.run()
+    finally:
+        obs.disable()
+        obs.metrics.reset()
+    assert _sig(supervised_results(spec, merged)) == want
+    snaps = [json.loads(p.read_text())["counters"]
+             for p in (tmp_path / "obs").glob("*/metrics.json")]
+    iters = spec.sa["iters"]
+    assert snaps and all(
+        c.get("engine.tasks", 0) and (iters - 2) * c["engine.tasks"]
+        <= c.get("fused_eval.launches", 0) <= iters * c["engine.tasks"]
+        for c in snaps), snaps
+    assert sum(c.get("group_eval_fused.misses", 0) for c in snaps) > 0

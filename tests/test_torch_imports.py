@@ -167,3 +167,33 @@ def test_the_walks_cover_the_training_modules_and_the_examples():
                        text=True, timeout=120, env=env, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
     assert json.loads(r.stdout.splitlines()[-1]) == []
+
+
+def test_the_walks_cover_the_sweep_tooling_and_obs_and_dist_load_no_torch():
+    """The ``ast`` walk and the clean-interpreter import see the
+    observability layer, the supervised-sweep modules and their two CLIs;
+    ``repro_torch.obs`` and ``repro_torch.dist`` (which the numpy shard
+    children import) load no torch, as ``repro_torch.core`` does not."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    for rel in ("obs/__init__.py", "obs/trace.py", "obs/metrics.py",
+                "obs/manifest.py", "obs/report.py", "dist/__init__.py",
+                "dist/retrying.py", "dist/faults.py", "dist/hosts.py",
+                "dist/supervisor.py", "dist/shard_child.py",
+                "launch/sweep_ctl.py", "launch/obs_report.py"):
+        assert rel in files, rel
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'src')!r})\n"
+        "import repro_torch.obs, repro_torch.obs.report\n"
+        "import repro_torch.dist, repro_torch.dist.shard_child\n"
+        "import repro_torch.launch.sweep_ctl, repro_torch.launch.obs_report\n"
+        "from repro_torch.dist.supervisor import quick_spec\n"
+        "quick_spec().fingerprint()\n"
+        "print(json.dumps(sorted(n for n in sys.modules"
+        " if n.split('.')[0] == 'torch')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.splitlines()[-1]) == []

@@ -409,6 +409,29 @@ def test_out_heads_rule(BC, H, G, P, sms, heads):
     assert (H // G) % heads == 0
 
 
+@pytest.mark.parametrize("buf_len,copies,splits", [
+    (174, 16, 1),       # moe-quick on the reference's test arch
+    (952, 16, 1),       # the fused sweep's widest candidate
+    (3_619, 16, 1),     # the widest row 16 copies fit
+    (3_620, 15, 2),
+    (6_638, 8, 2),      # grid_candidates(512), most cores
+    (13_138, 4, 4),     # grid_candidates(1024), most cores
+    (20_000, 2, 8),
+    (57_916, 1, 16),    # the limit: one copy, 16 parts
+])
+def test_fused_eval_copies_and_splits(monkeypatch, buf_len, copies, splits):
+    """A ``fused_eval`` block sums its entries into 16 copies of the row
+    or as many as fit (57,916 cells of an H100's shared memory here); a
+    row with fewer is cut into enough parts, one block each, that 16 warps
+    stream it."""
+    from repro_torch.kernels import fused_eval as fe
+    monkeypatch.setattr(fe, "max_cells", lambda device: 57_916)
+    dev = torch.device("cuda", 0)
+    assert fe.copies(dev, buf_len) == copies
+    assert fe.splits(dev, buf_len) == splits
+    assert copies * buf_len <= 57_916 and copies * splits >= 16
+
+
 def test_flash_refuses_a_negative_or_fractional_q_offset():
     q = torch.zeros((1, 1, 4, 8))
     for off in (-1, 1.5):
