@@ -60,6 +60,14 @@ For the evaluator's fused pass (``fused_eval.cu``), at the six shapes of
 Then the row length (``buf_len`` cells) of the archs the repo builds,
 beside the most cells a ``fused_eval`` row may have on the card.
 
+For the analyzer's replay (``segment_replay`` in ``fused_eval.cu``), at
+``chip_smoke.py``'s ``segment_replay`` lines (three layouts, ``REPLAY_B``
+rows), against ``np.bincount`` bit for bit:
+
+* ``N cells a block``: the cells one block owns (``kReplayCells``), 32 to
+  2,048; one of them is the source as built.  A last line sums each
+  cut's times over the lines and names the least.
+
 Prints one JSON line per kernel and shape, then the card's name and power
 limit.
 """
@@ -197,6 +205,18 @@ def fused_variants(source: str) -> dict:
     return out
 
 
+REPLAY_CUT = re.compile(r"constexpr int kReplayCells = \d+;")
+REPLAY_CUTS = (32, 64, 128, 256, 512, 1024, 2048)
+
+
+def replay_variants(source: str) -> dict:
+    """{variant: substitutions} of fused_eval.cu: segment_replay's cut."""
+    built, = REPLAY_CUT.findall(source)
+    return {f"{n} cells a block": [(built,
+                                    f"constexpr int kReplayCells = {n};")]
+            for n in REPLAY_CUTS}
+
+
 # (B, H, N) of the route sweep, at 8 chunks of 128 and P = 64: blocks of
 # the walk from 64 to 256 at N = 128 (one walk an SM) and N = 64 (two)
 STATE_SWEEP = [(2, 32, 128), (3, 32, 128), (2, 56, 128), (4, 30, 128),
@@ -247,13 +267,18 @@ def build_variants() -> dict:
         procs[(variant, "fused_eval")] = start_build(
             OUT / f"f{i}", "fused_eval", header,
             substitute(fused, subs, variant))
+    for i, (variant, subs) in enumerate(replay_variants(fused).items()):
+        procs[(variant, "fused_eval")] = start_build(
+            OUT / f"r{i}", "fused_eval", header,
+            substitute(fused, subs, variant))
     libs = {}
     for key, (proc, path) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{key} failed to build:\n{log}")
         lib = ctypes.CDLL(str(path))
-        for symbol, argtypes in _build.SIGNATURES[key[1]].items():
+        for symbol, argtypes in {**_build.SIGNATURES[key[1]],
+                                 **_build.QUERIES.get(key[1], {})}.items():
             fn = getattr(lib, symbol)
             fn.restype, fn.argtypes = ctypes.c_int, argtypes
         libs[key] = lib
@@ -380,6 +405,49 @@ def time_fused(libs: dict, stream: int) -> None:
             print(json.dumps(line), flush=True)
 
 
+def time_replay(libs: dict, stream: int) -> None:
+    """segment_replay's cuts at chip_smoke.py's segment_replay lines, each
+    time the least of three, and whether each gives np.bincount's bits;
+    then each cut's times summed over the lines."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.evaluator import Evaluator
+    dev = torch.device("cuda", 0)
+    variants = replay_variants((_build.CSRC / "fused_eval.cu").read_text())
+    total = dict.fromkeys(variants, 0.0)
+    for layout, arch, g, batch in chip_smoke.cost_layouts():
+        for B in chip_smoke.REPLAY_B:
+            reqs = chip_smoke.cost_requests(arch, g, B, seed=B,
+                                            total_batch=batch)
+            ev = Evaluator(arch, g, fused_device="cpu")
+            idx, vals, _ = ev.analyzer._request_streams(reqs, batch)
+            n = B * ev.analyzer._buf_len
+            ti, tv = torch.from_numpy(idx).to(dev), torch.from_numpy(
+                vals).to(dev)
+            want = np.bincount(idx, weights=vals, minlength=n)
+            out = torch.empty(n, dtype=torch.float64, device=dev)
+            line = {"kernel": "segment_replay", "layout": layout, "B": B,
+                    "stream": int(idx.size), "cells": n}
+            for variant in variants:
+                lib = libs[(variant, "fused_eval")]
+                ranges = torch.empty(2 * -(-n // lib.replay_cells_per_block()),
+                                     dtype=torch.int32, device=dev)
+                launch = lambda: lib.segment_replay_f64(
+                    ti.data_ptr(), tv.data_ptr(), ti.numel(), out.data_ptr(),
+                    n, ranges.data_ptr(), 0, stream)
+                if launch() != 0:
+                    raise RuntimeError(f"{variant}: launch failed")
+                torch.cuda.synchronize()
+                ms = least_ms(launch)
+                total[variant] += ms
+                line[variant] = {"ms": ms, "bit_equal_bincount": bool(
+                    np.array_equal(out.cpu().numpy(), want))}
+            print(json.dumps(line), flush=True)
+    print(json.dumps({"kernel": "segment_replay", "summed_ms": total,
+                      "least": min(total, key=total.get)}), flush=True)
+
+
 def fused_rows_fit() -> None:
     """``buf_len`` of S-Arch, the 72-TOPS Gemini arch and the most-cored
     ``grid_candidates`` at 72 to 1024 TOPS (the analyzer's layout, which
@@ -474,6 +542,7 @@ def main() -> int:
     time_state(libs, randn, stream)
     time_fused(libs, stream)
     fused_rows_fit()
+    time_replay(libs, stream)
     print(chip_smoke.nvidia_smi())
     return 0
 

@@ -113,7 +113,9 @@ phase prints one JSON line:
    same bottleneck, the reference's parity envelope), both through the
    wrapper on the batch's tensors and through the evaluator's own route
    (``eval_requests_batch(backend="fused")``); ``segment_replay``
-   against ``np.bincount`` (rtol 2e-4 / atol 1e-2); each with its device
+   against ``np.bincount`` (rtol 2e-4 / atol 1e-2, and bit for bit: it
+   adds each cell's entries in stream order) at 4, 64 and 200 rows, each
+   stream launched 200 times for one distinct result; each with its device
    time, the plain version's, its time as the host issues it, the library
    call's (``index_add_`` for the replay, none for the fused pass), a
    bound from the bytes it must move at the HBM rate, and for the fused
@@ -129,7 +131,7 @@ phase prints one JSON line:
    proposals a second each way, each winner
    re-evaluated exactly (it must equal the reported cost to the bit); then
    ``analyze_requests(backend="fused")`` of a screen-sized batch through
-   ``segment_replay`` against the exact replay.
+   ``segment_replay``, equal to the exact replay bit for bit.
    Then ``sweep:quick`` and ``sweep:fused``: the supervised sweep
    (``repro_torch.launch.sweep_ctl launch``, two local shard children).
    ``sweep:quick`` is the reference's CI chaos sweep (the quick spec on
@@ -217,25 +219,43 @@ phase prints one JSON line:
    ``profile`` line a trained model (not gated): one more train step
    under ``torch.profiler``, its device time, idle share against the
    median step and the kernels that take the most device time.
+   Then ``pipeline``: ``smollm-135m`` at full width and depth (30 layers,
+   d 576) planned by Gemini (``plan_for_graph`` of its layer graph at
+   seq 1024 on ``mesh_as_arch(2, 2, 1)``, batch 4, 600 SA iterations:
+   240 stages, as on the CPU; the SA's host seconds) and executed by
+   ``repro_torch.runtime.pipeline.PipelineExec`` on the card, tokens
+   (4, 1024) in 2 microbatches, in bf16 compute (the main path: launch
+   counts set to 0 just before, read just after; exactly 60 flash
+   launches, 30 blocks x 2 microbatches, no other kernel) and in f32;
+   the logits within 0.05 (bf16; against the plain route the larger of
+   that and the plain route's own bf16-vs-f32 gap) and atol = rtol =
+   2e-3 (f32) of the monolithic forward through the kernels and through
+   the plain route; the pass wall and each stage's seconds; then
+   ``repro_torch.examples.map_to_mesh`` at its defaults, which must print
+   ``(OK)``.  Kernel lines at the pipeline's flash shape (bf16, 2 x 9
+   heads x 1024 x 1024).  Then ``dp``: ``make_compressed_dp_step`` on a
+   one-rank NCCL mesh on the card (``launch.mesh.make_host_mesh``, which
+   starts its own group), the reference's 60-step regression (the last
+   loss below 0.05 x the first), and ``compressed_grad_sync`` of one rank
+   equal to its int8 ``q * scale`` and residual bit for bit.
    Then ``profile`` (not gated): the timed ``ops.ssd_forward`` call at the
    ``mamba2-370m`` SSD layer's shape once more, under ``torch.profiler``:
    the device time of its kernels, the device's idle share over its
    host-issued wall, and kernel launches and device time split between
    the chunk kernel, the state pass (``recurrence_launches``; its route
    and kernels) and the rest of the eager glue.
-5. ``kernels``: every kernel (the state pass's three apart) with its
-   launches on the paths, the loop, the serve phases and the train
-   phases' eval forwards, its numbers
-   summed over one pass of each path, of each realized loop candidate
-   (``loop#1``, ``loop#2``), of each serve phase (``serve``,
-   ``serve:mamba2-370m``, ``serve:whisper-small``, ``serve_trace``) and
-   of each train phase's eval forward (``train:smollm-135m``,
-   ``train:mamba2-370m``), and each one's share apart (both bounds, ``arith``); under
-   ``bf16`` the realization launches' sums with bf16 operands.  The cost
-   model's two kernels carry their launches in the ``fused`` phase and in
-   the fused sweep's shard children (``per_path``: ``fused``,
-   ``sweep:fused``, read from the children's metrics snapshots) and one
-   launch's numbers at the ``fused`` phase's shape.
+5. ``kernels``: every kernel (the state pass's three apart) with its launches
+   on the paths, the loop, the serve phases and the train phases' eval
+   forwards, its numbers summed over one pass of each path, of each realized
+   loop candidate (``loop#1``, ``loop#2``), of each serve phase (``serve``,
+   ``serve:mamba2-370m``, ``serve:whisper-small``, ``serve_trace``) and of each
+   train phase's eval forward (``train:smollm-135m``, ``train:mamba2-370m``)
+   and of the pipelined forward (``pipeline:smollm-135m``), and each one's
+   share apart (both bounds, ``arith``); under ``bf16`` the realization
+   launches' sums with bf16 operands.  The cost model's two kernels carry their
+   launches in the ``fused`` phase and in the fused sweep's shard children
+   (``per_path``: ``fused``, ``sweep:fused``, read from the children's metrics
+   snapshots) and one launch's numbers at the ``fused`` phase's shape.
 
 Then the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -480,6 +500,11 @@ ZOO_ARCH = dict(x_cores=4, y_cores=3, xcut=2, ycut=1, noc_bw=16.0,
                 d2d_bw=8.0, dram_bw=64.0, glb_kb=512, macs_per_core=256)
 FUSED_REL_TOL = 1e-4
 REPLAY_TOL = {"rtol": 2e-4, "atol": 1e-2}
+# segment_replay's lines: the lockstep batch, a screen, and more rows than
+# the card has SMs; each stream replayed REPLAY_REPS times must give one
+# result, equal to np.bincount's bits
+REPLAY_B = (FUSED_CHAINS, 64, 200)
+REPLAY_REPS = 200
 COST_KERNEL_FILES = {
     "fused_eval": ("src/repro_torch/kernels/csrc/fused_eval.cu",
                    "src/repro/core/evaluator.py:97"),
@@ -606,6 +631,28 @@ TRAIN_STEPS = 12
 TRAIN_LR = 6e-4
 TRAIN_WARMUP = 2
 TRAIN_RESUME_RTOL = 1e-3
+
+
+# the pipeline phase: smollm-135m at full width and depth (layers, d,
+# heads, kv heads, head dim, d_ff, vocab), its Gemini plan at seq 1024 on
+# the 2 x 2 abstract mesh (240 stages, as on the CPU), 4 x 1024 tokens in 2
+# microbatches; gates: the example's 0.05 in bf16, the reference test's
+# 2e-3 in f32
+PIPELINE_ARCH = "smollm-135m"
+PIPELINE_DIMS = (30, 576, 9, 3, 64, 1536, 49152)
+PIPELINE_MESH = (2, 2, 1)
+PIPELINE_SEQ = 1024
+PIPELINE_BATCH = 4
+PIPELINE_MICRO = 2
+PIPELINE_SA_ITERS = 600
+PIPELINE_STAGES = 240
+PIPELINE_BF16_ATOL = 0.05
+PIPELINE_F32_TOL = 2e-3
+# the dp phase: the reference's compressed-DP regression
+# (tests/test_compressed_dp.py) on one rank
+DP_STEPS = 60
+DP_BATCH = 64
+DP_LR = 0.05
 
 
 def emit(obj) -> None:
@@ -1748,8 +1795,11 @@ def check_cost_kernels(dev) -> dict:
     on the batch's tensors and through the evaluator's fused route, which
     launches it on views of the plan's packed buffers
     (``max_rel_err_path_vs_plain``, ``max_rel_err_vs_exact``);
-    ``segment_replay`` against ``np.bincount`` on the same stream
-    (rtol 2e-4 / atol 1e-2; it adds in float64).  Each line has the
+    ``segment_replay`` (at ``REPLAY_B``: the lockstep batch, a screen and
+    more rows than SMs) against ``np.bincount`` on the same stream
+    (rtol 2e-4 / atol 1e-2, and bit for bit: each cell's entries are added
+    in stream order), ``REPLAY_REPS`` launches on the same inputs giving
+    one distinct result.  Each line has the
     kernel's device time, the plain version's, the kernel's as the host
     issues it, the library call's (``index_add_`` for the replay; no
     PyTorch call computes the fused pass), the bound (the stream read
@@ -1763,13 +1813,12 @@ def check_cost_kernels(dev) -> dict:
     shared memory of its launch, and ``launch_floor_ms``: the device time of one empty kernel
     (``torch.cuda._sleep(0)``: one block of one thread), timed the same
     way.  Returns the lines by (kernel, layout, B)."""
-    import numpy as np
     import torch
 
     from repro_torch.core.evaluator import Evaluator
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.fused_eval import copies as fe_copies
-    from repro_torch.kernels.fused_eval import fused_eval, segment_replay
+    from repro_torch.kernels.fused_eval import fused_eval
     from repro_torch.kernels.fused_eval import splits as fe_splits
 
     names = ("compute", "noc", "d2d", "dram")
@@ -1859,40 +1908,69 @@ def check_cost_kernels(dev) -> dict:
                                      f"B={B}: {rel_plain}, {rel_path}, "
                                      f"{rel_exact}, bottleneck {same_bn}")
 
-            idx, vals, _ = ev.analyzer._request_streams(reqs, batch)
-            n_cells = B * ev.analyzer._buf_len
-            ti, tv = torch.from_numpy(idx).to(dev), torch.from_numpy(
-                vals).to(dev)
-            got = segment_replay(ti, tv, n_cells)
-            torch.cuda.synchronize()
-            want = np.bincount(idx, weights=vals, minlength=n_cells)
-            diff = np.abs(got.cpu().numpy() - want)
-            line = {"phase": "kernel", "kernel": "segment_replay",
-                    "layout": layout, "arch": arch.label(), "B": B,
-                    "cells": n_cells, "stream": int(idx.size),
-                    "main_path": (layout, B) == ("granite", FUSED_B[1]),
-                    **REPLAY_TOL, "max_abs_err": float(diff.max()),
-                    "max_rel_err": float((diff / np.maximum(
-                        np.abs(want), 1e-300))[want != 0].max()),
-                    **_bound(idx.size, PEAK_F64_FLOPS,
-                             idx.nbytes + vals.nbytes + n_cells * 8),
-                    "ms": time_ms(lambda: segment_replay(ti, tv, n_cells)),
-                    "host_issued_ms": time_ms(
-                        lambda: segment_replay(ti, tv, n_cells),
-                        device=False),
-                    "plain_ms": time_ms(
-                        lambda: ref.segment_replay_ref(ti, tv, n_cells)),
-                    "library_ms": time_ms(
-                        lambda: torch.zeros(n_cells, dtype=tv.dtype,
-                                            device=dev).index_add_(0, ti, tv)),
-                    "library": "torch.Tensor.index_add_"}
+        for B in REPLAY_B:
+            line = replay_line(dev, layout, arch, g, batch, B)
+            line["cells_per_block"] = _build.load(
+                "fused_eval").replay_cells_per_block()
             timed[("segment_replay", layout, B)] = line
             emit(line)
-            if not np.allclose(got.cpu().numpy(), want, **REPLAY_TOL):
-                raise AssertionError(f"segment_replay disagrees at "
-                                     f"{layout} B={B}")
+            if not (line["within_tol"] and line["distinct"] == 1
+                    and line["bit_equal_bincount"]):
+                raise AssertionError(f"segment_replay disagrees or is not "
+                                     f"reproducible at {layout} B={B}: "
+                                     f"{line['distinct']} distinct results")
     return timed
 
+
+def replay_line(dev, layout, arch, g, batch, B) -> dict:
+    """``segment_replay`` on the analyzer's replay stream of ``B`` requests
+    (:func:`cost_requests`, seed ``B``) at one layout of
+    :func:`cost_layouts`: ``REPLAY_REPS`` launches on the same inputs and
+    their distinct results, the first held to ``np.bincount`` on the same
+    stream (``REPLAY_TOL``, and bit for bit), the kernel's device time, as
+    the host issues it, the plain version's, ``index_add_``'s and the
+    bound.  Gates nothing: :func:`check_cost_kernels` gates the line, and
+    ``benchmarks/port_segment_replay.py`` prints it for any tree."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_eval import segment_replay
+
+    reqs = cost_requests(arch, g, B, seed=B, total_batch=batch)
+    ev = Evaluator(arch, g, fused_device=dev)
+    idx, vals, _ = ev.analyzer._request_streams(reqs, batch)
+    n_cells = B * ev.analyzer._buf_len
+    ti, tv = torch.from_numpy(idx).to(dev), torch.from_numpy(vals).to(dev)
+    outs = torch.stack([segment_replay(ti, tv, n_cells)
+                        for _ in range(REPLAY_REPS)])
+    distinct = torch.unique(outs, dim=0).shape[0]
+    got = outs[0].cpu().numpy()
+    del outs
+    want = np.bincount(idx, weights=vals, minlength=n_cells)
+    diff = np.abs(got - want)
+    return {"phase": "kernel", "kernel": "segment_replay",
+            "layout": layout, "arch": arch.label(), "B": B,
+            "cells": n_cells, "stream": int(idx.size),
+            "main_path": (layout, B) == ("granite", FUSED_B[1]),
+            **REPLAY_TOL, "max_abs_err": float(diff.max()),
+            "max_rel_err": float((diff / np.maximum(
+                np.abs(want), 1e-300))[want != 0].max()),
+            "within_tol": bool(np.allclose(got, want, **REPLAY_TOL)),
+            "reps": REPLAY_REPS, "distinct": distinct,
+            "bit_equal_bincount": bool(np.array_equal(got, want)),
+            **_bound(idx.size, PEAK_F64_FLOPS,
+                     idx.nbytes + vals.nbytes + n_cells * 8),
+            "ms": time_ms(lambda: segment_replay(ti, tv, n_cells)),
+            "host_issued_ms": time_ms(
+                lambda: segment_replay(ti, tv, n_cells), device=False),
+            "plain_ms": time_ms(
+                lambda: ref.segment_replay_ref(ti, tv, n_cells)),
+            "library_ms": time_ms(
+                lambda: torch.zeros(n_cells, dtype=tv.dtype,
+                                    device=dev).index_add_(0, ti, tv)),
+            "library": "torch.Tensor.index_add_"}
 
 def host_ms(fn, reps: int = 5) -> float:
     """Mean host milliseconds of ``fn`` after one warm-up call (``fn``
@@ -1913,7 +1991,8 @@ def run_fused(dev) -> dict:
     re-evaluated by an independent exact evaluator, which must give the
     reported cost, energy and delay to the bit.  Then the analyzer replay
     on the card: ``analyze_requests(backend="fused")`` of a screen-sized
-    batch against the exact replay (rtol 2e-4 / atol 1e-2).  Fails unless
+    batch against the exact replay (rtol 2e-4 / atol 1e-2, and bit for
+    bit since the replay adds in stream order).  Fails unless
     both kernels launched, ``fused_eval`` once an iteration (an iteration
     whose proposals are all cached launches none: 198-200 of 200)."""
     import numpy as np
@@ -1970,10 +2049,11 @@ def run_fused(dev) -> dict:
     diff = np.abs(fused.buf - exact.buf)
     replay = {"B": FUSED_B[1], **REPLAY_TOL,
               "max_abs_err": float(diff.max()),
+              "bit_equal": bool(np.array_equal(fused.buf, exact.buf)),
               "weight_totals_equal": bool(np.array_equal(
                   fused.weight_totals, exact.weight_totals))}
     if not (np.allclose(fused.buf, exact.buf, **REPLAY_TOL)
-            and replay["weight_totals_equal"]):
+            and replay["bit_equal"] and replay["weight_totals_equal"]):
         raise AssertionError(f"fused replay disagrees: {replay}")
     if not (all(launches.values()) and FUSED_ITERS - 2
             <= launches["fused_eval"] <= FUSED_ITERS):
@@ -2946,6 +3026,216 @@ def run_train(dev, arch):
     return line, keys, (cfg, params, batch)
 
 
+def run_pipeline(dev):
+    """The ``pipeline:smollm-135m`` phase: the Gemini plan of the model's
+    layer graph at ``PIPELINE_SEQ`` on the 2 x 2 abstract mesh
+    (``plan_for_graph(lm_graph(cfg, seq), mesh_as_arch(2, 2, 1),
+    total_batch=4, sa_iters=600)``, the SA's host seconds) executed by
+    ``PipelineExec`` at full width and depth on the card (seeded
+    ``init_params``), tokens (4, 1024) in 2 microbatches: in the config's
+    bf16 compute, every launch count set to 0 just before and read just
+    after (the main path's launches), then in f32 compute.  Gates: the
+    plan's stage count is the CPU's (``PIPELINE_STAGES``); exactly 60
+    flash launches a forward (30 blocks x 2 microbatches) and no other
+    kernel; the logits within ``PIPELINE_BF16_ATOL`` (bf16, the example's
+    gate) and ``PIPELINE_F32_TOL`` (f32, atol = rtol: the reference
+    test's) of the monolithic ``lm.forward(mode="train")``, through the
+    kernels and through the plain route (``use_kernels=False``; in bf16
+    against the plain route, the larger of the gate and the plain route's
+    own bf16-vs-f32 gap, the repo's bf16 rule).  Then the
+    example, ``repro_torch.examples.map_to_mesh``, at its defaults on the
+    card, which must print ``(OK)``.  Not gated: the pass wall, each
+    stage's seconds (summed over the microbatches) and the SA seconds.
+    Returns the line and the bf16 pass's launch keys."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.bridge import mesh_as_arch, plan_for_graph
+    from repro_torch.core.workloads.lm_graph import lm_graph
+    from repro_torch.examples import map_to_mesh
+    from repro_torch.models import lm
+    from repro_torch.runtime.pipeline import PipelineExec
+
+    t_phase = time.perf_counter()
+    cfg = get_config(PIPELINE_ARCH)
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff,
+            cfg.vocab) != PIPELINE_DIMS:
+        raise AssertionError("PIPELINE_DIMS does not match the config")
+    B, S, n_micro = PIPELINE_BATCH, PIPELINE_SEQ, PIPELINE_MICRO
+    t0 = time.perf_counter()
+    plan = plan_for_graph(lm_graph(cfg, seq=S),
+                          mesh_as_arch(*PIPELINE_MESH), total_batch=B,
+                          sa_iters=PIPELINE_SA_ITERS)
+    sa_s = time.perf_counter() - t0
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    wrappers = kernel_wrappers()
+    keys = [("flash_attention_mha", (B // n_micro, cfg.n_heads, S, S,
+                                     cfg.hd, 1, 0, "bf16"))] \
+        * (cfg.n_layers * n_micro if S * S > FLASH_RULE else 0)
+    want = {k: sum(1 for key in keys if key[0] == k) for k in wrappers}
+    line = {"phase": "pipeline", "arch": cfg.name,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "batch": B, "seq": S, "n_micro": n_micro,
+            "mesh": list(PIPELINE_MESH), "sa_iters": PIPELINE_SA_ITERS,
+            "stages": len(plan.stages), "sa_s": sa_s,
+            "cost_delay_s": plan.cost_delay_s,
+            "cost_energy_j": plan.cost_energy_j,
+            "bf16_atol": PIPELINE_BF16_ATOL, "f32_tol": PIPELINE_F32_TOL}
+    with torch.no_grad():                 # the plain route's bf16 gap
+        plain_f32, _, _ = lm.forward(cfg.replace(compute_dtype="float32"),
+                                     params, {"tokens": tokens},
+                                     mode="train", use_kernels=False)
+    for cdt in (cfg.compute_dtype, "float32"):
+        c = cfg.replace(compute_dtype=cdt)
+        pipe = PipelineExec(c, params, plan, devices=[dev])
+        pipe.forward(tokens, n_micro=n_micro)              # warm-up
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits = pipe.forward(tokens, n_micro=n_micro)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        run = {"pass_s": wall, "stage_s": pipe.stage_times,
+               "stage_s_sum": sum(pipe.stage_times),
+               "stages_with_blocks": sum(1 for lo, hi in pipe._ranges
+                                         if hi > lo),
+               "launches": launches, "launches_want": want,
+               "logits_shape": list(logits.shape)}
+        for uk in (True, False):
+            with torch.no_grad():
+                mono, _, _ = lm.forward(c, params, {"tokens": tokens},
+                                        mode="train", use_kernels=uk)
+            d = (logits - mono).abs()
+            route = "kernels" if uk else "plain"
+            run[f"max_abs_err_vs_{route}"] = d.max().item()
+            if cdt == "float32":
+                run[f"within_vs_{route}"] = bool(torch.allclose(
+                    logits, mono, atol=PIPELINE_F32_TOL,
+                    rtol=PIPELINE_F32_TOL))
+            else:
+                # against the plain route, bf16's rule (ROADMAP queue 3,
+                # decided item 4): the larger of the gate and the plain
+                # route's own bf16-vs-f32 gap
+                gate = PIPELINE_BF16_ATOL
+                if not uk:
+                    run["plain_bf16_vs_f32_gap"] = \
+                        (mono - plain_f32).abs().max().item()
+                    gate = max(gate, run["plain_bf16_vs_f32_gap"])
+                run[f"within_vs_{route}"] = \
+                    run[f"max_abs_err_vs_{route}"] < gate
+            del mono, d
+        run["finite"] = bool(torch.isfinite(logits).all())
+        line["bf16" if cdt == "bfloat16" else "f32"] = run
+        del logits, pipe
+        torch.cuda.empty_cache()
+        if launches != want or not run["finite"] \
+                or not (run["within_vs_kernels"] and run["within_vs_plain"]):
+            raise AssertionError(f"pipeline ({cdt}): {run}")
+        if cdt == cfg.compute_dtype:
+            main_launches = launches
+    del plain_f32
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ex = map_to_mesh.main([])
+    text = buf.getvalue().splitlines()
+    line["example"] = {"stages": len(ex["plan"].stages),
+                       "max_abs_err": ex["err"], "sa_s": ex["sa_s"],
+                       "last_line": text[-1]}
+    line["launches"] = main_launches
+    line["nvidia_smi"] = nvidia_smi()
+    line["clock"] = ("pass_s and stage_s: host seconds around work that "
+                     "ends in a synchronize; sa_s: host seconds")
+    line["seconds"] = time.perf_counter() - t_phase
+    if line["stages"] != PIPELINE_STAGES or not text[-1].endswith("(OK)"):
+        raise AssertionError(f"pipeline: {line['stages']} stages, example "
+                             f"{text[-1]!r}")
+    return line, keys
+
+
+def run_dp(dev) -> dict:
+    """The ``dp`` phase: ``make_compressed_dp_step`` on a one-rank NCCL
+    mesh on the card (``make_host_mesh((1,), ("data",))``, which starts
+    its own single-process group), on the reference test's regression
+    (W (16, 4) from ``np.random.default_rng(0)``, batch 64 of fresh
+    normal rows a step, AdamW lr 0.05 without decay, warmup or clipping,
+    ``DP_STEPS`` steps).  Gates: the last loss below 0.05 x the first,
+    every loss finite; and ``compressed_grad_sync`` of a (1024, 256) leaf
+    with its error state giving the int8 mean of one rank, ``q * scale``,
+    and the residual, bit for bit.  The process group is destroyed at the
+    end."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                         init_error_state, init_opt_state)
+    from repro_torch.optim.compressed_dp import (compressed_grad_sync,
+                                                 make_compressed_dp_step)
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh((1,), ("data",))
+    try:
+        rng = np.random.default_rng(0)
+        W_true = torch.as_tensor(rng.normal(size=(16, 4)),
+                                 dtype=torch.float32, device=dev)
+
+        def loss_fn(params, batch):
+            return torch.mean((batch["x"] @ params["w"] - batch["y"]) ** 2)
+
+        ocfg = AdamWConfig(lr=DP_LR, weight_decay=0.0, warmup_steps=0,
+                           total_steps=200, min_lr_ratio=1.0, grad_clip=0.0)
+        params = {"w": torch.zeros(16, 4, device=dev)}
+        opt, err = init_opt_state(params), init_error_state(params)
+        step = make_compressed_dp_step(
+            loss_fn, lambda p, g, o: adamw_update(ocfg, p, g, o), mesh,
+            "data")
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(DP_STEPS):
+            x = torch.as_tensor(rng.normal(size=(DP_BATCH, 16)),
+                                dtype=torch.float32, device=dev)
+            params, opt, err, metrics = step(params, opt, err,
+                                             {"x": x, "y": x @ W_true})
+            losses.append(metrics["loss"].item())
+        steps_s = time.perf_counter() - t0
+        gen = torch.Generator(dev).manual_seed(3)
+        g = torch.randn(1024, 256, device=dev, generator=gen)
+        e = torch.randn(1024, 256, device=dev, generator=gen) * 0.01
+        mean, new_e = compressed_grad_sync({"w": g}, {"w": e},
+                                           mesh.get_group("data"))
+        gf = g + e
+        scale = torch.clamp(gf.abs().max() / 127.0, min=1e-12)
+        q = torch.clamp(torch.round(gf / scale), -127, 127)
+        sync_equal = bool(torch.equal(mean["w"], q * scale))
+        resid_equal = bool(torch.equal(new_e["w"], (
+            gf.double() - q.double() * scale.double()).float()))
+        line = {"phase": "dp", "backend": dist.get_backend(),
+                "world_size": dist.get_world_size(),
+                "mesh": list(mesh.shape), "steps": DP_STEPS,
+                "batch": DP_BATCH, "lr": DP_LR, "losses": losses,
+                "first": losses[0], "last": losses[-1],
+                "last_over_first": losses[-1] / losses[0],
+                "steps_s": steps_s,
+                "sync_mean_equals_q_scale": sync_equal,
+                "sync_residual_equal": resid_equal,
+                "wire_bytes": {"compressed": 4 + 2 * g.numel(),
+                               "f32": 4 * g.numel()},
+                "seconds": time.perf_counter() - t_phase}
+    finally:
+        dist.destroy_process_group()
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[-1] < 0.05 * losses[0] and sync_equal
+            and resid_equal):
+        raise AssertionError(f"dp: {line}")
+    return line
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() \
             or not all((FIXTURES / p[1]).exists() for p in PATHS):
@@ -3030,6 +3320,13 @@ def main() -> int:
         emit(profile_train_step(*model))
     del trained, model
     torch.cuda.empty_cache()
+    pipe_line, pipe_keys = run_pipeline(dev)
+    emit(pipe_line)
+    torch.cuda.empty_cache()
+    timed.update(serve_kernel_lines(dev, pipe_keys,
+                                    f"pipeline:{PIPELINE_ARCH}"))
+    runs[f"pipeline:{PIPELINE_ARCH}"] = (pipe_line["launches"], pipe_keys)
+    emit(run_dp(dev))
     emit(profile_ssd_forward(*layer))
     emit({"kernels": per_pass_summary(timed, timed_bf16, runs)
           + cost_kernel_summary(cost_timed, fused_line["launches"],

@@ -65,6 +65,10 @@ class ModelConfig:
         rows take part in the softmax."""
         return -(-self.vocab // 256) * 256
 
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
     def n_shared_attn(self) -> int:
         if self.family != "hybrid" or not self.attn_every:
             return 0

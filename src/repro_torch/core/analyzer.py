@@ -2,7 +2,8 @@
 
 Reduced copy of the scalar engine of ``src/repro/core/analyzer.py`` (the
 paper's "LP SPM Analyzer", Fig. 4): the router grid (``RouterGrid``,
-``_build_grid``, ``router_grid``, ``:94-162``), ``GroupAnalysis``, the
+``_build_grid``, ``router_grid``, ``:94-162``), ``GroupAnalysis`` (with
+``total_hops_bytes`` and ``d2d_bytes``), the
 recorded scatter-add ``Contribution`` streams and their LRU memo tables
 (``:263-390``), and ``Analyzer`` with ``analyze`` and the per-layer and
 per-dependency builders it replays (``:482-905``, ``:1393-1465``,
@@ -68,9 +69,9 @@ def _fused_replay(idx: np.ndarray, vals: np.ndarray, n: int,
     The counterpart of the reference's ``_jax_replay``.  It keeps that
     function's refusals: an index stream that is not int64 or a value
     stream that is not float64 raises ``TypeError`` rather than being
-    narrowed without a word.  The kernel adds in float64 with atomics, in
-    an order that changes from run to run, so a replay is parity-grade,
-    never bit-identical to ``np.bincount``."""
+    narrowed without a word.  The kernel adds each cell's entries in
+    float64 in stream order, so a replay gives the same bits on every run,
+    those of ``np.bincount``."""
     if idx.dtype != np.int64:
         raise TypeError(
             f"fused replay needs an int64 index stream, got {idx.dtype}")
@@ -184,6 +185,15 @@ class GroupAnalysis:
     # byte totals of the group's chosen core dataflows
     core_time_s: np.ndarray          # (n_cores,)
     glb_rw_bytes: np.ndarray         # (2,) read, write
+
+    @property
+    def total_hops_bytes(self) -> float:
+        return float(self.edge_bytes.sum())
+
+    @property
+    def d2d_bytes(self) -> float:
+        g = router_grid(self.arch)
+        return float(self.edge_bytes[g.edge_is_d2d].sum())
 
 
 @dataclass
@@ -1461,9 +1471,9 @@ class Analyzer:
 
         ``backend="fused"`` (the reference's ``"jax"``) replays on the
         analyzer's ``fused_device`` through the ``segment_replay`` kernel
-        instead (:func:`_fused_replay`).  Its atomic adds do NOT preserve
-        the add order, so it is parity-grade, never bit-identical, and
-        never the default.
+        instead (:func:`_fused_replay`).  The kernel adds each cell's
+        entries in stream order too, so its rows equal the numpy
+        backend's bit for bit; it is not the default.
         """
         if backend not in ("numpy", "fused"):
             raise ValueError(f"unknown analyze batch backend {backend!r}")
@@ -1525,8 +1535,8 @@ class Analyzer:
         fused pass: (int32 idx, float32 vals, weight_total).
 
         The stream is the same canonical gather order the exact replay
-        uses; the downcast (and the kernel's atomic add order) is why the
-        fused path is parity-grade, never bit-exact.  Cached per
+        uses; the downcast (and the fused kernel's order of summation) is
+        why the fused path is parity-grade, never bit-exact.  Cached per
         (group, mapping, pass count) so lockstep SA pays construction
         once per novel proposal.
         """

@@ -1,13 +1,13 @@
 """Layer-centric LP spatial-mapping encoding (paper Sec. IV).
 
 Reduced copy of ``src/repro/core/encoding.py``: ``split_points`` (``:34``),
-``MS`` (with its cached hash and ``geo``) and ``LMS`` (with ``cores_used``,
-``cache_key`` and ``validate``), ``Region`` (``:283``),
-``parse_regions_arrays`` (``:310``), ``parse_regions`` (``:335``) and
-``ifmap_region`` (``:343``), the search's generators ``_divisors_upto``,
-``factor_parts``, ``default_fd`` and ``random_lms`` (``:371-466``), the
-space-size bounds (``:470-495``), the batched engine's packed LMS batches
-(``LMSBatch``, ``RoutingTables``, ``pack_lms_batch``,
+``MS`` (with its cached hash, ``geo``, ``part_index`` and ``core_of``) and
+``LMS`` (with ``cores_used``, ``cache_key`` and ``validate``), ``Region`` (with
+``overlap``, ``:283``), ``parse_regions_arrays`` (``:310``), ``parse_regions``
+(``:335``) and ``ifmap_region`` (``:343``), the search's generators
+``_divisors_upto``, ``factor_parts``, ``default_fd`` and ``random_lms``
+(``:371-466``), the space-size bounds (``:470-495``), the batched engine's
+packed LMS batches (``LMSBatch``, ``RoutingTables``, ``pack_lms_batch``,
 ``unpack_lms_batch``, ``:145-280``), plus the ``Mapping`` alias of
 ``src/repro/core/sa.py``.
 
@@ -80,6 +80,13 @@ class MS:
 
     def __hash__(self) -> int:
         return self._hash
+
+    def part_index(self, h: int, w: int, b: int, k: int) -> int:
+        ph, pw, pb, pk = self.part
+        return ((h * pw + w) * pb + b) * pk + k
+
+    def core_of(self, h: int, w: int, b: int, k: int) -> int:
+        return self.cg[self.part_index(h, w, b, k)]
 
 
 @dataclass(frozen=True)
@@ -291,6 +298,15 @@ class Region:
     def elems(self) -> int:
         return ((self.h1 - self.h0) * (self.w1 - self.w0)
                 * (self.b1 - self.b0) * (self.k1 - self.k0))
+
+    def overlap(self, other: "Region") -> int:
+        dh = min(self.h1, other.h1) - max(self.h0, other.h0)
+        dw = min(self.w1, other.w1) - max(self.w0, other.w0)
+        db = min(self.b1, other.b1) - max(self.b0, other.b0)
+        dk = min(self.k1, other.k1) - max(self.k0, other.k0)
+        if dh <= 0 or dw <= 0 or db <= 0 or dk <= 0:
+            return 0
+        return dh * dw * db * dk
 
 
 @lru_cache(maxsize=65536)

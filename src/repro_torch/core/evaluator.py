@@ -364,7 +364,7 @@ class Evaluator:
         Returns ``(GroupEval, None)`` tuples: the fused path never
         materializes per-row :class:`GroupAnalysis` views.  Results carry
         a ~1e-4 relative envelope vs the exact engine (float32 math,
-        atomic adds in no fixed order) — winners must be re-scored exactly.
+        summed in another order) — winners must be re-scored exactly.
         """
         if not requests:
             return []

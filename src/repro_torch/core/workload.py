@@ -2,21 +2,22 @@
 
 Reduced copy of ``src/repro/core/workload.py``: ``Layer`` (with the
 per-sample sizes the cost model reads and the expected sizes the graph
-partition and T-Map read, ``:131-143``), ``Graph`` (with ``edge_mult`` and
-``is_scaled``), ``LayerGroup``, ``dense_twin`` (``:250``) and
-``edge_volume`` (``:285``), with the same class names, field order and
-defaults.  Expected-traffic scales of 1.0 leave every size the exact int
-of the dense model, as in the reference.  The
-checkpoint header's graph fingerprint hashes ``repr(Layer)``
-(:func:`repro_torch.core.explore.graph_fingerprint`), so the dataclass
-fields, their order, defaults and ``repr`` flags must stay as they are in
-the reference for a port-built graph to match a reference checkpoint.
+partition and T-Map read, ``:131-143``), ``Graph`` (with ``edge_mult``,
+``is_scaled``, the totals, ``output_layers`` and ``subgraph``),
+``LayerGroup``, ``dense_twin`` (``:250``) and ``edge_volume`` (``:285``),
+with the same class names, field order and defaults.  Expected-traffic
+scales of 1.0 leave every size the exact int of the dense model, as in the
+reference.  The checkpoint header's graph fingerprint hashes
+``repr(Layer)`` (:func:`repro_torch.core.explore.graph_fingerprint`), so
+the dataclass fields, their order, defaults and ``repr`` flags must stay as
+they are in the reference for a port-built graph to match a reference
+checkpoint.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 LayerKind = str  # conv | fc | pool | eltwise | matmul | depthwise
 
@@ -172,6 +173,19 @@ class Graph:
         """Expected-traffic multiplicity of one edge (1.0 == dense)."""
         return self.edge_mults.get((src, dst), 1.0)
 
+    def output_layers(self) -> List[str]:
+        return [n for n in self.layers if not self.succs(n)]
+
+    def total_macs(self, batch: int = 1) -> int:
+        return sum(l.macs(batch) for l in self.layers.values())
+
+    def total_expected_macs(self, batch: int = 1) -> float:
+        """Expected MACs per ``batch`` samples (== total_macs when dense)."""
+        return sum(l.expected_macs(batch) for l in self.layers.values())
+
+    def total_weight_bytes(self) -> int:
+        return sum(l.weight_bytes() for l in self.layers.values())
+
     @property
     def is_scaled(self) -> bool:
         """True when any expected-traffic scale or multiplicity != 1.0."""
@@ -194,6 +208,19 @@ class Graph:
         if len(out) != len(self.layers):
             raise ValueError(f"cycle in graph {self.name}")
         return out
+
+    def subgraph(self, names: Sequence[str],
+                 name: Optional[str] = None) -> "Graph":
+        keep = set(names)
+        g = Graph(name or f"{self.name}[{len(keep)}]")
+        g.layers = {n: self.layers[n] for n in names}
+        g.edges = [(s, d) for s, d in self.edges if s in keep and d in keep]
+        g.edge_mults = {(s, d): m for (s, d), m in self.edge_mults.items()
+                        if s in keep and d in keep}
+        g.input_layers = [n for n in names
+                          if not any(d == n and s in keep
+                                     for s, d in self.edges)]
+        return g
 
     def validate(self) -> None:
         self.topo_order()

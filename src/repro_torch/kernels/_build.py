@@ -53,7 +53,7 @@ SIGNATURES = {
     "mamba_ssd": {"ssd_chunk_dual_f32": _SSD, "ssd_chunk_dual_bf16": _SSD},
     "fused_eval": {"fused_eval_f32": [_P] * 3 + [_L, _I, _I] + [_P] * 6
                    + [_I] * 3 + [_P] * 3 + [_I, _P],
-                   "segment_replay_f64": [_P, _P, _L, _P, _L, _I, _P]},
+                   "segment_replay_f64": [_P, _P, _L, _P, _L, _P, _I, _P]},
     "ssd_state": {"ssd_state_walk_f32": [_P] * 7 + [_I] * 8 + [_P],
                   "ssd_state_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
                   "ssd_state_out_f32": [_P] * 5 + [_I] * 9 + [_P]},
@@ -69,7 +69,8 @@ ROUTES = {
 }
 # argument types of the functions that report a count (an int)
 QUERIES = {
-    "fused_eval": {"fused_eval_max_cells": [_I]},
+    "fused_eval": {"fused_eval_max_cells": [_I],
+                   "replay_cells_per_block": []},
 }
 # the suffix of a launch function's name, by operand dtype name
 DTYPE_SUFFIX = {"float32": "f32", "bfloat16": "bf16"}

@@ -71,9 +71,34 @@
 // run to run they agree to the bit (the order depends only on the row's
 // stream, buf_len and the card's shared memory).
 //
-// segment_replay zeroes its output (cudaMemsetAsync) and scatters the
-// stream into it with float64 atomicAdd, a grid-stride loop; its adds land
-// in an order that changes from run to run (it is on no search path).
+// segment_replay sums each cell's entries in stream order, so the same
+// stream gives the same bits on every run, equal to a serial scatter-add
+// (np.bincount's order).  The cells are cut into ranges of kReplayCells
+// cells, one block a range.  A first launch (replay_ranges) finds, for
+// every range, the first and last stream position holding one of its
+// cells: a warp's 32 consecutive entries that fall in one range give the
+// group's first and last lane at once (__match_any_sync), and its first
+// lane takes an atomic max of -first and of last (integer maxima: the
+// result does not depend on their order).  A second launch (replay_cells)
+// gives each block its range's cells in shared memory, zeroed, and walks
+// only [first, last] of the stream in tiles of kReplayTile entries, four
+// consecutive entries a thread: each thread keeps the entries that fall
+// in the block's range, a block-wide scan of the counts packs them into a
+// list in stream order, and warp 0 adds the list 32 entries at a time: the
+// first lane of a cell's entries among them takes the cell and adds the
+// others' values in lane order, shuffled to it.  The analyzer's streams
+// run row after row, so a range's entries sit in one stretch and a block
+// reads about its share of the stream (a row's cells come in no order, so
+// a range reads its whole row); a stream in any other order is replayed
+// the same, reading more.  What bounds it is not the bytes but the order:
+// a cell's adds are one dependent chain, and warp 0 takes a list's chunks
+// one after another, each as many rounds as its most entries of one cell.
+// So the ranges are small, many blocks re-reading the rows they share:
+// of 32 to 2,048 cells a block, 64 took the least time summed over
+// chip_smoke.py's replay lines (benchmarks/port_kernel_variants.py; a
+// variant whose 16 warps each took the cells of one residue read slower:
+// PERF.md).  An index outside [0, n_cells) is skipped.  The adds are
+// float64, as the interface's types ask.
 //
 // The spans, the D2D mask and the constants (bandwidths, GLB capacity,
 // unit energies) are fixed per evaluator: the caller uploads them once.
@@ -106,20 +131,127 @@ enum {
 constexpr int kThreads = 512;    // fused_eval's block: one row
 constexpr int kUnroll = 4;       // stream entries a lane has in flight
 constexpr int kWarps = kThreads / 32;
-constexpr int kScatterThreads = 256;
 constexpr int kDefaultSmem = 48 * 1024;   // dynamic smem without opt-in
 constexpr int kMaxDevices = 64;
 
-__global__ void scatter_f64(const long long* __restrict__ idx,
-                            const double* __restrict__ vals, long long n,
-                            double* __restrict__ out, long long n_cells) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const long long c = idx[i];
-    if (c >= 0 && c < n_cells) atomicAdd(out + c, vals[i]);
+constexpr int kReplayThreads = 512;
+constexpr int kReplayPer = 4;                 // consecutive entries a thread
+constexpr int kReplayTile = kReplayThreads * kReplayPer;
+constexpr int kReplayWarps = kReplayThreads / 32;
+constexpr int kReplayCells = 64;              // cells a block owns
+
+// ranges[2k] = max over range k's entries of -position, ranges[2k+1] = max
+// of position (both start below any of them: cudaMemsetAsync of 0x80
+// bytes, -2,139,062,144; a range with no entry keeps it).
+__global__ void replay_ranges(const long long* __restrict__ idx, int n,
+                              long long n_cells, int* __restrict__ ranges) {
+  // 64-bit: the last block's threads run past n, which may be INT_MAX
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const long long base = i - lane;
+  long long c = i < n ? __ldg(idx + i) : -1;
+  const int k = (c >= 0 && c < n_cells) ? static_cast<int>(c / kReplayCells)
+                                        : -1 - lane;
+  const unsigned peers = __match_any_sync(0xffffffffu, k);
+  if (k >= 0 && lane == __ffs(peers) - 1) {   // positions < n fit an int
+    atomicMax(ranges + 2 * k, -static_cast<int>(base + lane));
+    atomicMax(ranges + 2 * k + 1, static_cast<int>(base + 31 - __clz(peers)));
   }
+}
+
+__global__ void __launch_bounds__(kReplayThreads)
+replay_cells(const long long* __restrict__ idx,
+             const double* __restrict__ vals, long long n_cells,
+             const int* __restrict__ ranges, double* __restrict__ out) {
+  __shared__ double cells[kReplayCells];
+  __shared__ int list_c[kReplayTile];
+  __shared__ double list_v[kReplayTile];
+  __shared__ int warp_sum[kReplayWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long c0 = static_cast<long long>(blockIdx.x) * kReplayCells;
+  const long long left = n_cells - c0;
+  const int nc = left < kReplayCells ? static_cast<int>(left) : kReplayCells;
+  for (int j = tid; j < nc; j += kReplayThreads) cells[j] = 0.0;
+  const int lo = -ranges[2 * blockIdx.x];
+  const int hi = ranges[2 * blockIdx.x + 1];     // < 0: no entry
+  __syncthreads();
+  for (long long base = lo; hi >= 0 && base <= hi; base += kReplayTile) {
+    // this thread's four consecutive entries; keep those of this range
+    int mine_c[kReplayPer];
+    double mine_v[kReplayPer];
+    int count = 0;
+#pragma unroll
+    for (int u = 0; u < kReplayPer; ++u) {
+      const long long p = base + tid * kReplayPer + u;
+      mine_c[u] = -1;
+      mine_v[u] = 0.0;
+      if (p <= hi) {
+        const long long c = __ldg(idx + p) - c0;
+        mine_v[u] = __ldg(vals + p);     // beside idx: one latency, not two
+        if (c >= 0 && c < nc) {
+          mine_c[u] = static_cast<int>(c);
+          ++count;
+        }
+      }
+    }
+    // the block's exclusive scan of the counts: the list in stream order
+    int incl = count;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int w = lane < kReplayWarps ? warp_sum[lane] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += t;
+      }
+      if (lane < kReplayWarps) warp_sum[lane] = w;   // inclusive
+    }
+    __syncthreads();
+    const int m = warp_sum[kReplayWarps - 1];
+    int at = incl - count + (warp > 0 ? warp_sum[warp - 1] : 0);
+#pragma unroll
+    for (int u = 0; u < kReplayPer; ++u)
+      if (mine_c[u] >= 0) {
+        list_c[at] = mine_c[u];
+        list_v[at] = mine_v[u];
+        ++at;
+      }
+    __syncthreads();
+    // warp 0 adds the list, 32 entries at a time: the first lane of each
+    // cell's entries among them takes the cell, adds its own value and
+    // then the others' in lane order (shuffled to it), and stores the cell
+    if (warp == 0) {
+      for (int s = 0; s < m; s += 32) {
+        const int j = s + lane;
+        const int c = j < m ? list_c[j] : -1 - lane;
+        const double v = j < m ? list_v[j] : 0.0;
+        const unsigned peers = __match_any_sync(0xffffffffu, c);
+        const bool first = c >= 0 && lane == __ffs(peers) - 1;
+        unsigned rest = first ? peers & (peers - 1u) : 0u;
+        double acc = first ? cells[c] + v : 0.0;
+        const int rounds = __reduce_max_sync(0xffffffffu, __popc(rest));
+        for (int r = 0; r < rounds; ++r) {
+          const int src = rest ? __ffs(rest) - 1 : lane;
+          const double t = __shfl_sync(0xffffffffu, v, src);
+          if (rest) {
+            acc += t;
+            rest &= rest - 1u;
+          }
+        }
+        if (first) cells[c] = acc;
+        __syncwarp();   // the store seen by the lane that takes c next
+      }
+    }
+    __syncthreads();
+  }
+  for (int j = tid; j < nc; j += kReplayThreads) out[c0 + j] = cells[j];
 }
 
 __device__ __forceinline__ bool is_max(int a) { return a < S_NOC; }
@@ -369,12 +501,6 @@ fused_rows(const int* __restrict__ off, const int* __restrict__ idx,
   bottleneck[b] = bi;
 }
 
-int scatter_blocks(long long n) {
-  long long blocks = (n + kScatterThreads - 1) / kScatterThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;   // grid-stride beyond that
-  return blocks < 1 ? 1 : static_cast<int>(blocks);
-}
-
 // the dynamic shared memory fused_rows may take on each device so far
 int g_smem_set[kMaxDevices] = {0};
 // fused_eval_max_cells of each device, once known (0: not yet)
@@ -466,22 +592,38 @@ int fused_eval_f32(const void* off, const void* idx, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (n_cells,) float64 = segment_sum(vals, idx, n_cells).
+// out (n_cells,) float64 = segment_sum(vals, idx, n_cells), each cell's
+// entries added in stream order.  `ranges` is scratch of 2 * ceil(n_cells /
+// replay_cells_per_block()) ints on the card; n < 2^31 entries.
 int segment_replay_f64(const void* idx, const void* vals, long long n,
-                       void* out, long long n_cells, int device,
-                       void* stream) {
+                       void* out, long long n_cells, void* ranges,
+                       int device, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || n_cells < 1 || ranges == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n_cells + kReplayCells - 1) / kReplayCells;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(out, 0, n_cells * sizeof(double), st);
+  err = cudaMemsetAsync(ranges, 0x80, 2 * blocks * sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const long long* iidx = static_cast<const long long*>(idx);
+  int* rg = static_cast<int*>(ranges);
   if (n > 0) {
-    scatter_f64<<<scatter_blocks(n), kScatterThreads, 0, st>>>(
-        static_cast<const long long*>(idx), static_cast<const double*>(vals),
-        n, static_cast<double*>(out), n_cells);
+    const unsigned grid = static_cast<unsigned>((n + 255) / 256);
+    replay_ranges<<<grid, 256, 0, st>>>(iidx, static_cast<int>(n), n_cells,
+                                        rg);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  replay_cells<<<static_cast<int>(blocks), kReplayThreads, 0, st>>>(
+      iidx, static_cast<const double*>(vals), n_cells, rg,
+      static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+// The cells one block of segment_replay owns.
+int replay_cells_per_block() { return kReplayCells; }
 
 const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

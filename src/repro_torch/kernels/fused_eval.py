@@ -14,10 +14,13 @@ adds the parts in order and finishes the rows.
 The stream is not padded: row ``b``'s entries are ``idx[off[b]:off[b+1]]``
 and the same slice of ``vals``, each index a cell of that row, in ``[0,
 buf_len)``.  ``segment_replay`` is the port of ``_jax_replay``
-(``src/repro/core/analyzer.py:60-92``): a float64 scatter-add of an int64
-index stream.  Both launch their kernel for tensors on the card and run
-the plain versions of :mod:`.ref` for tensors on the CPU; a CUDA tensor
-never falls back, and what the kernel does not take raises.
+(``src/repro/core/analyzer.py:60-92``): a float64 scatter-add of an int64 index
+stream, each cell's entries added in stream order (two launches: each range of
+cells finds its stretch of the stream, then one block a range sums its cells in
+shared memory), so the same stream gives the same bits on every run, those of a
+serial scatter-add.  Both launch their kernel for tensors on the card and run
+the plain versions of :mod:`.ref` for tensors on the CPU; a CUDA tensor never
+falls back, and what the kernel does not take raises.
 ``fused_eval.launches`` and ``segment_replay.launches`` count the calls
 that launch a kernel (a call on rows too wide for one block launches
 ``fused_eval``'s twice); a :mod:`repro_torch.obs` collector harvests both under those
@@ -330,8 +333,8 @@ def evaluate_rows(plan: FusedEvalPlan, x: FusedInputs) -> FusedRows:
 def segment_replay(idx: torch.Tensor, vals: torch.Tensor,
                    n: int) -> torch.Tensor:
     """``segment_sum(vals, idx, n)`` of an int64 index stream and a float64
-    value stream, float64 (atomic adds: the order, and so the last bits,
-    change from run to run)."""
+    value stream, float64, each cell's entries added in stream order (the
+    same bits on every run, a serial scatter-add's)."""
     if idx.device.type == "cpu" and vals.device.type == "cpu":
         return segment_replay_ref(idx, vals, n)
     if idx.device.type != "cuda" or vals.device != idx.device:
@@ -344,12 +347,18 @@ def segment_replay(idx: torch.Tensor, vals: torch.Tensor,
             or not (idx.is_contiguous() and vals.is_contiguous()) or n < 1:
         raise ValueError("segment_replay: idx and vals must be contiguous "
                          "1-D streams of one length, n >= 1")
-    out = torch.empty(n, dtype=torch.float64, device=idx.device)
+    if idx.numel() > _INT_MAX:
+        raise ValueError(f"segment_replay: a stream of {idx.numel()} "
+                         f"entries, above {_INT_MAX}")
     lib = _build.load("fused_eval")
+    out = torch.empty(n, dtype=torch.float64, device=idx.device)
+    ranges = torch.empty(2 * -(-n // lib.replay_cells_per_block()),
+                         dtype=torch.int32, device=idx.device)
     stream = torch.cuda.current_stream(idx.device).cuda_stream
     code = lib.segment_replay_f64(idx.data_ptr(), vals.data_ptr(),
                                   idx.numel(), out.data_ptr(), n,
-                                  idx.device.index or 0, stream)
+                                  ranges.data_ptr(), idx.device.index or 0,
+                                  stream)
     _build.check(lib, "segment_replay", code)
     segment_replay.launches += 1
     return out

@@ -6,34 +6,33 @@ The file imports no JAX, so it runs on the card's machine:
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances are those of ``tests/test_kernels.py``: atol 1e-3 / rtol 1e-4
-for the f32 GEMM, 2e-5 for f32 attention, 1e-4 for the SSD chunk kernel
-and 2e-4 for the chunked SSD; for bf16 operands, GEMM atol 0.5 / rtol
-5e-2 and attention 2e-2 against the plain version on the upcast inputs
-(the SSD kernel returns f32 and keeps 1e-4).  TF32 is off for the plain
-versions.  The three kernels compute in 3xTF32 on the tensor cores; each
-of their tile or head-dim configurations and copy widths is driven here,
-for f32 and for bf16.  So do the SSD state pass's walk and outputs, whose
-product C . h runs in 3xTF32 too.  The cost model's two kernels: ``fused_eval``
-within rel 1e-5 of its plain version and within the reference's parity
-envelope (rel 1e-4, equal bottlenecks) of the exact numpy engine, and
+for the f32 GEMM, 2e-5 for f32 attention, 1e-4 for the SSD chunk kernel and
+2e-4 for the chunked SSD; for bf16 operands, GEMM atol 0.5 / rtol 5e-2 and
+attention 2e-2 against the plain version on the upcast inputs (the SSD
+kernel returns f32 and keeps 1e-4).  TF32 is off for the plain versions.
+The three kernels compute in 3xTF32 on the tensor cores; each of their tile
+or head-dim configurations and copy widths is driven here, for f32 and for
+bf16.  So do the SSD state pass's walk and outputs, whose product C . h
+runs in 3xTF32 too.  The cost model's two kernels: ``fused_eval`` within
+rel 1e-5 of its plain version and within the reference's parity envelope
+(rel 1e-4, equal bottlenecks) of the exact numpy engine, and
 bit-reproducible launch after launch (its rows sum in a fixed order; the
-supervised fused sweep, with a killed child and with a duplicate
-dispatch, equals a clean fused run bit for bit);
-``segment_replay`` within rel 1e-12 of ``np.bincount`` (float64 atomic
-adds, in an order that changes from run to run).  The model stack's: the
-SSD state pass within 1e-4 of its plain version on each route (the walk,
-and the split's two kernels), the model's chunked SSD within 2e-4 (at N =
-128 too), flash with ``q_offset`` and with its statistics at the flash
-tolerances, ``cache_stack`` attention within 1e-4 (below), and the
-reduced models' kernel route against ``use_kernels=False`` (below), the
-MoE model's bf16 leg with its expert choice held fixed, the
-encoder-decoder's three attention modes (flash at whisper-small's shapes
-in bf16, and a reduced whisper through the kernels), and the trace replay
-over the model executor on the card.  Every wrapper
-refuses an input that requires grad (the kernels have no backward); the
-training path (below) takes the plain routes on the card, launches no
-kernel, and its async checkpoint holds the state of the step it saved.
-"""
+supervised fused sweep, with a killed child and with a duplicate dispatch,
+equals a clean fused run bit for bit); ``segment_replay`` equal to
+``np.bincount`` bit for bit (each cell's float64 adds in stream order) and
+bit-reproducible launch after launch.  The model stack's: the SSD state
+pass within 1e-4 of its plain version on each route (the walk, and the
+split's two kernels), the model's chunked SSD within 2e-4 (at N = 128 too),
+flash with ``q_offset`` and with its statistics at the flash tolerances,
+``cache_stack`` attention within 1e-4 (below), and the reduced models'
+kernel route against ``use_kernels=False`` (below), the MoE model's bf16
+leg with its expert choice held fixed, the encoder-decoder's three
+attention modes (flash at whisper-small's shapes in bf16, and a reduced
+whisper through the kernels), and the trace replay over the model executor
+on the card.  Every wrapper refuses an input that requires grad (the
+kernels have no backward); the training path (below) takes the plain routes
+on the card, launches no kernel, and its async checkpoint holds the state
+of the step it saved. """
 
 import numpy as np
 import pytest
@@ -717,9 +716,10 @@ def test_evaluate_rows_is_one_kernel_and_one_copy_each_way(cuda, tmp_path):
 @pytest.mark.parametrize("n,cells", [(500, 64), (1 << 20, 4096),
                                      (3_000_000, 1)])
 def test_segment_replay_kernel_vs_bincount(cuda, n, cells):
-    """float64 atomic adds against np.bincount: rel 1e-12 (the order of
-    the adds changes from run to run; float64 keeps it far inside the
-    reference's float32 envelope)."""
+    """Each cell's float64 entries added in stream order: equal to
+    np.bincount (a serial scatter-add) bit for bit, on streams in random
+    order, where every block's stretch is the whole stream, and on one
+    cell."""
     from repro_torch.kernels.fused_eval import segment_replay
     rng = np.random.default_rng(n)
     idx = rng.integers(0, cells, size=n)
@@ -730,11 +730,32 @@ def test_segment_replay_kernel_vs_bincount(cuda, n, cells):
     torch.cuda.synchronize()
     assert segment_replay.launches == n0 + 1
     want = np.bincount(idx, weights=vals, minlength=cells)
-    np.testing.assert_allclose(out.cpu().numpy(), want, rtol=1e-12,
-                               atol=1e-9)
+    assert np.array_equal(out.cpu().numpy(), want)
     with pytest.raises(TypeError, match="int64 and float64"):
         segment_replay(torch.from_numpy(idx.astype(np.int32)).to(cuda),
                        torch.from_numpy(vals).to(cuda), cells)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [64, 200])
+def test_segment_replay_is_bit_reproducible(cuda, B):
+    """The analyzer's replay stream of ``B`` requests (at the sweep's
+    shapes; 200 rows: more blocks than SMs) through ``segment_replay`` 200
+    times gives one distinct result, equal to ``np.bincount``'s bits, and
+    ``analyze_requests(backend="fused")`` equals the numpy backend's rows
+    bit for bit."""
+    from repro_torch.kernels.fused_eval import segment_replay
+    ev, reqs = _sweep_batch(B)
+    idx, vals, _ = ev.analyzer._request_streams(reqs, 8)
+    n_cells = B * ev.analyzer._buf_len
+    ti, tv = torch.from_numpy(idx).to(cuda), torch.from_numpy(vals).to(cuda)
+    outs = torch.stack([segment_replay(ti, tv, n_cells) for _ in range(200)])
+    assert torch.unique(outs, dim=0).shape[0] == 1
+    assert np.array_equal(outs[0].cpu().numpy(),
+                          np.bincount(idx, weights=vals, minlength=n_cells))
+    exact = ev.analyzer.analyze_requests(reqs, 8)
+    fused = ev.analyzer.analyze_requests(reqs, 8, backend="fused")
+    assert np.array_equal(fused.buf, exact.buf)
 
 
 @pytest.mark.gpu
@@ -1513,3 +1534,88 @@ def test_fused_supervised_sweep_equals_the_clean_fused_run(cuda, fused_sweep,
         <= c.get("fused_eval.launches", 0) <= iters * c["engine.tasks"]
         for c in snaps), snaps
     assert sum(c.get("group_eval_fused.misses", 0) for c in snaps) > 0
+
+
+# ---------------------------------------------------------------------------
+# plan execution and the data-parallel collective
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_pipeline_on_the_card_equals_monolithic(cuda):
+    """``PipelineExec`` on the card (``devices=None`` is every CUDA
+    device; the forward runs on ``[cuda]``) of a 4-layer
+    smollm-135m-width plan at seq 1024, 2 microbatches, f32 compute:
+    building it leaves the caller's params where they were, each block's
+    attention takes the flash kernel once a microbatch (8 launches), and
+    the logits are within the reference test's atol = rtol = 2e-3 of the
+    monolithic forward through the kernels and through the plain route."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.bridge import mesh_as_arch, plan_for_graph
+    from repro_torch.core.workloads.lm_graph import lm_graph
+    from repro_torch.models import lm
+    from repro_torch.runtime.pipeline import PipelineExec
+    cfg = get_config("smollm-135m").replace(n_layers=4, vocab=2048,
+                                            compute_dtype="float32")
+    plan = plan_for_graph(lm_graph(cfg, seq=1024), mesh_as_arch(2, 2, 1), 2,
+                          sa_iters=100)
+    params = lm.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                            device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 1024), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    before = [p.device for p in params.parameters()]
+    assert PipelineExec(cfg, params, plan).devices == [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    pipe = PipelineExec(cfg, params, plan, devices=[cuda])
+    assert [p.device for p in params.parameters()] == before
+    n0 = flash_attention_mha.launches
+    got = pipe.forward(toks, n_micro=2)
+    assert flash_attention_mha.launches - n0 == cfg.n_layers * 2
+    assert len(pipe.stage_times) == len(plan.stages)
+    with torch.no_grad():
+        for uk in (True, False):
+            want, _, _ = lm.forward(cfg, params, {"tokens": toks},
+                                    mode="train", use_kernels=uk)
+            torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.gpu
+def test_compressed_dp_step_on_one_nccl_rank(cuda):
+    """``make_compressed_dp_step`` on a one-rank NCCL mesh on the card (the
+    mesh starts its own group): the reference test's regression converges
+    (last loss < 0.05 x the first), and one rank's synced mean is its int8
+    ``q * scale``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                         init_error_state, init_opt_state)
+    from repro_torch.optim.compressed_dp import (compressed_grad_sync,
+                                                 make_compressed_dp_step)
+    mesh = make_host_mesh((1,), ("data",))
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        rng = np.random.default_rng(0)
+        W = torch.as_tensor(rng.normal(size=(16, 4)), dtype=torch.float32,
+                            device=cuda)
+        ocfg = AdamWConfig(lr=0.05, weight_decay=0.0, warmup_steps=0,
+                           total_steps=200, min_lr_ratio=1.0, grad_clip=0.0)
+        step = make_compressed_dp_step(
+            lambda p, b: torch.mean((b["x"] @ p["w"] - b["y"]) ** 2),
+            lambda p, g, o: adamw_update(ocfg, p, g, o), mesh, "data")
+        params = {"w": torch.zeros(16, 4, device=cuda)}
+        opt, err = init_opt_state(params), init_error_state(params)
+        losses = []
+        for _ in range(60):
+            x = torch.as_tensor(rng.normal(size=(64, 16)),
+                                dtype=torch.float32, device=cuda)
+            params, opt, err, m = step(params, opt, err, {"x": x,
+                                                          "y": x @ W})
+            losses.append(m["loss"].item())
+        assert losses[-1] < 0.05 * losses[0]
+        g = torch.randn(333, device=cuda)
+        mean, _ = compressed_grad_sync({"g": g}, {"g": torch.zeros_like(g)},
+                                       mesh.get_group("data"))
+        scale = g.abs().max() / 127.0
+        assert torch.equal(mean["g"], torch.round(g / scale) * scale)
+    finally:
+        dist.destroy_process_group()

@@ -197,3 +197,32 @@ def test_the_walks_cover_the_sweep_tooling_and_obs_and_dist_load_no_torch():
                        text=True, timeout=120, env=env, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
     assert json.loads(r.stdout.splitlines()[-1]) == []
+
+
+def test_the_walks_cover_plan_execution_and_the_collective():
+    """The ``ast`` walk and the clean-interpreter import see the pipelined
+    executor, the mesh, the compressed DP sync and the example that drives
+    them; importing them starts no process group, and the bridge with
+    ``plan_for_graph`` loads no torch."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    for rel in ("runtime/pipeline.py", "launch/mesh.py",
+                "optim/compressed_dp.py", "examples/map_to_mesh.py",
+                "core/bridge.py"):
+        assert rel in files, rel
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'src')!r})\n"
+        "from repro_torch.core.bridge import mesh_as_arch, plan_for_graph\n"
+        "no_torch = sorted(n for n in sys.modules"
+        " if n.split('.')[0] == 'torch')\n"
+        "import repro_torch.runtime.pipeline, repro_torch.launch.mesh\n"
+        "import repro_torch.optim.compressed_dp\n"
+        "import repro_torch.examples.map_to_mesh\n"
+        "import torch.distributed as dist\n"
+        "print(json.dumps([no_torch, dist.is_initialized()]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.splitlines()[-1]) == [[], False]
