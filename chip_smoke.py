@@ -238,6 +238,30 @@ phase prints one JSON line:
    starts its own group), the reference's 60-step regression (the last
    loss below 0.05 x the first), and ``compressed_grad_sync`` of one rank
    equal to its int8 ``q * scale`` and residual bit for bit.
+   Then ``cells``: the cell bundles of ``repro_torch.launch.steps`` on a
+   one-rank NCCL mesh (``make_host_mesh((1, 1))``, its own group) against
+   the eager route, at full width and depth from seeded weights:
+   ``smollm-135m`` and ``mamba2-370m`` each through ``make_prefill_bundle``
+   (4 x 4096 tokens, bf16 weights) and 16 greedy ``make_decode_bundle``
+   steps (the eager route's tokens fed), each route run twice and the
+   second counted, launch counts set to 0 just before: the bundles'
+   launches must equal the eager route's and the plan's (30 flash;
+   48 SSD chunk and 48 of the state pass's route), and every step's
+   logits be within 2e-2 of the largest eager logit (bit-equal is what a
+   rank of one gives, and the line says whether it held; the greedy
+   tokens must then be equal too); then ``smollm-135m`` trained 12 steps
+   (4 x 1024, f32 parameters, bf16 compute, remat) by ``make_train_step``
+   and by ``make_train_bundle`` with ``zero1`` on and off from the same
+   weights on the same batches: every loss within rel 1e-5 of the eager
+   step's, and no kernel launched.  Not gated: prefill seconds, decode ms
+   a step and train step ms of both routes, peak memory.  Kernel lines at
+   the prefills' launch shapes (``main_path: "cells:<arch>"``).  Then
+   ``dryrun``: ``python -m repro_torch.launch.dryrun`` in a subprocess on
+   the host's CPU (started before ``cells``, read after it, killed past
+   ``DRYRUN_TIMEOUT``): ``smollm-135m``'s three cells and
+   ``mamba2-370m``'s ``long_500k`` on the single-pod mesh (a fake
+   256-rank group), each ``ok`` with its three roofline terms at the H100
+   rates, bottleneck and memory; a failed cell fails the run.
    Then ``profile`` (not gated): the timed ``ops.ssd_forward`` call at the
    ``mamba2-370m`` SSD layer's shape once more, under ``torch.profiler``:
    the device time of its kernels, the device's idle share over its
@@ -249,8 +273,9 @@ phase prints one JSON line:
    forwards, its numbers summed over one pass of each path, of each realized
    loop candidate (``loop#1``, ``loop#2``), of each serve phase (``serve``,
    ``serve:mamba2-370m``, ``serve:whisper-small``, ``serve_trace``) and of each
-   train phase's eval forward (``train:smollm-135m``, ``train:mamba2-370m``)
-   and of the pipelined forward (``pipeline:smollm-135m``), and each one's
+   train phase's eval forward (``train:smollm-135m``, ``train:mamba2-370m``),
+   of the pipelined forward (``pipeline:smollm-135m``) and of the cell
+   bundles' prefills (``cells:smollm-135m``, ``cells:mamba2-370m``), and each one's
    share apart (both bounds, ``arith``); under ``bf16`` the realization
    launches' sums with bf16 operands.  The cost model's two kernels carry their
    launches in the ``fused`` phase and in the fused sweep's shard children
@@ -653,6 +678,21 @@ PIPELINE_F32_TOL = 2e-3
 DP_STEPS = 60
 DP_BATCH = 64
 DP_LR = 0.05
+# the cells phase: the cell bundles (launch.steps) on a one-rank NCCL
+# mesh against the eager route, full width and depth, seeded weights
+CELLS_MESH = (1, 1)
+CELLS_SERVE = ("smollm-135m", "mamba2-370m")
+CELLS_PREFILL = (4096, 4)              # (prompt length, batch)
+CELLS_DECODE_STEPS = 16
+CELLS_TRAIN_ARCH = "smollm-135m"
+CELLS_TRAIN = (1024, 4)                # (seq, batch)
+CELLS_TRAIN_STEPS = 12
+CELLS_TRAIN_RTOL = 1e-5
+# the dryrun phase: launch.dryrun on the host's CPU in a subprocess (a
+# fake 256-rank group), started before the cells phase and read after it
+DRYRUN_RUNS = (("smollm-135m", "train_4k,prefill_32k,decode_32k"),
+               ("mamba2-370m", "long_500k"))
+DRYRUN_TIMEOUT = 420
 
 
 def emit(obj) -> None:
@@ -3236,6 +3276,295 @@ def run_dp(dev) -> dict:
     return line
 
 
+def start_dryrun():
+    """Start ``python -m repro_torch.launch.dryrun`` for ``DRYRUN_RUNS``
+    on the single-pod mesh in a subprocess (the host's CPU, one thread),
+    into a fresh JSON under ``results/``.  Returns (process, JSON path,
+    start time)."""
+    out = REPORTS / "dryrun_smoke.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    code = "\n".join([
+        "import sys",
+        "from repro_torch.launch import dryrun",
+        f"for arch, shapes in {DRYRUN_RUNS!r}:",
+        "    sys.argv = ['dryrun', '--arch', arch, '--shape', shapes,",
+        f"                '--mesh', 'single', '--out', {str(out)!r}]",
+        "    try:",
+        "        dryrun.main()",
+        "    except SystemExit as e:",
+        "        print('EXIT', e.code, flush=True)"])
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(SRC),
+           "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, time.perf_counter()
+
+
+def finish_dryrun(proc, out, t0) -> dict:
+    """The ``dryrun`` phase's line: wait for ``start_dryrun``'s process
+    (``DRYRUN_TIMEOUT`` from its start; killed past it) and read its
+    cells.  Gates: both runs exit 0 and every cell is ``ok`` with its
+    three terms, bottleneck, argument and temp bytes."""
+    try:
+        text, _ = proc.communicate(
+            timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    seconds = time.perf_counter() - t0
+    recs = json.loads(out.read_text()) if out.exists() else {}
+    keys = ("t_compute", "t_memory", "t_collective", "bottleneck",
+            "argument_bytes", "output_bytes", "temp_bytes",
+            "flops_per_device", "bytes_per_device", "coll_bytes_per_device",
+            "coll_by_kind", "compile_s", "lower_s")
+    want = [f"{arch}|{shape}|single" for arch, shapes in DRYRUN_RUNS
+            for shape in shapes.split(",")]
+    line = {"phase": "dryrun", "mesh": "single (16 x 16, a fake 256-rank "
+            "group on the host's CPU)", "seconds": seconds,
+            "timeout_s": DRYRUN_TIMEOUT,
+            "exits": re.findall(r"^EXIT (\S+)$", text, re.M),
+            "cells": {k: {f: recs[k].get(f) for f in keys + ("ok",)}
+                      if k in recs else None for k in want},
+            "chip": "H100 SXM data sheet: 989e12 bf16 FLOP/s, 3.35e12 "
+                    "HBM B/s, 900e9 NVLink B/s"}
+    bad = [k for k in want if k not in recs or not recs[k].get("ok")
+           or any(recs[k].get(f) is None for f in keys)]
+    if bad or line["exits"] != ["0"] * len(DRYRUN_RUNS):
+        raise AssertionError(f"dryrun: cells {bad} failed or incomplete; "
+                             f"exits {line['exits']}; output tail "
+                             f"{text[-3000:]}")
+    return line
+
+
+def _sync_s(fn):
+    """(fn(), host seconds around it ending in a synchronize)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def cells_serve(dev, mesh, arch):
+    """The ``cells`` phase's serving half for ``arch``: bf16 weights from
+    the port's seeded ``init_params`` at full width and depth, a prefill
+    of ``CELLS_PREFILL`` tokens and ``CELLS_DECODE_STEPS`` greedy decode
+    steps, once through the eager route (``model_api``) and once through
+    ``make_prefill_bundle`` / ``make_decode_bundle`` on the one-rank mesh,
+    each run twice and the second counted (launch counts set to 0 just
+    before each).  The bundle is fed the eager route's tokens.  Gates: the
+    bundle's launches equal the eager route's and ``train_eval_keys``'
+    (the kernels the eager prefill launches; decode launches none), the
+    logits of every step within ``SERVE_TOL`` of the largest eager logit
+    (bit equality is expected on one rank, and the line says whether it
+    held), the greedy tokens equal where the logits are bit-equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import model_api
+
+    cfg = get_config(arch)
+    api = model_api(cfg)
+    S, B = CELLS_PREFILL
+    n_dec = CELLS_DECODE_STEPS
+    model = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                            dev).to(torch.bfloat16)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(1, cfg.vocab, (B, S), generator=gen, device=dev,
+                         dtype=torch.int32)
+    pb = steps.make_prefill_bundle(cfg, ShapeConfig("card_prefill", S, B,
+                                                    "prefill"), mesh)
+    db = steps.make_decode_bundle(cfg, ShapeConfig(
+        "card_decode", S + n_dec, B, "decode"), mesh)
+    wrappers = kernel_wrappers()
+
+    def eager():
+        cache = api.init_cache(B, S + n_dec, device=dev)
+        (lg, cache), prefill_s = _sync_s(
+            lambda: api.prefill(model, {"tokens": toks}, cache))
+        logits, feed, ms = [lg], [], []
+        for _ in range(n_dec):
+            feed.append(logits[-1].argmax(-1).to(torch.int32)[:, None])
+            (lg, cache), dt = _sync_s(
+                lambda: api.decode_step(model, feed[-1], cache))
+            logits.append(lg)
+            ms.append(dt * 1e3)
+        return logits, feed, prefill_s, ms
+
+    def bundle(feed):
+        cache = api.init_cache(B, S + n_dec, device=dev)
+        pd, bd, cd = pb.place(params, {"tokens": toks}, cache)
+        (lg, cd), prefill_s = _sync_s(lambda: pb.fn(pd, bd, cd))
+        logits, ms = [lg.to_local()], []
+        for cur in feed:
+            td = db.place(None, cur, None)[1]
+            (lg, cd), dt = _sync_s(lambda: db.fn(pd, td, cd))
+            logits.append(lg.to_local())
+            ms.append(dt * 1e3)
+        return logits, prefill_s, ms
+
+    def counted(fn, *a):
+        fn(*a)                                       # warm-up
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn(*a)
+        return out, {k: w.launches for k, w in wrappers.items()}, \
+            torch.cuda.max_memory_allocated(dev) / 1e9
+
+    (e_logits, feed, e_prefill, e_ms), e_launches, e_peak = counted(eager)
+    (b_logits, b_prefill, b_ms), b_launches, b_peak = counted(bundle, feed)
+    keys = train_eval_keys(arch, B, S, dev)
+    want = {k: sum(1 for key in keys if key[0] == k) for k in wrappers}
+    rel = [((b - e).float().abs().max() / e.float().abs().max()).item()
+           for b, e in zip(b_logits, e_logits)]
+    bit_equal = all(torch.equal(b, e) for b, e in zip(b_logits, e_logits))
+    tokens_equal = [int((b.argmax(-1) == e.argmax(-1)).sum().item())
+                    for b, e in zip(b_logits, e_logits)]
+    line = {"phase": "cells", "cell": f"{arch}/card_prefill+card_decode",
+            "arch": arch, "mesh": list(CELLS_MESH), "prompt": S,
+            "batch": B, "decode_steps": n_dec,
+            "param_dtype": "bfloat16", "compute_dtype": cfg.compute_dtype,
+            "launches": b_launches, "launches_eager": e_launches,
+            "launches_want": want, "max_rel_err": max(rel),
+            "rel_err_by_step": rel, "rel_tol": SERVE_TOL,
+            "bit_equal": bit_equal, "greedy_tokens_equal": tokens_equal,
+            "prefill_s": b_prefill, "prefill_s_eager": e_prefill,
+            "decode_ms_median": sorted(b_ms)[len(b_ms) // 2],
+            "decode_ms_median_eager": sorted(e_ms)[len(e_ms) // 2],
+            "peak_mem_gb": b_peak, "peak_mem_gb_eager": e_peak,
+            "nvidia_smi": nvidia_smi(),
+            "clock": "host seconds around work that ends in a "
+                     "synchronize; the second of two runs"}
+    if b_launches != e_launches or b_launches != want:
+        raise AssertionError(f"cells {arch}: the bundles launched "
+                             f"{b_launches}, the eager route {e_launches}, "
+                             f"the plan {want}")
+    if max(rel) > SERVE_TOL or (bit_equal and tokens_equal
+                                != [B] * (n_dec + 1)):
+        raise AssertionError(f"cells {arch}: {line}")
+    return line, keys
+
+
+def cells_train(dev, mesh):
+    """The ``cells`` phase's training half: ``CELLS_TRAIN_ARCH`` at full
+    width and depth (f32 parameters from the port's seeded
+    ``init_params``, bf16 compute, remat on), ``CELLS_TRAIN_STEPS`` steps
+    of ``make_train_step`` and of ``make_train_bundle`` on the one-rank
+    mesh with ``zero1=True`` and then ``False``, each from the same
+    weights on the same batches (``make_batch`` of steps 0, 1, ...).
+    Gates: every bundle loss within ``CELLS_TRAIN_RTOL`` of the eager
+    step's, and no kernel launched (the steps take the plain routes).
+    Not gated: step ms (median of the last 11), peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import model_api
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    cfg = get_config(CELLS_TRAIN_ARCH)
+    api = model_api(cfg)
+    S, B = CELLS_TRAIN
+    data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    batches = [{k: v for k, v in steps.to_device(make_batch(data, i),
+                                                 dev).items()
+                if k in ("tokens", "labels")}
+               for i in range(CELLS_TRAIN_STEPS)]
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=CELLS_TRAIN_STEPS)
+    model = api.init_params(torch.Generator(device=dev).manual_seed(0), dev)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    wrappers = kernel_wrappers()
+    runs = {}
+
+    def run(name, step, state, place):
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, ms = [], []
+        for b in batches:
+            b = place(b)
+            (state, m), dt = _sync_s(lambda: step(state, b))
+            loss = m["loss"]
+            losses.append(float(loss.to_local() if hasattr(loss, "to_local")
+                                else loss))
+            ms.append(dt * 1e3)
+        runs[name] = {"losses": losses,
+                      "step_ms_median": sorted(ms[1:])[len(ms[1:]) // 2],
+                      "first_step_ms": ms[0],
+                      "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                      / 1e9,
+                      "launches": {k: w.launches
+                                   for k, w in wrappers.items()}}
+        return state
+
+    run("eager", steps.make_train_step(cfg, ocfg), steps.train_state(model),
+        lambda b: b)
+    del model
+    shape = ShapeConfig("card_train", S, B, "train")
+    for zero1 in (True, False):
+        tb = steps.make_train_bundle(cfg, shape, mesh, zero1=zero1,
+                                     opt_cfg=ocfg)
+        p = {n: t.clone() for n, t in init.items()}
+        state = tb.place({"params": p, "opt": init_opt_state(p)}, None)[0]
+        run(f"bundle_zero1={zero1}", tb.fn, state,
+            lambda b: tb.place(None, b)[1])
+        del state, p
+        torch.cuda.empty_cache()
+    eager = runs["eager"]["losses"]
+    rel = {k: max(abs(a - b) / abs(b) for a, b in zip(r["losses"], eager))
+           for k, r in runs.items() if k != "eager"}
+    line = {"phase": "cells", "cell": f"{CELLS_TRAIN_ARCH}/card_train",
+            "arch": CELLS_TRAIN_ARCH, "mesh": list(CELLS_MESH), "seq": S,
+            "batch": B, "steps": CELLS_TRAIN_STEPS, "lr": TRAIN_LR,
+            "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+            "runs": runs, "max_rel_err": rel, "rel_tol": CELLS_TRAIN_RTOL,
+            "bit_equal": {k: runs[k]["losses"] == eager for k in rel},
+            "nvidia_smi": nvidia_smi(),
+            "clock": "host seconds around each step, which ends in a "
+                     "synchronize"}
+    if any(any(r["launches"].values()) for r in runs.values()) \
+            or any(v > CELLS_TRAIN_RTOL for v in rel.values()) \
+            or not all(math.isfinite(x) for x in eager):
+        raise AssertionError(f"cells train: {line}")
+    return line
+
+
+def run_cells(dev):
+    """The ``cells`` phase: the cell bundles on a one-rank NCCL mesh
+    (``make_host_mesh(CELLS_MESH)``, which starts its own group, destroyed
+    at the end): ``cells_serve`` for each of ``CELLS_SERVE`` and
+    ``cells_train``.  Returns the lines and, by serve arch, the prefill's
+    launch keys."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(CELLS_MESH)
+    try:
+        lines, keys = [], {}
+        for arch in CELLS_SERVE:
+            line, keys[arch] = cells_serve(dev, mesh, arch)
+            lines.append(line)
+            torch.cuda.empty_cache()
+        lines.append(cells_train(dev, mesh))
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return lines, keys
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() \
             or not all((FIXTURES / p[1]).exists() for p in PATHS):
@@ -3327,6 +3656,20 @@ def main() -> int:
                                     f"pipeline:{PIPELINE_ARCH}"))
     runs[f"pipeline:{PIPELINE_ARCH}"] = (pipe_line["launches"], pipe_keys)
     emit(run_dp(dev))
+    dryrun = start_dryrun()
+    try:
+        cells_lines, cells_keys = run_cells(dev)
+    except BaseException:
+        dryrun[0].kill()
+        dryrun[0].communicate()
+        raise
+    for line in cells_lines:
+        emit(line)
+    for arch, keys in cells_keys.items():
+        timed.update(serve_kernel_lines(dev, keys, f"cells:{arch}"))
+        runs[f"cells:{arch}"] = (cells_lines[CELLS_SERVE.index(arch)]
+                                 ["launches"], keys)
+    emit(finish_dryrun(*dryrun))
     emit(profile_ssd_forward(*layer))
     emit({"kernels": per_pass_summary(timed, timed_bf16, runs)
           + cost_kernel_summary(cost_timed, fused_line["launches"],

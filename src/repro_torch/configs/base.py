@@ -1,9 +1,11 @@
 """Model configurations: one ``ModelConfig`` covers the dense, moe, ssm,
-hybrid and encdec families, plus reduced variants for CPU runs.
+hybrid and encdec families, plus reduced variants for CPU runs.  The four
+run shapes (``ShapeConfig``, ``SHAPES``) and the cells an arch has
+(``cells_for``) live here too.
 
-Copy of ``src/repro/configs/base.py`` without the run shapes
-(``ShapeConfig``, ``SHAPES``, ``cells_for``).  Field names, defaults,
-``param_count`` and ``reduced`` are the reference's; ``remat`` recomputes
+Copy of ``src/repro/configs/base.py``.  Field names, defaults,
+``param_count``, ``active_param_count``, ``reduced`` and the shapes are
+the reference's; ``remat`` recomputes
 each block in the backward pass of a training step
 (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.  Numpy-free and
 torch-free: the workload exporter (:mod:`repro_torch.core`) loads it.
@@ -69,6 +71,11 @@ class ModelConfig:
     def attn_free(self) -> bool:
         return self.family == "ssm"
 
+    @property
+    def supports_long_decode(self) -> bool:
+        """long_500k runs only for O(1)-state decode families."""
+        return self.family in ("ssm", "hybrid")
+
     def n_shared_attn(self) -> int:
         if self.family != "hybrid" or not self.attn_every:
             return 0
@@ -101,6 +108,19 @@ class ModelConfig:
             return emb + enc + dec
         return emb + L * (attn + mlp + 2 * d)
 
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (for 6*N_active*D)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        hd = self.hd
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv * hd) \
+            + (self.n_heads * hd) * d
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        expert = 3 * d * self.d_ff
+        return emb + L * (attn + self.top_k * expert
+                          + d * self.n_experts + 2 * d)
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU smoke tests."""
         kw: Dict = dict(
@@ -126,6 +146,22 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 
@@ -146,3 +182,11 @@ def all_archs() -> Tuple[str, ...]:
     if not _REGISTRY:
         from . import archs  # noqa: F401
     return tuple(sorted(_REGISTRY))
+
+
+def cells_for(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The (arch x shape) cells that are defined for this arch."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.supports_long_decode:
+        out.append("long_500k")
+    return tuple(out)

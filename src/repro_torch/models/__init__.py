@@ -30,7 +30,9 @@ def model_api(cfg: ModelConfig) -> ModelAPI:
     ``init_cache(batch, max_seq, enc_len=None, device=None)`` (a decoder
     LM ignores ``enc_len``, as the reference does), ``prefill(params,
     batch, cache)`` and ``decode_step(params, tokens, cache)``; the last
-    three take ``use_kernels`` (default True).  The encoder-decoder's
+    three take ``use_kernels`` (default True), and the loss and those
+    three a ``rules`` (:class:`repro_torch.nn.params.ShardingRules`,
+    default None) that lays DTensor activations out under a mesh.  The encoder-decoder's
     ``init_cache`` holds an ``enc_len`` (default ``min(max_seq, 1500)``)
     frame ``enc_out``, which its ``prefill`` replaces with the encoder
     states of ``batch["embeds"]``."""
@@ -43,24 +45,24 @@ def model_api(cfg: ModelConfig) -> ModelAPI:
             cfg=cfg,
             init_params=lambda generator, device=None:
                 encdec.init_params(cfg, generator, device),
-            loss_fn=lambda p, b, use_kernels=True:
-                encdec.loss_fn(cfg, p, b, use_kernels),
+            loss_fn=lambda p, b, use_kernels=True, rules=None:
+                encdec.loss_fn(cfg, p, b, use_kernels, rules),
             init_cache=init_cache,
-            prefill=lambda p, b, c, use_kernels=True:
-                encdec.prefill(cfg, p, b, c, use_kernels),
-            decode_step=lambda p, t, c, use_kernels=True:
-                encdec.decode_step(cfg, p, t, c, use_kernels),
+            prefill=lambda p, b, c, use_kernels=True, rules=None:
+                encdec.prefill(cfg, p, b, c, use_kernels, rules),
+            decode_step=lambda p, t, c, use_kernels=True, rules=None:
+                encdec.decode_step(cfg, p, t, c, use_kernels, rules),
         )
     return ModelAPI(
         cfg=cfg,
         init_params=lambda generator, device=None:
             lm.init_params(cfg, generator, device),
-        loss_fn=lambda p, b, use_kernels=True:
-            lm.loss_fn(cfg, p, b, use_kernels),
+        loss_fn=lambda p, b, use_kernels=True, rules=None:
+            lm.loss_fn(cfg, p, b, use_kernels, rules),
         init_cache=lambda batch, max_seq, enc_len=None, device=None:
             lm.init_cache(cfg, batch, max_seq, device),
-        prefill=lambda p, b, c, use_kernels=True:
-            lm.prefill(cfg, p, b, c, use_kernels),
-        decode_step=lambda p, t, c, use_kernels=True:
-            lm.decode_step(cfg, p, t, c, use_kernels),
+        prefill=lambda p, b, c, use_kernels=True, rules=None:
+            lm.prefill(cfg, p, b, c, use_kernels, rules),
+        decode_step=lambda p, t, c, use_kernels=True, rules=None:
+            lm.decode_step(cfg, p, t, c, use_kernels, rules),
     )

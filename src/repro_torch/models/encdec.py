@@ -43,7 +43,9 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..nn.attention import Attention, init_kv_cache, multihead_attention
+from ..nn.attention import (Attention, init_kv_cache, multihead_attention,
+                            split_heads)
+from ..nn.params import ShardingRules, shard_constraint
 from ..nn.layers import Embedding, LayerNorm, dtype_of, softmax_cross_entropy
 from .lm import MLP, remat_call
 
@@ -121,21 +123,27 @@ class EncDec(nn.Module):
 # Forward
 # ---------------------------------------------------------------------------
 
+ACT = ("batch", "seq", "embed")         # the residual stream's axes
+
 def encode(cfg: ModelConfig, params: EncDec, embeds: torch.Tensor,
-           use_kernels: bool = True) -> torch.Tensor:
+           use_kernels: bool = True, rules: Optional[ShardingRules] = None
+           ) -> torch.Tensor:
     """embeds: (B, S_enc, d) frame embeddings (frontend stub output) ->
-    (B, S_enc, d) encoder states in the compute dtype."""
+    (B, S_enc, d) encoder states in the compute dtype.  ``rules``
+    constrains DTensor activations as the reference's ``encode``."""
     cdt = dtype_of(cfg.compute_dtype)
     S = embeds.shape[1]
     h = embeds.to(cdt) + sinusoidal(S, cfg.d_model,
                                     device=embeds.device).to(cdt)[None]
+    h = shard_constraint(h, rules, ACT)
     positions = torch.arange(S, device=h.device)[None, :]
 
     def layer(h, bp):
         y, _ = bp.attn(bp.norm1(h), positions=positions, causal=False,
-                       compute_dtype=cdt, use_kernels=use_kernels)
+                       compute_dtype=cdt, use_kernels=use_kernels,
+                       rules=rules)
         h = h + y
-        return h + bp.mlp(bp.norm2(h), cdt)
+        return shard_constraint(h + bp.mlp(bp.norm2(h), cdt), rules, ACT)
 
     for bp in params.enc_blocks:
         h = remat_call(cfg.remat, layer, h, bp)
@@ -144,23 +152,25 @@ def encode(cfg: ModelConfig, params: EncDec, embeds: torch.Tensor,
 
 def _cross_attend(cfg: ModelConfig, bp: DecBlock, h: torch.Tensor,
                   enc_out: torch.Tensor, cdt: torch.dtype,
-                  use_kernels: bool = True) -> torch.Tensor:
+                  use_kernels: bool = True,
+                  rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """Cross-attention: queries from decoder h, keys/values from enc_out
     (no rope, no cache)."""
     B, S, _ = h.shape
     H, hd, Se = cfg.n_heads, cfg.hd, enc_out.shape[1]
     ca = bp.cross_attn
-    q = ca.wq(h, cdt).reshape(B, S, H, hd)
-    k = ca.wk(enc_out, cdt).reshape(B, Se, H, hd)
-    v = ca.wv(enc_out, cdt).reshape(B, Se, H, hd)
+    q = split_heads(ca.wq(h, cdt), H, hd)
+    k = split_heads(ca.wk(enc_out, cdt), H, hd)
+    v = split_heads(ca.wv(enc_out, cdt), H, hd)
     out = multihead_attention(q, k, v, n_kv=H, causal=False,
-                              use_kernels=use_kernels)
+                              use_kernels=use_kernels, rules=rules)
     return ca.wo(out.reshape(B, S, H * hd), cdt)
 
 
 def decode(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
            enc_out: torch.Tensor, *, cache: Optional[Cache] = None,
-           update_cache: bool = False, use_kernels: bool = True
+           update_cache: bool = False, use_kernels: bool = True,
+           rules: Optional[ShardingRules] = None
            ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Decoder forward.  tokens (B, S); enc_out (B, S_enc, d).  Returns
     (logits (B, S, padded_vocab) f32, the advanced cache with
@@ -170,16 +180,17 @@ def decode(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
     pos0 = int(cache["pos"]) if cache is not None else 0
     h = params.embed(tokens, cdt) + sinusoidal(
         S, cfg.d_model, pos0, device=tokens.device).to(cdt)[None]
+    h = shard_constraint(h, rules, ACT)
     positions = pos0 + torch.arange(S, device=h.device)[None, :]
 
     def layer(h, bp, page):
         y, _ = bp.self_attn(bp.norm1(h), positions=positions, cache=page,
                             update_cache=update_cache, compute_dtype=cdt,
-                            use_kernels=use_kernels)
+                            use_kernels=use_kernels, rules=rules)
         h = h + y
         h = h + _cross_attend(cfg, bp, bp.norm_x(h), enc_out, cdt,
-                              use_kernels)
-        return h + bp.mlp(bp.norm2(h), cdt)
+                              use_kernels, rules)
+        return shard_constraint(h + bp.mlp(bp.norm2(h), cdt), rules, ACT)
 
     for li, bp in enumerate(params.dec_blocks):
         page = None if cache is None else {
@@ -190,7 +201,9 @@ def decode(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
     if cache is not None and update_cache:
         new_cache = dict(cache, pos=pos0 + S)
         new_cache.setdefault("enc_out", enc_out)
-    return params.embed.unembed(params.dec_norm(h), cdt), new_cache
+    logits = params.embed.unembed(params.dec_norm(h), cdt)
+    return shard_constraint(logits, rules, ("batch", "seq", "vocab")), \
+        new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +218,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def loss_fn(cfg: ModelConfig, params: EncDec,
-            batch: Dict[str, torch.Tensor], use_kernels: bool = True
+            batch: Dict[str, torch.Tensor], use_kernels: bool = True,
+            rules: Optional[ShardingRules] = None
             ) -> Tuple[torch.Tensor, Dict]:
-    enc_out = encode(cfg, params, batch["embeds"], use_kernels)
+    enc_out = encode(cfg, params, batch["embeds"], use_kernels, rules)
     logits, _ = decode(cfg, params, batch["tokens"], enc_out,
-                       use_kernels=use_kernels)
+                       use_kernels=use_kernels, rules=rules)
     loss = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
     return loss, {"nll": loss,
                   "aux": torch.zeros((), device=logits.device)}
@@ -230,27 +244,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, enc_len: int,
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: EncDec,
             batch: Dict[str, torch.Tensor], cache: Cache,
-            use_kernels: bool = True) -> Tuple[torch.Tensor, Cache]:
+            use_kernels: bool = True, rules: Optional[ShardingRules] = None
+            ) -> Tuple[torch.Tensor, Cache]:
     """Encode ``batch["embeds"]``, store the encoder states in the cache in
     its dtype (replacing its ``enc_out``, whatever its length), decode
     ``batch["tokens"]`` against them.  Returns (last-position logits,
     cache)."""
-    enc_out = encode(cfg, params, batch["embeds"], use_kernels)
+    enc_out = encode(cfg, params, batch["embeds"], use_kernels, rules)
     cache = dict(cache, enc_out=enc_out.to(cache["enc_out"].dtype))
     logits, new_cache = decode(cfg, params, batch["tokens"], enc_out,
                                cache=cache, update_cache=True,
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels, rules=rules)
     return logits[:, -1], new_cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
-                cache: Cache, use_kernels: bool = True
+                cache: Cache, use_kernels: bool = True,
+                rules: Optional[ShardingRules] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """tokens: (B, 1) -> (logits (B, vocab), new cache)."""
     cdt = dtype_of(cfg.compute_dtype)
     logits, new_cache = decode(cfg, params, tokens,
                                cache["enc_out"].to(cdt), cache=cache,
-                               update_cache=True, use_kernels=use_kernels)
+                               update_cache=True, use_kernels=use_kernels,
+                               rules=rules)
     return logits[:, -1], new_cache
 

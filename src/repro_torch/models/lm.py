@@ -46,6 +46,7 @@ from ..nn.layers import (Embedding, Linear, dtype_of, gelu, make_norm,
                          softmax_cross_entropy, swiglu)
 from ..nn.mamba2 import Mamba2, init_ssm_cache
 from ..nn.moe import MoE
+from ..nn.params import ShardingRules, shard_constraint
 
 Cache = Dict[str, Any]
 
@@ -149,13 +150,16 @@ class LM(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 cache: Optional[Cache] = None, update_cache: bool = False,
                 use_kernels: bool = True, cfg: Optional[ModelConfig] = None,
-                remat: bool = False
+                remat: bool = False, rules: Optional[ShardingRules] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
         """Returns (logits (B, S, padded_vocab) f32, aux_loss, new_cache).
         ``cfg`` (default: the one the model was built with) supplies the
         numerics and flags, as the reference's ``forward(cfg, params)``
         does; its shapes must be the model's.  ``remat`` recomputes each
-        layer in the backward pass (:func:`remat_call`)."""
+        layer in the backward pass (:func:`remat_call`).  ``rules``
+        constrains the activations of DTensor inputs where the reference
+        does (the residual stream after the embedding and after each layer,
+        the logits) and lays out attention, MoE and the SSD under a mesh."""
         cfg = cfg or self.cfg
         cdt = dtype_of(cfg.compute_dtype)
         if cache is not None and not update_cache:
@@ -164,13 +168,15 @@ class LM(nn.Module):
             h = batch["embeds"].to(cdt)
         else:
             h = self.embed(batch["tokens"], cdt)
+        act = ("batch", "seq", "embed")
+        h = shard_constraint(h, rules, act)
         B, S = h.shape[:2]
         pos0 = int(cache["pos"]) if cache is not None else 0
         positions = pos0 + torch.arange(S, device=h.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         attn_kw = dict(positions=positions, update_cache=update_cache,
                        rope_theta=cfg.rope_theta, compute_dtype=cdt,
-                       use_kernels=use_kernels)
+                       use_kernels=use_kernels, rules=rules)
 
         if cfg.family in ("ssm", "hybrid"):
             if cache is None and update_cache:
@@ -181,7 +187,7 @@ class LM(nn.Module):
                 y, new_ssm = bp.mamba(
                     bp.norm1(h), cache=ssm_c,
                     update_cache=update_cache or ssm_c is not None,
-                    compute_dtype=cdt, use_kernels=use_kernels)
+                    compute_dtype=cdt, use_kernels=use_kernels, rules=rules)
                 h = h + y
                 if cfg.family == "hybrid" and li % cfg.attn_every == 0:
                     sp = self.shared
@@ -191,7 +197,7 @@ class LM(nn.Module):
                     y, _ = sp.attn(sp.norm1(h), cache=page, **attn_kw)
                     h = h + y
                     h = h + sp.mlp(sp.norm2(h), cdt)
-                return h, new_ssm
+                return shard_constraint(h, rules, act), new_ssm
 
             for li, bp in enumerate(self.blocks):
                 ssm_c = None if cache is None else {
@@ -210,11 +216,11 @@ class LM(nn.Module):
                                    top_k=cfg.top_k,
                                    capacity_factor=cfg.capacity_factor,
                                    dispatch_groups=cfg.moe_dispatch_groups,
-                                   compute_dtype=cdt)
+                                   compute_dtype=cdt, rules=rules)
                     aux = aux + a
                 else:
                     y2 = bp.mlp(hin, cdt)
-                return h + y2, aux
+                return shard_constraint(h + y2, rules, act), aux
 
             for li, bp in enumerate(self.blocks):
                 page = None if cache is None else {
@@ -225,13 +231,16 @@ class LM(nn.Module):
         new_cache = None
         if cache is not None and update_cache:
             new_cache = dict(cache, pos=pos0 + S)
-        return self.logits(h, cdt), aux, new_cache
+        return self.logits(h, cdt, rules), aux, new_cache
 
-    def logits(self, h: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    def logits(self, h: torch.Tensor, cdt: torch.dtype,
+               rules: Optional[ShardingRules] = None) -> torch.Tensor:
         h = self.final_norm(h)
         if self.lm_head is None:
-            return self.embed.unembed(h, cdt)
-        return self.lm_head(h, cdt).float()
+            lg = self.embed.unembed(h, cdt)
+        else:
+            lg = self.lm_head(h, cdt).float()
+        return shard_constraint(lg, rules, ("batch", "seq", "vocab"))
 
 
 def copy_cache(cache: Cache) -> Cache:
@@ -282,20 +291,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def forward(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor],
             *, cache: Optional[Cache] = None, update_cache: bool = False,
-            mode: str = "train", use_kernels: bool = True
+            mode: str = "train", use_kernels: bool = True,
+            rules: Optional[ShardingRules] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
     """Returns (logits, aux_loss, new_cache).  Each layer is recomputed in
     the backward pass where ``cfg.remat and mode == "train"``, the
     reference's rule."""
     return params(batch, cache=cache, update_cache=update_cache,
                   use_kernels=use_kernels, cfg=cfg,
-                  remat=cfg.remat and mode == "train")
+                  remat=cfg.remat and mode == "train", rules=rules)
 
 
 def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor],
-            use_kernels: bool = True) -> Tuple[torch.Tensor, Dict]:
+            use_kernels: bool = True, rules: Optional[ShardingRules] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     logits, aux, _ = forward(cfg, params, batch, mode="train",
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels, rules=rules)
     loss = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
     total = loss + AUX_LOSS_WEIGHT * aux
     return total, {"nll": loss, "aux": aux}
@@ -303,20 +314,23 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor],
-            cache: Cache, use_kernels: bool = True
+            cache: Cache, use_kernels: bool = True,
+            rules: Optional[ShardingRules] = None
             ) -> Tuple[torch.Tensor, Cache]:
     logits, _, new_cache = forward(cfg, params, batch, cache=cache,
                                    update_cache=True, mode="prefill",
-                                   use_kernels=use_kernels)
+                                   use_kernels=use_kernels, rules=rules)
     return logits[:, -1], new_cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
-                cache: Cache, use_kernels: bool = True
+                cache: Cache, use_kernels: bool = True,
+                rules: Optional[ShardingRules] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """tokens: (B, 1) -> (logits (B, vocab), new cache)."""
     logits, _, new_cache = forward(cfg, params, {"tokens": tokens},
                                    cache=cache, update_cache=True,
-                                   mode="decode", use_kernels=use_kernels)
+                                   mode="decode", use_kernels=use_kernels,
+                                   rules=rules)
     return logits[:, -1], new_cache

@@ -13,18 +13,32 @@ paths: queries are reshaped to (KV, G) groups instead.
 The port's cache keeps ``pos`` as a host int, and ``attention_block``
 writes the new segment into the cache's tensors in place when it updates
 the cache (the reference returns updated copies).
+
+With ``rules`` (:class:`repro_torch.nn.params.ShardingRules`) and DTensor
+inputs, ``multihead_attention`` repeats GQA heads where ``rules.repeat_kv``
+says and constrains q, k and v to the ``act_*`` layout, as the reference
+does; the attention itself (plain routes and the flash kernel alike) then
+runs on each rank's shards through ``local_map``
+(:func:`_attention_local_map`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
 from .layers import Linear, RMSNorm
+from .params import (ShardingRules, grad_placements, local_io, seq_shard_index,
+                     shard_constraint, write_seq)
 from .rope import apply_rope
 
 
@@ -55,7 +69,8 @@ class Attention(nn.Module):
                 update_cache: bool = False, rope_theta: float = 10000.0,
                 qk_norm_eps: float = 1e-6, causal: bool = True,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                block: int = 1024, use_kernels: bool = True
+                block: int = 1024, use_kernels: bool = True,
+                rules: Optional[ShardingRules] = None
                 ) -> Tuple[torch.Tensor, Optional[Any]]:
         """The reference's ``attention_block``: x (B, S, d) -> (y, cache).
 
@@ -74,15 +89,16 @@ class Attention(nn.Module):
         """
         B, S, d = x.shape
         n_heads, n_kv, hd = self.n_heads, self.n_kv, self.head_dim
-        q = self.wq(x, compute_dtype).reshape(B, S, n_heads, hd)
-        k = self.wk(x, compute_dtype).reshape(B, S, n_kv, hd)
-        v = self.wv(x, compute_dtype).reshape(B, S, n_kv, hd)
+        q = split_heads(self.wq(x, compute_dtype), n_heads, hd)
+        k = split_heads(self.wk(x, compute_dtype), n_kv, hd)
+        v = split_heads(self.wv(x, compute_dtype), n_kv, hd)
         if self.q_norm is not None:
             q = self.q_norm(q, qk_norm_eps)
             k = self.k_norm(k, qk_norm_eps)
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-        kw = dict(n_kv=n_kv, block=block, use_kernels=use_kernels)
+        kw = dict(n_kv=n_kv, block=block, use_kernels=use_kernels,
+                  rules=rules)
 
         new_cache = None
         if cache_stack is not None:
@@ -101,8 +117,8 @@ class Attention(nn.Module):
             idx = int(cache["pos"])
             ck = cache["k"] if update_cache else cache["k"].clone()
             cv = cache["v"] if update_cache else cache["v"].clone()
-            ck[:, idx:idx + S] = k.to(ck.dtype)
-            cv[:, idx:idx + S] = v.to(cv.dtype)
+            write_seq(ck, k.to(ck.dtype), idx)
+            write_seq(cv, v.to(cv.dtype), idx)
             out = multihead_attention(
                 q, ck.to(compute_dtype), cv.to(compute_dtype), causal=causal,
                 q_offset=idx, kv_len=idx + S, **kw)
@@ -112,6 +128,20 @@ class Attention(nn.Module):
             out = multihead_attention(q, k, v, causal=causal, **kw)
         y = self.wo(out.reshape(B, S, n_heads * hd), compute_dtype)
         return y, new_cache
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(..., n * hd) -> (..., n, hd).  A DTensor whose last dim shards over
+    more ranks than ``n`` heads split into evenly is made whole there
+    first (DTensor cannot split a sharded dim unevenly)."""
+    if isinstance(t, DTensor):
+        mesh, pl = t.device_mesh, tuple(t.placements)
+        last = t.dim() - 1
+        if n % math.prod(mesh.size(md) for md, p in enumerate(pl)
+                         if p == Shard(last)):
+            t = t.redistribute(mesh, tuple(Replicate() if p == Shard(last)
+                                           else p for p in pl))
+    return t.reshape(tuple(t.shape[:-1]) + (n, hd))
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +224,8 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: Optional[int] = None, block: int = 1024,
                         force_flash: Optional[bool] = None,
                         return_stats: bool = False,
-                        use_kernels: bool = True):
+                        use_kernels: bool = True,
+                        rules: Optional[ShardingRules] = None):
     """q (B,Sq,H,D); k, v (B,Sk,KV,D).  Returns (B,Sq,H,D), with
     ``return_stats`` also the online-softmax (m, l), each (B,H,Sq).
 
@@ -206,22 +237,54 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key, except with ``kv_len = 0``: the kernel route then gives m = -2e38
     and l = 0 where the reference's scan gives l = the masked key count
     (its exp(NEG_INF - NEG_INF) = 1); either way the row weighs nothing in
-    :func:`merge_attention`."""
+    :func:`merge_attention`.
+
+    With ``rules.repeat_kv`` the GQA groups are materialized to full heads
+    (transient tensors only, the KV cache stays GQA) so the head dim
+    shards when n_kv doesn't divide the model axis; with ``rules`` q, k
+    and v are constrained to the ``act_seq`` / ``act_kv`` /
+    ``act_kv_seq`` layout (q as (B, Sq, H, D): its head dim holds the
+    reference's (KV, G) with the groups unsharded).  DTensors then take
+    :func:`_attention_local_map`, the route picked on the global shapes."""
+    B, Sq, H, D = q.shape
+    if rules is not None and rules.repeat_kv and n_kv != H:
+        k = k.repeat_interleave(H // n_kv, dim=2)
+        v = v.repeat_interleave(H // n_kv, dim=2)
+        n_kv = H
+    if rules is not None:
+        q = shard_constraint(q, rules, ("batch", "act_seq", "act_kv", None))
+        k = shard_constraint(k, rules, ("batch", "act_kv_seq", "act_kv",
+                                        None))
+        v = shard_constraint(v, rules, ("batch", "act_kv_seq", "act_kv",
+                                        None))
+    Sk = k.shape[1]
+    use_flash = (Sq * Sk > 256 * 2048) if force_flash is None else force_flash
+    kw = dict(n_kv=n_kv, causal=causal, q_offset=int(q_offset),
+              kv_len=kv_len, block=block, use_flash=use_flash,
+              return_stats=return_stats, use_kernels=use_kernels)
+    if isinstance(q, DTensor):
+        return _attention_local_map(q, k, v, **kw)
+    return _attention(q, k, v, **kw)
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               n_kv: int, causal: bool, q_offset: int, kv_len: Optional[int],
+               block: int, use_flash: bool, return_stats: bool,
+               use_kernels: bool):
+    """:func:`multihead_attention` on plain tensors, the route given."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     G = H // n_kv
     scale = 1.0 / (D ** 0.5)
-    use_flash = (Sq * Sk > 256 * 2048) if force_flash is None else force_flash
     if use_flash and Sq > 1:
         if use_kernels and q.device.type == "cuda":
             n = Sk if kv_len is None else int(kv_len)
             return ops.flash_attention(q, k[:, :n], v[:, :n], causal=causal,
-                                       q_offset=int(q_offset),
+                                       q_offset=q_offset,
                                        return_stats=return_stats)
         qg = q.reshape(B, Sq, n_kv, G, D)
-        out, m, l = _flash_path(qg, k, v, causal=causal,
-                                q_offset=int(q_offset), kv_len=kv_len,
-                                scale=scale, block=block)
+        out, m, l = _flash_path(qg, k, v, causal=causal, q_offset=q_offset,
+                                kv_len=kv_len, scale=scale, block=block)
     else:
         dev = q.device
         q_pos = q_offset + torch.arange(Sq, device=dev)
@@ -237,6 +300,75 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if return_stats:
         return out, m.reshape(B, H, Sq), l.reshape(B, H, Sq)
     return out
+
+
+def _attention_local_map(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, q_offset: int, kv_len: Optional[int],
+                         return_stats: bool, **kw):
+    """:func:`_attention` on each rank's shards of DTensors q (B,Sq,H,D), k
+    and v (B,Sk,KV,D) through ``local_map``: batch and heads may shard (k
+    and v heads as q's), and the sequence of q (context parallel: a
+    rank's rows start at ``q_offset`` plus its block's offset) or of k and
+    v (the decode cache: each rank attends its own keys, and the partial
+    results merge by their online-softmax statistics with all-reduces
+    over the mesh axes that shard them).  The flash kernel takes whole key
+    sequences only.  Outputs take q's placements, the statistics (B,H,Sq)
+    the same mesh axes on their dims."""
+    mesh = q.device_mesh
+    qp, kp, vp = tuple(q.placements), tuple(k.placements), \
+        tuple(v.placements)
+    if kp != vp:
+        raise ValueError(f"attention under a mesh: keys {kp} and values "
+                         f"{vp} are laid out apart")
+    k_seq = [md for md, p in enumerate(kp) if p == Shard(1)]
+    for t, pl in ((q, qp), (k, kp)):
+        n = math.prod(mesh.size(md) for md, p in enumerate(pl)
+                      if p == Shard(1))
+        if t.shape[1] % n:
+            raise ValueError(f"attention under a mesh: {t.shape[1]} rows "
+                             f"do not split evenly over {n} ranks")
+    on_card = kw["use_kernels"] and q.device.type == "cuda" \
+        and kw["use_flash"] and q.shape[1] > 1
+    if k_seq and on_card:
+        raise ValueError("flash kernel under a mesh: the keys' sequence "
+                         "dim is sharded; constrain it replicated first")
+    stat_dim = {0: 0, 1: 2, 2: 1}
+    sp = tuple(Shard(stat_dim[p.dim]) if isinstance(p, Shard) else p
+               for p in qp)
+
+    def local(ql, kl, vl):
+        ql, kl, vl = local_io(ql), local_io(kl), local_io(vl)
+        kw["n_kv"] = kl.shape[2]                         # this rank's heads
+        qo = q_offset + seq_shard_index(mesh, qp, 1) * ql.shape[1]
+        if not k_seq:
+            out = _attention(ql, kl, vl, q_offset=qo, kv_len=kv_len,
+                             return_stats=return_stats, **kw)
+            return tuple(t.contiguous() for t in out) if return_stats \
+                else out.contiguous()
+        ko = seq_shard_index(mesh, kp, 1) * kl.shape[1]
+        o, m, l = _attention(ql, kl, vl, q_offset=qo - ko,
+                             kv_len=None if kv_len is None else kv_len - ko,
+                             return_stats=True, **kw)
+        m_g = _all_reduce(m, "max", mesh, k_seq)
+        w = torch.exp(m - m_g) * l                       # (B, H, Sq)
+        l_g = _all_reduce(w, "sum", mesh, k_seq)
+        num = _all_reduce(o.float() * w.transpose(1, 2)[..., None], "sum",
+                          mesh, k_seq)
+        out = (num / l_g.clamp_min(1e-30).transpose(1, 2)[..., None]) \
+            .to(o.dtype)
+        return (out, m_g, l_g) if return_stats else out.contiguous()
+
+    out_pl = (qp, sp, sp) if return_stats else list(qp)
+    in_pl = (qp, kp, vp)
+    return local_map(local, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_placements(in_pl),
+                     device_mesh=mesh)(q, k, v)
+
+
+def _all_reduce(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    for md in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, md)))
+    return t
 
 
 def init_kv_cache(batch: int, max_seq: int, n_kv: int, head_dim: int,

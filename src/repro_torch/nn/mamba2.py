@@ -12,6 +12,11 @@ exact for any chunk length, only the rounding differs) and
 mirrors the reference line for line as the plain version, for CPU tensors
 or ``use_kernels=False``.
 
+With DTensor inputs (a mesh), :func:`ssd_chunked` runs on each rank's
+shards through ``local_map``: batch on the ``batch`` rule and heads on the
+``heads`` rule where they split evenly (groups with them when there are
+several), the kernels or the plain version alike.
+
 Shapes: x (B, L, H, P) heads x headdim; B/C (B, L, G, N) groups x state;
 dt (B, L, H); A (H,) negative reals.
 """
@@ -25,9 +30,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from ..kernels import ops
 from ..kernels.mamba_ssd import MAX_CHUNK
 from .layers import Linear, RMSNorm, draw_normal, param, silu
+from .params import (ShardingRules, default_rules, even_placements,
+                     grad_placements, local_io, placed)
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -95,7 +105,8 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
                 init_state: Optional[torch.Tensor] = None,
-                use_kernels: bool = True
+                use_kernels: bool = True,
+                rules: Optional[ShardingRules] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,L,H,P) of x's type, final_state (B,H,N,P) f32).
 
@@ -105,7 +116,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``ssd_state_pass`` (the walk, or the split's two kernels where the
     walk would leave SMs idle).  The chunk kernel takes 1 <= N <= 128
     (every registered config: mamba2-370m 128, zamba2-1.2b 64); past 128
-    it raises, and nothing falls back."""
+    it raises, and nothing falls back.  DTensors take
+    :func:`_ssd_local_map`."""
+    if isinstance(x, DTensor):
+        return _ssd_local_map(x, dt, A, Bm, Cm, chunk=chunk,
+                              init_state=init_state, use_kernels=use_kernels,
+                              rules=rules or default_rules())
     if not (use_kernels and x.device.type == "cuda"):
         return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk,
                                init_state=init_state)
@@ -113,11 +129,71 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                           init_state=init_state)
 
 
+def _ssd_placements(rules: ShardingRules, mesh, B: int, H: int, G: int
+                    ) -> Dict[str, Tuple]:
+    """The SSD's local layout: batch on ``batch`` and heads on ``heads``
+    where they split evenly (the groups shard with the heads when there
+    are several, else heads stay whole; with one group, B and C are whole
+    on every rank), the sequence whole.  Keys: ``x`` (B,L,H,P), ``dt``
+    (B,L,H), ``A`` (H,), ``bc`` (B,L,G,N), ``st`` (B,H,N,P)."""
+    hx = ("batch", None, "heads", None)
+    xp = even_placements(rules, hx, (B, 1, H, 1), mesh)
+    if G > 1 and even_placements(rules, hx, (B, 1, G, 1), mesh) != xp:
+        hx = ("batch", None, None, None)
+        xp = even_placements(rules, hx, (B, 1, H, 1), mesh)
+    gx = hx if G > 1 else ("batch", None, None, None)
+    return dict(x=xp, dt=even_placements(rules, hx[:3], (B, 1, H), mesh),
+                A=even_placements(rules, hx[2:3], (H,), mesh),
+                bc=even_placements(rules, gx, (B, 1, G, 1), mesh),
+                st=even_placements(rules, (hx[0], hx[2], None, None),
+                                   (B, H, 1, 1), mesh))
+
+
+def _drop_seq(placements) -> Tuple:
+    """Placements of a tensor with its (whole) dim 1 taken out."""
+    return tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+                 else p for p in placements)
+
+
+def _ssd_local_map(x, dt, A, Bm, Cm, *, chunk, init_state, use_kernels,
+                   rules: ShardingRules):
+    """:func:`ssd_chunked` on each rank's shards (:func:`_ssd_placements`)."""
+    mesh = x.device_mesh
+    pl = _ssd_placements(rules, mesh, x.shape[0], x.shape[2], Bm.shape[2])
+
+    def local(*ts):
+        y, st = ssd_chunked(*(local_io(t) for t in ts[:5]), chunk=chunk,
+                            init_state=local_io(ts[5]),
+                            use_kernels=use_kernels)
+        return y.contiguous(), st.contiguous()
+
+    in_pl = (pl["x"], pl["dt"], pl["A"], pl["bc"], pl["bc"],
+             None if init_state is None else pl["st"])
+    args = [t if p is None else placed(t, p)
+            for t, p in zip((x, dt, A, Bm, Cm, init_state), in_pl)]
+    return local_map(local, out_placements=(pl["x"], pl["st"]),
+                     in_placements=in_pl,
+                     in_grad_placements=grad_placements(in_pl),
+                     device_mesh=mesh)(*args)
+
+
 def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                    Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor
+                    Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor,
+                    rules: Optional[ShardingRules] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-token recurrent update.  x (B,H,P), dt (B,H), Bm/Cm (B,G,N),
-    state (B,H,N,P)."""
+    state (B,H,N,P).  DTensors (a mesh) run on each rank's shards, laid
+    out as :func:`ssd_chunked`'s by ``rules``."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        pl = _ssd_placements(rules or default_rules(), mesh, x.shape[0],
+                             x.shape[1], Bm.shape[1])
+        in_pl = (_drop_seq(pl["x"]), _drop_seq(pl["dt"]), pl["A"],
+                 _drop_seq(pl["bc"]), _drop_seq(pl["bc"]), pl["st"])
+        args = [placed(t, p)
+                for t, p in zip((x, dt, A, Bm, Cm, state), in_pl)]
+        return local_map(ssd_decode_step, out_placements=(in_pl[0], pl["st"]),
+                         in_placements=in_pl, device_mesh=mesh)(*args)
     H = x.shape[1]
     G = Bm.shape[1]
     rep = H // G
@@ -184,11 +260,13 @@ class Mamba2(nn.Module):
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 update_cache: bool = False,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                use_kernels: bool = True
+                use_kernels: bool = True,
+                rules: Optional[ShardingRules] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """The reference's ``mamba2_block``: x (B, S, d_model).  Cache:
         {"conv": (B,K-1,Cc), "state": (B,H,N,P)}; a new one is returned
-        with ``update_cache``."""
+        with ``update_cache``.  ``rules`` lays out the chunked SSD's shards
+        under a mesh."""
         B, S, d = x.shape
         d_inner = self.expand * d
         H = d_inner // self.headdim
@@ -212,13 +290,13 @@ class Mamba2(nn.Module):
         new_cache = None
         if cache is not None and S == 1:
             y1, new_state = ssd_decode_step(xh[:, 0], dt[:, 0], A, Bm[:, 0],
-                                            Cm[:, 0], cache["state"])
+                                            Cm[:, 0], cache["state"], rules)
             y = y1[:, None]
         else:
             init_state = cache["state"] if cache is not None else None
             y, new_state = ssd_chunked(xh, dt, A, Bm, Cm, chunk=self.chunk,
                                        init_state=init_state,
-                                       use_kernels=use_kernels)
+                                       use_kernels=use_kernels, rules=rules)
         if update_cache:
             new_cache = {"conv": conv_tail.to(torch.bfloat16),
                          "state": new_state.float()}

@@ -6,8 +6,8 @@ pytrees and return new ones; here a tree is a dict of tensors keyed by
 parameter name (``dict(model.named_parameters())``), the arithmetic is the
 reference's, in f32, and :func:`adamw_update` updates the parameters and
 the moments in place under ``torch.no_grad`` with ``torch._foreach_*``
-ops (a few launches a step, not a few a parameter).  ``zero1_axes`` shards
-the moments over a mesh and returns with the multi-device slice.
+ops (a few launches a step, not a few a parameter).  ``zero1_axes`` gives
+the moments' logical axes for ZeRO-1 (``launch.steps.make_train_bundle``).
 """
 
 from __future__ import annotations
@@ -140,3 +140,25 @@ def ef_compress_tree(grads: Tree, error: Tree
 def init_error_state(params: Tree) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for k, p in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding helper
+# ---------------------------------------------------------------------------
+
+def zero1_axes(param_axes: Mapping[str, tuple], shapes: Tree,
+               shard_axis: str = "data", mesh_size: int = 16
+               ) -> Dict[str, tuple]:
+    """Optimizer-state logical axes: add ``opt_shard`` on the largest
+    unsharded divisible dim of each param (maps to the data axis).
+    ``shapes`` holds tensors (meta ones will do) under the same names."""
+    def one(axes, shape):
+        axes = tuple(axes)
+        best, best_dim = None, -1
+        for i, (a, d) in enumerate(zip(axes, shape)):
+            if a is None and d % mesh_size == 0 and d > best_dim:
+                best, best_dim = i, d
+        if best is None:
+            return axes
+        return axes[:best] + ("opt_shard",) + axes[best + 1:]
+    return {k: one(ax, tuple(shapes[k].shape)) for k, ax in param_axes.items()}

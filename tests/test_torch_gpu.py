@@ -1619,3 +1619,133 @@ def test_compressed_dp_step_on_one_nccl_rank(cuda):
         assert torch.equal(mean["g"], torch.round(g / scale) * scale)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_flash_through_local_map_on_one_rank_equals_the_direct_call(cuda):
+    """Attention on DTensors of a one-rank NCCL mesh runs the flash kernel
+    on the shards through ``local_map``: one launch, and the output and
+    statistics equal the direct call's bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn.attention import multihead_attention
+    mesh = make_host_mesh((1, 1))
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        q, k, v = (torch.randn(2, 1024, 4, 64, device=cuda, generator=gen,
+                               dtype=torch.bfloat16) for _ in range(3))
+        pl = (Shard(0), Shard(2))
+        qd, kd, vd = (distribute_tensor(t, mesh, pl) for t in (q, k, v))
+        flash_attention_mha.launches = 0
+        got = multihead_attention(qd, kd, vd, n_kv=4, return_stats=True)
+        assert flash_attention_mha.launches == 1
+        want = ops.flash_attention(q, k, v, causal=True, return_stats=True)
+        assert tuple(got[0].placements) == pl
+        assert tuple(got[1].placements) == (Shard(0), Shard(1))
+        for g, w in zip(got, want):
+            assert torch.equal(g.to_local(), w)
+        # context parallel: the query rows sharded, keys whole
+        qs = distribute_tensor(q, mesh, (Shard(0), Shard(1)))
+        kr, vr = (distribute_tensor(t, mesh, (Shard(0), Replicate()))
+                  for t in (k, v))
+        out = multihead_attention(qs, kr, vr, n_kv=4)
+        assert torch.equal(out.to_local(), want[0])
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m"])
+def test_cell_bundles_on_one_nccl_rank_equal_the_eager_route(cuda, arch):
+    """The ``cells`` phase of ``chip_smoke.py`` at full width and two
+    layers: the prefill and decode bundles on a one-rank NCCL mesh launch
+    the eager route's kernels and give its logits bit for bit; the train
+    bundle (``zero1`` on and off) gives ``make_train_step``'s losses
+    within rel 1e-5 and launches no kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import ssd_state
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_api
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    cfg = get_config(arch).replace(n_layers=2)
+    api = model_api(cfg)
+    wrappers = (flash_attention_mha, ssd_chunk_dual, ssd_state.ssd_state_walk,
+                ssd_state.ssd_state_scan, ssd_state.ssd_state_out)
+
+    def counts():
+        return [w.launches for w in wrappers]
+
+    mesh = make_host_mesh((1, 1))
+    try:
+        B, S, n_dec = 2, 1024, 3
+        model = api.init_params(torch.Generator(device=cuda).manual_seed(0),
+                                cuda).to(torch.bfloat16)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        toks = torch.randint(1, cfg.vocab, (B, S), device=cuda,
+                             dtype=torch.int32,
+                             generator=torch.Generator(device=cuda)
+                             .manual_seed(1))
+        for w in wrappers:
+            w.launches = 0
+        cache = api.init_cache(B, S + n_dec, device=cuda)
+        lg, cache = api.prefill(model, {"tokens": toks}, cache)
+        want, feed = [lg], []
+        for _ in range(n_dec):
+            feed.append(want[-1].argmax(-1).to(torch.int32)[:, None])
+            lg, cache = api.decode_step(model, feed[-1], cache)
+            want.append(lg)
+        eager = counts()
+        assert sum(eager) > 0
+        pb = steps.make_prefill_bundle(cfg, ShapeConfig("p", S, B,
+                                                        "prefill"), mesh)
+        db = steps.make_decode_bundle(cfg, ShapeConfig("d", S + n_dec, B,
+                                                       "decode"), mesh)
+        for w in wrappers:
+            w.launches = 0
+        pd, bd, cd = pb.place(params, {"tokens": toks},
+                              api.init_cache(B, S + n_dec, device=cuda))
+        lg, cd = pb.fn(pd, bd, cd)
+        got = [lg.to_local()]
+        for cur in feed:
+            lg, cd = db.fn(pd, db.place(None, cur, None)[1], cd)
+            got.append(lg.to_local())
+        assert counts() == eager
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+        S, B, n = 256, 2, 3
+        data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+        batches = [{k: v for k, v in steps.to_device(
+            make_batch(data, i), cuda).items() if k in ("tokens", "labels")}
+            for i in range(n)]
+        ocfg = AdamWConfig(lr=6e-4, warmup_steps=1, total_steps=n)
+        model = api.init_params(torch.Generator(device=cuda).manual_seed(0),
+                                cuda)
+        init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        state, step = steps.train_state(model), steps.make_train_step(cfg,
+                                                                      ocfg)
+        eager = []
+        for b in batches:
+            state, m = step(state, b)
+            eager.append(m["loss"].item())
+        for zero1 in (True, False):
+            tb = steps.make_train_bundle(cfg, ShapeConfig("t", S, B, "train"),
+                                         mesh, zero1=zero1, opt_cfg=ocfg)
+            p = {k: t.clone() for k, t in init.items()}
+            st = tb.place({"params": p, "opt": init_opt_state(p)}, None)[0]
+            for w in wrappers:
+                w.launches = 0
+            for b, want_loss in zip(batches, eager):
+                st, m = tb.fn(st, tb.place(None, b)[1])
+                assert m["loss"].to_local().item() == pytest.approx(
+                    want_loss, rel=1e-5)
+            assert not any(counts())
+    finally:
+        dist.destroy_process_group()

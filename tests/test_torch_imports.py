@@ -226,3 +226,28 @@ def test_the_walks_cover_plan_execution_and_the_collective():
                        text=True, timeout=120, env=env, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
     assert json.loads(r.stdout.splitlines()[-1]) == [[], False]
+
+
+def test_the_walks_cover_the_sharding_layer_and_the_dry_run():
+    """The ``ast`` walk and the clean-interpreter import see the sharding
+    layer, the bundles and the dry-run tooling; importing the dry-run and
+    its drivers starts no process group (``run_cell`` starts its own)."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    for rel in ("nn/params.py", "launch/steps.py", "launch/dryrun.py",
+                "launch/roofline.py", "launch/hillclimb.py",
+                "launch/report.py", "launch/costs.py"):
+        assert rel in files, rel
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO / 'src')!r})\n"
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hillclimb\n"
+        "import repro_torch.launch.report, repro_torch.launch.costs\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.steps\n"
+        "print(dist.is_initialized())\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.splitlines()[-1] == "False"

@@ -288,8 +288,11 @@ def test_three_train_steps_equal_the_references(arch, n_micro, tmp_path):
 
 
 def test_train_step_refuses_zero1_and_takes_no_kernel():
+    """ZeRO-1 shards the moments over a mesh: the unsharded step refuses
+    it and names the bundle that takes it
+    (``tests/test_torch_sharding.py`` runs that one)."""
     cfg = get_config("smollm-135m").reduced()
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(ValueError, match=r"make_train_bundle\(.*zero1=True"):
         steps.make_train_step(cfg, zero1=True)
     assert steps.batch_axes(cfg, "train") == {"tokens": ("batch", "seq"),
                                               "labels": ("batch", "seq")}
