@@ -12,14 +12,19 @@ phase prints one JSON line:
    CUDA versions.
 2. ``build``: the CUDA kernels compiled from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), with seconds and ptxas lines
-   (registers, spills).  Then ``sass``: the tensor-core ``HMMA``
-   instructions in each built library's SASS, by kernel function, where
-   the toolkit has ``cuobjdump``; a kernel function that multiplies on
-   the tensor cores without ``HMMA`` fails the run: every function of
-   the three tensor-core sources and, in ``ssd_state.cu``, the walk's and
-   the split outputs' (``ssd_state_walk``, ``ssd_state_out``); the
-   state scan and ``fused_eval.cu`` do no product on the tensor cores,
-   so their counts are printed, not gated.
+   (registers, spills).  Then ``sass``: the tensor-core instructions in
+   each built library's SASS, by kernel function and kind (``HMMA`` or
+   ``HGMMA``, with bf16, TF32 or other operands:
+   ``_build.tensor_core_counts``), where the toolkit has ``cuobjdump``.
+   The bf16 kernels (``_build.BF16_TC_KERNELS``: ``flash_fwd_bf16`` and
+   ``gemm_wgmma_bf16``) fail the run without their bf16 instruction
+   (``HMMA.16816.F32.BF16``, ``HGMMA...BF16``) or with any TF32 product;
+   every other function that multiplies on the tensor cores fails it
+   without ``HMMA``: every function of the three tensor-core sources and,
+   in ``ssd_state.cu``, the walk's and the split outputs'
+   (``ssd_state_walk``, ``ssd_state_out``); the state scan and
+   ``fused_eval.cu`` do no product on the tensor cores, so their counts
+   are printed, not gated.
 3. ``kernel``: one line per kernel and shape.  Each kernel is held against
    its plain PyTorch version on the same inputs on the card, with TF32 off,
    at the tolerances of ``tests/test_kernels.py`` (GEMM atol 1e-3 /
@@ -56,10 +61,14 @@ phase prints one JSON line:
    (``arith``: the three ported Pallas kernels, the state walk and the
    split's outputs; the state scan does no product).  Then one ``dtype:
    bf16`` line per kernel at every path shape and at ragged sizes (odd K
-   and N, D = 40 and 33, P = 130): bf16 operands, held against the plain
-   version on the upcast inputs at the reference's bf16 tolerances (GEMM
-   atol 0.5 / rtol 5e-2, flash 2e-2; SSD, whose outputs are f32, 1e-4),
-   each launch counted and the output type checked; at the path shapes
+   and N; the wgmma GEMM off its tiles with a K tail; D = 40, 33, 36 and
+   256, whisper's 448 x 1500; P = 130): bf16 operands, held against the
+   plain version on the upcast inputs at the reference's bf16 tolerances
+   (GEMM atol 0.5 / rtol 5e-2, flash 2e-2; SSD, whose outputs are f32,
+   1e-4), each shape launched twice, each launch counted, the output
+   type checked and, for GEMM and flash, the second launch's bits equal
+   to the first's (``repeat_bit_equal``, also on the serve shapes' flash
+   lines); at the path shapes
    also the kernel's, the plain version's and the bf16 library call's
    time and the bound at bf16 rates (989 TFLOP/s dense, 2 bytes an
    element).
@@ -333,9 +342,11 @@ STATE_KERNELS = ("ssd_state_walk", "ssd_state_scan", "ssd_state_out")
 # of _build.TENSOR_CORE_SOURCES must too, none of fused_eval.cu
 STATE_HMMA_KERNELS = ("ssd_state_walk", "ssd_state_out")
 ARITH_BF16 = {
-    "tiled_matmul": "bf16 operands, f32 math: 1 TF32 mma.sync a product",
-    "flash_attention_mha": "bf16 operands, f32 math: 1 TF32 mma.sync for "
-                           "QK^T, 2 for PV (P split)",
+    "tiled_matmul": "bf16 wgmma m64nNk16, f32 accumulation, TMA-fed "
+                    "(ragged K or N: 1 TF32 mma.sync a product)",
+    "flash_attention_mha": "bf16 mma.sync m16n8k16, f32 accumulation: 1 "
+                           "for QK^T, 2 for PV (P split into bf16 hi and "
+                           "lo)",
     "ssd_chunk_dual": "bf16 inputs, f32 math and outputs: 1 TF32 mma.sync "
                       "for CB^T, 2 for Wx and (dB)^T x"}
 
@@ -407,11 +418,17 @@ SSD_EDGE = [(2, 16, 2, 8, 4, False), (4, 64, 4, 32, 16, False),
             (3, 70, 3, 64, 16, True), (1, 100, 5, 64, 64, False),
             (3, 100, 1, 32, 12, False), (1, 128, 3, 130, 20, False),
             (1, 70, 7, 60, 50, True)]
-# bf16 at ragged sizes, each taking the one-element (ld2) copies: odd K,
-# odd N; D = 40 (16-byte copies, a head dim off the template) and D = 33;
-# P = 130 and N % 8 != 0
-MM_BF16_EDGE = [(257, 129, 65), (2048, 131, 2048), (1000, 64, 77)]
-FLASH_BF16_EDGE = [(2, 2, 100, 70, 40, True), (1, 2, 70, 70, 33, True)]
+# bf16 at ragged sizes: the GEMM's one-element (ld2) route at odd K and
+# odd N; SSD at P = 130 and N % 8 != 0
+MM_BF16_EDGE = [(257, 129, 65), (2048, 131, 2048), (1000, 64, 77),
+                # the wgmma route off its tiles: M and N ragged, a K tail
+                # (72, 4104 = 64 * 64 + 8), N of 40
+                (1000, 72, 200), (300, 4104, 136), (100, 64, 40)]
+# and flash's: D = 40 (16-byte copies off the template), D = 33 and 36
+# (one-element copies), whisper's 448 x 1500 (Sk off the kv tile), D = 256
+FLASH_BF16_EDGE = [(2, 2, 100, 70, 40, True), (1, 2, 70, 70, 33, True),
+                   (1, 3, 80, 90, 36, False), (2, 12, 448, 1500, 64, False),
+                   (1, 2, 96, 200, 256, True)]
 SSD_BF16_EDGE = [(1, 128, 3, 130, 24), (2, 16, 2, 8, 4),
                  (2, 128, 3, 64, 100), (1, 100, 5, 130, 128)]
 # ssd_forward, kernel vs plain: (B, L, H, P, N, chunk); a padded last
@@ -1180,8 +1197,9 @@ def check_flash_stats(randn, dev) -> None:
 def check_bf16(dev) -> dict:
     """Each kernel with bf16 operands at every shape of the paths and at
     ragged sizes, against its plain version on the upcast inputs.  Each
-    call must launch the kernel (its count moves by one) and return the
-    reference's output type (bf16 for GEMM and flash, f32 for SSD).  The
+    shape is launched twice (the count must move by two): the first
+    output must have the reference's output type (bf16 for GEMM and flash,
+    f32 for SSD), and GEMM's and flash's second the first's bits.  The
     path shapes also get the kernel's time, the plain version's and the
     bf16 library call's (``torch.matmul``, ``scaled_dot_product_attention``
     on bf16; none for SSD), and the bound at bf16 rates.  Returns the timed
@@ -1201,18 +1219,22 @@ def check_bf16(dev) -> dict:
     timed = {}
 
     def run(fn, kernel, *args, **kw):
+        """Two launches on the same inputs, each counted: the first's
+        output, and whether the second gave the same bits."""
         n0 = fn.launches
-        out = fn(*args, **kw)
+        out, again = fn(*args, **kw), fn(*args, **kw)
         torch.cuda.synchronize()
-        if fn.launches != n0 + 1:
-            raise AssertionError(f"{kernel} bf16: the launch was not "
+        if fn.launches != n0 + 2:
+            raise AssertionError(f"{kernel} bf16: the launches were not "
                                  f"counted ({n0} -> {fn.launches})")
-        return out
+        pairs = zip(out, again) if isinstance(out, tuple) else [(out, again)]
+        return out, all(torch.equal(a, b) for a, b in pairs)
 
     def finish(line, kernel, key, path, err, ok, timings, clock=False):
         """``path``: timed and kept for the per-pass summary; ``clock``:
-        timed only."""
+        timed only.  GEMM and flash must also repeat their bits."""
         line["max_abs_err"] = err
+        ok = ok and (kernel == "ssd_chunk_dual" or line["repeat_bit_equal"])
         if path or clock:
             line.update(bf16_bounds(kernel, line["shape"]))
             line.update({k: time_ms(f, device=k != "host_issued_ms")
@@ -1226,13 +1248,14 @@ def check_bf16(dev) -> dict:
     for path, (M, K, N) in [(True, s) for s in MM_PATH] \
             + [(False, s) for s in MM_BF16_EDGE]:
         a, b = randn(M, K), randn(K, N)
-        got = run(tiled_matmul, "tiled_matmul", a, b)
+        got, same = run(tiled_matmul, "tiled_matmul", a, b)
         want = ref.matmul_ref(a.float(), b.float())
         line = {"phase": "kernel", "kernel": "tiled_matmul", "dtype": "bf16",
                 "shape": {"M": M, "K": K, "N": N},
                 "route": mm.kernel_route(a, b),
                 "arith": ARITH_BF16["tiled_matmul"], "main_path": path,
-                "out_dtype": str(got.dtype), **MM_BF16_TOL}
+                "out_dtype": str(got.dtype), "repeat_bit_equal": same,
+                **MM_BF16_TOL}
         finish(line, "tiled_matmul", (M, K, N), path,
                (got.float() - want).abs().max().item(),
                got.dtype == torch.bfloat16
@@ -1244,8 +1267,8 @@ def check_bf16(dev) -> dict:
             [(True, s) for s in FLASH_PATH] \
             + [(False, s) for s in FLASH_BF16_EDGE]:
         q, k, v = randn(B, H, Sq, D), randn(B, H, Sk, D), randn(B, H, Sk, D)
-        got = run(flash_attention_mha, "flash_attention_mha", q, k, v,
-                  causal=causal)
+        got, same = run(flash_attention_mha, "flash_attention_mha", q, k, v,
+                        causal=causal)
         want = ref.attention_ref(q.float(), k.float(), v.float(),
                                  causal=causal)
         shape = {"B": B, "H": H, "Sq": Sq, "Sk": Sk, "D": D,
@@ -1255,7 +1278,7 @@ def check_bf16(dev) -> dict:
                 "route": flash_attention.kernel_route(q, k, v),
                 "arith": ARITH_BF16["flash_attention_mha"],
                 "main_path": path, "out_dtype": str(got.dtype),
-                **FLASH_BF16_TOL}
+                "repeat_bit_equal": same, **FLASH_BF16_TOL}
         finish(line, "flash_attention_mha", tuple(shape.values()), path,
                (got.float() - want).abs().max().item(),
                got.dtype == torch.bfloat16
@@ -1273,7 +1296,7 @@ def check_bf16(dev) -> dict:
         cum = torch.cumsum(-randn(BC, Q, H).float().abs() * 0.1,
                            dim=1).bfloat16()
         Bm, Cm = randn(BC, Q, N), randn(BC, Q, N)
-        got = run(ssd_chunk_dual, "ssd_chunk_dual", x, cum, Bm, Cm)
+        got, same = run(ssd_chunk_dual, "ssd_chunk_dual", x, cum, Bm, Cm)
         want = ref.ssd_chunk_ref(x.float(), cum.float(), Bm.float(),
                                  Cm.float())
         shape = {"BC": BC, "Q": Q, "H": H, "P": P, "N": N}
@@ -1281,7 +1304,8 @@ def check_bf16(dev) -> dict:
                 "dtype": "bf16", "shape": shape,
                 "route": mamba_ssd.kernel_route(x, Bm, Cm),
                 "arith": ARITH_BF16["ssd_chunk_dual"], "main_path": path,
-                "out_dtype": str(got[0].dtype), **SSD_BF16_TOL}
+                "out_dtype": str(got[0].dtype), "repeat_bit_equal": same,
+                **SSD_BF16_TOL}
         if clock:
             line["library"] = "none: no single PyTorch call computes it"
         finish(line, "ssd_chunk_dual", tuple(shape.values()), path,
@@ -2307,6 +2331,7 @@ def flash_bf16_line(randn, B, heads, Sq, Sk, hd, causal, main_path) -> dict:
     q = randn(B, heads, Sq, hd).bfloat16()
     k, v = (randn(B, heads, Sk, hd).bfloat16() for _ in range(2))
     got = flash_attention_mha(q, k, v, causal=causal)
+    same = torch.equal(got, flash_attention_mha(q, k, v, causal=causal))
     want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
     torch.cuda.synchronize()
     shape = {"B": B, "H": heads, "Sq": Sq, "Sk": Sk, "D": hd,
@@ -2317,6 +2342,7 @@ def flash_bf16_line(randn, B, heads, Sq, Sk, hd, causal, main_path) -> dict:
             "arith": ARITH_BF16["flash_attention_mha"],
             "main_path": main_path, **FLASH_BF16_TOL,
             "max_abs_err": (got.float() - want).abs().max().item(),
+            "repeat_bit_equal": same,
             **bf16_bounds("flash_attention_mha", shape)}
     line["bound_3xtf32_ms"] = line["bound_ms"]           # bf16 operands
     line["ms"] = time_ms(lambda: flash_attention_mha(q, k, v, causal=causal))
@@ -2327,8 +2353,9 @@ def flash_bf16_line(randn, B, heads, Sq, Sk, hd, causal, main_path) -> dict:
     line["library_ms"] = time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
     emit(line)
-    if not torch.allclose(got.float(), want, **FLASH_BF16_TOL):
-        raise AssertionError(f"serve flash disagrees at {shape}")
+    if not (same and torch.allclose(got.float(), want, **FLASH_BF16_TOL)):
+        raise AssertionError(f"serve flash disagrees at {shape}, or with "
+                             f"itself")
     return line
 
 
@@ -3590,25 +3617,26 @@ def main() -> int:
     info = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source": info})
-    hmma = {name: _build.hmma_counts(name) for name in _build.SOURCES}
-    if None in hmma.values():
-        emit({"phase": "sass", "HMMA": None,
+    sass = {name: _build.sass_text(name) for name in _build.SOURCES}
+    if None in sass.values():
+        emit({"phase": "sass", "tensor_core": None,
               "note": "the toolkit has no cuobjdump"})
     else:
-        gated = {name: list(hmma[name])
-                 for name in _build.TENSOR_CORE_SOURCES}
-        gated["ssd_state"] = [fn for fn in hmma["ssd_state"]
-                              if any(k in fn for k in STATE_HMMA_KERNELS)]
-        emit({"phase": "sass", "HMMA": hmma,
+        counts = {name: _build.tensor_core_counts(text)
+                  for name, text in sass.items()}
+        gated = {**{name: None for name in _build.TENSOR_CORE_SOURCES},
+                 "ssd_state": STATE_HMMA_KERNELS}
+        emit({"phase": "sass", "tensor_core": counts,
               "gated": {**{name: "every kernel function"
                            for name in _build.TENSOR_CORE_SOURCES},
-                        "ssd_state": list(STATE_HMMA_KERNELS)}})
-        for name, fns in gated.items():
-            named = STATE_HMMA_KERNELS if name == "ssd_state" else ()
-            if not fns or any(hmma[name][fn] == 0 for fn in fns) \
-                    or not all(any(k in fn for fn in fns) for k in named):
-                raise AssertionError(f"{name}: a kernel without tensor-core "
-                                     f"instructions: {hmma[name]}")
+                        "ssd_state": list(STATE_HMMA_KERNELS)},
+              "bf16_only": _build.BF16_TC_KERNELS})
+        faults = [f for name, parts in gated.items()
+                  for f in _build.tensor_core_faults(name, counts[name],
+                                                     parts)]
+        if faults:
+            raise AssertionError("tensor-core instructions: "
+                                 + "; ".join(faults))
 
     timed, layer = check_kernels(dev)
     timed_bf16 = check_bf16(dev)

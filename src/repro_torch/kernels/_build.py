@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,11 +29,16 @@ from typing import Dict, Iterable, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # the sources whose every kernel multiplies on the tensor cores (SASS
-# HMMA), each with an f32 and a bf16 launch function; fused_eval does no
-# product, and in ssd_state (f32 only) the walk and the split's outputs do
-# but the scan does not
+# HMMA, or HGMMA for the bf16 GEMM), each with an f32 and a bf16 launch
+# function; fused_eval does no product, and in ssd_state (f32 only) the
+# walk and the split's outputs do but the scan does not
 TENSOR_CORE_SOURCES = ("tiled_matmul", "flash_attention", "mamba_ssd")
 SOURCES = TENSOR_CORE_SOURCES + ("fused_eval", "ssd_state")
+# the kernel functions (a part of the mangled name) that take bf16 operands
+# straight into bf16 tensor-core products, by source, with the SASS
+# instruction kind each must use; they may hold no TF32 product
+BF16_TC_KERNELS = {"flash_attention": ("flash_fwd_bf16", "HMMA.BF16"),
+                   "tiled_matmul": ("gemm_wgmma_bf16", "HGMMA.BF16")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -165,28 +171,75 @@ def _cuobjdump() -> Optional[str]:
     return str(path) if path.exists() else None
 
 
-def hmma_counts(name: str) -> Optional[Dict[str, int]]:
-    """Tensor-core ``HMMA`` instructions in the built library's SASS, by
-    kernel function (mangled name); None where the toolkit has no
-    ``cuobjdump``.  Builds the library first if it is missing."""
+def sass_text(name: str) -> Optional[str]:
+    """The built library's SASS (``cuobjdump -sass``); None where the
+    toolkit has no ``cuobjdump``.  Builds the library first if it is
+    missing."""
     tool = _cuobjdump()
     if tool is None:
         return None
     path = lib_path(name)
     if not path.exists():
         build([name])
-    sass = subprocess.run([tool, "-sass", str(path)], check=True,
+    return subprocess.run([tool, "-sass", str(path)], check=True,
                           capture_output=True, text=True).stdout
-    counts: Dict[str, int] = {}
+
+
+# a tensor-core instruction of the SASS: HMMA (mma.sync) or HGMMA (wgmma),
+# with its modifiers (shape, accumulator and operand types)
+_TC_OP = re.compile(r"\b(HG?MMA)((?:\.\w+)*)")
+
+
+def tensor_core_counts(sass: str) -> Dict[str, Dict[str, int]]:
+    """Tensor-core instructions in SASS text, by kernel function (mangled
+    name) and kind: ``"HMMA.TF32"``, ``"HMMA.BF16"``, ``"HGMMA.BF16"``,
+    ... (the opcode and the operand type among its modifiers, ``other``
+    where it names neither bf16 nor TF32).  A function with none maps to
+    an empty dict."""
+    counts: Dict[str, Dict[str, int]] = {}
     fn = None
     for line in sass.splitlines():
         line = line.strip()
         if line.startswith("Function :"):
             fn = line.split(":", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn] = {}
+            continue
+        match = _TC_OP.search(line) if fn is not None else None
+        if match:
+            mods = match.group(2).split(".")
+            kind = next((k for k in ("BF16", "TF32") if k in mods), "other")
+            key = f"{match.group(1)}.{kind}"
+            counts[fn][key] = counts[fn].get(key, 0) + 1
     return counts
+
+
+def tensor_core_faults(name: str, counts: Dict[str, Dict[str, int]],
+                       gated: Optional[Iterable[str]] = None) -> List[str]:
+    """What is wrong with source ``name``'s tensor-core counts
+    (:func:`tensor_core_counts`); empty when nothing is.  A function named
+    in :data:`BF16_TC_KERNELS` must hold its bf16 instruction and no TF32
+    product; every other gated function must hold an ``HMMA``.  ``gated``:
+    parts of the names of the functions that must multiply on the tensor
+    cores, each naming one at least; None, every function of the
+    source."""
+    faults = []
+    bf16 = BF16_TC_KERNELS.get(name)
+    fns = list(counts) if gated is None else [
+        fn for fn in counts if any(k in fn for k in gated)]
+    if not fns:
+        faults.append(f"{name}: no kernel function")
+    for part in list(gated or ()) + ([bf16[0]] if bf16 else []):
+        if not any(part in fn for fn in counts):
+            faults.append(f"{name}: no function named {part}")
+    for fn in fns:
+        c = counts[fn]
+        if bf16 and bf16[0] in fn:
+            if not c.get(bf16[1]) or any("TF32" in k for k in c):
+                faults.append(f"{name}: {fn} takes bf16 products as "
+                              f"{bf16[1]} only, has {c}")
+        elif not sum(n for k, n in c.items() if k.startswith("HMMA.")):
+            faults.append(f"{name}: {fn} has no HMMA: {c}")
+    return faults
 
 
 def dtype_suffix(kernel: str, tensors) -> str:

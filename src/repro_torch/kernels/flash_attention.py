@@ -1,12 +1,13 @@
 """Flash attention forward: the port of the Pallas ``flash_attention_mha``
 (``src/repro/kernels/flash_attention.py:90``).
 
-``flash_attention_mha(q, k, v, causal, q_offset)`` launches the CUDA kernel
-of ``csrc/flash_attention.cu`` (3xTF32 on the tensor cores, f32 accuracy; f32
-or bf16 operands, the output of their type, as the reference; with
-``return_stats`` also each row's softmax statistics (m, l), as the
-reference's flash path returns them) for
-tensors on the card and runs the plain version
+``flash_attention_mha(q, k, v, causal, q_offset)`` launches a CUDA kernel
+of ``csrc/flash_attention.cu`` for tensors on the card: for f32 operands
+one in 3xTF32 on the tensor cores (f32 accuracy), for bf16 operands one
+on bf16 ``mma.sync.m16n8k16`` products with the probabilities split into
+two bf16 parts (f32 arithmetic either way; the output of the operands'
+type, as the reference; with ``return_stats`` also each row's softmax
+statistics (m, l), as the reference's flash path returns them) and runs the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`) for tensors on the CPU.  A
 CUDA tensor never falls back: what the kernel does not take raises.
 ``flash_attention_mha.launches`` counts kernel launches;
@@ -96,8 +97,9 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     for these CUDA tensors, e.g. ``"D128 kv64 cp.async16"``: the head-dim
     template, its kv tile, and the copy width (16 bytes where D is a
     multiple of 4 f32 or 8 bf16 elements and q, k, v are 16-byte aligned,
-    else one element: ``cp.async4`` for f32, ``ld2`` for bf16, whose routes
-    end in `` bf16``)."""
+    else one element: ``cp.async4`` for f32, ``ld2`` for bf16).  bf16
+    routes also name the query rows a block and the product, and end in
+    `` bf16``: ``"D64 q64 kv64 m16n8k16 cp.async16 bf16"``."""
     lib = _build.load("flash_attention")
     return lib.flash_attention_route(q.shape[3], q.data_ptr(), k.data_ptr(),
                                      v.data_ptr(), q.element_size()).decode()

@@ -1,9 +1,12 @@
 """Tiled GEMM: the port of the Pallas ``tiled_matmul``
 (``src/repro/kernels/tiled_matmul.py:51``).
 
-``tiled_matmul(a, b)`` launches the CUDA kernel of ``csrc/tiled_matmul.cu``
-(3xTF32 on the tensor cores, f32 accuracy; f32 or bf16 operands, the
-output of their type, as the reference) for tensors on the card and runs
+``tiled_matmul(a, b)`` launches a CUDA kernel of ``csrc/tiled_matmul.cu``
+for tensors on the card: for f32 operands one in 3xTF32 on the tensor
+cores (f32 accuracy); for bf16 operands ``wgmma`` fed by TMA where K and N
+are multiples of 8 and both operands 16-byte aligned, else the 3xTF32
+kernel on bf16 tiles (f32 arithmetic either way; the output of the
+operands' type, as the reference) and runs
 the plain version (:func:`repro_torch.kernels.ref.matmul_ref`) for tensors
 on the CPU.  A CUDA tensor never falls back: what the kernel does not take
 raises.  ``tiled_matmul.launches`` counts kernel launches;
@@ -59,8 +62,10 @@ def kernel_route(a: torch.Tensor, b: torch.Tensor) -> str:
     CUDA operands, e.g. ``"128x128 cp.async16"``: the block tile (chosen
     from M and N) and the copy width (16 bytes where K and N are multiples
     of 4 f32 or 8 bf16 elements and both operands are 16-byte aligned,
-    else one element: ``cp.async4`` for f32, ``ld2`` for bf16, whose
-    routes end in `` bf16``)."""
+    else one element: ``cp.async4`` for f32).  bf16 routes end in
+    `` bf16``: the ``wgmma`` kernel's tile where the copies would be 16
+    bytes (``"128x256 wgmma tma bf16"``), else the 3xTF32 kernel's with
+    one-element loads (``"64x64 ld2 bf16"``)."""
     M, K = a.shape
     lib = _build.load("tiled_matmul")
     return lib.tiled_matmul_route(M, b.shape[1], K, a.data_ptr(),

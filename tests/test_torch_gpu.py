@@ -10,9 +10,11 @@ for the f32 GEMM, 2e-5 for f32 attention, 1e-4 for the SSD chunk kernel and
 2e-4 for the chunked SSD; for bf16 operands, GEMM atol 0.5 / rtol 5e-2 and
 attention 2e-2 against the plain version on the upcast inputs (the SSD
 kernel returns f32 and keeps 1e-4).  TF32 is off for the plain versions.
-The three kernels compute in 3xTF32 on the tensor cores; each of their tile
-or head-dim configurations and copy widths is driven here, for f32 and for
-bf16.  So do the SSD state pass's walk and outputs, whose product C . h
+The three kernels compute in 3xTF32 on the tensor cores for f32 operands;
+for bf16 operands the GEMM runs wgmma fed by TMA (the 3xTF32 kernel on
+ragged K or N) and flash bf16 m16n8k16 products, each bit-reproducible
+over 50 launches.  Each tile or head-dim configuration and copy width is
+driven here, for f32 and for bf16.  So do the SSD state pass's walk and outputs, whose product C . h
 runs in 3xTF32 too.  The cost model's two kernels: ``fused_eval`` within
 rel 1e-5 of its plain version and within the reference's parity envelope
 (rel 1e-4, equal bottlenecks) of the exact numpy engine, and
@@ -266,10 +268,14 @@ SSD_BF16_TOL = {"atol": 1e-4, "rtol": 1e-4}
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N,route", [
-    (2048, 512, 512, "64x64 cp.async16 bf16"),      # the paths' shapes
-    (2048, 512, 2048, "128x128 cp.async16 bf16"),
-    (4096, 1024, 4384, "128x128 cp.async16 bf16"),
-    (128, 128, 128, "64x64 cp.async16 bf16"),       # tests/test_kernels.py
+    (2048, 512, 512, "128x64 wgmma tma bf16"),      # the paths' shapes
+    (2048, 512, 2048, "128x256 wgmma tma bf16"),
+    (4096, 1024, 4384, "128x256 wgmma tma bf16"),
+    (1024, 512, 2048, "128x128 wgmma tma bf16"),
+    (4096, 1536, 40, "64x64 wgmma tma bf16"),       # granite's router
+    (128, 128, 128, "64x64 wgmma tma bf16"),        # tests/test_kernels.py
+    (1000, 72, 200, "64x64 wgmma tma bf16"),        # off the tiles, K tail
+    (300, 4104, 136, "64x64 wgmma tma bf16"),
     (257, 129, 65, "64x64 ld2 bf16"),               # odd K, odd N
     (2048, 131, 2048, "128x128 ld2 bf16"),          # odd K
     (1000, 64, 77, "64x64 ld2 bf16"),               # odd N
@@ -294,12 +300,15 @@ def test_tiled_matmul_bf16_vs_plain(cuda, M, K, N, route):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,Sq,Sk,D,causal,route", [
-    (4, 4, 512, 512, 128, True, "D128 kv64 cp.async16 bf16"),  # the path
-    (1, 2, 64, 64, 32, True, "D32 kv64 cp.async16 bf16"),  # test_kernels
-    (2, 2, 100, 70, 40, True, "D64 kv64 cp.async16 bf16"),     # D = 40
-    (1, 3, 80, 90, 36, False, "D64 kv64 ld2 bf16"),            # D % 8 == 4
-    (1, 2, 70, 70, 33, True, "D64 kv64 ld2 bf16"),             # odd D
-    (1, 2, 96, 200, 256, True, "D256 kv32 cp.async16 bf16"),
+    (4, 4, 512, 512, 128, True,                                # the path
+     "D128 q64 kv64 m16n8k16 cp.async16 bf16"),
+    (1, 2, 64, 64, 32, True,                                   # test_kernels
+     "D32 q64 kv64 m16n8k16 cp.async16 bf16"),
+    (2, 2, 100, 70, 40, True,                                  # D = 40
+     "D64 q64 kv64 m16n8k16 cp.async16 bf16"),
+    (1, 3, 80, 90, 36, False, "D64 q64 kv64 m16n8k16 ld2 bf16"),  # D % 8 == 4
+    (1, 2, 70, 70, 33, True, "D64 q64 kv64 m16n8k16 ld2 bf16"),   # odd D
+    (1, 2, 96, 200, 256, True, "D256 q64 kv32 m16n8k16 cp.async16 bf16"),
 ])
 def test_flash_attention_bf16_vs_plain(cuda, B, H, Sq, Sk, D, causal, route):
     rng = np.random.default_rng(B + H + Sq + 7 * D)
@@ -313,6 +322,80 @@ def test_flash_attention_bf16_vs_plain(cuda, B, H, Sq, Sk, D, causal, route):
     assert got.dtype == torch.bfloat16
     want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
     torch.testing.assert_close(got.float(), want, **FLASH_BF16_TOL)
+
+
+# bf16 flash at the main paths' head dim 64 (cells' 4096 causal at a
+# reduced B and H; whisper-small's encoder and cross-attention, Sk = 1500
+# off the kv tile; the cache mode) and at the other head dims, through the
+# m16n8k16 kernel, with its statistics against attention_ref's (m, l)
+FLASH_BF16_SHAPES = [
+    # (B, H, Sq, Sk, D, causal, q_offset, route)
+    (1, 2, 4096, 4096, 64, True, 0, "D64 q64 kv64 m16n8k16 cp.async16 bf16"),
+    (1, 4, 1500, 1500, 64, False, 0,
+     "D64 q64 kv64 m16n8k16 cp.async16 bf16"),
+    (2, 4, 448, 1500, 64, False, 0, "D64 q64 kv64 m16n8k16 cp.async16 bf16"),
+    (2, 4, 128, 384, 64, True, 256, "D64 q64 kv64 m16n8k16 cp.async16 bf16"),
+    (1, 3, 200, 200, 32, True, 0, "D32 q64 kv64 m16n8k16 cp.async16 bf16"),
+    (1, 3, 200, 300, 128, False, 0,
+     "D128 q64 kv64 m16n8k16 cp.async16 bf16"),
+    (1, 2, 130, 190, 256, True, 60, "D256 q64 kv32 m16n8k16 cp.async16 bf16"),
+    (2, 2, 150, 150, 40, True, 0, "D64 q64 kv64 m16n8k16 cp.async16 bf16"),
+    (1, 2, 150, 170, 33, True, 20, "D64 q64 kv64 m16n8k16 ld2 bf16"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_offset,route",
+                         FLASH_BF16_SHAPES)
+def test_flash_attention_bf16_shapes_vs_plain(cuda, B, H, Sq, Sk, D, causal,
+                                              q_offset, route):
+    """The bf16 kernel at the main paths' shapes and every head-dim
+    template: the output at 2e-2 and, through the ``_stats`` instance,
+    each row's (m, l) at 2e-2 of attention_ref's on the upcast inputs; one
+    launch each."""
+    rng = np.random.default_rng(Sq + Sk + D + q_offset)
+    q, k, v = (_on_card(rng, (B, H, n, D), cuda).bfloat16()
+               for n in (Sq, Sk, Sk))
+    assert flash_attention.kernel_route(q, k, v) == route
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             q_offset=q_offset, return_stats=True)
+    n0 = flash_attention_mha.launches
+    got = flash_attention_mha(q, k, v, causal=causal, q_offset=q_offset)
+    stats = flash_attention_mha(q, k, v, causal=causal, q_offset=q_offset,
+                                return_stats=True)
+    torch.cuda.synchronize()
+    assert flash_attention_mha.launches == n0 + 2
+    assert got.dtype == stats[0].dtype == torch.bfloat16
+    assert torch.equal(got, stats[0])
+    torch.testing.assert_close(got.float(), want[0], **FLASH_BF16_TOL)
+    for a, b in zip(stats[1:], want[1:]):
+        torch.testing.assert_close(a, b, **FLASH_BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_bf16_gemm_repeats_its_bits(cuda):
+    """No split-K, no atomics, one fixed-order sum per output: 50 launches
+    of the bf16 GEMM (its widest wgmma tile) on the same inputs give one
+    result, bit for bit."""
+    rng = np.random.default_rng(50)
+    a = _on_card(rng, (4096, 1024), cuda).bfloat16()
+    b = _on_card(rng, (1024, 4384), cuda).bfloat16()
+    assert mm.kernel_route(a, b) == "128x256 wgmma tma bf16"
+    first = tiled_matmul(a, b)
+    assert all(torch.equal(tiled_matmul(a, b), first) for _ in range(49))
+
+
+@pytest.mark.gpu
+def test_bf16_flash_repeats_its_bits(cuda):
+    """Each output row one online-softmax sum in a fixed order, no merge
+    across warps: 50 launches of bf16 flash at the pipeline's shape on the
+    same inputs give one result, bit for bit."""
+    rng = np.random.default_rng(51)
+    q, k, v = (_on_card(rng, (2, 9, 1024, 64), cuda).bfloat16()
+               for _ in range(3))
+    first = flash_attention_mha(q, k, v, causal=True)
+    assert all(torch.equal(flash_attention_mha(q, k, v, causal=True), first)
+               for _ in range(49))
 
 
 @pytest.mark.gpu

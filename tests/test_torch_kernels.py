@@ -804,3 +804,151 @@ def test_lib_path_digests_the_shared_headers(tmp_path, monkeypatch):
     src.write_text(src.read_text() + "\n")
     assert _build.lib_path("mamba_ssd") != after["mamba_ssd"]
     assert _build.lib_path("tiled_matmul") == after["tiled_matmul"]
+
+
+# ---------------------------------------------------------------------------
+# the SASS gate: tensor-core instructions by kernel function and kind
+# ---------------------------------------------------------------------------
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_114flash_fwd_bf16ILi64ELb1ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_PfS5_iiiiif
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                      /* 0x00000a00ff017b82 */
+        /*0450*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;     /* 0x000000141418723c */
+        /*0460*/                   HMMA.16816.F32.BF16 R28, R4, R22, R28 ;     /* 0x000000161c1c723c */
+        /*0470*/                   LDSM.16.MT88.4 R8, [R2+0x400] ;             /* 0x000400000208783b */
+\t\tFunction : _ZN12_GLOBAL__N_115gemm_wgmma_bf16INS_2WgILi128ELi256ELi4EEEEv14CUtensorMap_stS3_P13__nv_bfloat16iii
+        /*0a10*/                   HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;   /* 0x0000000418187df0 */
+        /*0a20*/              @!P0 HGMMA.64x256x16.F32.BF16 R24, gdesc[UR8], R24 ;        /* 0x0000000818187df0 */
+\t\tFunction : _ZN12_GLOBAL__N_111gemm_3xtf32INS_4TileIfLi64ELi64ELi2ELi2ELi3EEELb1EEEvPKT_S6_PS4_iii
+        /*0300*/                   HMMA.1688.F32.TF32 R8, R12, R16, R8 ;       /* 0x000000100c08723c */
+\t\tFunction : _ZN12_GLOBAL__N_113ssd_state_scanEPKfS1_S1_S1_Pfiiiiiii
+        /*0100*/                   FFMA R8, R12, R16, R8 ;                     /* 0x000000100c087223 */
+"""
+
+
+def test_tensor_core_counts_by_function_and_kind():
+    """``_build.tensor_core_counts`` reads ``cuobjdump -sass`` text: each
+    function's HMMA (mma.sync) and HGMMA (wgmma) instructions by operand
+    kind, predicated ones too; a function with none maps to {}."""
+    counts = _build.tensor_core_counts(_SASS)
+    by = {fn.split("_GLOBAL__N_1")[1][:18]: c for fn, c in counts.items()}
+    assert list(by.values()) == [{"HMMA.BF16": 2}, {"HGMMA.BF16": 2},
+                                 {"HMMA.TF32": 1}, {}]
+    assert _build.tensor_core_counts("no functions\nHMMA.1688.F32.TF32") \
+        == {}
+
+
+def test_tensor_core_gate_holds_the_bf16_kernels_to_bf16_products():
+    """The gate: flash's and the GEMM's bf16 functions must hold their bf16
+    instruction (HMMA.16816.F32.BF16, HGMMA...BF16) and no TF32 product;
+    every other gated function an HMMA; every named function must exist."""
+    counts = _build.tensor_core_counts(_SASS)
+    flash = {fn: c for fn, c in counts.items() if "flash" in fn}
+    gemm = {fn: c for fn, c in counts.items() if "gemm" in fn}
+    assert _build.tensor_core_faults("flash_attention", flash) == []
+    assert _build.tensor_core_faults("tiled_matmul", gemm) == []
+    # a TF32 product in a bf16 function, or its bf16 instruction missing
+    tf32 = _SASS.replace("HMMA.16816.F32.BF16 R28", "HMMA.1688.F32.TF32 R28")
+    bad = {fn: c for fn, c in _build.tensor_core_counts(tf32).items()
+           if "flash" in fn}
+    assert "HMMA.BF16 only" in _build.tensor_core_faults("flash_attention",
+                                                         bad)[0]
+    mma_sync = _SASS.replace("HGMMA.64x256x16", "HMMA.16816")
+    bad = {fn: c for fn, c in _build.tensor_core_counts(mma_sync).items()
+           if "gemm" in fn}
+    assert any("gemm_wgmma_bf16" in f and "HGMMA.BF16 only" in f
+               for f in _build.tensor_core_faults("tiled_matmul", bad))
+    # the bf16 kernel absent, a gated function without HMMA
+    only_tf32 = {fn: c for fn, c in gemm.items() if "3xtf32" in fn}
+    assert _build.tensor_core_faults("tiled_matmul", only_tf32) == [
+        "tiled_matmul: no function named gemm_wgmma_bf16"]
+    assert any("has no HMMA" in f for f in _build.tensor_core_faults(
+        "ssd_state", counts, gated=("ssd_state_scan",)))
+    assert _build.tensor_core_faults("ssd_state", counts,
+                                     gated=("ssd_state_walk",)) == [
+        "ssd_state: no kernel function",
+        "ssd_state: no function named ssd_state_walk"]
+
+
+# ---------------------------------------------------------------------------
+# the bf16 flash kernel's arithmetic: exact bf16 products, P split in two
+# ---------------------------------------------------------------------------
+
+def _flash_bf16_emulated(q, k, v, causal: bool, split: bool = True,
+                         bkv: int = 64, rounded: bool = True):
+    """The bf16 flash kernel's arithmetic on the CPU (kv tiles of ``bkv``
+    keys): q k^T as exact products of bf16 values summed in f32, scaled
+    into log2 units and masked to -1e30; the running max; p = exp2(s - m),
+    0 where masked; p split into p_hi = bf16(p) and p_lo = bf16(p - p_hi)
+    (``split``; else p rounded to bf16 in one piece), each multiplied by v
+    and added in f32 to the output rescaled by exp2(m_old - m); the
+    denominator summed from the f32 p.  The output acc / max(l, 1e-30),
+    rounded to bf16 (``rounded``) or left in f32."""
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    Sq, D = q.shape[-2:]
+    Sk = k.shape[-2]
+    scale_log2 = torch.tensor(math.log2(math.e), dtype=torch.float32) \
+        / torch.tensor(D, dtype=torch.float32).sqrt()
+    m = torch.full(q.shape[:-1], -1e30)
+    l = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(qf.shape)
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, bkv):
+        kt, vt = kf[..., k0:k0 + bkv, :], vf[..., k0:k0 + bkv, :]
+        kpos = torch.arange(k0, k0 + kt.shape[-2])[None, :]
+        keep = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+        s = torch.where(keep, (qf @ kt.transpose(-1, -2)) * scale_log2,
+                        torch.tensor(-1e30))
+        mn = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - mn)
+        p = torch.where(s > -1e30, torch.exp2(s - mn[..., None]),
+                        torch.zeros(()))
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split:
+            pv = (p - hi).bfloat16().float() @ vt + pv
+        acc = acc * corr[..., None] + pv
+        l = l * corr + p.sum(-1)
+        m = mn
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.bfloat16() if rounded else out
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", [(256, 256, True),
+                                          (1024, 1024, True),
+                                          (448, 1024, False)])
+def test_split_p_bf16_flash_meets_the_reference_bf16_tolerance(Sq, Sk,
+                                                               causal):
+    """The new bf16 flash arithmetic, emulated, against the JAX package's
+    Pallas kernel in interpret mode on the same numpy-seeded bf16 inputs
+    (head dim 64, the main paths'): within the reference's bf16 2e-2."""
+    from repro.kernels.flash_attention import flash_attention_mha as jflash
+    rng = np.random.default_rng(Sq + Sk)
+    q = _randn(rng, (1, 2, Sq, 64))
+    k, v = (_randn(rng, (1, 2, Sk, 64)) for _ in range(2))
+    want = np.asarray(jflash(*(jnp.asarray(x, jnp.bfloat16)
+                               for x in (q, k, v)), causal=causal,
+                             interpret=True), np.float32)
+    got = _flash_bf16_emulated(*(torch.from_numpy(x).bfloat16()
+                                 for x in (q, k, v)), causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_split_p_keeps_the_probabilities_f32_accurate():
+    """Why P is split: with p_hi + p_lo (about 16 significant bits) the
+    output before its bf16 rounding stays within 1e-5 of exact attention
+    on the same bf16 inputs, as the reference's f32 product of f32
+    probabilities does; p rounded to bf16 in one piece is off by more
+    than 1e-4."""
+    rng = np.random.default_rng(1024)
+    q, k, v = (torch.from_numpy(_randn(rng, (1, 2, 1024, 64))).bfloat16()
+               for _ in range(3))
+    exact = ref.attention_ref(*(x.double() for x in (q, k, v)), causal=True)
+    err = lambda split: (_flash_bf16_emulated(q, k, v, True, split=split,
+                                              rounded=False).double()
+                         - exact).abs().max().item()
+    assert err(True) < 1e-5 < 1e-4 < err(False)
