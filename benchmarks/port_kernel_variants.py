@@ -23,10 +23,11 @@ kernels:
 
 For the SSD chunk kernel only:
 
-* ``expf mask``: the decay mask through ``expf`` in place of ``__expf``;
-* ``x split once``: the x tile split into its TF32 parts once, in shared
-  memory (both parts kept there, read in place of a split per use; the W
-  exchange single-buffered, with a second barrier a round, to make room).
+* ``expf mask``: the decay tables (the diagonal tiles' masked decays and
+  the row and column factors) through ``expf`` in place of ``__expf``.
+
+Its other levers (heads a block, the bf16 scores of the mixed instance)
+are ``benchmarks/port_ssd_variants.py``'s.
 
 For the SSD state pass (``ssd_state.cu``), its walk and its outputs
 kernel at ``chip_smoke.STATE_PATH``'s three shapes:
@@ -64,9 +65,10 @@ For the analyzer's replay (``segment_replay`` in ``fused_eval.cu``), at
 ``chip_smoke.py``'s ``segment_replay`` lines (three layouts, ``REPLAY_B``
 rows), against ``np.bincount`` bit for bit:
 
-* ``N cells a block``: the cells one block owns (``kReplayCells``), 32 to
-  2,048; one of them is the source as built.  A last line sums each
-  cut's times over the lines and names the least.
+* ``N cells a block``: the cells one block owns, 32 to 512, forced, beside
+  ``rule`` (the most that still give every SM a block,
+  ``replay_cells_per_block``).  A last line sums each cut's times over the
+  lines and names the least.
 
 Prints one JSON line per kernel and shape, then the card's name and power
 limit.
@@ -100,62 +102,10 @@ THREE = """  mma(d, alo, bhi);
 VARIANTS = {"as built": None, "cvt split": (SPLIT, CVT_SPLIT),
             "1 product": (THREE, "  mma(d, ahi, bhi);")}
 SOURCES = ("tiled_matmul", "flash_attention", "mamba_ssd")
-EXPF = [(f"s[n][{e}] * __expf(", f"s[n][{e}] * expf(") for e in range(4)]
-# the x-split-once variant applies to the f32 instance (a bf16 x tile is
-# exact in TF32 and has no lo part to keep); the bf16 instance still
-# compiles from the same source
-SPLIT_X = [
-    ("constexpr int EXF = STRIPS * 2 * 2 * 256;",
-     "constexpr int EXF = STRIPS * 2 * 256;"),
-    ("         sizeof(float) * (2 * size_t(QP) + EXF);",
-     "         sizeof(float) * (size_t(QP) * Ld<T>::X + 2 * size_t(QP)"
-     " + EXF);"),
-    ("  float* cs = reinterpret_cast<float*>(Xs + QP * LDX);",
-     "  float* Xl = reinterpret_cast<float*>(Xs + QP * LDX);\n"
-     "  float* cs = Xl + QP * LDX;"),
-    ("  __syncthreads();                      // x and the decays are in\n",
-     "  __syncthreads();\n"
-     "  if constexpr (!EX) {\n"
-     "    for (int idx = threadIdx.x; idx < QP * PT; idx += THREADS) {\n"
-     "      T* xp = Xs + (idx / PT) * LDX + idx % PT;\n"
-     "      uint32_t hi, lo;\n"
-     "      split(*xp, hi, lo);\n"
-     "      *xp = __uint_as_float(hi);\n"
-     "      Xl[xp - Xs] = __uint_as_float(lo);\n"
-     "    }\n"
-     "  }\n"
-     "  __syncthreads();\n"),
-    ("      float* buf = ex + strip * 1024 + (r & 1) * 512;",
-     "      float* buf = ex + strip * 512;"),
-    ("        const float4 u0 = src[0], u1 = src[1];",
-     "        const float4 u0 = src[0], u1 = src[1];\n"
-     "        if (hh == 1 || k + 1 > strip)\n"
-     "          asm volatile(\"bar.sync %0, 64;\" :: \"r\"(1 + strip)"
-     " : \"memory\");"),
-    ("            split_t(xr[0], bhi[0], blo[0]);\n"
-     "            split_t(xr[LDX], bhi[1], blo[1]);",
-     "            if constexpr (EX) {\n"
-     "              split_t(xr[0], bhi[0], blo[0]);\n"
-     "              split_t(xr[LDX], bhi[1], blo[1]);\n"
-     "            } else {\n"
-     "              bhi[0] = __float_as_uint(xr[0]);\n"
-     "              bhi[1] = __float_as_uint(xr[LDX]);\n"
-     "              blo[0] = __float_as_uint(Xl[xr - Xs]);\n"
-     "              blo[1] = __float_as_uint(Xl[xr - Xs + LDX]);\n"
-     "            }"),
-    ("        split_t(xr[0], bhi[0], blo[0]);\n"
-     "        split_t(xr[LDX], bhi[1], blo[1]);",
-     "        if constexpr (EX) {\n"
-     "          split_t(xr[0], bhi[0], blo[0]);\n"
-     "          split_t(xr[LDX], bhi[1], blo[1]);\n"
-     "        } else {\n"
-     "          bhi[0] = __float_as_uint(xr[0]);\n"
-     "          bhi[1] = __float_as_uint(xr[LDX]);\n"
-     "          blo[0] = __float_as_uint(Xl[xr - Xs]);\n"
-     "          blo[1] = __float_as_uint(Xl[xr - Xs + LDX]);\n"
-     "        }"),
-]
-SSD_VARIANTS = {"expf mask": EXPF, "x split once": SPLIT_X}
+EXPF = [("dg[e] = j <= i ? __expf(", "dg[e] = j <= i ? expf("),
+        ("bt[16 * J + lane] = __expf(", "bt[16 * J + lane] = expf("),
+        ("at[J * QMAX + i] = __expf(", "at[J * QMAX + i] = expf(")]
+SSD_VARIANTS = {"expf mask": EXPF}
 NO_PRODUCT = """    for (auto& a : acc)
       for (auto& b : a)
         for (float& e : b) e = 0.f;"""
@@ -205,16 +155,16 @@ def fused_variants(source: str) -> dict:
     return out
 
 
-REPLAY_CUT = re.compile(r"constexpr int kReplayCells = \d+;")
-REPLAY_CUTS = (32, 64, 128, 256, 512, 1024, 2048)
+REPLAY_RULE = "  int cells = kReplayCells;\n"
+REPLAY_CUTS = (32, 64, 128, 256, 512)
 
 
 def replay_variants(source: str) -> dict:
-    """{variant: substitutions} of fused_eval.cu: segment_replay's cut."""
-    built, = REPLAY_CUT.findall(source)
-    return {f"{n} cells a block": [(built,
-                                    f"constexpr int kReplayCells = {n};")]
-            for n in REPLAY_CUTS}
+    """{variant: substitutions} of fused_eval.cu: segment_replay's cut,
+    each forced, beside the rule as built."""
+    return {"rule": [], **{f"{n} cells a block": [
+        (REPLAY_RULE, f"  return {n};\n  int cells = kReplayCells;\n")]
+        for n in REPLAY_CUTS}}
 
 
 # (B, H, N) of the route sweep, at 8 chunks of 128 and P = 64: blocks of
@@ -234,6 +184,8 @@ def substitute(text: str, subs, what: str) -> str:
 
 def start_build(vdir: Path, name: str, header: str, source: str):
     vdir.mkdir(parents=True, exist_ok=True)
+    for other in _build.CSRC.glob("*.cuh"):
+        (vdir / other.name).write_text(other.read_text())
     (vdir / "tf32x3.cuh").write_text(header)
     src = vdir / f"{name}.cu"
     src.write_text(source)
@@ -431,12 +383,12 @@ def time_replay(libs: dict, stream: int) -> None:
                     "stream": int(idx.size), "cells": n}
             for variant in variants:
                 lib = libs[(variant, "fused_eval")]
-                ranges = torch.empty(2 * -(-n // lib.replay_cells_per_block()),
+                ranges = torch.empty(2 * -(-n // 32),
                                      dtype=torch.int32, device=dev)
-                launch = lambda: lib.segment_replay_f64(
+                launch = lambda init=0: lib.segment_replay_f64(
                     ti.data_ptr(), tv.data_ptr(), ti.numel(), out.data_ptr(),
-                    n, ranges.data_ptr(), 0, stream)
-                if launch() != 0:
+                    n, ranges.data_ptr(), init, 0, stream)
+                if launch(1) != 0:
                     raise RuntimeError(f"{variant}: launch failed")
                 torch.cuda.synchronize()
                 ms = least_ms(launch)

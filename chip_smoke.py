@@ -19,6 +19,9 @@ phase prints one JSON line:
    The bf16 kernels (``_build.BF16_TC_KERNELS``: ``flash_fwd_bf16`` and
    ``gemm_wgmma_bf16``) fail the run without their bf16 instruction
    (``HMMA.16816.F32.BF16``, ``HGMMA...BF16``) or with any TF32 product;
+   the SSD chunk kernel's mixed and bf16 functions
+   (``_build.MIXED_TC_KERNELS``: ``ssd_chunk_mixed``, ``ssd_chunk_bf16``)
+   fail it without ``HMMA.BF16`` (their C Bᵀ; TF32 beside it is theirs);
    every other function that multiplies on the tensor cores fails it
    without ``HMMA``: every function of the three tensor-core sources and,
    in ``ssd_state.cu``, the walk's and the split outputs'
@@ -38,9 +41,13 @@ phase prints one JSON line:
    cache mode, in f32 and bf16; flash with its statistics (m, l) against
    the plain version's, and at Sk = 0 with no launch; attention with
    ``cache_stack`` through the kernel against ``use_kernels=False`` at 1e-4
-   of the largest value).  The SSD chunk kernel's N <= 128 instance
-   (``P64 N128``) is timed at the ``mamba2-370m`` serve wave's shape (f32
-   and bf16) and at an odd N (4-byte copies); the state pass at the
+   of the largest value).  The SSD chunk kernel is timed at the
+   ``zamba2-1.2b`` and ``mamba2-370m`` serve waves' shapes and the
+   realization's, in f32, bf16 and mixed (x and cum f32, B and C bf16:
+   what the serve paths launch), and at an odd N (4-byte copies); every
+   SSD line names the heads a block takes (``heads_per_block``); a head
+   count that the heads a block do not divide is among the edges; the
+   state pass at the
    ``zamba2-1.2b`` prefill, the ``mamba2-370m`` realization and serve
    shapes, on both routes, each kernel of the route also on its own.  Each
    kernel line names the kernel configuration the launch took (``route``:
@@ -66,9 +73,10 @@ phase prints one JSON line:
    plain version on the upcast inputs at the reference's bf16 tolerances
    (GEMM atol 0.5 / rtol 5e-2, flash 2e-2; SSD, whose outputs are f32,
    1e-4), each shape launched twice, each launch counted, the output
-   type checked and, for GEMM and flash, the second launch's bits equal
-   to the first's (``repeat_bit_equal``, also on the serve shapes' flash
-   lines); at the path shapes
+   type checked and the second launch's bits equal to the first's
+   (``repeat_bit_equal``, also on the serve shapes' flash and SSD lines);
+   ``dtype: mixed`` SSD lines likewise, at the serve and realization
+   shapes and ragged sizes; at the path shapes
    also the kernel's, the plain version's and the bf16 library call's
    time and the bound at bf16 rates (989 TFLOP/s dense, 2 bytes an
    element).
@@ -331,7 +339,7 @@ PEAK_HBM_BYTES_S = 3.35e12
 PEAK_F64_FLOPS = 34e12
 ARITH = {"tiled_matmul": "3xTF32 mma.sync",
          "flash_attention_mha": "3xTF32 mma.sync",
-         "ssd_chunk_dual": "3xTF32 mma.sync",
+         "ssd_chunk_dual": "3xTF32 mma.sync (C B^T once a block of heads)",
          "ssd_state_walk": "3xTF32 mma.sync",
          "ssd_state_scan": "f32 FMA (no tensor cores)",
          "ssd_state_out": "3xTF32 mma.sync"}
@@ -347,8 +355,16 @@ ARITH_BF16 = {
     "flash_attention_mha": "bf16 mma.sync m16n8k16, f32 accumulation: 1 "
                            "for QK^T, 2 for PV (P split into bf16 hi and "
                            "lo)",
-    "ssd_chunk_dual": "bf16 inputs, f32 math and outputs: 1 TF32 mma.sync "
-                      "for CB^T, 2 for Wx and (dB)^T x"}
+    "ssd_chunk_dual": "bf16 inputs, f32 math and outputs: bf16 mma.sync "
+                      "m16n8k16 for CB^T (once a block of heads, each k16 "
+                      "step added in f32), 2 TF32 mma.sync for Wx and "
+                      "(dB)^T x"}
+# the SSD chunk kernel's mixed instance, which the serve, train-eval and
+# cell paths launch (the model computes in bf16: x and cum f32, B and C
+# bf16)
+ARITH_MIXED = ("x and cum f32, B and C bf16: bf16 mma.sync m16n8k16 for "
+               "CB^T (once a block of heads, each k16 step added in f32), "
+               "3xTF32 mma.sync for Wx and (dB)^T x")
 
 MM_TOL = {"atol": 1e-3, "rtol": 1e-4}
 FLASH_TOL = {"atol": 2e-5, "rtol": 2e-5}
@@ -405,19 +421,25 @@ FLASH_EDGE = [(2, 4, 96, 96, 64, True, False),
 # head) blocks: 4-byte copies (x not 16-byte aligned), Q of 70 and 100,
 # N % 8 != 0 and P = 130
 SSD_PATH = [(32, 128, 16, 128, 64, False)]
-# the N <= 128 instance (P64 N128), timed: the mamba2-370m serve wave's
+# zamba2-1.2b's serve wave (4 slots of up to 1024 tokens: 64 heads of P =
+# 64, N = 64), timed
+SSD_SERVE = [(32, 128, 64, 64, 64, False)]
+# the N <= 128 instance (N128 P64), timed: the mamba2-370m serve wave's
 # shape (4 slots of up to 1024 tokens) and an odd N past 64 (4-byte
 # copies); then edges: N = 100 with 16-byte copies, x a float off 16 B, P
 # = 130 in three tiles, Q off 16
 SSD_WIDE = [(32, 128, 32, 64, 128, False), (32, 128, 32, 64, 99, False)]
 SSD_WIDE_EDGE = [(2, 128, 3, 64, 100, False), (1, 100, 5, 64, 128, True),
-                 (1, 128, 3, 130, 72, False), (3, 70, 3, 64, 99, False)]
+                 (1, 128, 3, 130, 72, False), (3, 70, 3, 64, 99, False),
+                 (8, 100, 37, 64, 128, False)]
 SSD_EDGE = [(2, 16, 2, 8, 4, False), (4, 64, 4, 32, 16, False),
             (1, 128, 8, 64, 32, False), (2, 96, 4, 64, 64, False),
             (3, 70, 2, 32, 16, False), (2, 70, 3, 130, 50, False),
             (3, 70, 3, 64, 16, True), (1, 100, 5, 64, 64, False),
             (3, 100, 1, 32, 12, False), (1, 128, 3, 130, 20, False),
-            (1, 70, 7, 60, 50, True)]
+            (1, 70, 7, 60, 50, True),
+            # 37 heads, 3 a block by the grid-fill rule: a last group of 1
+            (8, 128, 37, 64, 64, False)]
 # bf16 at ragged sizes: the GEMM's one-element (ld2) route at odd K and
 # odd N; SSD at P = 130 and N % 8 != 0
 MM_BF16_EDGE = [(257, 129, 65), (2048, 131, 2048), (1000, 64, 77),
@@ -430,7 +452,15 @@ FLASH_BF16_EDGE = [(2, 2, 100, 70, 40, True), (1, 2, 70, 70, 33, True),
                    (1, 3, 80, 90, 36, False), (2, 12, 448, 1500, 64, False),
                    (1, 2, 96, 200, 256, True)]
 SSD_BF16_EDGE = [(1, 128, 3, 130, 24), (2, 16, 2, 8, 4),
-                 (2, 128, 3, 64, 100), (1, 100, 5, 130, 128)]
+                 (2, 128, 3, 64, 100), (1, 100, 5, 130, 128),
+                 (8, 128, 37, 64, 64)]
+# the mixed instance (x and cum f32, B and C bf16) at ragged sizes: N % 8
+# != 0 and x a float off 16 bytes (one-element copies), Q off 16, P = 130,
+# a ragged last group of heads, N = 99 and 100
+SSD_MIXED_EDGE = [(2, 16, 2, 8, 4, False), (1, 70, 7, 60, 50, True),
+                  (1, 100, 5, 130, 128, False), (8, 128, 37, 64, 64, False),
+                  (3, 70, 3, 64, 99, False), (2, 128, 3, 64, 100, False),
+                  (8, 100, 37, 64, 128, False)]
 # ssd_forward, kernel vs plain: (B, L, H, P, N, chunk); a padded last
 # chunk, and the mamba2-370m path's SSD layer (timed: the chunk kernel and
 # the state pass plus the eager discretization and cumsum around them)
@@ -772,6 +802,45 @@ def bf16_bounds(kernel: str, shape: dict) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def mixed_bounds(shape: dict) -> dict:
+    """The least ms the card could take for a launch of the SSD chunk
+    kernel's mixed instance (x and cum f32, B and C bf16, f32 outputs):
+    C Bᵀ at the dense bf16 tensor-core peak and W x and (d .* B)ᵀ x at the
+    f32 FMA peak (``bound_ms``) or the 3xTF32 rate (``bound_3xtf32_ms``),
+    against the bytes at the HBM rate (B and C 2 bytes an element, the
+    rest 4), each read or written once."""
+    from repro_torch.realize.measure import attention_pairs
+    BC, Q, H, P, N = (shape[k] for k in ("BC", "Q", "H", "P", "N"))
+    T = attention_pairs(Q, Q, True)
+    scores = 2.0 * BC * T * N / PEAK_BF16_FLOPS
+    rest = 2.0 * BC * (T * H * P + Q * H * N * P)
+    t_bytes = BC * (4 * (2 * Q * H * P + Q * H + H * N * P)
+                    + 2 * 2 * Q * N) / PEAK_HBM_BYTES_S
+    t_ops = scores + rest / PEAK_F32_FLOPS
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_3xtf32_ms": max(scores + rest / PEAK_3XTF32_FLOPS,
+                                   t_bytes) * 1e3}
+
+
+def ssd_inputs(randn, BC, Q, H, P, N, dtype: str = "f32",
+               offset: bool = False):
+    """x, cum (a decreasing cumsum within each chunk), B and C of the SSD
+    chunk kernel on the card from ``randn`` (f32): all f32, all bf16, or
+    ``"mixed"`` (x and cum f32, B and C bf16, as the model's bf16 compute
+    hands them); with ``offset`` x is a view one float into its storage
+    (f32 x only)."""
+    import torch
+    x = on_card(randn, (BC, Q, H, P), offset)
+    cum = torch.cumsum(-randn(BC, Q, H).abs() * 0.1, dim=1)
+    Bm, Cm = randn(BC, Q, N), randn(BC, Q, N)
+    if dtype == "bf16":
+        x, cum = x.bfloat16(), cum.bfloat16()
+    if dtype in ("bf16", "mixed"):
+        Bm, Cm = Bm.bfloat16(), Cm.bfloat16()
+    return x, cum, Bm, Cm
+
+
 def on_card(randn, shape, offset: bool):
     """randn of ``shape``, contiguous; with ``offset`` a view one float into
     its storage (data pointer 4- but not 16-byte aligned)."""
@@ -854,11 +923,9 @@ def check_kernels(dev):
                 f"flash_attention_mha disagrees at {(B, H, Sq, Sk, D)}")
     for path, clock, (BC, Q, H, P, N, offset) in \
             [(True, True, s) for s in SSD_PATH] \
-            + [(False, True, s) for s in SSD_WIDE] \
+            + [(False, True, s) for s in SSD_SERVE + SSD_WIDE] \
             + [(False, False, s) for s in SSD_EDGE + SSD_WIDE_EDGE]:
-        x = on_card(randn, (BC, Q, H, P), offset)
-        cum = torch.cumsum(-randn(BC, Q, H).abs() * 0.1, dim=1)
-        Bm, Cm = randn(BC, Q, N), randn(BC, Q, N)
+        x, cum, Bm, Cm = ssd_inputs(randn, BC, Q, H, P, N, "f32", offset)
         got = ssd_chunk_dual(x, cum, Bm, Cm)
         want = ref.ssd_chunk_ref(x, cum, Bm, Cm)
         torch.cuda.synchronize()
@@ -866,6 +933,7 @@ def check_kernels(dev):
         line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
                 "shape": shape, "x_offset": int(offset),
                 "route": mamba_ssd.kernel_route(x, Bm, Cm),
+                "heads_per_block": mamba_ssd.heads_per_block(x, Bm),
                 "arith": ARITH["ssd_chunk_dual"],
                 "main_path": path, **SSD_TOL,
                 "max_abs_err": max((g - w).abs().max().item()
@@ -1234,9 +1302,11 @@ def check_bf16(dev) -> dict:
         """``path``: timed and kept for the per-pass summary; ``clock``:
         timed only.  GEMM and flash must also repeat their bits."""
         line["max_abs_err"] = err
-        ok = ok and (kernel == "ssd_chunk_dual" or line["repeat_bit_equal"])
+        ok = ok and line["repeat_bit_equal"]
         if path or clock:
-            line.update(bf16_bounds(kernel, line["shape"]))
+            line.update(mixed_bounds(line["shape"])
+                        if line["dtype"] == "mixed"
+                        else bf16_bounds(kernel, line["shape"]))
             line.update({k: time_ms(f, device=k != "host_issued_ms")
                          if f else None for k, f in timings.items()})
         if path:
@@ -1288,22 +1358,28 @@ def check_bf16(dev) -> dict:
                                                       causal=causal),
                 "library_ms": lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal)})
-    for path, clock, (BC, Q, H, P, N) in \
-            [(True, True, s[:5]) for s in SSD_PATH] \
-            + [(False, True, s[:5]) for s in SSD_WIDE[:1]] \
-            + [(False, False, s) for s in SSD_BF16_EDGE]:
-        x = randn(BC, Q, H, P)
-        cum = torch.cumsum(-randn(BC, Q, H).float().abs() * 0.1,
-                           dim=1).bfloat16()
-        Bm, Cm = randn(BC, Q, N), randn(BC, Q, N)
+    randn32 = lambda *s: torch.randn(*s, device=dev, generator=gen)
+    ssd_bf16 = [(True, True, "bf16", (*s[:5], False)) for s in SSD_PATH] \
+        + [(False, True, "bf16", (*s[:5], False))
+           for s in SSD_SERVE + SSD_WIDE[:1]] \
+        + [(False, False, "bf16", (*s, False)) for s in SSD_BF16_EDGE]
+    # the mixed instance, which the serve paths launch, at the serve shapes
+    # and the realization's, then ragged
+    ssd_mixed = [(False, True, "mixed", s)
+                 for s in SSD_SERVE + SSD_WIDE[:1] + SSD_PATH] \
+        + [(False, False, "mixed", s) for s in SSD_MIXED_EDGE]
+    for path, clock, dtype, (BC, Q, H, P, N, offset) in ssd_bf16 + ssd_mixed:
+        x, cum, Bm, Cm = ssd_inputs(randn32, BC, Q, H, P, N, dtype, offset)
         got, same = run(ssd_chunk_dual, "ssd_chunk_dual", x, cum, Bm, Cm)
         want = ref.ssd_chunk_ref(x.float(), cum.float(), Bm.float(),
                                  Cm.float())
         shape = {"BC": BC, "Q": Q, "H": H, "P": P, "N": N}
         line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
-                "dtype": "bf16", "shape": shape,
+                "dtype": dtype, "shape": shape, "x_offset": int(offset),
                 "route": mamba_ssd.kernel_route(x, Bm, Cm),
-                "arith": ARITH_BF16["ssd_chunk_dual"], "main_path": path,
+                "heads_per_block": mamba_ssd.heads_per_block(x, Bm),
+                "arith": ARITH_BF16["ssd_chunk_dual"] if dtype == "bf16"
+                else ARITH_MIXED, "main_path": path,
                 "out_dtype": str(got[0].dtype), "repeat_bit_equal": same,
                 **SSD_BF16_TOL}
         if clock:
@@ -1975,7 +2051,7 @@ def check_cost_kernels(dev) -> dict:
         for B in REPLAY_B:
             line = replay_line(dev, layout, arch, g, batch, B)
             line["cells_per_block"] = _build.load(
-                "fused_eval").replay_cells_per_block()
+                "fused_eval").replay_cells_per_block(line["cells"], 0)
             timed[("segment_replay", layout, B)] = line
             emit(line)
             if not (line["within_tol"] and line["distinct"] == 1
@@ -2362,8 +2438,11 @@ def flash_bf16_line(randn, B, heads, Sq, Sk, hd, causal, main_path) -> dict:
 def serve_kernel_lines(dev, keys, main_path) -> dict:
     """Kernel lines at a serve phase's launch shapes, once per distinct
     launch key (``serve_wave_keys``): flash on bf16 (B, heads, Sq, Sk, head
-    dim), causal or not, as the prefill runs it; the SSD chunk kernel on
-    f32 (B * ceil(L / 128), 128, H, P, N); the state pass on (B, ceil(L /
+    dim), causal or not, as the prefill runs it; the SSD chunk kernel
+    mixed (x and cum f32, B and C bf16, as the path's bf16 compute hands
+    them; and, not kept, all f32 as its f32 compute does) at (B * ceil(L /
+    128), 128, H, P, N), each launched twice and held to repeat its bits;
+    the state pass on (B, ceil(L /
     128), 128, H, P, N, G = 1) by the route the rule picks.  Each against
     its plain version on the same inputs (flash on the upcast inputs,
     2e-2; the SSD kernels 1e-4), with its device time, the plain
@@ -2388,36 +2467,48 @@ def serve_kernel_lines(dev, keys, main_path) -> dict:
             timed[key] = flash_bf16_line(randn, B, heads, Sq, Sk, hd,
                                          bool(causal), main_path)
         elif kernel == "ssd_chunk_dual":
-            BC, Q, H, P, N = shp
-            x = randn(BC, Q, H, P)
-            cum = torch.cumsum(-randn(BC, Q, H).abs() * 0.1, dim=1)
-            Bm, Cm = randn(BC, Q, N), randn(BC, Q, N)
-            got = ssd_chunk_dual(x, cum, Bm, Cm)
-            want = ref.ssd_chunk_ref(x, cum, Bm, Cm)
-            torch.cuda.synchronize()
-            shape = {"BC": BC, "Q": Q, "H": H, "P": P, "N": N}
-            line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
-                    "shape": shape,
-                    "route": mamba_ssd.kernel_route(x, Bm, Cm),
-                    "arith": ARITH["ssd_chunk_dual"], "main_path": main_path,
-                    **SSD_TOL, "max_abs_err": max(
-                        (g - w).abs().max().item()
-                        for g, w in zip(got, want)),
-                    **bounds(*launch_cost("ssd_chunk_dual", shape))}
-            line["ms"] = time_ms(lambda: ssd_chunk_dual(x, cum, Bm, Cm))
-            line["host_issued_ms"] = time_ms(
-                lambda: ssd_chunk_dual(x, cum, Bm, Cm), device=False)
-            line["plain_ms"] = time_ms(
-                lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm))
-            line["library_ms"] = None
-            line["library"] = "none: no single PyTorch call computes it"
-            emit(line)
-            if not all(torch.allclose(g, w, **SSD_TOL)
-                       for g, w in zip(got, want)):
-                raise AssertionError(f"serve ssd_chunk_dual disagrees at "
-                                     f"{shape}")
-            timed[key] = line
-            del x, cum, Bm, Cm, got, want
+            # the path's bf16 compute launches the mixed instance (kept
+            # for the summary); its f32 compute, checked beside it, the
+            # f32 one
+            shape = dict(zip(("BC", "Q", "H", "P", "N"), shp))
+            for dtype in ("mixed", "f32"):
+                x, cum, Bm, Cm = ssd_inputs(randn, *shp, dtype)
+                got = ssd_chunk_dual(x, cum, Bm, Cm)
+                again = ssd_chunk_dual(x, cum, Bm, Cm)
+                want = ref.ssd_chunk_ref(x, cum, Bm, Cm)
+                torch.cuda.synchronize()
+                line = {"phase": "kernel", "kernel": "ssd_chunk_dual",
+                        "dtype": dtype, "shape": shape,
+                        "route": mamba_ssd.kernel_route(x, Bm, Cm),
+                        "heads_per_block": mamba_ssd.heads_per_block(x, Bm),
+                        "arith": ARITH_MIXED if dtype == "mixed"
+                        else ARITH["ssd_chunk_dual"],
+                        "main_path": main_path if dtype == "mixed"
+                        else f"{main_path} (f32 compute)",
+                        **SSD_TOL, "max_abs_err": max(
+                            (g - w).abs().max().item()
+                            for g, w in zip(got, want)),
+                        "repeat_bit_equal": all(
+                            torch.equal(g, a) for g, a in zip(got, again)),
+                        **(mixed_bounds(shape) if dtype == "mixed" else
+                           bounds(*launch_cost("ssd_chunk_dual", shape)))}
+                line["ms"] = time_ms(lambda: ssd_chunk_dual(x, cum, Bm, Cm))
+                line["host_issued_ms"] = time_ms(
+                    lambda: ssd_chunk_dual(x, cum, Bm, Cm), device=False)
+                line["plain_ms"] = time_ms(
+                    lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm))
+                line["library_ms"] = None
+                line["library"] = "none: no single PyTorch call computes it"
+                emit(line)
+                if not line["repeat_bit_equal"] or not all(
+                        torch.allclose(g, w, **SSD_TOL)
+                        for g, w in zip(got, want)):
+                    raise AssertionError(f"serve ssd_chunk_dual {dtype} "
+                                         f"disagrees or does not repeat "
+                                         f"its bits at {shape}")
+                if dtype == "mixed":
+                    timed[key] = line
+                del x, cum, Bm, Cm, got, again, want
         elif kernel in STATE_KERNELS:
             for k, line in check_state_pass(
                     randn, *shp, False, timed=True,
@@ -3630,7 +3721,8 @@ def main() -> int:
               "gated": {**{name: "every kernel function"
                            for name in _build.TENSOR_CORE_SOURCES},
                         "ssd_state": list(STATE_HMMA_KERNELS)},
-              "bf16_only": _build.BF16_TC_KERNELS})
+              "bf16_only": _build.BF16_TC_KERNELS,
+              "bf16_beside_tf32": _build.MIXED_TC_KERNELS})
         faults = [f for name, parts in gated.items()
                   for f in _build.tensor_core_faults(name, counts[name],
                                                      parts)]

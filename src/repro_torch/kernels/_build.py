@@ -39,6 +39,12 @@ SOURCES = TENSOR_CORE_SOURCES + ("fused_eval", "ssd_state")
 # instruction kind each must use; they may hold no TF32 product
 BF16_TC_KERNELS = {"flash_attention": ("flash_fwd_bf16", "HMMA.BF16"),
                    "tiled_matmul": ("gemm_wgmma_bf16", "HGMMA.BF16")}
+# the kernel functions, by source, that take one product on the bf16 tensor
+# cores (C B^T from bf16 B and C) and others in TF32 (W x and (d .* B)^T x,
+# whose f32 operands keep their split): each must hold the bf16 instruction
+# kind named, and TF32 products are allowed beside it
+MIXED_TC_KERNELS = {"mamba_ssd": (("ssd_chunk_mixed", "ssd_chunk_bf16"),
+                                  "HMMA.BF16")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,10 +62,12 @@ SIGNATURES = {
                         "flash_attention_bf16": _FLASH,
                         "flash_attention_stats_f32": _FLASH_STATS,
                         "flash_attention_stats_bf16": _FLASH_STATS},
-    "mamba_ssd": {"ssd_chunk_dual_f32": _SSD, "ssd_chunk_dual_bf16": _SSD},
+    "mamba_ssd": {"ssd_chunk_dual_f32": _SSD, "ssd_chunk_dual_bf16": _SSD,
+                  "ssd_chunk_dual_mixed": _SSD},
     "fused_eval": {"fused_eval_f32": [_P] * 3 + [_L, _I, _I] + [_P] * 6
                    + [_I] * 3 + [_P] * 3 + [_I, _P],
-                   "segment_replay_f64": [_P, _P, _L, _P, _L, _P, _I, _P]},
+                   "segment_replay_f64": [_P, _P, _L, _P, _L, _P, _I, _I,
+                                          _P]},
     "ssd_state": {"ssd_state_walk_f32": [_P] * 7 + [_I] * 8 + [_P],
                   "ssd_state_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
                   "ssd_state_out_f32": [_P] * 5 + [_I] * 9 + [_P]},
@@ -70,16 +78,22 @@ SIGNATURES = {
 ROUTES = {
     "tiled_matmul": {"tiled_matmul_route": [_I] * 3 + [_P] * 2 + [_I] * 2},
     "flash_attention": {"flash_attention_route": [_I] + [_P] * 3 + [_I]},
-    "mamba_ssd": {"ssd_chunk_dual_route": [_I] * 2 + [_P] * 3 + [_I]},
+    "mamba_ssd": {"ssd_chunk_dual_route": [_I] * 2 + [_P] * 3 + [_I] * 2},
     "ssd_state": {"ssd_state_pass_route": [_I] * 2 + [_P] * 2},
 }
 # argument types of the functions that report a count (an int)
 QUERIES = {
     "fused_eval": {"fused_eval_max_cells": [_I],
-                   "replay_cells_per_block": []},
+                   "replay_cells_per_block": [_L, _I]},
+    "mamba_ssd": {"ssd_chunk_dual_heads": [_I] * 6},
 }
 # the suffix of a launch function's name, by operand dtype name
 DTYPE_SUFFIX = {"float32": "f32", "bfloat16": "bf16"}
+# the SSD chunk kernel's launch functions, by the dtype names of (x and
+# cum, B and C): all f32, all bf16, or x and cum f32 with B and C bf16
+SSD_DTYPE_SUFFIX = {("float32", "float32"): "f32",
+                    ("bfloat16", "bfloat16"): "bf16",
+                    ("float32", "bfloat16"): "mixed"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -218,17 +232,21 @@ def tensor_core_faults(name: str, counts: Dict[str, Dict[str, int]],
     """What is wrong with source ``name``'s tensor-core counts
     (:func:`tensor_core_counts`); empty when nothing is.  A function named
     in :data:`BF16_TC_KERNELS` must hold its bf16 instruction and no TF32
-    product; every other gated function must hold an ``HMMA``.  ``gated``:
+    product; one named in :data:`MIXED_TC_KERNELS` its bf16 instruction,
+    TF32 beside it allowed; every other gated function must hold an
+    ``HMMA``.  ``gated``:
     parts of the names of the functions that must multiply on the tensor
     cores, each naming one at least; None, every function of the
     source."""
     faults = []
     bf16 = BF16_TC_KERNELS.get(name)
+    mixed_parts, mixed_kind = MIXED_TC_KERNELS.get(name, ((), None))
     fns = list(counts) if gated is None else [
         fn for fn in counts if any(k in fn for k in gated)]
     if not fns:
         faults.append(f"{name}: no kernel function")
-    for part in list(gated or ()) + ([bf16[0]] if bf16 else []):
+    for part in list(gated or ()) + ([bf16[0]] if bf16 else []) \
+            + list(mixed_parts):
         if not any(part in fn for fn in counts):
             faults.append(f"{name}: no function named {part}")
     for fn in fns:
@@ -237,6 +255,10 @@ def tensor_core_faults(name: str, counts: Dict[str, Dict[str, int]],
             if not c.get(bf16[1]) or any("TF32" in k for k in c):
                 faults.append(f"{name}: {fn} takes bf16 products as "
                               f"{bf16[1]} only, has {c}")
+        elif any(part in fn for part in mixed_parts):
+            if not c.get(mixed_kind):
+                faults.append(f"{name}: {fn} takes C B^T as {mixed_kind}, "
+                              f"has {c}")
         elif not sum(n for k, n in c.items() if k.startswith("HMMA.")):
             faults.append(f"{name}: {fn} has no HMMA: {c}")
     return faults
@@ -252,6 +274,23 @@ def dtype_suffix(kernel: str, tensors) -> str:
                         f"operands, all of one type; got "
                         f"{[str(t.dtype) for t in tensors]}")
     return DTYPE_SUFFIX[names.pop()]
+
+
+def ssd_dtype_suffix(kernel: str, x, cum, Bm, Cm) -> str:
+    """The SSD chunk kernel's launch-function suffix (``"f32"``,
+    ``"bf16"``, ``"mixed"``) for these operands: x and cum of one type, B
+    and C of one type, and the pair one of :data:`SSD_DTYPE_SUFFIX`'s
+    (the reference hands its kernel B and C in the model's type beside f32
+    x and cum); raises ``TypeError`` on any other mix."""
+    name = lambda t: str(t.dtype).rsplit(".", 1)[-1]
+    pair = (name(x), name(Bm))
+    if name(cum) != pair[0] or name(Cm) != pair[1] \
+            or pair not in SSD_DTYPE_SUFFIX:
+        raise TypeError(f"{kernel}: the kernel takes x and cum float32 or "
+                        f"bfloat16 and B and C of x's type, or bfloat16 "
+                        f"beside float32 x; got "
+                        f"{[str(t.dtype) for t in (x, cum, Bm, Cm)]}")
+    return SSD_DTYPE_SUFFIX[pair]
 
 
 def refuse_grad(kernel: str, tensors) -> None:

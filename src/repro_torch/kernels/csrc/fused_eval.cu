@@ -73,32 +73,30 @@
 //
 // segment_replay sums each cell's entries in stream order, so the same
 // stream gives the same bits on every run, equal to a serial scatter-add
-// (np.bincount's order).  The cells are cut into ranges of kReplayCells
-// cells, one block a range.  A first launch (replay_ranges) finds, for
-// every range, the first and last stream position holding one of its
-// cells: a warp's 32 consecutive entries that fall in one range give the
-// group's first and last lane at once (__match_any_sync), and its first
-// lane takes an atomic max of -first and of last (integer maxima: the
-// result does not depend on their order).  A second launch (replay_cells)
-// gives each block its range's cells in shared memory, zeroed, and walks
-// only [first, last] of the stream in tiles of kReplayTile entries, four
-// consecutive entries a thread: each thread keeps the entries that fall
-// in the block's range, a block-wide scan of the counts packs them into a
-// list in stream order, and warp 0 adds the list 32 entries at a time: the
-// first lane of a cell's entries among them takes the cell and adds the
-// others' values in lane order, shuffled to it.  The analyzer's streams
-// run row after row, so a range's entries sit in one stretch and a block
-// reads about its share of the stream (a row's cells come in no order, so
-// a range reads its whole row); a stream in any other order is replayed
-// the same, reading more.  What bounds it is not the bytes but the order:
-// a cell's adds are one dependent chain, and warp 0 takes a list's chunks
-// one after another, each as many rounds as its most entries of one cell.
-// So the ranges are small, many blocks re-reading the rows they share:
-// of 32 to 2,048 cells a block, 64 took the least time summed over
-// chip_smoke.py's replay lines (benchmarks/port_kernel_variants.py; a
-// variant whose 16 warps each took the cells of one residue read slower:
-// PERF.md).  An index outside [0, n_cells) is skipped.  The adds are
-// float64, as the interface's types ask.
+// (np.bincount's order).  The cells are cut into ranges, one block a range,
+// one thread a cell: 512 cells a block, or fewer (down to 32) where 512
+// would leave SMs idle (replay_cells_per_block).  A first launch
+// (replay_ranges) finds, for every range, the first and last stream
+// position holding one of its cells (replay_ranges says how).  A second
+// launch (replay_cells) walks only [first, last] of the stream, in tiles
+// of 2,048 entries, and sorts each tile's entries of its cells stably in
+// shared memory, first by the warp that owns the cell, then, within each
+// warp's stretch, by the owning lane; then each lane adds its cell's run
+// in order: the 512 cells' dependent chains run side by side, where PR
+// 26's design had warp 0 add one packed list 32 entries at a time.  Each
+// block leaves its two range entries as it found them (kReplayUnset), so
+// a scratch the caller keeps needs no memset between launches.  What
+// bounds it is the sorting: every entry of a block's stretch takes part
+// in it, and the analyzer's streams run row after row with a row's cells
+// in no order, so a block reads its rows whole (a row of 514-952 cells
+// once or twice at 512 cells a block).  Per tile, the ballots that rank
+// entries and the walks of the runs each took about half the time of the
+// tile's work (variants measured on an H100, PERF.md), and the tile's work
+// outweighs its loads several times over.  index_add_ takes 2.5-4x less at
+// the analyzer's streams by adding with atomics in no fixed order, which
+// a replay that must repeat its bits cannot.  An index outside
+// [0, n_cells) is skipped.  The adds are float64, as the interface's types
+// ask.
 //
 // The spans, the D2D mask and the constants (bandwidths, GLB capacity,
 // unit energies) are fixed per evaluator: the caller uploads them once.
@@ -135,123 +133,247 @@ constexpr int kDefaultSmem = 48 * 1024;   // dynamic smem without opt-in
 constexpr int kMaxDevices = 64;
 
 constexpr int kReplayThreads = 512;
-constexpr int kReplayPer = 4;                 // consecutive entries a thread
-constexpr int kReplayTile = kReplayThreads * kReplayPer;
 constexpr int kReplayWarps = kReplayThreads / 32;
-constexpr int kReplayCells = 64;              // cells a block owns
+constexpr int kReplayPer = 4;         // entries a thread takes a tile
+constexpr int kReplayTile = kReplayThreads * kReplayPer;
+constexpr int kReplaySlots = kReplayPer * kReplayWarps;  // (round, warp)
+// the most cells a block (cell c is lane c / 16 of warp c % 16's) and the
+// fewest: a launch takes the most that still gives every SM a block
+constexpr int kReplayCells = 512;
+constexpr int kReplayMinCells = 32;
+static_assert(kReplayCells <= kReplayThreads, "one thread a cell");
+static_assert(kReplaySlots == 64, "the scan takes two slots a lane");
+// a range with no entry: below any position (0x80 in every byte)
+constexpr int kReplayUnset = static_cast<int>(0x80808080u);
+
+constexpr int kRangeThreads = 256;
+constexpr int kRangePer = 2;          // entries a thread
+constexpr int kRangeTile = kRangeThreads * kRangePer;
+constexpr int kRangeWindow = 32;      // ranges a block keeps in shared memory
 
 // ranges[2k] = max over range k's entries of -position, ranges[2k+1] = max
-// of position (both start below any of them: cudaMemsetAsync of 0x80
-// bytes, -2,139,062,144; a range with no entry keeps it).
-__global__ void replay_ranges(const long long* __restrict__ idx, int n,
-                              long long n_cells, int* __restrict__ ranges) {
-  // 64-bit: the last block's threads run past n, which may be INT_MAX
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const long long base = i - lane;
-  long long c = i < n ? __ldg(idx + i) : -1;
-  const int k = (c >= 0 && c < n_cells) ? static_cast<int>(c / kReplayCells)
-                                        : -1 - lane;
-  const unsigned peers = __match_any_sync(0xffffffffu, k);
-  if (k >= 0 && lane == __ffs(peers) - 1) {   // positions < n fit an int
-    atomicMax(ranges + 2 * k, -static_cast<int>(base + lane));
-    atomicMax(ranges + 2 * k + 1, static_cast<int>(base + 31 - __clz(peers)));
+// of position (both start at kReplayUnset, below any of them; a range with
+// no entry keeps it).  A block takes kRangeTile consecutive entries, round
+// r of thread t entry r * kRangeThreads + t: each warp's 32 consecutive
+// entries of one range give their first and last lane at once
+// (__match_any_sync); the block keeps the maxima of the kRangeWindow
+// ranges from its least one on in shared memory and adds them to the
+// global ones at the end, one atomic pair a range (a range's entries sit
+// in one stretch of the analyzer's streams, so a block sees a few ranges
+// and the global atomics stay few); an entry of a range past the window
+// takes the global atomics itself.  Integer maxima: the result does not
+// depend on their order.
+__global__ void __launch_bounds__(kRangeThreads)
+replay_ranges(const long long* __restrict__ idx, int n, long long n_cells,
+              int cells, int* __restrict__ ranges) {
+  __shared__ int s_first[kRangeWindow], s_last[kRangeWindow];
+  __shared__ int s_k0;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long base = static_cast<long long>(blockIdx.x) * kRangeTile;
+  int k[kRangePer];
+  int kmin = 0x7fffffff;
+#pragma unroll
+  for (int r = 0; r < kRangePer; ++r) {
+    const long long p = base + r * kRangeThreads + tid;
+    const long long c = p < n ? __ldg(idx + p) : -1;
+    k[r] = (c >= 0 && c < n_cells) ? static_cast<int>(c / cells) : -1;
+    if (k[r] >= 0) kmin = min(kmin, k[r]);
+  }
+  if (tid < kRangeWindow) s_first[tid] = s_last[tid] = kReplayUnset;
+  if (tid == 0) s_k0 = 0x7fffffff;
+  __syncthreads();
+  kmin = __reduce_min_sync(0xffffffffu, kmin);
+  if (lane == 0) atomicMin(&s_k0, kmin);
+  __syncthreads();
+  const int k0 = s_k0;
+#pragma unroll
+  for (int r = 0; r < kRangePer; ++r) {
+    const int key = k[r] >= 0 ? k[r] : -1 - lane;
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    if (key < 0 || lane != __ffs(peers) - 1) continue;
+    // positions < n fit an int
+    const int at = static_cast<int>(base + r * kRangeThreads + tid);
+    const int first = at, last = at + (31 - __clz(peers)) - lane;
+    if (key - k0 < kRangeWindow) {
+      atomicMax(s_first + (key - k0), -first);
+      atomicMax(s_last + (key - k0), last);
+    } else {
+      atomicMax(ranges + 2 * key, -first);
+      atomicMax(ranges + 2 * key + 1, last);
+    }
+  }
+  __syncthreads();
+  if (tid < kRangeWindow && s_last[tid] != kReplayUnset) {
+    atomicMax(ranges + 2 * (k0 + tid), s_first[tid]);
+    atomicMax(ranges + 2 * (k0 + tid) + 1, s_last[tid]);
   }
 }
 
+// Block k owns cells k * cells .. + cells - 1 (local cell c to lane c / 16
+// of warp c % 16) and walks [first, last] of its range in tiles of
+// kReplayTile entries: thread t takes entries t, t + 512, t + 1024 and
+// t + 1536 of a tile (round r, warp and lane give the stream order).  Per
+// tile the block sorts the kept entries by owner warp (c % 16), stably: in
+// each round each warp ranks its entries of an owner by lane (five
+// ballots: the owner's four bits and whether the entry is kept) and the
+// first such lane writes their count to counts[owner][16 r + warp]; a
+// block scan of the counts, owner-major, gives each entry its place in its
+// owner's stretch of the list.  Each warp then sorts its stretch by owner
+// lane (c / 16) the same way, 32 entries at a time (six ballots give each
+// lane its cell's entries and each entry its rank among them; the lanes'
+// counts first, then the places), and each lane adds its cell's run in
+// order into its running sum.  Each block resets its two range entries to
+// kReplayUnset once every thread has read them, for the next launch.
 __global__ void __launch_bounds__(kReplayThreads)
 replay_cells(const long long* __restrict__ idx,
-             const double* __restrict__ vals, long long n_cells,
-             const int* __restrict__ ranges, double* __restrict__ out) {
-  __shared__ double cells[kReplayCells];
-  __shared__ int list_c[kReplayTile];
+             const double* __restrict__ vals, long long n_cells, int cells,
+             int* __restrict__ ranges, double* __restrict__ out) {
+  // two tiles' counts (a warp zeroes its row of one tile's while the next
+  // tile's are written), then, in place, the owners' places
+  // (a row padded by one int, so that a warp's leaders, each of its own
+  // owner, write to different banks)
+  __shared__ int counts[2][kReplayWarps][kReplaySlots + 1];
+  __shared__ short list_c[kReplayTile];         // local cells < 512
   __shared__ double list_v[kReplayTile];
-  __shared__ int warp_sum[kReplayWarps];
+  __shared__ double run_v[kReplayTile];        // each lane's run in order
+  __shared__ int warp_tot[kReplayWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long c0 = static_cast<long long>(blockIdx.x) * kReplayCells;
+  const long long c0 = static_cast<long long>(blockIdx.x) * cells;
   const long long left = n_cells - c0;
-  const int nc = left < kReplayCells ? static_cast<int>(left) : kReplayCells;
-  for (int j = tid; j < nc; j += kReplayThreads) cells[j] = 0.0;
+  const int nc = left < cells ? static_cast<int>(left) : cells;
   const int lo = -ranges[2 * blockIdx.x];
   const int hi = ranges[2 * blockIdx.x + 1];     // < 0: no entry
-  __syncthreads();
-  for (long long base = lo; hi >= 0 && base <= hi; base += kReplayTile) {
-    // this thread's four consecutive entries; keep those of this range
-    int mine_c[kReplayPer];
-    double mine_v[kReplayPer];
-    int count = 0;
+  for (int e = tid; e < 2 * kReplayWarps * (kReplaySlots + 1);
+       e += kReplayThreads)
+    (&counts[0][0][0])[e] = 0;
+  __syncthreads();                    // every thread has read the range
+  if (tid == 0) {
+    ranges[2 * blockIdx.x] = kReplayUnset;
+    ranges[2 * blockIdx.x + 1] = kReplayUnset;
+  }
+  // this thread's entries of a tile (cells local to the block)
+  long long c[kReplayPer];
+  double v[kReplayPer];
+  auto load = [&](long long base) {
 #pragma unroll
-    for (int u = 0; u < kReplayPer; ++u) {
-      const long long p = base + tid * kReplayPer + u;
-      mine_c[u] = -1;
-      mine_v[u] = 0.0;
+    for (int r = 0; r < kReplayPer; ++r) {
+      const long long p = base + r * kReplayThreads + tid;
+      c[r] = -1;
+      v[r] = 0.0;
       if (p <= hi) {
-        const long long c = __ldg(idx + p) - c0;
-        mine_v[u] = __ldg(vals + p);     // beside idx: one latency, not two
-        if (c >= 0 && c < nc) {
-          mine_c[u] = static_cast<int>(c);
-          ++count;
-        }
+        c[r] = __ldg(idx + p) - c0;
+        v[r] = __ldg(vals + p);
       }
     }
-    // the block's exclusive scan of the counts: the list in stream order
-    int incl = count;
+  };
+  if (hi >= 0) load(lo);
+  double acc = 0.0;                   // the sum of cell 16 lane + warp
+  int buf = 0;
+  for (long long base = lo; hi >= 0 && base <= hi;
+       base += kReplayTile, buf ^= 1) {
+    int cell[kReplayPer], rank[kReplayPer];
+    double val[kReplayPer];
+#pragma unroll
+    for (int r = 0; r < kReplayPer; ++r) {
+      cell[r] = (c[r] >= 0 && c[r] < nc) ? static_cast<int>(c[r]) : -1;
+      val[r] = v[r];
+    }
+    load(base + kReplayTile);         // the next tile, in flight
+    int(*cnt)[kReplaySlots + 1] = counts[buf];
+#pragma unroll
+    for (int r = 0; r < kReplayPer; ++r) {
+      const bool kept = cell[r] >= 0;
+      unsigned peers = __ballot_sync(0xffffffffu, kept);
+#pragma unroll
+      for (int bit = 0; bit < 4; ++bit) {
+        const bool on = kept && ((cell[r] >> bit) & 1);
+        const unsigned b = __ballot_sync(0xffffffffu, on);
+        peers &= on ? b : ~b;
+      }
+      rank[r] = __popc(peers & ((1u << lane) - 1u));
+      if (kept && rank[r] == 0)
+        cnt[cell[r] & 15][r * kReplayWarps + warp] = __popc(peers);
+    }
+    __syncthreads();
+    // warp w scans owner w's 64 slots, two a lane; then the owners' totals
+    int* row = cnt[warp];
+    const int a0 = row[2 * lane], a1 = row[2 * lane + 1];
+    int incl = a0 + a1;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int t = __shfl_up_sync(0xffffffffu, incl, o);
       if (lane >= o) incl += t;
     }
-    if (lane == 31) warp_sum[warp] = incl;
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (lane == 0) warp_tot[warp] = total;
     __syncthreads();
-    if (warp == 0) {
-      int w = lane < kReplayWarps ? warp_sum[lane] : 0;
+    int wt = lane < kReplayWarps ? warp_tot[lane] : 0;
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += t;
-      }
-      if (lane < kReplayWarps) warp_sum[lane] = w;   // inclusive
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, wt, o);
+      if (lane >= o) wt += t;
     }
+    const int prev = __shfl_sync(0xffffffffu, wt, (warp + 31) & 31);
+    const int start = warp > 0 ? prev : 0;    // owner warp's stretch
+    row[2 * lane] = start + incl - a0 - a1;
+    row[2 * lane + 1] = start + incl - a1;
     __syncthreads();
-    const int m = warp_sum[kReplayWarps - 1];
-    int at = incl - count + (warp > 0 ? warp_sum[warp - 1] : 0);
 #pragma unroll
-    for (int u = 0; u < kReplayPer; ++u)
-      if (mine_c[u] >= 0) {
-        list_c[at] = mine_c[u];
-        list_v[at] = mine_v[u];
-        ++at;
+    for (int r = 0; r < kReplayPer; ++r)
+      if (cell[r] >= 0) {             // its place in its owner's stretch
+        const int at = cnt[cell[r] & 15][r * kReplayWarps + warp] + rank[r];
+        list_c[at] = static_cast<short>(cell[r]);
+        list_v[at] = val[r];
       }
     __syncthreads();
-    // warp 0 adds the list, 32 entries at a time: the first lane of each
-    // cell's entries among them takes the cell, adds its own value and
-    // then the others' in lane order (shuffled to it), and stores the cell
-    if (warp == 0) {
-      for (int s = 0; s < m; s += 32) {
-        const int j = s + lane;
-        const int c = j < m ? list_c[j] : -1 - lane;
-        const double v = j < m ? list_v[j] : 0.0;
-        const unsigned peers = __match_any_sync(0xffffffffu, c);
-        const bool first = c >= 0 && lane == __ffs(peers) - 1;
-        unsigned rest = first ? peers & (peers - 1u) : 0u;
-        double acc = first ? cells[c] + v : 0.0;
-        const int rounds = __reduce_max_sync(0xffffffffu, __popc(rest));
-        for (int r = 0; r < rounds; ++r) {
-          const int src = rest ? __ffs(rest) - 1 : lane;
-          const double t = __shfl_sync(0xffffffffu, v, src);
-          if (rest) {
-            acc += t;
-            rest &= rest - 1u;
-          }
-        }
-        if (first) cells[c] = acc;
-        __syncwarp();   // the store seen by the lane that takes c next
+    row[2 * lane] = row[2 * lane + 1] = 0;   // for the tile after next
+    // the warp sorts its stretch by owner lane (cell / 16), stably, 32
+    // entries at a time (five ballots give each lane the entries of its
+    // cell and each entry its rank among them), counting first, then
+    // placing; then each lane adds its run in order
+    const int end = start + total;
+    auto owners = [&](int k, int& o, unsigned& mine_mask,
+                      unsigned& same_mask) {
+      o = k + lane < end ? list_c[k + lane] >> 4 : -1;
+      unsigned valid = __ballot_sync(0xffffffffu, o >= 0);
+      mine_mask = same_mask = valid;
+#pragma unroll
+      for (int bit = 0; bit < 5; ++bit) {
+        const bool on = o >= 0 && (o >> bit) & 1;
+        const unsigned b = __ballot_sync(0xffffffffu, on);
+        mine_mask &= (lane >> bit) & 1 ? b : ~b;
+        same_mask &= on ? b : ~b;
       }
+    };
+    int count = 0;
+    for (int k = start; k < end; k += 32) {
+      int o;
+      unsigned mine_mask, same_mask;
+      owners(k, o, mine_mask, same_mask);
+      count += __popc(mine_mask);
     }
-    __syncthreads();
+    int before = count;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, before, o);
+      if (lane >= o) before += t;
+    }
+    const int first = start + before - count;   // this lane's run
+    int placed = first;
+    for (int k = start; k < end; k += 32) {
+      int o;
+      unsigned mine_mask, same_mask;
+      owners(k, o, mine_mask, same_mask);
+      const int at = __shfl_sync(0xffffffffu, placed, o >= 0 ? o : lane) +
+                     __popc(same_mask & ((1u << lane) - 1u));
+      if (o >= 0) run_v[at] = list_v[k + lane];
+      placed += __popc(mine_mask);
+    }
+    __syncwarp();
+    for (int k = first; k < first + count; ++k) acc += run_v[k];
   }
-  for (int j = tid; j < nc; j += kReplayThreads) out[c0 + j] = cells[j];
+  const int mine = 16 * lane + warp;
+  if (mine < nc) out[c0 + mine] = acc;
 }
 
 __device__ __forceinline__ bool is_max(int a) { return a < S_NOC; }
@@ -592,38 +714,60 @@ int fused_eval_f32(const void* off, const void* idx, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cells one block of segment_replay owns at n_cells on `device`: the
+// most, 32 to 512 (a power of two), that still give every SM a block (0 on
+// a bad device).
+int replay_cells_per_block(long long n_cells, int device) {
+  int sms = 0;
+  if (device < 0 || device >= kMaxDevices ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess || sms < 1)
+    return 0;
+  int cells = kReplayCells;
+  while (cells > kReplayMinCells && (n_cells + cells - 1) / cells < sms)
+    cells /= 2;
+  return cells;
+}
+
 // out (n_cells,) float64 = segment_sum(vals, idx, n_cells), each cell's
-// entries added in stream order.  `ranges` is scratch of 2 * ceil(n_cells /
-// replay_cells_per_block()) ints on the card; n < 2^31 entries.
+// entries added in stream order.  `ranges` is scratch of at least 2 *
+// ceil(n_cells / 32) ints on the card, each kReplayUnset: `init` != 0
+// sets them first (a fresh scratch); every launch leaves them so.
+// n < 2^31 entries.
 int segment_replay_f64(const void* idx, const void* vals, long long n,
-                       void* out, long long n_cells, void* ranges,
+                       void* out, long long n_cells, void* ranges, int init,
                        int device, void* stream) {
-  if (n < 0 || n > 0x7fffffffLL || n_cells < 1 || ranges == nullptr)
+  if (n < 0 || n > 0x7fffffffLL || n_cells < 1 || ranges == nullptr ||
+      device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n_cells + kReplayCells - 1) / kReplayCells;
+  const int cells = replay_cells_per_block(n_cells, device);
+  if (cells < 1) return static_cast<int>(cudaErrorInvalidDevice);
+  const long long blocks = (n_cells + cells - 1) / cells;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(ranges, 0x80, 2 * blocks * sizeof(int), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (init) {
+    err = cudaMemsetAsync(ranges, 0x80,
+                          2 * ((n_cells + kReplayMinCells - 1) /
+                               kReplayMinCells) * sizeof(int), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const long long* iidx = static_cast<const long long*>(idx);
   int* rg = static_cast<int*>(ranges);
   if (n > 0) {
-    const unsigned grid = static_cast<unsigned>((n + 255) / 256);
-    replay_ranges<<<grid, 256, 0, st>>>(iidx, static_cast<int>(n), n_cells,
-                                        rg);
+    const unsigned grid =
+        static_cast<unsigned>((n + kRangeTile - 1) / kRangeTile);
+    replay_ranges<<<grid, kRangeThreads, 0, st>>>(iidx, static_cast<int>(n),
+                                                  n_cells, cells, rg);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   replay_cells<<<static_cast<int>(blocks), kReplayThreads, 0, st>>>(
-      iidx, static_cast<const double*>(vals), n_cells, rg,
+      iidx, static_cast<const double*>(vals), n_cells, cells, rg,
       static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
 }
-
-// The cells one block of segment_replay owns.
-int replay_cells_per_block() { return kReplayCells; }
 
 const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

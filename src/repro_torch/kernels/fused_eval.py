@@ -16,9 +16,9 @@ and the same slice of ``vals``, each index a cell of that row, in ``[0,
 buf_len)``.  ``segment_replay`` is the port of ``_jax_replay``
 (``src/repro/core/analyzer.py:60-92``): a float64 scatter-add of an int64 index
 stream, each cell's entries added in stream order (two launches: each range of
-cells finds its stretch of the stream, then one block a range sums its cells in
-shared memory), so the same stream gives the same bits on every run, those of a
-serial scatter-add.  Both launch their kernel for tensors on the card and run
+cells finds its stretch of the stream, then one block a range sorts each tile
+of it by cell and adds every cell's run in order, one thread a cell), so the
+same stream gives the same bits on every run, those of a serial scatter-add.  Both launch their kernel for tensors on the card and run
 the plain versions of :mod:`.ref` for tensors on the CPU; a CUDA tensor never
 falls back, and what the kernel does not take raises.
 ``fused_eval.launches`` and ``segment_replay.launches`` count the calls
@@ -63,6 +63,9 @@ _INT_MAX = 2**31 - 1
 _MIN_WORDS = 1 << 12              # the buffers' first capacity, 4-byte words
 _MAX_CELLS: Dict[int, int] = {}   # device index -> fused_eval_max_cells
 _WARPS = 16                       # a block's warps (csrc/fused_eval.cu kWarps)
+# the fewest cells a block of segment_replay owns (csrc/fused_eval.cu
+# kReplayMinCells): its scratch holds two ints a block at that count
+REPLAY_MIN_CELLS = 32
 
 
 def _device(device) -> torch.device:
@@ -352,19 +355,31 @@ def segment_replay(idx: torch.Tensor, vals: torch.Tensor,
                          f"entries, above {_INT_MAX}")
     lib = _build.load("fused_eval")
     out = torch.empty(n, dtype=torch.float64, device=idx.device)
-    ranges = torch.empty(2 * -(-n // lib.replay_cells_per_block()),
-                         dtype=torch.int32, device=idx.device)
+    device = idx.device.index or 0
     stream = torch.cuda.current_stream(idx.device).cuda_stream
+    # the cell ranges' scratch, kept per card and stream: each launch
+    # leaves it as it found it, so only a new one is set first
+    key = (device, stream)
+    need = 2 * -(-n // REPLAY_MIN_CELLS)
+    ranges = _REPLAY_RANGES.get(key)
+    fresh = ranges is None or ranges.numel() < need
+    if fresh:
+        ranges = torch.empty(need, dtype=torch.int32, device=idx.device)
+        _REPLAY_RANGES[key] = ranges
     code = lib.segment_replay_f64(idx.data_ptr(), vals.data_ptr(),
                                   idx.numel(), out.data_ptr(), n,
-                                  ranges.data_ptr(), idx.device.index or 0,
+                                  ranges.data_ptr(), int(fresh), device,
                                   stream)
+    if code != 0:
+        _REPLAY_RANGES.pop(key, None)
     _build.check(lib, "segment_replay", code)
     segment_replay.launches += 1
     return out
 
 
 segment_replay.launches = 0
+# segment_replay's scratch by (card, stream handle)
+_REPLAY_RANGES: Dict[Tuple[int, int], torch.Tensor] = {}
 
 _obs_metrics.register_collector(lambda: {
     "fused_eval.launches": fused_eval.launches,

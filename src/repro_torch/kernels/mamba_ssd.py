@@ -2,14 +2,16 @@
 ``ssd_chunk_dual`` (``src/repro/kernels/mamba_ssd.py:48``).
 
 ``ssd_chunk_dual(x, cum, Bm, Cm)`` launches the CUDA kernel of
-``csrc/mamba_ssd.cu`` (3xTF32 on the tensor cores, f32 accuracy; f32 or
-bf16 inputs, f32 outputs, as the reference) for tensors on the card and
-runs the plain version
-(:func:`repro_torch.kernels.ref.ssd_chunk_ref`) for tensors on the CPU.  A
+``csrc/mamba_ssd.cu`` (tensor cores, f32 accuracy, f32 outputs, as the
+reference) for tensors on the card and runs the plain version
+(:func:`repro_torch.kernels.ref.ssd_chunk_ref`) for tensors on the CPU.  It
+takes x and cum f32 with B and C f32 or bf16 (as the reference's
+``ssd_forward`` hands B and C in the model's type), or all four bf16.  A
 CUDA tensor never falls back: what the kernel does not take raises.
 ``ssd_chunk_dual.launches`` counts kernel launches; :func:`kernel_route`
-names the instance (by the state width: N <= 64 takes a 128-column P
-tile, N <= 128 a 64-column one) and copy width a launch takes.
+names the instance (by the state width: N <= 64 or N <= 128) and copy
+width a launch takes, :func:`heads_per_block` the heads one block takes
+(the scores C Bᵀ are computed once a block, for all of them).
 """
 
 from __future__ import annotations
@@ -25,10 +27,9 @@ MAX_CHUNK = 128
 MAX_STATE = 128
 
 
-def p_tile(N: int) -> int:
-    """Head-dim columns a block of the kernel takes at state width N: 128
-    for N <= 64, 64 above (the shared-memory budget of csrc/mamba_ssd.cu)."""
-    return 128 if N <= 64 else 64
+# head-dim columns of the narrowest unit of the kernel's work
+# (csrc/mamba_ssd.cu): the range check counts P in these
+P_TILE = 64
 
 
 def ssd_chunk_dual(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
@@ -36,7 +37,7 @@ def ssd_chunk_dual(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
     """x (BC, Q, H, P) discretized inputs per flattened (batch*chunk);
     cum (BC, Q, H) cumulative log-decay within the chunk; Bm/Cm (BC, Q, N)
     (n_groups = 1).  Returns (y_intra (BC, Q, H, P), chunk_state
-    (BC, H, N, P)), both f32 whether the inputs are f32 or bf16."""
+    (BC, H, N, P)), both f32 whatever the inputs' types."""
     args = (x, cum, Bm, Cm)
     if all(a.device.type == "cpu" for a in args):
         return ssd_chunk_ref(x, cum, Bm, Cm)
@@ -44,7 +45,7 @@ def ssd_chunk_dual(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
         raise ValueError("ssd_chunk_dual: x, cum, Bm, Cm must lie on one "
                          "card")
     _build.refuse_grad("ssd_chunk_dual", args)
-    suffix = _build.dtype_suffix("ssd_chunk_dual", args)
+    suffix = _build.ssd_dtype_suffix("ssd_chunk_dual", *args)
     if x.dim() != 4 or cum.dim() != 3 or Bm.dim() != 3 \
             or Bm.shape != Cm.shape or cum.shape != x.shape[:3] \
             or Bm.shape[:2] != x.shape[:2]:
@@ -57,7 +58,7 @@ def ssd_chunk_dual(x: torch.Tensor, cum: torch.Tensor, Bm: torch.Tensor,
     BC, Q, H, P = x.shape
     N = Bm.shape[2]
     if min(BC, Q, H, P, N) < 1 or Q > MAX_CHUNK or N > MAX_STATE \
-            or BC * H > 2**31 - 1 or -(-P // p_tile(N)) > 65535:
+            or BC * H > 2**31 - 1 or -(-P // P_TILE) > 65535:
         raise ValueError(f"ssd_chunk_dual: BC={BC} Q={Q} H={H} P={P} N={N} "
                          f"out of the kernel's range (1 <= Q <= {MAX_CHUNK}, "
                          f"1 <= N <= {MAX_STATE}, BC*H < 2^31)")
@@ -79,13 +80,26 @@ ssd_chunk_dual.launches = 0
 
 def kernel_route(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor) -> str:
     """The kernel configuration ``ssd_chunk_dual(x, cum, Bm, Cm)`` launches
-    for these CUDA tensors, e.g. ``"P128 cp.async16"`` or ``"P64 N128
-    cp.async16"``: the instance (``P128`` for N <= 64, ``P64 N128`` above)
-    and the copy width (16 bytes where P and N are multiples of 4 f32 or 8
-    bf16 elements and x, Bm, Cm are 16-byte aligned, else one element:
-    ``cp.async4`` for f32, ``ld2`` for bf16, whose routes end in
-    `` bf16``)."""
+    for these CUDA tensors, e.g. ``"N64 P64 cp.async16"`` or ``"N128 P64
+    cp.async16 mixed"``: the instance (``N64`` for N <= 64, ``N128``
+    above), the head-dim columns of a unit of a block's work (``P128`` for
+    bf16 x at N <= 64 and P > 64, else ``P64``), the copy width (16 bytes
+    where P and N are multiples of 16 bytes of their types and x, Bm, Cm
+    are 16-byte aligned, else one element: ``cp.async4`` for f32, ``ld2``
+    for bf16, ``cp.async4+ld2`` for the mix), then `` bf16`` or
+    `` mixed`` (x f32, B and C bf16)."""
     lib = _build.load("mamba_ssd")
     return lib.ssd_chunk_dual_route(x.shape[3], Bm.shape[2], x.data_ptr(),
                                     Bm.data_ptr(), Cm.data_ptr(),
-                                    x.element_size()).decode()
+                                    x.element_size(),
+                                    Bm.element_size()).decode()
+
+
+def heads_per_block(x: torch.Tensor, Bm: torch.Tensor) -> int:
+    """The heads one block of ``ssd_chunk_dual`` takes for CUDA ``x``
+    (BC, Q, H, P) and ``Bm`` (BC, Q, N) on their card: the grid-fill rule
+    of csrc/mamba_ssd.cu (the least waves x (units a block + 1))."""
+    lib = _build.load("mamba_ssd")
+    BC, _, H, P = x.shape
+    return lib.ssd_chunk_dual_heads(BC, H, P, Bm.shape[2], x.element_size(),
+                                    x.device.index or 0)

@@ -72,14 +72,16 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     xb = (x * dt[..., None]).float().reshape(Bsz * nc, chunk, H, P)
     cum = torch.cumsum((dt.float() * A.float()).reshape(Bsz, nc, chunk, H),
                        dim=2)
-    Bc = Bm.float().reshape(Bsz * nc, chunk, G, N)
+    # B and C reach the chunk kernel in their own type, as the reference
+    # hands them to its Pallas kernel (which upcasts each block); the state
+    # pass takes C in f32
+    Bc = Bm.reshape(Bsz * nc, chunk, G, N)
+    Cg = Cm.reshape(Bsz * nc, chunk, G, N)
     Cc = Cm.float().reshape(Bsz, nc, chunk, G, N).contiguous()
     cum_f = cum.reshape(Bsz * nc, chunk, H)
     parts = [chunk_dual(xb[:, :, g * rep:(g + 1) * rep].contiguous(),
                         cum_f[:, :, g * rep:(g + 1) * rep].contiguous(),
-                        Bc[:, :, g].contiguous(),
-                        Cc[:, :, :, g].reshape(Bsz * nc, chunk, N)
-                        .contiguous())
+                        Bc[:, :, g].contiguous(), Cg[:, :, g].contiguous())
              for g in range(G)]
     y_intra = torch.cat([p[0] for p in parts], dim=2)
     S = torch.cat([p[1] for p in parts], dim=1)

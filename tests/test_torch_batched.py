@@ -423,6 +423,119 @@ def test_fused_replay_matches_bincount():
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
 
 
+def _replay_constants():
+    """(the most and the fewest cells a block, threads a block, entries a
+    thread a tile) of ``segment_replay`` as ``csrc/fused_eval.cu`` builds
+    it."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "fused_eval.cu").read_text()
+    get = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                     src).group(1))
+    return (get("kReplayCells"), get("kReplayMinCells"),
+            get("kReplayThreads"), get("kReplayPer"))
+
+
+def _replay_emulated(idx: np.ndarray, vals: np.ndarray, n_cells: int,
+                     K: int):
+    """``segment_replay``'s order, emulated: each block of K cells (the
+    launch picks K, 32 to 512, by the grid) walks
+    the stretch between the first and last stream position of its cells
+    in tiles of R x T entries (entry t of a tile is round t // T of thread
+    t % T: slot 16 round + warp, and its lane); per tile each slot counts
+    its entries of each owner warp (local cell % 16) and ranks its own by
+    lane, a scan of the counts owner-major gives each entry its place in
+    its owner's stretch, and each owner walks its stretch in order, the
+    cell's lane adding to its running float64 sum.  Also checks that
+    those places are a stable sort of the tile by owner."""
+    _, _, threads, per = _replay_constants()
+    T = threads * per
+    warps = threads // 32
+    out = np.zeros(n_cells)
+    blocks = -(-n_cells // K)
+    ok = (idx >= 0) & (idx < n_cells)
+    pos = np.nonzero(ok)[0]
+    rng_of = idx[ok] // K
+    first = np.full(blocks, idx.size)
+    last = np.full(blocks, -1)
+    np.minimum.at(first, rng_of, pos)
+    np.maximum.at(last, rng_of, pos)
+    for b in range(blocks):
+        c0, nc = b * K, min(K, n_cells - b * K)
+        acc = np.zeros(K)
+        for base in range(first[b], last[b] + 1, T):
+            c = idx[base:min(base + T, last[b] + 1)] - c0
+            v = vals[base:base + c.size]
+            kept = np.nonzero((c >= 0) & (c < nc))[0]
+            slot = (kept // threads) * warps + kept % threads // 32
+            lane = kept % 32
+            owner = c[kept] % 16
+            counts = np.zeros((16, per * warps), np.int64)
+            np.add.at(counts, (owner, slot), 1)
+            rank = np.array([np.sum((owner == o) & (slot == s_)
+                                    & (lane < ln))
+                             for o, s_, ln in zip(owner, slot, lane)], int)
+            flat = counts.ravel()
+            offsets = (np.cumsum(flat) - flat).reshape(counts.shape)
+            dest = offsets[owner, slot] + rank
+            assert np.array_equal(np.sort(dest), np.arange(kept.size))
+            order = kept[np.argsort(owner, kind="stable")]
+            assert np.array_equal(kept[np.argsort(dest)], order)
+            run_c = np.empty(kept.size, int)
+            run_v = np.empty(kept.size)
+            run_c[dest], run_v[dest] = c[kept], v[kept]
+            for k in range(kept.size):
+                acc[run_c[k]] += run_v[k]
+        out[c0:c0 + nc] = acc[:nc]
+    return out
+
+
+def _analyzer_stream(arch, spec, batch, B, seed):
+    """The analyzer's replay stream of ``B`` random (group, LMS)
+    requests: (idx, vals, cells)."""
+    g = make_workload(spec)
+    rng = np.random.default_rng(seed)
+    groups = partition_graph(g, arch, batch)
+    reqs = [(groups[int(i)], random_lms(groups[int(i)], g, arch.n_cores,
+                                        arch.n_dram, rng))
+            for i in rng.integers(len(groups), size=B)]
+    an = Evaluator(arch, g, fused_device="cpu").analyzer
+    idx, vals, _ = an._request_streams(reqs, batch)
+    return idx, vals, B * an._buf_len
+
+
+@pytest.mark.parametrize("stream", ["granite", "sweep:tf-paper", "random",
+                                    "one cell"])
+def test_segment_replay_order_equals_bincount_bits(stream):
+    """The kernel's replay order (per-tile stable sort by owner warp, one
+    running sum a cell), emulated, gives ``np.bincount``'s bits on the
+    analyzer's streams (granite on S-Arch at the fused phase's batch, and
+    the supervised sweep's ``tf-paper`` rows on its 70-core candidate), on
+    a stream in random order over more cells than a block owns, and on
+    one cell."""
+    from repro_torch.core.dse import grid_candidates
+    from repro_torch.core.hw import simba_arch
+    if stream == "granite":
+        idx, vals, n = _analyzer_stream(
+            simba_arch(), "lm:granite-moe-3b-a800m:seq=4096,n_layers=2",
+            4, 4, seed=4)
+    elif stream == "sweep:tf-paper":
+        arch = grid_candidates(72.0, mac_options=[512, 1024],
+                               cut_options=[1, 2], dram_per_tops=[2.0],
+                               noc_options=[16, 32], d2d_ratio=[0.5],
+                               glb_options=[1024])[2]
+        idx, vals, n = _analyzer_stream(arch, "tf-paper", 8, 4, seed=4)
+    else:
+        rng = np.random.default_rng(11)
+        n = 1300 if stream == "random" else 1
+        idx = rng.integers(0, n, size=3000)
+        vals = rng.normal(size=3000)
+    want = np.bincount(idx, weights=vals, minlength=n)
+    most, fewest, _, _ = _replay_constants()
+    for cells in (most, fewest):        # the launch picks one by the grid
+        assert np.array_equal(_replay_emulated(idx, vals, n, cells), want)
+
+
 # ---------------------------------------------------------------------------
 # lockstep SA
 # ---------------------------------------------------------------------------

@@ -184,26 +184,30 @@ def _ssd_inputs(rng, BC, Q, H, P, N, device, offset=False):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("BC,Q,H,P,N,offset,route", [
-    (32, 128, 16, 128, 64, False, "P128 cp.async16"),   # the mamba2-370m
-    (2, 16, 2, 8, 4, False, "P128 cp.async16"),         # path's shape;
-    (4, 64, 4, 32, 16, False, "P128 cp.async16"),       # tests/test_kernels
-    (1, 128, 8, 64, 32, False, "P128 cp.async16"),      # .py's three
-    (2, 96, 4, 64, 64, False, "P128 cp.async16"),       # ragged chunks
-    (3, 70, 2, 32, 16, False, "P128 cp.async16"),
-    (2, 70, 3, 130, 50, False, "P128 cp.async4"),       # two P tiles
-    # an odd number of (chunk, head) blocks, BC * H:
-    (3, 70, 3, 64, 16, True, "P128 cp.async4"),         # x a float off 16 B
-    (1, 100, 5, 64, 64, False, "P128 cp.async16"),      # Q % 16 != 0
-    (3, 100, 1, 32, 12, False, "P128 cp.async16"),      # N % 8 != 0
-    (1, 128, 3, 130, 20, False, "P128 cp.async4"),      # P = 130
-    (1, 70, 7, 60, 50, True, "P128 cp.async4"),
+    (32, 128, 16, 128, 64, False, "N64 P64 cp.async16"),   # the mamba2-370m
+    (2, 16, 2, 8, 4, False, "N64 P64 cp.async16"),         # path's shape;
+    (4, 64, 4, 32, 16, False, "N64 P64 cp.async16"),       # tests/test_kern
+    (1, 128, 8, 64, 32, False, "N64 P64 cp.async16"),      # els.py's three
+    (2, 96, 4, 64, 64, False, "N64 P64 cp.async16"),       # ragged chunks
+    (3, 70, 2, 32, 16, False, "N64 P64 cp.async16"),
+    (2, 70, 3, 130, 50, False, "N64 P64 cp.async4"),       # three P tiles
+    (3, 70, 3, 64, 16, True, "N64 P64 cp.async4"),         # x off 16 B
+    (1, 100, 5, 64, 64, False, "N64 P64 cp.async16"),      # Q % 16 != 0
+    (3, 100, 1, 32, 12, False, "N64 P64 cp.async16"),      # N % 8 != 0
+    (1, 128, 3, 130, 20, False, "N64 P64 cp.async4"),      # P = 130
+    (1, 70, 7, 60, 50, True, "N64 P64 cp.async4"),
+    # zamba2-1.2b's serve wave; 37 heads, a last group of heads ragged
+    (32, 128, 64, 64, 64, False, "N64 P64 cp.async16"),
+    (8, 128, 37, 64, 64, False, "N64 P64 cp.async16"),
     # the N <= 128 instance: the mamba2-370m serve shape, N = 100 (16-byte
-    # copies), an odd N, x a float off 16 B, P = 130 in three tiles
-    (32, 128, 32, 64, 128, False, "P64 N128 cp.async16"),
-    (2, 128, 3, 64, 100, False, "P64 N128 cp.async16"),
-    (3, 70, 3, 64, 99, False, "P64 N128 cp.async4"),
-    (1, 100, 5, 64, 128, True, "P64 N128 cp.async4"),
-    (1, 128, 3, 130, 72, False, "P64 N128 cp.async4"),
+    # copies), an odd N, x a float off 16 B, P = 130 in three tiles, 37
+    # heads at Q = 100
+    (32, 128, 32, 64, 128, False, "N128 P64 cp.async16"),
+    (2, 128, 3, 64, 100, False, "N128 P64 cp.async16"),
+    (3, 70, 3, 64, 99, False, "N128 P64 cp.async4"),
+    (1, 100, 5, 64, 128, True, "N128 P64 cp.async4"),
+    (1, 128, 3, 130, 72, False, "N128 P64 cp.async4"),
+    (8, 100, 37, 64, 128, False, "N128 P64 cp.async16"),
 ])
 def test_ssd_chunk_kernel_vs_plain(cuda, BC, Q, H, P, N, offset, route):
     """Each copy width of the SSD chunk kernel against the plain version,
@@ -400,14 +404,16 @@ def test_bf16_flash_repeats_its_bits(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("BC,Q,H,P,N,route", [
-    (32, 128, 16, 128, 64, "P128 cp.async16 bf16"),   # the mamba2-370m path
-    (2, 16, 2, 8, 4, "P128 ld2 bf16"),                # N % 8 != 0
-    (1, 100, 5, 64, 64, "P128 cp.async16 bf16"),      # Q % 16 != 0
-    (1, 128, 3, 130, 24, "P128 ld2 bf16"),            # P = 130
-    (3, 70, 3, 60, 50, "P128 ld2 bf16"),
-    (32, 128, 32, 64, 128, "P64 N128 cp.async16 bf16"),   # mamba2-370m
-    (2, 128, 3, 64, 100, "P64 N128 ld2 bf16"),            # N % 8 != 0
-    (1, 100, 5, 130, 128, "P64 N128 ld2 bf16"),           # P = 130
+    (32, 128, 16, 128, 64, "N64 P128 cp.async16 bf16"),  # the realization
+    (2, 16, 2, 8, 4, "N64 P64 ld2 bf16"),                # N % 8 != 0
+    (1, 100, 5, 64, 64, "N64 P64 cp.async16 bf16"),      # Q % 16 != 0
+    (1, 128, 3, 130, 24, "N64 P128 ld2 bf16"),           # P = 130
+    (3, 70, 3, 60, 50, "N64 P64 ld2 bf16"),
+    (32, 128, 64, 64, 64, "N64 P64 cp.async16 bf16"),    # zamba2's wave
+    (8, 128, 37, 64, 64, "N64 P64 cp.async16 bf16"),     # 37 heads
+    (32, 128, 32, 64, 128, "N128 P64 cp.async16 bf16"),  # mamba2-370m
+    (2, 128, 3, 64, 100, "N128 P64 ld2 bf16"),           # N % 8 != 0
+    (1, 100, 5, 130, 128, "N128 P64 ld2 bf16"),          # P = 130
 ])
 def test_ssd_chunk_kernel_bf16_vs_plain(cuda, BC, Q, H, P, N, route):
     """bf16 inputs launch the kernel and give f32 outputs, equal to the
@@ -423,6 +429,66 @@ def test_ssd_chunk_kernel_bf16_vs_plain(cuda, BC, Q, H, P, N, route):
     yr, sr = ref.ssd_chunk_ref(*(a.float() for a in args))
     torch.testing.assert_close(y, yr, **SSD_BF16_TOL)
     torch.testing.assert_close(s, sr, **SSD_BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BC,Q,H,P,N,offset,route", [
+    (32, 128, 64, 64, 64, False, "N64 P64 cp.async16 mixed"),    # zamba2,
+    (32, 128, 32, 64, 128, False, "N128 P64 cp.async16 mixed"),  # mamba2-
+    (32, 128, 16, 128, 64, False, "N64 P64 cp.async16 mixed"),   # 370m,
+    (2, 16, 2, 8, 4, False, "N64 P64 cp.async4+ld2 mixed"),      # realiz.
+    (1, 70, 7, 60, 50, True, "N64 P64 cp.async4+ld2 mixed"),     # x off
+    (1, 100, 5, 130, 128, False, "N128 P64 cp.async4+ld2 mixed"),
+    (8, 128, 37, 64, 64, False, "N64 P64 cp.async16 mixed"),     # 37 heads
+    (3, 70, 3, 64, 99, False, "N128 P64 cp.async4+ld2 mixed"),
+])
+def test_ssd_chunk_kernel_mixed_vs_plain(cuda, BC, Q, H, P, N, offset,
+                                         route):
+    """x and cum f32 with B and C bf16 (what ops.ssd_chunks hands the
+    kernel when the model computes in bf16) launch the mixed instance, C Bᵀ
+    on the bf16 tensor cores: f32 outputs within 1e-4 of the plain version
+    on the upcast inputs, launched twice with the same bits."""
+    rng = np.random.default_rng(BC * Q + H + P + 3 * N)
+    x, cum, Bm, Cm = _ssd_inputs(rng, BC, Q, H, P, N, cuda, offset)
+    Bm, Cm = Bm.bfloat16(), Cm.bfloat16()
+    assert mamba_ssd.kernel_route(x, Bm, Cm) == route
+    n0 = ssd_chunk_dual.launches
+    y, s = ssd_chunk_dual(x, cum, Bm, Cm)
+    y2, s2 = ssd_chunk_dual(x, cum, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd_chunk_dual.launches == n0 + 2
+    assert y.dtype == s.dtype == torch.float32
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    yr, sr = ref.ssd_chunk_ref(x, cum, Bm.float(), Cm.float())
+    torch.testing.assert_close(y, yr, **SSD_BF16_TOL)
+    torch.testing.assert_close(s, sr, **SSD_BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "mixed"])
+@pytest.mark.parametrize("BC,Q,H,P,N", [(32, 128, 64, 64, 64),
+                                        (32, 128, 32, 64, 128),
+                                        (32, 128, 16, 128, 64)])
+def test_ssd_chunk_kernel_repeats_its_bits_and_groups_heads(cuda, dtype, BC,
+                                                            Q, H, P, N):
+    """At the serve and realization shapes, in each type, ten launches give
+    one result; a block takes the heads of the grid-fill rule (zamba2's
+    wave 16 a block, mamba2-370m's 8, the realization shape 4: C Bᵀ is
+    computed once for that many heads)."""
+    rng = np.random.default_rng(H + N)
+    x, cum, Bm, Cm = _ssd_inputs(rng, BC, Q, H, P, N, cuda)
+    if dtype == "bf16":
+        x, cum = x.bfloat16(), cum.bfloat16()
+    if dtype != "f32":
+        Bm, Cm = Bm.bfloat16(), Cm.bfloat16()
+    first = ssd_chunk_dual(x, cum, Bm, Cm)
+    for _ in range(9):
+        again = ssd_chunk_dual(x, cum, Bm, Cm)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms == 132:
+        assert mamba_ssd.heads_per_block(x, Bm) == {64: 16, 32: 8,
+                                                    16: 4}[H]
 
 
 @pytest.mark.gpu
@@ -820,7 +886,7 @@ def test_segment_replay_kernel_vs_bincount(cuda, n, cells):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [64, 200])
+@pytest.mark.parametrize("B", [4, 64, 200])
 def test_segment_replay_is_bit_reproducible(cuda, B):
     """The analyzer's replay stream of ``B`` requests (at the sweep's
     shapes; 200 rows: more blocks than SMs) through ``segment_replay`` 200
@@ -839,6 +905,24 @@ def test_segment_replay_is_bit_reproducible(cuda, B):
     exact = ev.analyzer.analyze_requests(reqs, 8)
     fused = ev.analyzer.analyze_requests(reqs, 8, backend="fused")
     assert np.array_equal(fused.buf, exact.buf)
+
+
+@pytest.mark.gpu
+def test_segment_replay_reuses_its_scratch(cuda):
+    """The replay keeps its cell ranges' scratch from one call to the next
+    (each launch leaves it as it found it): streams of growing, shrinking
+    and empty cell counts, one after another on the same stream, each give
+    ``np.bincount``'s bits."""
+    from repro_torch.kernels.fused_eval import segment_replay
+    rng = np.random.default_rng(3)
+    for n, cells in [(5000, 300), (200_000, 70_000), (3000, 40),
+                     (0, 17), (80_000, 70_000), (1000, 5000)]:
+        idx = rng.integers(0, cells, size=n)
+        vals = rng.normal(size=n)
+        out = segment_replay(torch.from_numpy(idx).to(cuda),
+                             torch.from_numpy(vals).to(cuda), cells)
+        want = np.bincount(idx, weights=vals, minlength=cells)
+        assert np.array_equal(out.cpu().numpy(), want), (n, cells)
 
 
 @pytest.mark.gpu

@@ -712,6 +712,146 @@ def test_3xtf32_state_pass_meets_the_f32_tolerance_and_one_product_does_not():
     assert not torch.allclose(got1[0], want[0], atol=1e-4, rtol=1e-4)
 
 
+def _ssd_chunk_kernel_emulated(x, cum, Bm, Cm):
+    """The SSD chunk kernel's arithmetic since it scores C Bᵀ once for a
+    block of heads (``csrc/mamba_ssd.cu``), emulated.  C Bᵀ: from bf16 B
+    and C, k16 steps of exact products, each step's sum rounded toward
+    zero (the tensor core's) and added in f32; from f32 B and C, 3xTF32.
+    The decays as the kernel takes them: on the diagonal 16 x 16 tiles
+    exp(cum_i - cum_j), selected to 0 above the diagonal; below them the
+    score tile times the column factors exp(m_J - cum_j) before the
+    product and its product times the row factors exp(cum_i - m_J) after
+    it, m_J the least cum of tile J.  W x and (d ⊙ B)ᵀ x in 3xTF32, one J
+    tile at a time, each tile's products added in f32."""
+    BC, Q, H, P = x.shape
+    N = Bm.shape[2]
+    QP = -(-Q // 16) * 16
+    nS = QP // 16
+    pad = QP - Q
+    xh = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
+    Bf = torch.nn.functional.pad(Bm.float(), (0, 0, 0, pad))
+    Cf = torch.nn.functional.pad(Cm.float(), (0, 0, 0, pad))
+    ch = torch.cat([cum, cum[:, -1:].expand(BC, pad, H)], 1).transpose(1, 2)
+    if Bm.dtype == torch.bfloat16:
+        s = torch.zeros(BC, QP, QP)
+        for k in range(0, N, 16):
+            part = Cf[..., k:k + 16].double() \
+                @ Bf[..., k:k + 16].double().transpose(1, 2)
+            s = s + _round_toward_zero(part)
+    else:
+        s = _mm_tf32(Cf, Bf.transpose(1, 2), 3)
+    s = s[:, None]                                          # (BC, 1, i, j)
+    m = ch.reshape(BC, H, nS, 16).amin(-1)                  # (BC, H, nS)
+    col = (m.repeat_interleave(16, -1) - ch).exp()          # (BC, H, QP)
+    row = (ch[..., :, None] - m[..., None, :]).exp()        # (BC, H, i, J)
+    tile = torch.arange(QP) // 16
+    keep = torch.ones(QP, QP, dtype=torch.bool).tril() \
+        & (tile[:, None] == tile[None, :])
+    diag = torch.where(keep, (ch[..., :, None] - ch[..., None, :]).exp(),
+                       torch.zeros(()))
+    y = torch.zeros(BC, H, QP, P)
+    for J in range(nS):
+        js = slice(16 * J, 16 * J + 16)
+        below = (tile > J)[:, None]
+        W = torch.where(below, s[..., js] * col[..., None, js],
+                        s[..., js] * diag[..., js])
+        W = torch.where((tile >= J)[:, None], W, torch.zeros(()))
+        d = _mm_tf32(W, xh[..., js, :], 3)
+        scale = torch.where(tile > J, row[..., J], torch.ones(()))
+        y = y + scale[..., None] * d
+    d_end = torch.where(torch.arange(QP) < Q,
+                        (ch[..., Q - 1:Q] - ch).exp(), torch.zeros(()))
+    dB = d_end[..., None] * Bf[:, None]                     # (BC, H, QP, N)
+    S = torch.zeros(BC, H, N, P)
+    for J in range(nS):
+        js = slice(16 * J, 16 * J + 16)
+        S = S + _mm_tf32(dB[..., js, :].transpose(-1, -2), xh[..., js, :], 3)
+    return y[:, :, :Q].permute(0, 2, 1, 3), S
+
+
+@pytest.mark.parametrize("H,P,N,mixed", [
+    (4, 64, 64, True),      # zamba2-1.2b's heads (P = N = 64), 4 of 64
+    (4, 64, 128, True),     # mamba2-370m's (P = 64, N = 128), 4 of 32
+    (4, 64, 64, False),     # the same in f32
+    (2, 128, 64, False),    # the realization shape's (P = 128, N = 64)
+])
+def test_ssd_chunk_mixed_arithmetic_meets_the_f32_tolerance(H, P, N, mixed):
+    """The kernel's arithmetic, emulated at reduced serve shapes (BC 2, Q
+    128): bf16 B and C scored with exact bf16 products whose k16 sums the
+    tensor core rounds toward zero and the kernel adds in f32, or f32 B and
+    C in 3xTF32; the decays factored below the diagonal; W x and
+    (d ⊙ B)ᵀ x in 3xTF32.  Within 1e-4 of the plain version on the upcast
+    inputs (``SSD_TOL``), and the factored decays within 2e-6 of
+    exp(cum_i - cum_j) relative to it."""
+    rng = np.random.default_rng(H * P + N)
+    x, cum, Bm, Cm = (torch.from_numpy(a)
+                      for a in _ssd_inputs(rng, 2, 128, H, P, N))
+    if mixed:
+        Bm, Cm = Bm.bfloat16(), Cm.bfloat16()
+    want = ref.ssd_chunk_ref(x, cum, Bm.float(), Cm.float())
+    got = _ssd_chunk_kernel_emulated(x, cum, Bm, Cm)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    ch = cum.transpose(1, 2)
+    m = ch.reshape(2, H, 8, 16).amin(-1)
+    i, j = 100, 37                        # tile J = 2 below tile I = 6
+    factored = (m[..., 2] - ch[..., j]).exp() * (ch[..., i] - m[..., 2]).exp()
+    direct = (ch[..., i] - ch[..., j]).exp()
+    assert ((factored - direct).abs() <= 2e-6 * direct).all()
+
+
+def test_ssd_chunk_factored_decays_stay_finite_on_a_steep_decay():
+    """cum falling by 50 a row: the row factors exp(cum_i - m_J) below the
+    diagonal underflow to 0 with the decays they stand for, the column
+    factors are at most 1, and the diagonal tiles select 0 above the
+    diagonal: y and S stay finite and equal to the plain version."""
+    rng = np.random.default_rng(7)
+    x, _, Bm, Cm = (torch.from_numpy(a)
+                    for a in _ssd_inputs(rng, 1, 64, 2, 8, 16))
+    cum = torch.cumsum(torch.full((1, 64, 2), -50.0), dim=1)
+    for bc in (torch.float32, torch.bfloat16):
+        got = _ssd_chunk_kernel_emulated(x, cum, Bm.to(bc), Cm.to(bc))
+        want = ref.ssd_chunk_ref(x, cum, Bm.to(bc).float(),
+                                 Cm.to(bc).float())
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_chunks_hands_b_and_c_in_their_own_type():
+    """``ops.ssd_chunks`` hands the chunk kernel B and C in their own type,
+    as the reference's ``ssd_forward`` hands its Pallas kernel (x and cum
+    f32); with bf16 B and C the chunked SSD (the plain chunk form on the
+    CPU) still equals the reference's ``ssd_forward`` in interpret mode
+    within 2e-4, and f32 B and C still reach it as f32."""
+    rng = np.random.default_rng(29)
+    B, L, H, P, N = 2, 70, 4, 16, 8
+    x = _randn(rng, (B, L, H, P))
+    dt = np.abs(_randn(rng, (B, L, H))) * 0.1
+    A = -np.abs(_randn(rng, (H,)))
+    Bm, Cm = _randn(rng, (B, L, 1, N)), _randn(rng, (B, L, 1, N))
+    seen = []
+
+    def recording(*args):
+        seen.append(tuple(a.dtype for a in args))
+        return ref.ssd_chunk_ref(*args)
+
+    t = [torch.from_numpy(a) for a in (x, dt, A)]
+    for bc in (torch.bfloat16, torch.float32):
+        got, _ = ops.ssd_forward(*t, torch.from_numpy(Bm).to(bc),
+                                 torch.from_numpy(Cm).to(bc), chunk=32,
+                                 chunk_dual=recording)
+        assert seen.pop() == (torch.float32, torch.float32, bc, bc)
+        jbc = jnp.bfloat16 if bc == torch.bfloat16 else jnp.float32
+        want, _ = jops.ssd_forward(*(jnp.asarray(a) for a in (x, dt, A)),
+                                   jnp.asarray(Bm, jbc), jnp.asarray(Cm, jbc),
+                                   chunk=32, interpret=True)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                                   atol=2e-4, rtol=2e-4)
+    assert not seen
+
+
 def test_ssd_chunk_mask_is_a_select_so_a_steep_decay_stays_finite():
     """With cum falling by 50 a row, exp(cum_i - cum_j) above the diagonal
     overflows to inf.  The kernel selects 0 there, so y and S stay finite
@@ -777,10 +917,30 @@ def test_dtype_suffix_takes_f32_or_bf16_all_of_one_type():
             _build.dtype_suffix("k", bad)
     for name in _build.TENSOR_CORE_SOURCES:
         fns = _build.SIGNATURES[name]
-        assert {fn.rsplit("_", 1)[1] for fn in fns} == {"f32", "bf16"}
+        assert {fn.rsplit("_", 1)[1] for fn in fns} == (
+            {"f32", "bf16", "mixed"} if name == "mamba_ssd"
+            else {"f32", "bf16"})
     assert set(_build.SIGNATURES) == set(_build.SOURCES)
     assert set(_build.SIGNATURES["fused_eval"]) == {"fused_eval_f32",
                                                     "segment_replay_f64"}
+
+
+def test_ssd_dtype_suffix_takes_three_combinations():
+    """The SSD chunk kernel's type rule: x and cum f32 with B and C f32 or
+    bf16 (the mixed launch function, what the model's bf16 compute hands
+    it), or all four bf16; every other mix raises ``TypeError``."""
+    f, h = torch.zeros(2), torch.zeros(2, dtype=torch.bfloat16)
+    assert _build.ssd_dtype_suffix("k", f, f, f, f) == "f32"
+    assert _build.ssd_dtype_suffix("k", h, h, h, h) == "bf16"
+    assert _build.ssd_dtype_suffix("k", f, f, h, h) == "mixed"
+    assert set(_build.SSD_DTYPE_SUFFIX.values()) == {
+        fn.rsplit("_", 1)[1] for fn in _build.SIGNATURES["mamba_ssd"]}
+    for bad in ((h, h, f, f), (f, h, h, h), (h, f, h, h), (f, f, h, f),
+                (f, f, f, h), (f.double(),) * 4, (f.half(),) * 4,
+                (f, f, f.half(), f.half())):
+        with pytest.raises(TypeError, match="x and cum float32 or "
+                                            "bfloat16"):
+            _build.ssd_dtype_suffix("k", *bad)
 
 
 # ---------------------------------------------------------------------------
@@ -870,6 +1030,36 @@ def test_tensor_core_gate_holds_the_bf16_kernels_to_bf16_products():
                                      gated=("ssd_state_walk",)) == [
         "ssd_state: no kernel function",
         "ssd_state: no function named ssd_state_walk"]
+
+
+_SSD_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_115ssd_chunk_mixedILi64ELb1EEEvPKfS2_PK13__nv_bfloat16S5_PfS6_iiiiiii
+        /*0450*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;     /* 0x000000141418723c */
+        /*0500*/                   HMMA.1688.F32.TF32 R8, R12, R16, R8 ;       /* 0x000000100c08723c */
+\t\tFunction : _ZN12_GLOBAL__N_114ssd_chunk_bf16ILi64ELb1EEEvPK13__nv_bfloat16S3_S3_S3_PfS4_iiiiiii
+        /*0450*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;     /* 0x000000141418723c */
+        /*0500*/                   HMMA.1688.F32.TF32 R8, R12, R16, R8 ;       /* 0x000000100c08723c */
+\t\tFunction : _ZN12_GLOBAL__N_113ssd_chunk_f32ILi64ELb1EEEvPKfS2_S2_S2_PfS3_iiiiiii
+        /*0300*/                   HMMA.1688.F32.TF32 R8, R12, R16, R8 ;       /* 0x000000100c08723c */
+"""
+
+
+def test_tensor_core_gate_holds_the_mixed_ssd_kernel_to_bf16_scores():
+    """The SSD chunk kernel's mixed and bf16 functions take C Bᵀ on the
+    bf16 tensor cores and W x, (d ⊙ B)ᵀ x in TF32: the gate wants their
+    HMMA.BF16 and lets TF32 stand beside it; the f32 function an HMMA.
+    Without the bf16 instruction, or without the mixed function, it
+    fails."""
+    counts = _build.tensor_core_counts(_SSD_SASS)
+    assert _build.tensor_core_faults("mamba_ssd", counts) == []
+    no_bf16 = _SSD_SASS.replace("HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32")
+    faults = _build.tensor_core_faults(
+        "mamba_ssd", _build.tensor_core_counts(no_bf16))
+    assert len(faults) == 2 and all("takes C B^T as HMMA.BF16" in f
+                                    for f in faults)
+    no_mixed = {fn: c for fn, c in counts.items() if "mixed" not in fn}
+    assert _build.tensor_core_faults("mamba_ssd", no_mixed) == [
+        "mamba_ssd: no function named ssd_chunk_mixed"]
 
 
 # ---------------------------------------------------------------------------
