@@ -121,6 +121,28 @@ phase prints one JSON line:
    objectives, the winner, per realized candidate its stages, launches,
    pass wall and ``ratio_summary``, the overlay, the calibrated objectives
    and whether the ranking changed.
+   Then ``realize_mesh``: each plan stage on a sub-mesh of four ranks
+   sharing the card over gloo.  The port's DSE writes a keep_mappings
+   checkpoint (two 2 x 2-core archs, ``tf-paper`` at Table I width, batch
+   4, SA 40 iterations, seed 0, numpy) into a temporary directory; ``python
+   -m repro_torch.launch.realize --mesh 4 --host-ranks 4 --top 2
+   --calibrate`` realizes its two best records (every rank must exit 0);
+   then four ranks (``launch.mesh.start_local_ranks``, ``mesh_check_rank``)
+   realize the same records and two hand-built plans (an SSD stage that
+   splits batch and heads, a flash stage that splits query rows and heads:
+   ``MESH_HAND_PLANS``) in mesh mode through the kernels, every launch count
+   set to 0 just before each pass and read just after.  Gates: each rank's
+   launches equal its part of the plan's; every stage cube, gathered,
+   within ``STAGE_REL_TOL`` of the logical route's on the same seed; the
+   DCI bytes the logical route's (and the report's); ``ici_bytes`` > 0 on
+   some stage; the overlay's ``f_noc`` fitted (not 1.0) where a stage has
+   both ICI and NoC bytes.  The line carries, per stage, ``n_devices``,
+   ``ici_bytes`` against ``pred_noc_bytes``, ``coll_by_kind``, the slowest
+   rank's wall and the launches summed over the ranks; the overlay, the
+   collectives' ``transport`` and the seconds of the DSE, the CLI, the
+   check and the phase.  ``kernel`` lines at the ranks' launch shapes
+   (f32, ``main_path: "realize_mesh"``; flash with each rank's
+   ``q_offset``, its library call SDPA with that causal mask).
    Then ``kernel`` lines of the cost model's two kernels (after the
    paths, so that the paths' host-bound passes run in the parent's
    conditions), on two layouts (the reference's fused-pass test arch with
@@ -291,8 +313,9 @@ phase prints one JSON line:
    loop candidate (``loop#1``, ``loop#2``), of each serve phase (``serve``,
    ``serve:mamba2-370m``, ``serve:whisper-small``, ``serve_trace``) and of each
    train phase's eval forward (``train:smollm-135m``, ``train:mamba2-370m``),
-   of the pipelined forward (``pipeline:smollm-135m``) and of the cell
-   bundles' prefills (``cells:smollm-135m``, ``cells:mamba2-370m``), and each one's
+   of the pipelined forward (``pipeline:smollm-135m``), of the cell
+   bundles' prefills (``cells:smollm-135m``, ``cells:mamba2-370m``) and of
+   each mesh rank's passes (``realize_mesh:r0`` to ``:r3``), and each one's
    share apart (both bounds, ``arith``); under ``bf16`` the realization
    launches' sums with bf16 operands.  The cost model's two kernels carry their
    launches in the ``fused`` phase and in the fused sweep's shard children
@@ -307,11 +330,13 @@ it exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -556,6 +581,18 @@ LOOP_CANDIDATES = [("simba_arch", {}), ("gemini_arch_72t", {}),
                    ("simba_arch", {"glb_kb": 2048})]
 LOOP_TOP = 2
 LOOP_SCREEN_KEEP = 0.6
+# the realize_mesh phase: a pool of four ranks sharing the card over gloo;
+# the port's DSE on two 2 x 2-core archs (the CPU tests' checkpoint, at
+# tf-paper's Table I width), its two best records realized; then the same
+# records and two hand-built plans (repro_torch.realize.plan.hand_plans,
+# as the CPU tests build them: an SSD stage that splits batch and heads, a
+# flash stage that splits query rows and heads) checked rank by rank
+MESH_RANKS = 4
+MESH_WORKLOAD = ("TF", "tf-paper")
+MESH_SA_ITERS = 40
+MESH_TOP = 2
+MESH_TIMEOUT = 300
+MESH_HAND_PLANS = ("ssd", "flash")      # of realize.plan.hand_plans
 # the cost model's kernels: the fused phase's SA (replica exchange on the
 # granite graph, S-Arch, the fixtures' batch), its lockstep batch (one
 # proposal a chain) and a screen-sized batch; the layouts of the kernel
@@ -1771,6 +1808,328 @@ def run_loop(dev, timed: dict):
         "ranking_changed": res.ranking_changed,
         "seconds": time.perf_counter() - t_phase}
     return line, runs
+
+
+# ---------------------------------------------------------------------------
+# realize_mesh: each plan stage on a sub-mesh of four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def mesh_archs():
+    """The two 2 x 2-core archs of the mesh phase's DSE (the CPU tests'
+    ``_keep_ckpt``)."""
+    from repro_torch.core.hw import ArchConfig
+    return [ArchConfig(x_cores=2, y_cores=2, xcut=xcut, ycut=1, noc_bw=32.0,
+                       d2d_bw=16.0, dram_bw=64.0, glb_kb=512,
+                       macs_per_core=1024) for xcut in (1, 2)]
+
+
+def mesh_check_rank(ck: str, out: str) -> None:
+    """One rank of the mesh phase's check (``launch.mesh.start_local_ranks``
+    runs it in each of ``MESH_RANKS`` processes): the checkpoint's
+    ``MESH_TOP`` best records and the hand-built plans in mesh mode through
+    the kernels, every launch count set to 0 just before each pass and read
+    just after, against the plan's launches for this rank; rank 0 also runs
+    each in logical mode on the same seed and compares every gathered
+    stage cube and the DCI bytes.  Rank 0 writes the results to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.bridge import plan_from_tuples
+    from repro_torch.core.workloads import make_workload
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.realize.plan import (hand_plans, load_realize_candidates,
+                                          plans_for)
+    from repro_torch.realize.program import build_program
+
+    rank = dist.get_rank()
+    wrappers = kernel_wrappers()
+    name, spec = MESH_WORKLOAD
+    g = make_workload(spec)
+    cases = [(c.arch.label(), g, plan) for c, plan in plans_for(
+        load_realize_candidates(Path(ck), {name: g}, top=MESH_TOP,
+                                verbose=False), MESH_RANKS)]
+    cases += [(n, *plan_from_tuples(*hand_plans(MESH_RANKS)[n]))
+              for n in MESH_HAND_PLANS]
+    res = {"transport": lmesh.transport(lmesh.rank_device("cuda")),
+           "cases": {}}
+    for label, graph, plan in cases:
+        prog = build_program(graph, plan, device="cuda", mesh=range(
+            MESH_RANKS))
+        for fn in wrappers.values():
+            fn.launches = 0
+        run = prog.execute(seed=0)
+        torch.cuda.synchronize()
+        mine = {"counted": {k: fn.launches for k, fn in wrappers.items()},
+                "declared": [(k, list(s.values())) for sp in prog.stages
+                             if sp.pos is not None
+                             for k, s in sp.launches_at(sp.pos)]}
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, mine)
+        if rank:
+            continue
+        logical = build_program(graph, plan, device="cuda").execute(seed=0)
+        worst, worst_cube = 0.0, None
+        for cube, want in logical["outputs"].items():
+            got = run["outputs"][cube]
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"realize_mesh {label}: cube {cube} "
+                                     f"shape or finite")
+            err = ((got - want).abs().max()
+                   / want.abs().max().clamp_min(1e-9)).item()
+            if err >= worst:
+                worst, worst_cube = err, cube
+        per_stage = []
+        for sp in prog.stages:
+            kinds = collections.Counter(k for pos in range(sp.n_devices)
+                                        for k, _ in sp.launches_at(pos))
+            per_stage.append(dict(kinds))
+        res["cases"][label] = {
+            "stages": len(prog.stages), "ranks": ranks,
+            "dci_bytes": run["dci_bytes"],
+            "logical_dci_bytes": logical["dci_bytes"],
+            "ici_bytes": run["ici_bytes"],
+            "coll_by_kind": run["coll_by_kind"],
+            "wall_ms": [w * 1e3 for w in run["wall_s"]],
+            "launches_per_stage": per_stage,
+            "stage_cubes_checked": len(logical["outputs"]),
+            "stage_max_rel_err": worst, "stage_worst_cube": worst_cube}
+    if rank == 0:
+        Path(out).write_text(json.dumps(res))
+
+
+def run_realize_mesh(dev) -> tuple:
+    """The ``realize_mesh`` phase.  The port's DSE writes a keep_mappings
+    checkpoint (``mesh_archs()``, ``tf-paper`` at Table I width, batch 4,
+    SA ``MESH_SA_ITERS`` iterations, seed 0, numpy); ``python -m
+    repro_torch.launch.realize --mesh 4 --host-ranks 4 --top 2
+    --calibrate`` realizes its two best records, four processes sharing the
+    card over gloo; then ``mesh_check_rank`` on four ranks.  Gates: every
+    rank exits 0; each stage cube, gathered, within ``STAGE_REL_TOL`` of the
+    logical route's on the same seed; the DCI bytes the logical route's
+    (and the report's); each rank's launches the plan's for that rank;
+    ``ici_bytes`` > 0 on some stage; ``f_noc`` fitted (not 1.0) where a
+    stage has ICI and NoC bytes.  Returns the line and each rank's
+    (launches, launch keys) over the check's passes."""
+    import tempfile
+
+    from repro_torch.core.dse import DSEConfig, run_dse
+    from repro_torch.core.sa import SAConfig
+    from repro_torch.core.workloads import make_workload
+    from repro_torch.launch.mesh import start_local_ranks
+    from repro_torch.realize.calibrate import load_overlay
+
+    t_phase = time.perf_counter()
+    REPORTS.mkdir(parents=True, exist_ok=True)
+    name, spec = MESH_WORKLOAD
+    with tempfile.TemporaryDirectory(dir=REPORTS) as tmp:
+        tmp = Path(tmp)
+        ck = tmp / "mesh.ckpt.jsonl"
+        t0 = time.perf_counter()
+        run_dse(mesh_archs(), {name: make_workload(spec)},
+                DSEConfig(batch=4, sa=SAConfig(iters=MESH_SA_ITERS, seed=0),
+                          keep_mappings=True), checkpoint=ck)
+        dse_s = time.perf_counter() - t0
+        report = tmp / "mesh.realize.jsonl"
+        argv = [sys.executable, "-m", "repro_torch.launch.realize",
+                "--ckpt", str(ck), "--workload", f"{name}={spec}",
+                "--mesh", str(MESH_RANKS), "--host-ranks", str(MESH_RANKS),
+                "--top", str(MESH_TOP), "--calibrate", "--out", str(report)]
+        t0 = time.perf_counter()
+        cli = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                             timeout=MESH_TIMEOUT,
+                             env={**os.environ, "PYTHONPATH": str(SRC)})
+        cli_s = time.perf_counter() - t0
+        print(cli.stdout, file=sys.stderr)
+        if cli.returncode != 0:
+            raise AssertionError(f"realize_mesh: the CLI exited "
+                                 f"{cli.returncode}: {cli.stderr[-3000:]}")
+        lines = report.read_text().splitlines()
+        header = json.loads(lines[0])["_config"]
+        recs = [json.loads(line) for line in lines[1:]]
+        overlay = load_overlay(report.with_suffix(".overlay.json"))
+        t0 = time.perf_counter()
+        start_local_ranks(MESH_RANKS, mesh_check_rank,
+                          (str(ck), str(tmp / "check.json")),
+                          device_type="cuda")
+        check_s = time.perf_counter() - t0
+        check = json.loads((tmp / "check.json").read_text())
+    faults = []
+    if len(recs) != MESH_TOP or f":pool={MESH_RANKS}:" not in header:
+        faults.append(f"{len(recs)} records under {header}")
+    cases = check["cases"]
+    for label, case in cases.items():
+        if case["stage_max_rel_err"] > STAGE_REL_TOL:
+            faults.append(f"{label}: cube {case['stage_worst_cube']} differs "
+                          f"by {case['stage_max_rel_err']}")
+        if case["dci_bytes"] != case["logical_dci_bytes"]:
+            faults.append(f"{label}: DCI {case['dci_bytes']} against the "
+                          f"logical {case['logical_dci_bytes']}")
+        for r, got in enumerate(case["ranks"]):
+            want = collections.Counter(k for k, _ in got["declared"])
+            if {k: v for k, v in got["counted"].items() if v} != dict(want):
+                faults.append(f"{label}: rank {r} launched "
+                              f"{got['counted']}, its part {dict(want)}")
+    candidates = []
+    for rec in recs:
+        case = cases.get(rec["arch"])
+        if case is None or [s["dci_bytes"] for s in rec["stages"]] \
+                != case["logical_dci_bytes"]:
+            faults.append(f"report {rec['arch']}: DCI differs from the "
+                          f"logical route's")
+            continue
+        candidates.append({
+            "arch": rec["arch"], "batch_unit": rec["batch_unit"],
+            "stages": [[s["index"], s["n_devices"], s["ici_bytes"],
+                        s["pred_noc_bytes"], s["coll_by_kind"],
+                        s["wall_s"] * 1e3, launches]
+                       for s, launches in zip(rec["stages"],
+                                              case["launches_per_stage"])],
+            "wall_ms": rec["totals"]["wall_s"] * 1e3,
+            "ici_bytes": rec["totals"]["ici_bytes"],
+            "pred_noc_bytes": rec["totals"]["pred_noc_bytes"],
+            "dci_bytes": rec["totals"]["dci_bytes"],
+            "ratio_summary": rec["ratio_summary"],
+            "stage_max_rel_err": case["stage_max_rel_err"],
+            "stage_cubes_checked": case["stage_cubes_checked"]})
+    evidence = any(s["ici_bytes"] > 0 and s["pred_noc_bytes"] > 0
+                   for rec in recs for s in rec["stages"])
+    if not any(s["ici_bytes"] > 0 for rec in recs for s in rec["stages"]):
+        faults.append("no stage measured ICI bytes")
+    if evidence and overlay.f_noc == 1.0:
+        faults.append("f_noc was not fitted")
+    hand = {label: {k: case[k] for k in (
+        "stages", "ici_bytes", "coll_by_kind", "dci_bytes", "wall_ms",
+        "launches_per_stage", "stage_max_rel_err", "stage_cubes_checked")}
+        for label, case in cases.items() if label in MESH_HAND_PLANS}
+    runs = {}
+    for r in range(MESH_RANKS):
+        counted = collections.Counter()
+        keys = []
+        for case in cases.values():
+            counted.update(case["ranks"][r]["counted"])
+            keys += [(k, tuple(s)) for k, s in case["ranks"][r]["declared"]]
+        runs[f"realize_mesh:r{r}"] = ({k: counted[k]
+                                       for k in kernel_wrappers()}, keys)
+    line = {"phase": "realize_mesh", "workload": spec, "ranks": MESH_RANKS,
+            "archs": [a.label() for a in mesh_archs()],
+            "sa_iters": MESH_SA_ITERS, "fingerprint": header,
+            "transport": check["transport"],
+            "stage_columns": ["stage", "n_devices", "ici_bytes",
+                              "pred_noc_bytes", "coll_by_kind", "wall_ms",
+                              "launches (summed over the ranks)"],
+            "candidates": candidates, "hand_plans": hand,
+            "overlay": overlay.to_dict(),
+            "per_rank_launches": {p: v[0] for p, v in runs.items()},
+            "dse_s": dse_s, "cli_s": cli_s, "check_s": check_s,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if faults:
+        raise AssertionError("realize_mesh: " + "; ".join(faults))
+    return line, runs
+
+
+def mesh_kernel_lines(dev, keys, main_path: str = "realize_mesh") -> dict:
+    """f32 kernel lines at the launch shapes the mesh phase's ranks ran
+    (GEMM, flash with the rank's query offset, the SSD chunk kernel, the
+    state pass), each against its plain version on the same inputs, with
+    its device time, the plain version's, the library call's (SDPA with
+    the causal mask the offset gives) and the bounds.  Returns them by
+    launch key."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, mamba_ssd, ref
+    from repro_torch.kernels import tiled_matmul as mm
+    from repro_torch.kernels.flash_attention import flash_attention_mha
+    from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.realize.measure import launch_cost
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    randn = lambda *s: torch.randn(*s, device=dev, generator=gen)
+    timed = {}
+    for key in sorted(set(keys), key=repr):
+        kernel, shp = key
+        if key in timed:
+            continue
+        if kernel == "tiled_matmul":
+            M, K, N = shp
+            a, b = randn(M, K), randn(K, N)
+            got, want = tiled_matmul(a, b), ref.matmul_ref(a, b)
+            torch.cuda.synchronize()
+            shape = {"M": M, "K": K, "N": N}
+            line = {"phase": "kernel", "kernel": kernel, "shape": shape,
+                    "route": mm.kernel_route(a, b),
+                    "arith": ARITH[kernel], "main_path": main_path,
+                    **MM_TOL, "max_abs_err": (got - want).abs().max().item(),
+                    **bounds(*launch_cost(kernel, shape))}
+            run = lambda: tiled_matmul(a, b)
+            plain = lambda: ref.matmul_ref(a, b)
+            library = lambda: torch.matmul(a, b)
+            ok = torch.allclose(got, want, **MM_TOL)
+        elif kernel == "flash_attention_mha":
+            shape = dict(zip(("B", "H", "Sq", "Sk", "D", "causal",
+                              "q_offset"), shp))
+            B, H, Sq, Sk, D = (shape[k] for k in ("B", "H", "Sq", "Sk", "D"))
+            causal, off = bool(shape["causal"]), shape.get("q_offset", 0)
+            q, k, v = randn(B, H, Sq, D), randn(B, H, Sk, D), \
+                randn(B, H, Sk, D)
+            got = flash_attention_mha(q, k, v, causal=causal, q_offset=off)
+            want = ref.attention_ref(q, k, v, causal=causal, q_offset=off)
+            torch.cuda.synchronize()
+            mask = (off + torch.arange(Sq, device=dev)[:, None]
+                    >= torch.arange(Sk, device=dev)[None, :])
+            line = {"phase": "kernel", "kernel": kernel, "shape": shape,
+                    "route": flash_attention.kernel_route(q, k, v),
+                    "arith": ARITH[kernel], "main_path": main_path,
+                    **FLASH_TOL,
+                    "max_abs_err": (got - want).abs().max().item(),
+                    **bounds(*launch_cost(kernel, shape))}
+            run = lambda: flash_attention_mha(q, k, v, causal=causal,
+                                              q_offset=off)
+            plain = lambda: ref.attention_ref(q, k, v, causal=causal,
+                                              q_offset=off)
+            library = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask if causal else None)
+            ok = torch.allclose(got, want, **FLASH_TOL)
+        elif kernel == "ssd_chunk_dual":
+            shape = dict(zip(("BC", "Q", "H", "P", "N"), shp))
+            x, cum, Bm, Cm = ssd_inputs(randn, *shp)
+            got = ssd_chunk_dual(x, cum, Bm, Cm)
+            want = ref.ssd_chunk_ref(x, cum, Bm, Cm)
+            torch.cuda.synchronize()
+            line = {"phase": "kernel", "kernel": kernel, "shape": shape,
+                    "route": mamba_ssd.kernel_route(x, Bm, Cm),
+                    "heads_per_block": mamba_ssd.heads_per_block(x, Bm),
+                    "arith": ARITH[kernel], "main_path": main_path,
+                    **SSD_TOL, "max_abs_err": max(
+                        (g - w).abs().max().item()
+                        for g, w in zip(got, want)),
+                    **bounds(*launch_cost(kernel, shape))}
+            run = lambda: ssd_chunk_dual(x, cum, Bm, Cm)
+            plain = lambda: ref.ssd_chunk_ref(x, cum, Bm, Cm)
+            library = None
+            ok = all(torch.allclose(g, w, **SSD_TOL)
+                     for g, w in zip(got, want))
+        elif kernel in STATE_KERNELS:
+            for k, line in check_state_pass(randn, *shp, False, timed=True,
+                                            main_path=main_path).items():
+                timed[(k, shp)] = line
+            continue
+        else:
+            raise AssertionError(f"realize_mesh launched {kernel}")
+        line["ms"] = time_ms(run)
+        line["host_issued_ms"] = time_ms(run, device=False)
+        line["plain_ms"] = time_ms(plain)
+        line["library_ms"] = None if library is None else time_ms(library)
+        if library is None:
+            line["library"] = "none: no single PyTorch call computes it"
+        emit(line)
+        if not ok:
+            raise AssertionError(f"{kernel} disagrees at {shape} "
+                                 f"({main_path})")
+        timed[key] = line
+    return timed
 
 
 KERNEL_FILES = {
@@ -3738,6 +4097,10 @@ def main() -> int:
     runs.update(loop_runs)
     runs = {k: (launches, program_keys(prog))
             for k, (launches, prog) in runs.items()}
+    _, mesh_runs = run_realize_mesh(dev)
+    timed.update(mesh_kernel_lines(dev, [k for _, keys in mesh_runs.values()
+                                         for k in keys]))
+    runs.update(mesh_runs)
     cost_timed = check_cost_kernels(dev)
     fused_line = run_fused(dev)
     emit(fused_line)

@@ -4,7 +4,8 @@ Copy of ``src/repro/core/bridge.py``: ``TECH_TPUPOD`` and ``mesh_as_arch``
 (the abstract accelerator whose geometry mirrors a device mesh: devices as
 cores, pods as chiplets, the device links as NoC and D2D), ``StagePlan``,
 ``MeshPlan`` (with ``stage_of``), ``lms_to_plan`` and ``plan_for_graph``
-(the whole Gemini flow, DP graph partition then SA, on a layer graph).
+(the whole Gemini flow, DP graph partition then SA, on a layer graph);
+``plan_from_tuples`` builds a graph and its plan by hand.
 Each layer group becomes one pipeline stage whose core set is the union
 of its layers' CGs; the per-layer ``Part`` and ordered ``CG`` ride along
 for the stage's logical sharding.  :mod:`repro_torch.runtime.pipeline`
@@ -14,13 +15,13 @@ executes a plan.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .encoding import Mapping
 from .graph_partition import partition_graph
 from .hw import ArchConfig, Tech
 from .sa import SAConfig, sa_optimize
-from .workload import Graph
+from .workload import Graph, Layer
 
 # The reference's constants for its abstract mesh model (devices as cores;
 # energies per byte moved on the device links; the silicon-cost fields
@@ -115,3 +116,25 @@ def plan_for_graph(g: Graph, arch: ArchConfig, total_batch: int,
     res = sa_optimize(g, arch, groups, total_batch,
                       SAConfig(iters=sa_iters, seed=seed))
     return lms_to_plan(res.mapping, res.delay_s, res.energy_j)
+
+
+def plan_from_tuples(layers: Sequence[tuple], stages: Sequence[tuple],
+                     batch_unit: int, name: str = "hand",
+                     classes: Optional[tuple] = None
+                     ) -> Tuple[Graph, MeshPlan]:
+    """A layer graph and a plan built by hand from plain tuples (JSON's
+    lists will do): ``layers`` as ``(name, kind, H, W, C, K, preds)`` and
+    ``stages`` as ``(layer names, Part, core ids)``, every layer of a stage
+    on the stage's Part and cores.  ``classes``, ``(Graph, Layer,
+    MeshPlan, StagePlan)``, builds them with another package's classes of
+    the same fields; by default this package's."""
+    G, L, MP, SP = classes or (Graph, Layer, MeshPlan, StagePlan)
+    g = G(name)
+    for lname, kind, H, W, C, K, preds in layers:
+        g.add(L(name=lname, kind=kind, H=H, W=W, C=C, K=K),
+              inputs=list(preds))
+    return g, MP(stages=[
+        SP(layers=tuple(names), devices=tuple(cores),
+           parts={n: tuple(part) for n in names},
+           cgs={n: tuple(cores) for n in names})
+        for names, part, cores in stages], batch_unit=batch_unit)

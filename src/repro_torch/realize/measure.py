@@ -24,27 +24,49 @@ launch's shapes (:func:`launch_cost`):
 
 * ``flops``: 2·M·N·K for a GEMM; 4·B·H·D·P for flash attention, its two
   products over the P (query, key) pairs the mask keeps
-  (:func:`attention_pairs`).  The same count bounds the kernel in
-  ``chip_smoke.py``.  The CUDA kernel skips kv tiles wholly past the causal
-  diagonal, so it computes these pairs plus the masked part of each
-  diagonal tile; the Pallas kernel computes every pair;
-  2·BC·(T·N + T·H·P + Q·H·N·P) for the SSD chunk kernel, with
+  (:func:`attention_pairs`, with the launch's ``q_offset``).  The same
+  count bounds the kernel in ``chip_smoke.py``.  The CUDA kernel skips kv
+  tiles wholly past the causal diagonal, so it computes these pairs plus
+  the masked part of each diagonal tile; the Pallas kernel computes every
+  pair; 2·BC·(T·N + T·H·P + Q·H·N·P) for the SSD chunk kernel, with
   T = Q(Q+1)/2 the (i, j <= i) pairs its causal decay keeps: the scores
   C·Bᵀ and the product with x over those pairs, and the chunk state over
   every row;
 * ``hbm_bytes``: each operand read once plus the result written once;
 * ``dci_bytes`` and ``wall_s``: from the executor
-  (:meth:`..realize.program.RealizedProgram.execute`);
-* ``ici_bytes``: 0.
+  (:meth:`..realize.program.RealizedProgram.execute`).
+
+What the rest counts depends on the program's mode:
+
+* **Logical mode** (one device): ``flops`` and ``hbm_bytes`` count the
+  stage's launches (``StageProgram.launches``), ``wall_s`` is the stage's
+  CUDA-event time, and ``ici_bytes`` is 0: a stage's logical grid lives on
+  one card, which runs no collectives.  The reshards of the logical grid
+  are not counted as ICI; that would be a model of traffic, not a
+  measurement.  So no stage has a ``noc_bytes`` ratio, and the fitted
+  ``f_noc`` stays 1.0 by ``fit_overlay``'s rule for an axis with no
+  evidence.
+* **Mesh mode** (``build_program(mesh=pool)``): ``flops`` and
+  ``hbm_bytes`` sum :func:`launch_cost` over the launches every rank of the
+  stage makes on its slice (``StageProgram.rank_launches``), what ran, as
+  the reference scales its per-device counts by the mesh size.
+  ``ici_bytes`` and ``coll_by_kind`` are the output bytes of every
+  collective of the stage (its all-gathers, counted where they run:
+  ``launch/mesh.py::collective_bytes``) on every rank, summed over the
+  stage's ranks, which is the reference's per-device HLO collective bytes
+  times ``n_devices`` (``src/repro/realize/measure.py:147-156``);
+  ``arg_bytes`` are the stage's local argument bytes and ``temp_bytes``
+  the scratch the card's allocator held at the stage's peak (0 on the
+  CPU), each of the rank that holds the most (per device); ``wall_s`` is
+  the slowest rank's, timed with no counter inside.  The hop between
+  stages is DCI and is not in ``ici_bytes``.  They are measured by
+  running, so ``execute=False`` leaves them 0.  The collectives are the port's own
+  (``realize/program.py``: the owner computes), not XLA's partitioner's,
+  so the fitted ``f_noc`` is on the port's scale.
 
 **Where the measured side counts differently from the reference's HLO
 walk**, and what calibration makes of it:
 
-* ``ici_bytes`` stays 0: a stage's logical grid lives on one card, which
-  runs no collectives.  The reshards of the logical grid are not counted
-  as ICI; that would be a model of traffic, not a measurement.  So no
-  stage has a ``noc_bytes`` ratio, and the fitted ``f_noc`` stays 1.0 by
-  ``fit_overlay``'s rule for an axis with no evidence.
 * ``hbm_bytes`` counts each kernel operand once, not the compiled
   program's HBM bytes with its eager glue, so the fitted ``f_dram`` is on
   the port's own scale.  An overlay the port fits names ``repro_torch:``
@@ -139,7 +161,7 @@ class StageReport:
     # measured (one pass)
     flops: float = 0.0
     hbm_bytes: float = 0.0
-    ici_bytes: float = 0.0             # one card: no collectives
+    ici_bytes: float = 0.0             # mesh mode: intra-stage collectives
     dci_bytes: float = 0.0             # inter-stage activation transfer
     coll_by_kind: Dict[str, float] = field(default_factory=dict)
     temp_bytes: float = 0.0
@@ -230,7 +252,8 @@ def measure_candidate(cand: RealizeCandidate, prog: RealizedProgram,
                       execute: bool = True, seed: int = 0
                       ) -> RealizationReport:
     """Predict and count one candidate's work per stage and, with
-    ``execute``, run it once for wall time and DCI bytes.
+    ``execute``, run it once for wall time and DCI bytes (and, in mesh
+    mode, the collective bytes; every rank of the world calls it).
 
     The predicted side re-runs the analytical evaluator on the candidate's
     own (arch, graph, LMS), the code path the DSE scored it with, so the
@@ -249,7 +272,9 @@ def measure_candidate(cand: RealizeCandidate, prog: RealizedProgram,
     predict_s = time.perf_counter() - t0
     reports: List[StageReport] = []
     for i, (sp, pred) in enumerate(zip(prog.stages, preds)):
-        costs = [launch_cost(k, s) for k, s in sp.launches]
+        launches = sp.launches if prog.pool is None else [
+            x for per in sp.rank_launches for x in per]
+        costs = [launch_cost(k, s) for k, s in launches]
         meas = {"flops": sum(c[0] for c in costs),
                 "hbm_bytes": sum(c[1] for c in costs), "ici_bytes": 0.0}
         esc: Dict[str, float] = {}
@@ -276,10 +301,16 @@ def measure_candidate(cand: RealizeCandidate, prog: RealizedProgram,
             expected_scale=esc))
     if execute:
         run = prog.execute(seed=seed)
-        for sr, wall, dci in zip(reports, run["wall_s"], run["dci_bytes"]):
-            sr.wall_s = wall
-            sr.dci_bytes = float(dci) * sr.expected_scale.get("d2d_bytes",
-                                                              1.0)
+        for i, sr in enumerate(reports):
+            sr.wall_s = run["wall_s"][i]
+            sr.dci_bytes = float(run["dci_bytes"][i]) \
+                * sr.expected_scale.get("d2d_bytes", 1.0)
+            if "ici_bytes" in run:
+                sr.ici_bytes = run["ici_bytes"][i] \
+                    * sr.expected_scale.get("noc_bytes", 1.0)
+                sr.coll_by_kind = run["coll_by_kind"][i]
+                sr.arg_bytes = run["arg_bytes"][i]
+                sr.temp_bytes = run["temp_bytes"][i]
     return RealizationReport(
         key=cand.key, workload=cand.workload, arch_label=cand.arch.label(),
         tech=cand.arch.tech.name, batch_unit=prog.batch_unit,

@@ -8,10 +8,12 @@ mapping.  This module parses those records back into
 the workload graph), checks that each supplied graph content-matches the
 checkpoint header's fingerprint, and lowers each mapping into a plan.
 
-On one card the Gemini core ids of a plan are *logical* devices: the pool a
-plan is validated against is the checkpointed architecture's core count,
-and the stage program uses the core ids only to bill inter-stage (DCI)
-traffic.
+A plan is validated against a pool of devices.  In the logical mode (one
+card) its Gemini core ids are *logical* devices: the pool is the
+checkpointed architecture's core count, and the stage program uses the
+core ids only to bill inter-stage (DCI) traffic.  In mesh mode the pool is
+the ranks of ``torch.distributed`` that ``launch/realize.py --mesh`` gives
+it, and core ``c`` runs on the pool's rank ``c``.
 """
 
 from __future__ import annotations
@@ -141,17 +143,19 @@ def load_realize_candidates(ckpt: Union[str, Path],
 
 def validate_plan(plan: MeshPlan, n_devices: int,
                   arch: Optional[ArchConfig] = None) -> None:
-    """Refuse plans the logical pool of ``n_devices`` cores cannot host,
-    plans that reference cores the architecture does not have, and stages
-    whose Part product differs from their core-group size."""
+    """Refuse plans the pool of ``n_devices`` cannot host (naming how to
+    get ranks), plans that reference cores the architecture does not have,
+    and stages whose Part product differs from their core-group size."""
     need = plan.n_devices_needed
     if arch is not None and need > arch.n_cores:
         raise ValueError(
             f"plan references core {need - 1} but the checkpointed arch "
             f"has only {arch.n_cores} cores — corrupt mapping record")
     if need > n_devices:
+        from ..launch.mesh import RANKS_FIX
         raise ValueError(
-            f"plan needs {need} devices, the logical pool has {n_devices}")
+            f"plan needs {need} devices, mesh/pool has {n_devices}; start "
+            f">= {need} local ranks (--host-ranks), or {RANKS_FIX}")
     for i, st in enumerate(plan.stages):
         for name in st.layers:
             part = st.parts[name]
@@ -163,13 +167,55 @@ def validate_plan(plan: MeshPlan, n_devices: int,
                     f"|CG| {len(cg)}")
 
 
-def plans_for(cands: Sequence[RealizeCandidate]
+def plans_for(cands: Sequence[RealizeCandidate],
+              n_devices: Optional[int] = None
               ) -> List[Tuple[RealizeCandidate, MeshPlan]]:
-    """Lower every candidate and validate it against its own architecture's
+    """Lower every candidate and validate it against a pool of
+    ``n_devices`` ranks, or, without one, against its own architecture's
     logical pool (``arch.n_cores``)."""
     out = []
     for c in cands:
         plan = c.lower()
-        validate_plan(plan, c.arch.n_cores, c.arch)
+        validate_plan(plan, c.arch.n_cores if n_devices is None
+                      else n_devices, c.arch)
         out.append((c, plan))
     return out
+
+
+def hand_plans(ranks: int = 4, seq: int = 32) -> Dict[str, tuple]:
+    """Hand-built plans that split what the realization's mesh mode must
+    split, as :func:`..core.bridge.plan_from_tuples` arguments, for a pool
+    of ``ranks`` (2 or 4):
+
+    * ``ssd``: an fc layer split on k over ranks 0 and 1, then a ``*_ssd``
+      layer of two heads of 128 on every rank in reverse order, split on
+      heads (and on batch with four ranks);
+    * ``flash``: q, k and v split on k over every rank, then a (qk, av)
+      attention pair of ``seq`` query rows split on rows (and on heads
+      with four ranks), the ranks rotated;
+    * ``ici``: an fc layer split on k over ranks 0 and 1, then a matmul
+      on the same two ranks split on batch, which reads it whole.
+    """
+    half = ranks // 2
+    rot = tuple(range(half, ranks)) + tuple(range(half))
+    return {
+        "ssd": ([("l0", "fc", 64, 1, 32, 64, ()),
+                 ("l0_ssd", "matmul", 64, 1, 64, 256, ("l0",))],
+                [(("l0",), (1, 1, 1, 2), (0, 1)),
+                 (("l0_ssd",), (1, 1, half, 2),
+                  tuple(reversed(range(ranks))))], 2),
+        "flash": ([("x", "fc", seq, 1, 32, 256, ()),
+                   ("q", "fc", seq, 1, 256, 256, ("x",)),
+                   ("k", "fc", seq, 1, 256, 256, ("x",)),
+                   ("v", "fc", seq, 1, 256, 256, ("x",)),
+                   ("qk", "matmul", seq, 1, 256, seq, ("q", "k")),
+                   ("av", "matmul", seq, 1, seq, 256, ("qk", "v")),
+                   ("o", "fc", seq, 1, 256, 64, ("av",))],
+                  [(("x",), (1, 1, 2, 1), (1, 0)),
+                   (("q", "k", "v"), (1, 1, 1, ranks), tuple(range(ranks))),
+                   (("qk", "av", "o"), (2, 1, 1, half), rot)], 2),
+        "ici": ([("a", "fc", 16, 1, 32, 64, ()),
+                 ("b", "matmul", 16, 1, 64, 16, ("a",))],
+                [(("a",), (1, 1, 1, 2), (0, 1)),
+                 (("b",), (1, 1, 2, 1), (0, 1))], 2),
+    }

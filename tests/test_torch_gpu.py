@@ -1916,3 +1916,94 @@ def test_cell_bundles_on_one_nccl_rank_equal_the_eager_route(cuda, arch):
             assert not any(counts())
     finally:
         dist.destroy_process_group()
+
+
+# the mesh realization on two ranks sharing the card (gloo): each rank's
+# launches are its part's, the gathered cubes the logical route's
+_MESH_RANKS = '''
+import json, sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+
+def rank_main(out):
+    from repro_torch.core.bridge import plan_from_tuples
+    from repro_torch.kernels import ssd_state
+    from repro_torch.kernels.flash_attention import flash_attention_mha
+    from repro_torch.kernels.mamba_ssd import ssd_chunk_dual
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.realize.plan import hand_plans
+    from repro_torch.realize.program import build_program
+    wrappers = {"tiled_matmul": tiled_matmul,
+                "flash_attention_mha": flash_attention_mha,
+                "ssd_chunk_dual": ssd_chunk_dual,
+                **{k: getattr(ssd_state, k) for k in (
+                    "ssd_state_walk", "ssd_state_scan", "ssd_state_out")}}
+    res = {}
+    # the SSD plan's heads over two ranks in reverse order, the flash
+    # plan's 128 query rows over two
+    for name in ("ssd", "flash"):
+        g, plan = plan_from_tuples(*hand_plans(ranks=2, seq=128)[name])
+        prog = build_program(g, plan, device="cuda", mesh=[0, 1])
+        for w in wrappers.values():
+            w.launches = 0
+        run = prog.execute(seed=0)
+        torch.cuda.synchronize()
+        counted = {k: w.launches for k, w in wrappers.items() if w.launches}
+        declared = {}
+        for sp in prog.stages:
+            if sp.pos is not None:
+                for k, _ in sp.launches_at(sp.pos):
+                    declared[k] = declared.get(k, 0) + 1
+        logical = build_program(g, plan, device="cuda").execute(seed=0)
+        err = None                  # the cubes are gathered on rank 0
+        if dist.get_rank() == 0:
+            err = max(((run["outputs"][n] - x).abs().max()
+                       / x.abs().max().clamp_min(1e-9)).item()
+                      for n, x in logical["outputs"].items())
+        mine = {"counted": counted, "declared": declared, "err": err,
+                "dci": run["dci_bytes"] == logical["dci_bytes"],
+                "ici": run["ici_bytes"], "device": str(prog.device)}
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, mine)
+        res[name] = ranks
+    if dist.get_rank() == 0:
+        Path(out).write_text(json.dumps(res))
+
+
+if __name__ == "__main__":
+    from repro_torch.launch.mesh import start_local_ranks
+    start_local_ranks(2, rank_main, (sys.argv[1],), device_type="cuda")
+'''
+
+
+@pytest.mark.gpu
+def test_mesh_realization_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """Two gloo ranks share the card: each rank launches exactly its part's
+    kernels (GEMM, flash on its query rows, the SSD chunk kernel and the
+    state pass on its head), the gathered cubes are within 2e-4 of the
+    logical route's on the same seed, the DCI bytes equal, and the stages
+    measure all-gather bytes."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parent.parent
+    script = tmp_path / "ranks.py"
+    script.write_text(_MESH_RANKS)
+    env = {**os.environ, "PYTHONPATH": str(repo / "src")}
+    r = subprocess.run([sys.executable, str(script), str(tmp_path / "o.json")],
+                       capture_output=True, text=True, timeout=600, env=env,
+                       cwd=repo)
+    assert r.returncode == 0, r.stderr[-4000:]
+    res = json.loads((tmp_path / "o.json").read_text())
+    for name, ranks in res.items():
+        assert ranks[0]["err"] <= 2e-4, name
+        for got in ranks:
+            assert got["counted"] == got["declared"] and got["counted"], name
+            assert got["dci"], name
+            assert got["device"] == "cuda:0"
+        assert any(ranks[0]["ici"]), name
+    assert "ssd_chunk_dual" in res["ssd"][0]["counted"]
+    assert "flash_attention_mha" in res["flash"][0]["counted"]
