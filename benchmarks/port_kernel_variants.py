@@ -9,7 +9,9 @@ CUDA toolkit:
 Each variant is ``src/repro_torch/kernels/csrc`` with substitutions in
 the shared header ``tf32x3.cuh`` or in one kernel's source, built with the
 port's nvcc flags into ``results/kernel_variants/`` and called through the
-same C entry points (the f32 ones), at the realization paths' shapes,
+same C entry points (the f32 ones; for the GEMM and flash the ``mma.sync``
+kernels', ``tiled_matmul_sync_f32`` and ``flash_attention_sync_f32``,
+which take these variants' products), at the realization paths' shapes,
 timed as ``chip_smoke.py`` times kernels (device time).  For the three
 kernels:
 
@@ -444,7 +446,7 @@ def main() -> int:
         c, want = torch.empty(M, N, device=dev), ref.matmul_ref(a, b)
         line = {"kernel": "tiled_matmul", "shape": [M, K, N]}
         for variant in VARIANTS:
-            fn = libs[(variant, "tiled_matmul")].tiled_matmul_f32
+            fn = libs[(variant, "tiled_matmul")].tiled_matmul_sync_f32
             launch = lambda: fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                                 M, N, K, 0, stream)
             if launch() != 0:
@@ -460,7 +462,7 @@ def main() -> int:
         line = {"kernel": "flash_attention_mha",
                 "shape": [B, H, Sq, Sk, D, causal]}
         for variant in VARIANTS:
-            fn = libs[(variant, "flash_attention")].flash_attention_f32
+            fn = libs[(variant, "flash_attention")].flash_attention_sync_f32
             # q_offset 0 and device 0, as the entry point takes them
             launch = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 o.data_ptr(), B, H, Sq, Sk, D, int(causal),

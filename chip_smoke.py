@@ -19,15 +19,19 @@ phase prints one JSON line:
    The bf16 kernels (``_build.BF16_TC_KERNELS``: ``flash_fwd_bf16`` and
    ``gemm_wgmma_bf16``) fail the run without their bf16 instruction
    (``HMMA.16816.F32.BF16``, ``HGMMA...BF16``) or with any TF32 product;
-   the SSD chunk kernel's mixed and bf16 functions
-   (``_build.MIXED_TC_KERNELS``: ``ssd_chunk_mixed``, ``ssd_chunk_bf16``)
-   fail it without ``HMMA.BF16`` (their C Bᵀ; TF32 beside it is theirs);
-   every other function that multiplies on the tensor cores fails it
-   without ``HMMA``: every function of the three tensor-core sources and,
-   in ``ssd_state.cu``, the walk's and the split outputs'
-   (``ssd_state_walk``, ``ssd_state_out``); the state scan and
-   ``fused_eval.cu`` do no product on the tensor cores, so their counts
-   are printed, not gated.
+   the f32 wgmma kernels (``_build.TF32_WGMMA_KERNELS``:
+   ``flash_fwd_wgmma_tf32x3``, ``gemm_wgmma_tf32x3``) without
+   ``HGMMA...TF32`` or with any bf16 product; the SSD chunk kernel's mixed
+   and bf16 functions (``_build.MIXED_TC_KERNELS``: ``ssd_chunk_mixed``,
+   ``ssd_chunk_bf16``) without ``HMMA.BF16`` (their C Bᵀ; TF32 beside it
+   is theirs); every other function that multiplies on the tensor cores
+   without ``HMMA``: every other function of the three tensor-core sources
+   and, in ``ssd_state.cu``, the walk's and the split outputs'
+   (``ssd_state_walk``, ``ssd_state_out``); the GEMM's split transpose of
+   B (``_build.NO_PRODUCT_KERNELS``: ``split_transpose_tf32``), the state
+   scan and ``fused_eval.cu`` do no product on the tensor cores, so their
+   counts are printed, not gated.  The build line carries each source's
+   ptxas warnings (a serialized ``wgmma`` would show there).
 3. ``kernel``: one line per kernel and shape.  Each kernel is held against
    its plain PyTorch version on the same inputs on the card, with TF32 off,
    at the tolerances of ``tests/test_kernels.py`` (GEMM atol 1e-3 /
@@ -51,8 +55,16 @@ phase prints one JSON line:
    ``zamba2-1.2b`` prefill, the ``mamba2-370m`` realization and serve
    shapes, on both routes, each kernel of the route also on its own.  Each
    kernel line names the kernel configuration the launch took (``route``:
-   tile, head-dim template or P tile, copy width); the edge shapes drive
-   each of them.  The realization paths' shapes also get
+   tile, head-dim template or P tile, copy width; for f32 the GEMM's and
+   flash's TF32 wgmma kernels, ``... wgmma tma tf32x3``, on aligned
+   operands and flash at D = 64 and 128, their mma.sync kernels
+   elsewhere); the edge shapes drive each of them.  The GEMM's and flash's
+   f32 lines say whether a second launch gave the same bits
+   (``repeat_bit_equal``, gated), and at the path shapes time the parent's
+   route too, the mma.sync kernel forced through ``tiled_matmul_sync_f32``
+   and ``flash_attention_sync_f32`` on the same inputs (``parent_route``,
+   ``parent_ms``, ``parent_max_abs_err``, held to the same tolerance, not
+   counted).  The realization paths' shapes also get
    the kernel's time, the plain version's, one PyTorch library call's
    (``torch.matmul``, ``scaled_dot_product_attention``; none computes the
    SSD chunk form or the state pass, so their ``library_ms`` is null; for
@@ -86,7 +98,11 @@ phase prints one JSON line:
    launch count set to 0 just before it): stages, kernel launches of the
    pass (the state pass's route's kernels once per SSD layer, after the
    chunk kernel; they must equal the plan's declared launches),
-   wall, FLOPs and DCI bytes per stage, the predicted totals
+   wall, FLOPs, DCI bytes, argument bytes and scratch per stage
+   (``arg_bytes``, which every stage must record; ``temp_bytes``, the
+   card's allocator peak), the f32 GEMM and flash launches that took the
+   TF32 wgmma kernels (``wgmma_f32_launches``, which must be all of them),
+   the predicted totals
    (``pred_flops``, ``pred_dram_bytes``, ``pred_noc_bytes``,
    ``pred_d2d_bytes``, held to the pinned CPU values), the
    measured/predicted geomeans (``ratio_summary``), the fitted overlay,
@@ -316,7 +332,11 @@ phase prints one JSON line:
    of the pipelined forward (``pipeline:smollm-135m``), of the cell
    bundles' prefills (``cells:smollm-135m``, ``cells:mamba2-370m``) and of
    each mesh rank's passes (``realize_mesh:r0`` to ``:r3``), and each one's
-   share apart (both bounds, ``arith``); under ``bf16`` the realization
+   share apart (both bounds, ``arith``), for the GEMM and flash each
+   path's routes by launch and the parent kernel's ms, and the launches
+   split by the kernel function they took (``functions``:
+   ``gemm_wgmma_tf32x3`` and ``gemm_3xtf32``, ``flash_fwd_wgmma_tf32x3``
+   and ``flash_fwd``); under ``bf16`` the realization
    launches' sums with bf16 operands.  The cost model's two kernels carry their
    launches in the ``fused`` phase and in the fused sweep's shard children
    (``per_path``: ``fused``, ``sweep:fused``, read from the children's metrics
@@ -362,12 +382,18 @@ PEAK_HBM_BYTES_S = 3.35e12
 # float64 outside the tensor cores (NVIDIA data sheet, H100 SXM): the rate
 # of segment_replay's adds
 PEAK_F64_FLOPS = 34e12
-ARITH = {"tiled_matmul": "3xTF32 mma.sync",
-         "flash_attention_mha": "3xTF32 mma.sync",
+ARITH = {"tiled_matmul": "3xTF32: TF32 wgmma m64nNk8 fed by TMA, B split "
+                         "and transposed first (K, N % 4 == 0, aligned); "
+                         "else mma.sync m16n8k8",
+         "flash_attention_mha": "3xTF32: TF32 wgmma m64nNk8 fed by TMA (D 64 "
+                                "or 128, aligned); else mma.sync m16n8k8",
          "ssd_chunk_dual": "3xTF32 mma.sync (C B^T once a block of heads)",
          "ssd_state_walk": "3xTF32 mma.sync",
          "ssd_state_scan": "f32 FMA (no tensor cores)",
          "ssd_state_out": "3xTF32 mma.sync"}
+# the wrappers whose f32 launches take a TF32 wgmma kernel where the
+# operands allow (``wgmma_f32_launches``): on the realization paths, all
+WGMMA_F32 = ("tiled_matmul", "flash_attention_mha")
 # the state pass's kernels, by route (repro_torch.kernels.ssd_state)
 STATE_KERNELS = ("ssd_state_walk", "ssd_state_scan", "ssd_state_out")
 # the kernel functions of ssd_state.cu whose SASS must hold HMMA: the
@@ -424,7 +450,10 @@ MM_PATH = [(2048, 512, 512), (2048, 512, 2048), (2048, 2048, 512),
 MM_EDGE = [(100, 300, 50, False), (257, 129, 65, False),
            (1000, 77, 3, False), (64, 64, 64, False),
            (2048, 130, 2050, False), (512, 256, 512, True),
-           (2048, 512, 2048, True)]
+           (2048, 512, 2048, True),
+           # the TF32 wgmma kernel's tiles off their multiples, a K tail
+           (1000, 516, 1020, False), (333, 260, 68, False),
+           (4100, 1532, 36, False)]
 FLASH_PATH = [(4, 4, 512, 512, 128, True), (1, 12, 4096, 4096, 128, True),
               (2, 4, 512, 512, 128, True)]
 # (B, H, Sq, Sk, D, causal, q one float into its storage): every head-dim
@@ -439,7 +468,9 @@ FLASH_EDGE = [(2, 4, 96, 96, 64, True, False),
               (1, 2, 96, 200, 256, True, False),
               (2, 2, 192, 100, 128, True, False),
               (1, 3, 80, 90, 33, True, False),
-              (1, 2, 64, 96, 64, True, True)]
+              (1, 2, 64, 96, 64, True, True),
+              (2, 3, 70, 45, 64, False, False),
+              (2, 3, 70, 45, 128, True, False)]
 # (BC, Q, H, P, N, x one float into its storage): the mamba2-370m path's
 # shape; tests/test_kernels.py's three; ragged chunk lengths; P of 32 and
 # 64; two P tiles with N off 4; then, each at an odd number of (chunk,
@@ -887,6 +918,53 @@ def on_card(randn, shape, offset: bool):
     return randn(n + int(offset))[int(offset):].view(*shape)
 
 
+def sync_matmul(a, b):
+    """a @ b through the GEMM's mma.sync kernel (``tiled_matmul_sync_f32``:
+    the parent's f32 route, which the TF32 wgmma kernel replaced on aligned
+    operands), not counted."""
+    import torch
+
+    from repro_torch.kernels import _build
+    out = torch.empty((a.shape[0], b.shape[1]), device=a.device)
+    code = _build.load("tiled_matmul").tiled_matmul_sync_f32(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], b.shape[1],
+        a.shape[1], a.device.index or 0,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if code:
+        raise RuntimeError(f"tiled_matmul_sync_f32: CUDA error {code}")
+    return out
+
+
+def sync_flash(q, k, v, causal: bool, q_offset: int = 0):
+    """Flash attention through the mma.sync kernel
+    (``flash_attention_sync_f32``: the parent's f32 route), not counted."""
+    import torch
+
+    from repro_torch.kernels import _build
+    out = torch.empty_like(q)
+    B, H, Sq, D = q.shape
+    code = _build.load("flash_attention").flash_attention_sync_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq,
+        k.shape[2], D, int(causal), q_offset, q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if code:
+        raise RuntimeError(f"flash_attention_sync_f32: CUDA error {code}")
+    return out
+
+
+def add_parent(line: dict, route: str, run, want, tol: dict) -> bool:
+    """The parent kernel's route, error and device time into ``line``
+    (``parent_route``, ``parent_max_abs_err``, ``parent_ms``); whether its
+    result is within ``tol`` of ``want``."""
+    import torch
+    got = run()
+    torch.cuda.synchronize()
+    line["parent_route"] = route
+    line["parent_max_abs_err"] = (got - want).abs().max().item()
+    line["parent_ms"] = time_ms(run)
+    return torch.allclose(got, want, **tol)
+
+
 def check_kernels(dev):
     """Kernel vs plain version at the path's and at ragged shapes.  Returns
     the timed lines by (kernel, shape), and the inputs, chunk and timed
@@ -913,19 +991,26 @@ def check_kernels(dev):
                 "shape": {"M": M, "K": K, "N": N}, "a_offset": int(offset),
                 "route": mm.kernel_route(a, b), "arith": ARITH["tiled_matmul"],
                 "main_path": path, **MM_TOL,
-                "max_abs_err": (got - want).abs().max().item()}
+                "max_abs_err": (got - want).abs().max().item(),
+                "repeat_bit_equal": torch.equal(got, tiled_matmul(a, b))}
+        parent_ok = True
         if path:
             line.update(bounds(*launch_cost("tiled_matmul",
                                             {"M": M, "K": K, "N": N})))
             line["ms"] = time_ms(lambda: tiled_matmul(a, b))
             line["host_issued_ms"] = time_ms(lambda: tiled_matmul(a, b),
                                              device=False)
+            parent_ok = add_parent(line, mm.kernel_route(a, b, sync=True),
+                                   lambda: sync_matmul(a, b), want, MM_TOL)
             line["plain_ms"] = time_ms(lambda: ref.matmul_ref(a, b))
             line["library_ms"] = time_ms(lambda: torch.matmul(a, b))
             timed[("tiled_matmul", (M, K, N))] = line
         emit(line)
-        if not torch.allclose(got, want, **MM_TOL):
-            raise AssertionError(f"tiled_matmul disagrees at {(M, K, N)}")
+        if not torch.allclose(got, want, **MM_TOL) or not parent_ok \
+                or not line["repeat_bit_equal"]:
+            raise AssertionError(f"tiled_matmul disagrees at {(M, K, N)}, "
+                                 f"or with itself, or its parent kernel "
+                                 f"does")
     for path, (B, H, Sq, Sk, D, causal, offset) in \
             [(True, (*s, False)) for s in FLASH_PATH] \
             + [(False, s) for s in FLASH_EDGE]:
@@ -939,7 +1024,10 @@ def check_kernels(dev):
                 "causal": causal, "q_offset": int(offset),
                 "route": flash_attention.kernel_route(q, k, v),
                 "arith": ARITH["flash_attention_mha"], "main_path": path,
-                **FLASH_TOL, "max_abs_err": (got - want).abs().max().item()}
+                **FLASH_TOL, "max_abs_err": (got - want).abs().max().item(),
+                "repeat_bit_equal": torch.equal(
+                    got, flash_attention_mha(q, k, v, causal=causal))}
+        parent_ok = True
         if path:
             shape = {**line["shape"], "causal": int(causal)}
             line.update(bounds(*launch_cost("flash_attention_mha", shape)))
@@ -948,6 +1036,9 @@ def check_kernels(dev):
             line["host_issued_ms"] = time_ms(
                 lambda: flash_attention_mha(q, k, v, causal=causal),
                 device=False)
+            parent_ok = add_parent(
+                line, flash_attention.kernel_route(q, k, v, sync=True),
+                lambda: sync_flash(q, k, v, causal), want, FLASH_TOL)
             line["plain_ms"] = time_ms(
                 lambda: ref.attention_ref(q, k, v, causal=causal))
             line["library_ms"] = time_ms(
@@ -955,9 +1046,11 @@ def check_kernels(dev):
                                                        is_causal=causal))
             timed[("flash_attention_mha", tuple(shape.values()))] = line
         emit(line)
-        if not torch.allclose(got, want, **FLASH_TOL):
+        if not torch.allclose(got, want, **FLASH_TOL) or not parent_ok \
+                or not line["repeat_bit_equal"]:
             raise AssertionError(
-                f"flash_attention_mha disagrees at {(B, H, Sq, Sk, D)}")
+                f"flash_attention_mha disagrees at {(B, H, Sq, Sk, D)}, or "
+                f"with itself, or its parent kernel does")
     for path, clock, (BC, Q, H, P, N, offset) in \
             [(True, True, s) for s in SSD_PATH] \
             + [(False, True, s) for s in SSD_SERVE + SSD_WIDE] \
@@ -1574,15 +1667,25 @@ def run_path(path, dev):
         predict_s_first = last_record()["predict_s"]
         for fn in wrappers.values():
             fn.launches = 0
+        for k in WGMMA_F32:
+            wrappers[k].wgmma_f32_launches = 0
         t0 = time.perf_counter()
         realize_main(argv)                          # the counted pass
         seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    wgmma = {k: wrappers[k].wgmma_f32_launches for k in WGMMA_F32}
     rec = last_record()
     stages = rec["stages"]
     if len(stages) != n_stages or launches != want_launches:
         raise AssertionError(f"path {name} ran {len(stages)} stages with "
                              f"launches {launches}")
+    if any(wgmma[k] != launches[k] for k in WGMMA_F32):
+        raise AssertionError(f"path {name}: of its f32 launches {launches} "
+                             f"only {wgmma} took the TF32 wgmma kernels")
+    no_args = [s["index"] for s in stages if not s["arg_bytes"] > 0]
+    if no_args:
+        raise AssertionError(f"path {name}: stages {no_args} record no "
+                             f"argument bytes")
     # a dense path counts integer FLOPs exactly; a scaled one multiplies
     # them by host float64 factors, held like the predicted totals
     flops_tol = 0.0 if isinstance(want_flops, int) else PRED_REL_TOL
@@ -1635,6 +1738,9 @@ def run_path(path, dev):
     emit({"phase": "path", "workload": name, "arch": rec["arch"],
           "batch_unit": rec["batch_unit"], "stages": len(stages),
           "seconds": seconds, "launches": launches,
+          "wgmma_f32_launches": wgmma,
+          "arg_bytes": sum(s["arg_bytes"] for s in stages),
+          "temp_bytes": sum(s["temp_bytes"] for s in stages),
           "wall_ms": rec["totals"]["wall_s"] * 1e3,
           "flops": rec["totals"]["flops"],
           "dci_bytes": rec["totals"]["dci_bytes"],
@@ -1646,9 +1752,11 @@ def run_path(path, dev):
           "predict_s_first_pass": predict_s_first,
           "per_stage": [[s["index"], s["wall_s"] * 1e3, s["flops"],
                          s["dci_bytes"], s["pred_flops"],
-                         s["pred_d2d_bytes"]] for s in stages],
+                         s["pred_d2d_bytes"], s["arg_bytes"],
+                         s["temp_bytes"]] for s in stages],
           "per_stage_columns": ["stage", "wall_ms", "flops", "dci_bytes",
-                                "pred_flops", "pred_d2d_bytes"],
+                                "pred_flops", "pred_d2d_bytes", "arg_bytes",
+                                "temp_bytes"],
           **extra, **cubes})
     if cubes["stage_max_rel_err"] > STAGE_REL_TOL:
         raise AssertionError(f"stage cube {cubes['stage_worst_cube']} "
@@ -2066,7 +2174,9 @@ def mesh_kernel_lines(dev, keys, main_path: str = "realize_mesh") -> dict:
             run = lambda: tiled_matmul(a, b)
             plain = lambda: ref.matmul_ref(a, b)
             library = lambda: torch.matmul(a, b)
-            ok = torch.allclose(got, want, **MM_TOL)
+            ok = torch.allclose(got, want, **MM_TOL) and add_parent(
+                line, mm.kernel_route(a, b, sync=True),
+                lambda: sync_matmul(a, b), want, MM_TOL)
         elif kernel == "flash_attention_mha":
             shape = dict(zip(("B", "H", "Sq", "Sk", "D", "causal",
                               "q_offset"), shp))
@@ -2091,7 +2201,9 @@ def mesh_kernel_lines(dev, keys, main_path: str = "realize_mesh") -> dict:
                                               q_offset=off)
             library = lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask if causal else None)
-            ok = torch.allclose(got, want, **FLASH_TOL)
+            ok = torch.allclose(got, want, **FLASH_TOL) and add_parent(
+                line, flash_attention.kernel_route(q, k, v, sync=True),
+                lambda: sync_flash(q, k, v, causal, off), want, FLASH_TOL)
         elif kernel == "ssd_chunk_dual":
             shape = dict(zip(("BC", "Q", "H", "P", "N"), shp))
             x, cum, Bm, Cm = ssd_inputs(randn, *shp)
@@ -2175,6 +2287,12 @@ def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
                 "bound_ms": sum(ln["bound_ms"] for ln in ls),
                 "bound_3xtf32_ms": sum(ln["bound_3xtf32_ms"] for ln in ls),
                 "library_ms": None if None in lib else sum(lib)}
+            if name in WGMMA_F32 and ls:
+                per_path[path]["routes"] = dict(collections.Counter(
+                    ln["route"] for ln in ls))
+                parent = [ln.get("parent_ms") for ln in ls]
+                if None not in parent:
+                    per_path[path]["parent_ms"] = sum(parent)
             lines += ls
             lines16 += [timed_bf16[k] for k in keys
                         if k[0] == name and k in timed_bf16]
@@ -2194,6 +2312,8 @@ def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
             "per_path": per_path}
         if None in lib:
             line["library"] = "none: no single PyTorch call computes it"
+        if name in WGMMA_F32:
+            line["functions"] = function_lines(name, lines)
         if lines16:
             lib16 = [ln["library_ms"] for ln in lines16]
             line["bf16"] = {
@@ -2212,6 +2332,44 @@ def per_pass_summary(timed: dict, timed_bf16: dict, runs: dict) -> list:
                        "operands (not run on the paths)"}
         out.append(line)
     return out
+
+
+# the kernel function a route of the GEMM and flash launches: f32 on the
+# TF32 wgmma kernels ("... wgmma tma tf32x3") or on the mma.sync kernels
+# they replaced on aligned operands; bf16 on the bf16 kernels (the GEMM's
+# ragged bf16 on its mma.sync kernel)
+ROUTE_FUNCTIONS = {
+    "tiled_matmul": (("wgmma tma tf32x3", "gemm_wgmma_tf32x3"),
+                     ("wgmma tma bf16", "gemm_wgmma_bf16"),
+                     ("", "gemm_3xtf32")),
+    "flash_attention_mha": (("wgmma tma tf32x3", "flash_fwd_wgmma_tf32x3"),
+                            ("bf16", "flash_fwd_bf16"), ("", "flash_fwd"))}
+
+
+def function_lines(name: str, lines: list) -> list:
+    """The per-pass launches of the GEMM or flash (``lines``: one timed
+    line a launch) split by the kernel function each took
+    (``ROUTE_FUNCTIONS``): launches, routes, the sums of ms, the parent
+    (mma.sync) kernel's ms on the same inputs where timed, plain, bounds
+    and library ms, the largest error."""
+    out = {}
+    for ln in lines:
+        fn = next(f for end, f in ROUTE_FUNCTIONS[name]
+                  if ln["route"].endswith(end))
+        out.setdefault(fn, []).append(ln)
+    summed = []
+    for fn, ls in out.items():
+        total = lambda k: (None if any(ln.get(k) is None for ln in ls)
+                           else sum(ln[k] for ln in ls))
+        summed.append({
+            "name": fn, "route": "cuda", "launches": len(ls),
+            "routes": dict(collections.Counter(ln["route"] for ln in ls)),
+            "max_abs_err": max(ln["max_abs_err"] for ln in ls),
+            "ms": total("ms"), "parent_ms": total("parent_ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_3xtf32_ms": total("bound_3xtf32_ms"),
+            "library_ms": total("library_ms")})
+    return summed
 
 
 def cost_wrappers() -> dict:
@@ -4081,6 +4239,8 @@ def main() -> int:
                            for name in _build.TENSOR_CORE_SOURCES},
                         "ssd_state": list(STATE_HMMA_KERNELS)},
               "bf16_only": _build.BF16_TC_KERNELS,
+              "hgmma_tf32_only": _build.TF32_WGMMA_KERNELS,
+              "no_product": _build.NO_PRODUCT_KERNELS,
               "bf16_beside_tf32": _build.MIXED_TC_KERNELS})
         faults = [f for name, parts in gated.items()
                   for f in _build.tensor_core_faults(name, counts[name],

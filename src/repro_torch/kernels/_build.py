@@ -29,11 +29,20 @@ from typing import Dict, Iterable, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # the sources whose every kernel multiplies on the tensor cores (SASS
-# HMMA, or HGMMA for the bf16 GEMM), each with an f32 and a bf16 launch
-# function; fused_eval does no product, and in ssd_state (f32 only) the
-# walk and the split's outputs do but the scan does not
+# HMMA, or HGMMA for the wgmma kernels), each with an f32 and a bf16 launch
+# function, apart from NO_PRODUCT_KERNELS; fused_eval does no product, and
+# in ssd_state (f32 only) the walk and the split's outputs do but the scan
+# does not
 TENSOR_CORE_SOURCES = ("tiled_matmul", "flash_attention", "mamba_ssd")
 SOURCES = TENSOR_CORE_SOURCES + ("fused_eval", "ssd_state")
+# the kernel functions (a part of the mangled name), by source, that take f32
+# operands into 3xTF32 products on TF32 wgmma: each must hold HGMMA with TF32
+# operands and no bf16 product
+TF32_WGMMA_KERNELS = {"flash_attention": "flash_fwd_wgmma_tf32x3",
+                      "tiled_matmul": "gemm_wgmma_tf32x3"}
+# the functions of a tensor-core source that do no product (the GEMM's
+# split transpose of B ahead of its TF32 wgmma kernel): printed, not gated
+NO_PRODUCT_KERNELS = {"tiled_matmul": ("split_transpose_tf32",)}
 # the kernel functions (a part of the mangled name) that take bf16 operands
 # straight into bf16 tensor-core products, by source, with the SASS
 # instruction kind each must use; they may hold no TF32 product
@@ -50,15 +59,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _MM = [_P] * 3 + [_I] * 4 + [_P]
+_MM_SCRATCH = [_P] * 4 + [_I] * 4 + [_P]
 _FLASH = [_P] * 4 + [_I] * 8 + [_P]
 _FLASH_STATS = [_P] * 6 + [_I] * 8 + [_P]
 _SSD = [_P] * 6 + [_I] * 6 + [_P]
 # argument types of each source's launch functions, one per element type
 # (f32, bf16) for the three tensor-core sources (flash also with its
-# statistics); every one returns the launch's cudaError_t as an int
+# statistics; the f32 GEMM with its scratch), and the GEMM's and flash's
+# mma.sync kernel forced for f32 (``_sync_f32``); every one returns the
+# launch's cudaError_t as an int
 SIGNATURES = {
-    "tiled_matmul": {"tiled_matmul_f32": _MM, "tiled_matmul_bf16": _MM},
+    "tiled_matmul": {"tiled_matmul_f32": _MM_SCRATCH,
+                     "tiled_matmul_bf16": _MM, "tiled_matmul_sync_f32": _MM},
     "flash_attention": {"flash_attention_f32": _FLASH,
+                        "flash_attention_sync_f32": _FLASH,
                         "flash_attention_bf16": _FLASH,
                         "flash_attention_stats_f32": _FLASH_STATS,
                         "flash_attention_stats_bf16": _FLASH_STATS},
@@ -73,11 +87,11 @@ SIGNATURES = {
                   "ssd_state_out_f32": [_P] * 5 + [_I] * 9 + [_P]},
 }
 # argument types of the functions that name the configuration a launch
-# takes (the last argument the operands' bytes an element); each returns a
-# C string
+# takes (then the operands' bytes an element and, for the GEMM and flash,
+# whether the ``_sync_f32`` entry point launches); each returns a C string
 ROUTES = {
-    "tiled_matmul": {"tiled_matmul_route": [_I] * 3 + [_P] * 2 + [_I] * 2},
-    "flash_attention": {"flash_attention_route": [_I] + [_P] * 3 + [_I]},
+    "tiled_matmul": {"tiled_matmul_route": [_I] * 3 + [_P] * 2 + [_I] * 3},
+    "flash_attention": {"flash_attention_route": [_I] + [_P] * 3 + [_I] * 2},
     "mamba_ssd": {"ssd_chunk_dual_route": [_I] * 2 + [_P] * 3 + [_I] * 2},
     "ssd_state": {"ssd_state_pass_route": [_I] * 2 + [_P] * 2},
 }
@@ -122,7 +136,9 @@ def lib_path(name: str) -> Path:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Dict]:
     """Compile every named source whose library is missing, all at once.
 
-    Returns ``{name: {"seconds": s, "ptxas": [lines], "cached": bool}}``;
+    Returns ``{name: {"seconds": s, "ptxas": [lines], "warnings": [lines],
+    "cached": bool}}`` (the compiler's register and spill lines, and its
+    warnings, such as ptxas serializing ``wgmma``);
     raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -131,7 +147,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Dict]:
     for name in names:
         out = lib_path(name)
         if out.exists():
-            info[name] = {"seconds": 0.0, "ptxas": [], "cached": True}
+            info[name] = {"seconds": 0.0, "ptxas": [], "warnings": [],
+                          "cached": True}
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -149,7 +166,10 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Dict]:
         tmp.replace(out)
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
-        info[name] = {"seconds": secs, "ptxas": ptxas, "cached": False}
+        warnings = [ln.strip() for ln in log.splitlines()
+                    if "warning" in ln.lower()]
+        info[name] = {"seconds": secs, "ptxas": ptxas, "warnings": warnings,
+                      "cached": False}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return info
@@ -232,21 +252,25 @@ def tensor_core_faults(name: str, counts: Dict[str, Dict[str, int]],
     """What is wrong with source ``name``'s tensor-core counts
     (:func:`tensor_core_counts`); empty when nothing is.  A function named
     in :data:`BF16_TC_KERNELS` must hold its bf16 instruction and no TF32
-    product; one named in :data:`MIXED_TC_KERNELS` its bf16 instruction,
-    TF32 beside it allowed; every other gated function must hold an
-    ``HMMA``.  ``gated``:
-    parts of the names of the functions that must multiply on the tensor
-    cores, each naming one at least; None, every function of the
-    source."""
+    product; one named in :data:`TF32_WGMMA_KERNELS` ``HGMMA.TF32`` and no
+    bf16 product; one named in :data:`MIXED_TC_KERNELS` its bf16
+    instruction, TF32 beside it allowed; one named in
+    :data:`NO_PRODUCT_KERNELS` is not gated; every other gated function must
+    hold an ``HMMA``.  ``gated``: parts of the names of the functions that
+    must multiply on the tensor cores, each naming one at least; None, every
+    function of the source."""
     faults = []
     bf16 = BF16_TC_KERNELS.get(name)
+    tf32wg = TF32_WGMMA_KERNELS.get(name)
+    free = NO_PRODUCT_KERNELS.get(name, ())
     mixed_parts, mixed_kind = MIXED_TC_KERNELS.get(name, ((), None))
     fns = list(counts) if gated is None else [
         fn for fn in counts if any(k in fn for k in gated)]
+    fns = [fn for fn in fns if not any(part in fn for part in free)]
     if not fns:
         faults.append(f"{name}: no kernel function")
     for part in list(gated or ()) + ([bf16[0]] if bf16 else []) \
-            + list(mixed_parts):
+            + ([tf32wg] if tf32wg else []) + list(mixed_parts):
         if not any(part in fn for fn in counts):
             faults.append(f"{name}: no function named {part}")
     for fn in fns:
@@ -255,6 +279,10 @@ def tensor_core_faults(name: str, counts: Dict[str, Dict[str, int]],
             if not c.get(bf16[1]) or any("TF32" in k for k in c):
                 faults.append(f"{name}: {fn} takes bf16 products as "
                               f"{bf16[1]} only, has {c}")
+        elif tf32wg and tf32wg in fn:
+            if not c.get("HGMMA.TF32") or any("BF16" in k for k in c):
+                faults.append(f"{name}: {fn} takes 3xTF32 products as "
+                              f"HGMMA.TF32 only, has {c}")
         elif any(part in fn for part in mixed_parts):
             if not c.get(mixed_kind):
                 faults.append(f"{name}: {fn} takes C B^T as {mixed_kind}, "

@@ -24,19 +24,44 @@
 // >= 0), so m is finite; Sk = 0, whose m is the reference's NEG_INF,
 // launches nothing (flash_attention.py).
 //
-// f32 (flash_fwd).  What bounds it: at the realization path's shape
-// (B, H, S, D) = (4, 4, 512, 128), causal, a launch does 1.08 GFLOP on
-// 4.2 MB, about 250 FLOP per byte: it is bound by operations.  Both products (S = Q K^T and
+// f32.  What bounds it: at the realization path's shape (B, H, S, D) =
+// (4, 4, 512, 128), causal, a launch does 1.08 GFLOP on 4.2 MB, about 250
+// FLOP per byte: it is bound by operations.  Both products (S = Q K^T and
 // O = P V) run on the tensor cores in 3xTF32 (tf32x3.cuh): one TF32 product
 // would be off by about 1e-3 against the 2e-5 tolerance, three are off by
 // about 2e-6.  The ops bound is then 1.08 GFLOP over 165 TFLOP/s, 6.5 us.
-// The kernel runs about 8x that (PERF.md): mma.sync reaches only part of
-// the tensor-core rate (wgmma, the full-rate path, is later work), the
-// TF32 splits and the softmax cost ALU instructions beside each product,
-// and the causal mask leaves the heaviest query tiles 8x the work of the
-// lightest.
 //
-// f32 design: one block per (32-query tile, batch * head),
+// f32 at D = 64 and 128 with 16-byte aligned operands (every realization
+// shape): flash_fwd_wgmma_tf32x3, TF32 wgmma fed by TMA, FA3's shape (the
+// mma.sync kernel below took 1.0-1.2x f32 SDPA's time: PERF.md).  A block
+// is one (64-query tile, batch * head), heaviest tiles first, of two
+// warpgroups.  The split warpgroup's thread 0 loads the q tile and each kv
+// tile by TMA (k in 128-byte swizzle, v unswizzled) into a ring of two
+// stages that complete on mbarriers; the warpgroup then splits k in place
+// (hi over the copy, lo beside it) and writes vᵀ's hi and lo parts K-major
+// (TF32 wgmma reads both operands K-major, and P V contracts over kv, so v
+// is transposed), its keys in each 8 ordered 0 2 4 6 1 3 5 7: the score
+// accumulator holds columns (2t, 2t + 1) where the P fragment wants (t,
+// t + 4), and this folds the mma.sync kernel's permutation into the
+// transpose.  The consumer warpgroup owns 64 query rows: q split once in
+// shared memory; per kv tile S = Q Kᵀ as wgmma.m64nBKVk8 with both operands
+// from shared memory (lo.hi, hi.lo, hi.hi each k8 step, all of D summed in
+// the tensor core from zero: 3.7e-6 at the tf-paper shape in the
+// emulation), the online softmax of the kernel below on the accumulator
+// fragments, then P V as wgmma.m64nDk8 with P split into hi and lo in
+// registers, summed over the tile in the tensor core from zero and added
+// as o = o . alpha + pv in f32 (kept in the tensor core across kv tiles it
+// would round toward zero).  BKV is 32 keys at D = 128 and 64 at D = 64,
+// which keeps q's and two stages' parts within 227 KB and the two
+// accumulators of 64 x D and the scores under 255 registers.  The numeric
+// rules are the ones above; a tile with no masked score makes no compare;
+// causal kv tiles past the block's last query are skipped.  Each output is
+// one sum in a fixed order.
+//
+// f32 elsewhere (another D, an unaligned pointer), and the kernel the wgmma
+// route replaced (flash_attention_sync_f32 forces it): flash_fwd, mma.sync.
+//
+// mma.sync f32 design: one block per (32-query tile, batch * head),
 // 8 warps: 2 row warps of 16 query rows, each in 4 kv groups that take
 // their own 16 keys of every 64-key kv tile (so a warp's online softmax
 // covers only its keys; the groups' (max, sum, output) are merged at the
@@ -106,6 +131,7 @@
 #include <cuda_runtime.h>
 
 #include "bf16_tc.cuh"
+#include "tf32_wgmma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -726,6 +752,336 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32, D = 64 or 128, aligned: 3xTF32 on wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+template <int D_>
+struct Fw {
+  static constexpr int D = D_;
+  static constexpr int BQ = 64;                 // one consumer warpgroup
+  static constexpr int BKV = D == 128 ? 32 : 64;
+  static constexpr int NS = BKV / 2;            // score registers a thread
+  static constexpr int NO = D / 2;              // output registers a thread
+  static constexpr int QP = D / 32;             // 128-byte panels of a row
+  static constexpr int Q_BYTES = BQ * D * 4;    // each of q hi, q lo
+  // each of a stage's k hi, k lo, v, v^T hi and v^T lo
+  static constexpr int KV_BYTES = BKV * D * 4;
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_BYTES = 5 * KV_BYTES;
+  static constexpr int THREADS = 256;           // + the split warpgroup
+  // q hi, q lo and the stages, 1024-byte aligned (the swizzle atom), then
+  // the barriers
+  static constexpr size_t bytes = 1024 + 2 * size_t(Q_BYTES) +
+                                  STAGES * size_t(STAGE_BYTES) +
+                                  (1 + 3 * STAGES) * sizeof(uint64_t);
+  static_assert(bytes <= 232448, "fits in an SM's shared memory");
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_scores(float (&d)[N / 2], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  if constexpr (N == 64) {
+    tf32wg::wgmma_ss_m64n64k8(d, a, b, accumulate);
+  } else {
+    tf32wg::wgmma_ss_m64n32k8(d, a, b, accumulate);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  if constexpr (N == 128) {
+    tf32wg::wgmma_rs_m64n128k8(d, a, b, accumulate);
+  } else {
+    tf32wg::wgmma_rs_m64n64k8(d, a, b, accumulate);
+  }
+}
+
+__device__ __forceinline__ float4 split4(float4 x, float4& lo) {
+  uint32_t h[4], l[4];
+  split(x.x, h[0], l[0]);
+  split(x.y, h[1], l[1]);
+  split(x.z, h[2], l[2]);
+  split(x.w, h[3], l[3]);
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                   __uint_as_float(l[2]), __uint_as_float(l[3]));
+  return make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                     __uint_as_float(h[2]), __uint_as_float(h[3]));
+}
+
+// o (BH, Sq, D) from q (BH, Sq, D) and k, v (BH, Sk, D) through the tensor
+// maps tq and tk (boxes of 32 x BQ or BKV x 1, 128-byte swizzle) and tv
+// (boxes of D x BKV x 1, unswizzled).
+template <int D, bool STATS>
+__global__ void __launch_bounds__(Fw<D>::THREADS, 1)
+flash_fwd_wgmma_tf32x3(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       float* __restrict__ o, float* __restrict__ m_out,
+                       float* __restrict__ l_out, int Sq, int Sk, int causal,
+                       int q_offset, float scale_log2) {
+  using F = Fw<D>;
+  using namespace bf16tc;
+  extern __shared__ __align__(1024) unsigned char fw_smem[];
+  const uint32_t raw = smem_u32(fw_smem);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* base = fw_smem + pad;
+  const uint32_t base_u = raw + pad;
+  // q hi | q lo | the stages | the barriers; a stage: k hi (the copy, split
+  // in place) | k lo | v (the copy) | v^T hi | v^T lo
+  constexpr int QHI = 0, QLO = F::Q_BYTES, ST0 = 2 * F::Q_BYTES;
+  constexpr int KHI = 0, KLO = F::KV_BYTES, VRAW = 2 * F::KV_BYTES,
+                VTHI = 3 * F::KV_BYTES, VTLO = 4 * F::KV_BYTES;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(
+      base + ST0 + F::STAGES * F::STAGE_BYTES);
+  uint64_t* landed = qbar + 1;              // k and v copied
+  uint64_t* ready = landed + F::STAGES;     // k and v split
+  uint64_t* empty = ready + F::STAGES;      // the products read them
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F::BQ;   // heavy tiles first
+  const int bh = blockIdx.x;
+  const int kv_end = causal ? min(Sk, q_offset + q0 + F::BQ) : Sk;
+  const int n_kv = (kv_end + F::BKV - 1) / F::BKV;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&ready[s], 128);            // every splitting thread
+      mbar_init(&empty[s], 4);              // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4) {
+    // The split warpgroup: its thread 0 issues the copies, all of it splits
+    // each kv tile that lands into the parts the products read.
+    const int tid = threadIdx.x - 128;
+    const CUtensorMap* const ptk = &tk;
+    const CUtensorMap* const ptv = &tv;
+    auto issue_kv = [=](int j) {
+      const int s = j % F::STAGES;
+      const uint32_t st = base_u + ST0 + s * F::STAGE_BYTES;
+      mbar_expect_tx(&landed[s], 2 * F::KV_BYTES);
+#pragma unroll
+      for (int p = 0; p < F::QP; ++p)
+        tf32wg::tma_load_3d(st + KHI + p * F::BKV * 128, ptk, &landed[s],
+                            32 * p, j * F::BKV, bh);
+      tf32wg::tma_load_3d(st + VRAW, ptv, &landed[s], 0, j * F::BKV, bh);
+    };
+    if (tid == 0) {
+      mbar_expect_tx(qbar, F::Q_BYTES);
+#pragma unroll
+      for (int p = 0; p < F::QP; ++p)
+        tf32wg::tma_load_3d(base_u + QHI + p * F::BQ * 128, &tq, qbar,
+                            32 * p, q0, bh);
+      issue_kv(0);
+    }
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % F::STAGES;
+      unsigned char* st = base + ST0 + s * F::STAGE_BYTES;
+      mbar_wait(&landed[s], (j / F::STAGES) & 1);
+      // k: hi over the copy, lo at the same offset of its own buffer
+      for (int i = tid; i < F::KV_BYTES / 16; i += 128) {
+        float4* hp = reinterpret_cast<float4*>(st + KHI) + i;
+        float4 lo;
+        *hp = split4(*hp, lo);
+        reinterpret_cast<float4*>(st + KLO)[i] = lo;
+      }
+      // v (BKV keys x D) -> v^T (D rows x BKV keys, K-major: panels of 32
+      // keys), split; within each 8 keys the order 0 2 4 6 1 3 5 7, so that
+      // the score fragment's columns (2t, 2t + 1) are the P fragment's k = t
+      // and t + 4.  A thread takes 4 keys of one row d: lanes read 32
+      // consecutive d of a key row and write 16-byte chunks.
+      const float* vr = reinterpret_cast<const float*>(st + VRAW);
+      for (int i = tid; i < D * F::BKV / 4; i += 128) {
+        const int d = i % D, pc = i / D, p = pc / 8, c = pc % 8;
+        const int key = 32 * p + 8 * (c >> 1) + (c & 1);
+        float4 lo;
+        const float4 hi = split4(
+            make_float4(vr[key * D + d], vr[(key + 2) * D + d],
+                        vr[(key + 4) * D + d], vr[(key + 6) * D + d]),
+            lo);
+        const uint32_t off = p * D * 128 + tf32wg::swz128(d, 4 * c);
+        *reinterpret_cast<float4*>(st + VTHI + off) = hi;
+        *reinterpret_cast<float4*>(st + VTLO + off) = lo;
+      }
+      tf32wg::fence_proxy_async();
+      mbar_arrive(&ready[s]);
+      if (tid == 0 && j + 1 < n_kv) {
+        const int s1 = (j + 1) % F::STAGES;
+        if (j + 1 >= F::STAGES)               // tile j - 1's products done
+          mbar_wait(&empty[s1], ((j + 1) / F::STAGES - 1) & 1);
+        issue_kv(j + 1);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: warp w owns query rows 16 w .. 16 w + 15.
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // rows of d[.. 2h ..], h = 0 and 1
+  const int row1 = row0 + 8;
+  const int pos0 = q_offset + row0;     // their positions for the mask
+  const int pos1 = pos0 + 8;
+  mbar_wait(qbar, 0);
+  for (int i = threadIdx.x; i < F::Q_BYTES / 16; i += 128) {
+    float4* hp = reinterpret_cast<float4*>(base + QHI) + i;
+    float4 lo;
+    *hp = split4(*hp, lo);
+    reinterpret_cast<float4*>(base + QLO)[i] = lo;
+  }
+  tf32wg::fence_proxy_async();
+  named_barrier_sync(1, 128);
+
+  float acc[F::NO], pv[F::NO], sc[F::NS];
+#pragma unroll
+  for (int i = 0; i < F::NO; ++i) acc[i] = pv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < F::NS; ++i) sc[i] = 0.f;
+  // running max (log2 units) and denominator of rows row0 and row1
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % F::STAGES;
+    const uint32_t st = base_u + ST0 + s * F::STAGE_BYTES;
+    mbar_wait(&ready[s], (j / F::STAGES) & 1);
+
+    // s = q k^T, the whole of D summed in the tensor core from zero
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t qo = (kk / 4) * F::BQ * 128 + 32 * (kk % 4);
+      const uint32_t ko = (kk / 4) * F::BKV * 128 + 32 * (kk % 4);
+      const uint64_t qh = wgmma_desc(base_u + QHI + qo, 16, 1024);
+      const uint64_t ql = wgmma_desc(base_u + QLO + qo, 16, 1024);
+      const uint64_t kh = wgmma_desc(st + KHI + ko, 16, 1024);
+      const uint64_t kl = wgmma_desc(st + KLO + ko, 16, 1024);
+      wgmma_scores<F::BKV>(sc, ql, kh, kk > 0);
+      wgmma_scores<F::BKV>(sc, qh, kl, 1);
+      wgmma_scores<F::BKV>(sc, qh, kh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // online softmax on the fragments, in log2 units: rows row0
+    // (sc[4n + e]) and row1 (sc[4n + 2 + e]), keys k0 + 8n + 2t + e; a tile
+    // with no masked score makes no compare
+    const int k0 = j * F::BKV;
+    const bool masked = k0 + F::BKV > Sk ||
+                        (causal && k0 + F::BKV - 1 > q_offset + q0);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < F::BKV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& a = sc[4 * n + e];
+        float& b = sc[4 * n + 2 + e];
+        if (masked) {
+          const int kpos = k0 + 8 * n + 2 * t + e;
+          const bool in = kpos < Sk;
+          a = in && (!causal || pos0 >= kpos) ? a * scale_log2 : NEG_INF;
+          b = in && (!causal || pos1 >= kpos) ? b * scale_log2 : NEG_INF;
+        } else {
+          a *= scale_log2;
+          b *= scale_log2;
+        }
+        mx0 = fmaxf(mx0, a);
+        mx1 = fmaxf(mx1, b);
+      }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float corr0 = exp2_approx(m0 - mn0);
+    const float corr1 = exp2_approx(m1 - mn1);
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < F::BKV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& a = sc[4 * n + e];
+        float& b = sc[4 * n + 2 + e];
+        a = a > NEG_INF ? exp2_approx(a - mn0) : 0.f;
+        b = b > NEG_INF ? exp2_approx(b - mn1) : 0.f;
+        ps0 += a;
+        ps1 += b;
+      }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      ps0 += __shfl_xor_sync(0xffffffffu, ps0, sh);
+      ps1 += __shfl_xor_sync(0xffffffffu, ps1, sh);
+    }
+    l0 = l0 * corr0 + ps0;
+    l1 = l1 * corr1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+
+    // pv = p v, the tile's k8 steps summed in the tensor core from zero:
+    // step n's P fragment straight from the score registers, logical k = t
+    // the key 8n + 2t and k = t + 4 the key 8n + 2t + 1 (v^T's order)
+    uint32_t phi[F::BKV / 8][4], plo[F::BKV / 8][4];
+#pragma unroll
+    for (int n = 0; n < F::BKV / 8; ++n) {
+      split(sc[4 * n], phi[n][0], plo[n][0]);
+      split(sc[4 * n + 2], phi[n][1], plo[n][1]);
+      split(sc[4 * n + 1], phi[n][2], plo[n][2]);
+      split(sc[4 * n + 3], phi[n][3], plo[n][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int n = 0; n < F::BKV / 8; ++n) {
+      const uint32_t vo = (n / 4) * D * 128 + 32 * (n % 4);
+      const uint64_t vh = wgmma_desc(st + VTHI + vo, 16, 1024);
+      const uint64_t vl = wgmma_desc(st + VTLO + vo, 16, 1024);
+      wgmma_pv<D>(pv, plo[n], vh, n > 0);
+      wgmma_pv<D>(pv, phi[n], vl, 1);
+      wgmma_pv<D>(pv, phi[n], vh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pv);
+    if (lane == 0) mbar_arrive(&empty[s]);
+    // o = o . alpha + pv in f32: the tensor core's own sum over kv tiles
+    // would round toward zero
+#pragma unroll
+    for (int i = 0; i < F::NO; ++i)
+      acc[i] = acc[i] * ((i & 2) ? corr1 : corr0) + pv[i];
+  }
+
+  if (STATS && t == 0) {                // one thread of each row pair
+    const size_t r0 = size_t(bh) * Sq + row0, r1 = r0 + 8;
+    if (row0 < Sq) {
+      m_out[r0] = m0 / LOG2E;
+      l_out[r0] = l0;
+    }
+    if (row1 < Sq) {
+      m_out[r1] = m1 / LOG2E;
+      l_out[r1] = l1;
+    }
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  float* ob = o + size_t(bh) * Sq * D;
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd) {
+    const int col = 8 * jd + 2 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(ob + size_t(row0) * D + col) =
+          make_float2(acc[4 * jd] / d0, acc[4 * jd + 1] / d0);
+    if (row1 < Sq)
+      *reinterpret_cast<float2*>(ob + size_t(row1) * D + col) =
+          make_float2(acc[4 * jd + 2] / d1, acc[4 * jd + 3] / d1);
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -795,10 +1151,49 @@ int launch_d(bool vec, const void* q, const void* k, const void* v, void* o,
                                                 D, causal, q_offset, stream);
 }
 
+// The wgmma kernel for f32 at D = 64 or 128: tensor maps over q, k and v as
+// (D, S, BH) f32, then the launch.
+template <int D, bool STATS>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* m, float* l, int BH, int Sq, int Sk, int causal,
+                 int q_offset, cudaStream_t stream) {
+  using F = Fw<D>;
+  const auto kernel = flash_fwd_wgmma_tf32x3<D, STATS>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(F::bytes));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap tq, tk, tv;
+  const cuuint64_t q_dims[3] = {D, cuuint64_t(Sq), cuuint64_t(BH)};
+  const cuuint64_t kv_dims[3] = {D, cuuint64_t(Sk), cuuint64_t(BH)};
+  const cuuint32_t q_box[3] = {32, F::BQ, 1};
+  const cuuint32_t k_box[3] = {32, F::BKV, 1};
+  const cuuint32_t v_box[3] = {D, F::BKV, 1};
+  const auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!tmap::encode(&tq, f32, 4, q, 3, q_dims, q_box,
+                    CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap::encode(&tk, f32, 4, k, 3, kv_dims, k_box,
+                    CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap::encode(&tv, f32, 4, v, 3, kv_dims, v_box,
+                    CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(BH, (Sq + F::BQ - 1) / F::BQ);
+  const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
+  kernel<<<grid, F::THREADS, F::bytes, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), m, l, Sq, Sk, causal, q_offset,
+      scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 takes the wgmma kernel where D is 64 or 128 and the copies are 16
+// bytes (TMA's alignment), unless `sync`; every other f32 launch the
+// mma.sync kernel (flash_fwd).
+bool wgmma_route(int D, bool vec) { return vec && (D == 64 || D == 128); }
+
 template <bool BF16>
 int launch_t(const void* q, const void* k, const void* v, void* o, void* m,
              void* l, int B, int H, int Sq, int Sk, int D, int causal,
-             int q_offset, int device, void* stream) {
+             int q_offset, int device, void* stream, bool sync = false) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((m == nullptr) != (l == nullptr) || Sk < 1)
@@ -808,6 +1203,18 @@ int launch_t(const void* q, const void* k, const void* v, void* o, void* m,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
   const bool vec = vec_copies(D, BF16 ? 2 : 4, q, k, v, o);
+  if (!BF16 && !sync && wgmma_route(D, vec)) {
+    const bool stats = m != nullptr;
+    if (D == 64)
+      return stats ? launch_wgmma<64, true>(q, k, v, o, mf, lf, BH, Sq, Sk,
+                                            causal, q_offset, st)
+                   : launch_wgmma<64, false>(q, k, v, o, mf, lf, BH, Sq, Sk,
+                                             causal, q_offset, st);
+    return stats ? launch_wgmma<128, true>(q, k, v, o, mf, lf, BH, Sq, Sk,
+                                           causal, q_offset, st)
+                 : launch_wgmma<128, false>(q, k, v, o, mf, lf, BH, Sq, Sk,
+                                            causal, q_offset, st);
+  }
   switch (head_dim_template(D)) {
     case 32:
       return launch_d<32, BF16>(vec, q, k, v, o, mf, lf, BH, Sq, Sk, D,
@@ -849,6 +1256,17 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                         causal, q_offset, device, stream);
 }
 
+// f32 through the mma.sync kernel (flash_fwd) whatever D and the
+// alignment: the route of every f32 launch the wgmma kernel does not take,
+// and the kernel it replaced, which a measurement times beside it.
+int flash_attention_sync_f32(const void* q, const void* k, const void* v,
+                             void* o, int B, int H, int Sq, int Sk, int D,
+                             int causal, int q_offset, int device,
+                             void* stream) {
+  return launch_t<false>(q, k, v, o, nullptr, nullptr, B, H, Sq, Sk, D,
+                         causal, q_offset, device, stream, true);
+}
+
 // The same launch that also writes each row's statistics m and l into
 // (B, H, Sq) f32 buffers (see the header).
 int flash_attention_stats_f32(const void* q, const void* k, const void* v,
@@ -868,12 +1286,15 @@ int flash_attention_stats_bf16(const void* q, const void* k, const void* v,
 }
 
 // The configuration a launch takes for these arguments of `elem_bytes`
-// bytes an element (o taken as 16-byte aligned), e.g. "D128 kv64
-// cp.async16"; bf16 routes name the query rows a block and the bf16
-// product, e.g. "D64 q64 kv64 m16n8k16 cp.async16 bf16", and their
-// one-element copies are plain loads ("ld2"); "" when D is out of range.
+// bytes an element (o taken as 16-byte aligned), e.g. "D128 q64 kv32 wgmma
+// tma tf32x3" for f32 at D = 64 or 128 with 16-byte copies, else the
+// mma.sync kernel's "D32 kv64 cp.async16" (`sync`: that kernel's whatever
+// D, flash_attention_sync_f32's); bf16 routes name the query rows a block
+// and the bf16 product, e.g. "D64 q64 kv64 m16n8k16 cp.async16 bf16", and
+// their one-element copies are plain loads ("ld2"); "" when D is out of
+// range.
 const char* flash_attention_route(int D, const void* q, const void* k,
-                                  const void* v, int elem_bytes) {
+                                  const void* v, int elem_bytes, int sync) {
   const bool vec = vec_copies(D, elem_bytes, q, k, v, nullptr);
   if (elem_bytes == 2) {
     static_assert(Bf16Cfg<64>::BQ == 64 && Bf16Cfg<64>::BKV == 64 &&
@@ -895,6 +1316,11 @@ const char* flash_attention_route(int D, const void* q, const void* k,
       default: return "";
     }
   }
+  static_assert(Fw<64>::BKV == 64 && Fw<128>::BKV == 32,
+                "the route names name the configurations");
+  if (!sync && wgmma_route(D, vec))
+    return D == 64 ? "D64 q64 kv64 wgmma tma tf32x3"
+                   : "D128 q64 kv32 wgmma tma tf32x3";
   switch (head_dim_template(D)) {
     case 32: return vec ? "D32 kv64 cp.async16" : "D32 kv64 cp.async4";
     case 64: return vec ? "D64 kv64 cp.async16" : "D64 kv64 cp.async4";

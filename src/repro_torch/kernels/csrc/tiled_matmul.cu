@@ -8,20 +8,48 @@
 // contraction axis walked in steps with an f32 accumulator that lives
 // across the steps, operands zero-padded at the ragged edges.
 //
-// What bounds it: at the realization paths' shapes (M of 2048 or 4096, K
-// and N of 512 to 4384) a GEMM does 256 to 1100 FLOP per byte it must
-// move: it is bound by operations.  The products run on the tensor cores
-// in 3xTF32 (tf32x3.cuh): one TF32 product would miss the f32 reference's
+// What bounds it: at the realization paths' shapes (M of 1024 to 4096, K
+// of 64 to 2048, N of 40 to 4384) a GEMM does up to 1100 FLOP per byte it
+// must move, and all but the narrowest (N = 40, K = 64) are bound by
+// operations.  The products run on the tensor cores in
+// 3xTF32 (tf32x3.cuh): one TF32 product would miss the f32 reference's
 // atol 1e-3 / rtol 1e-4 by 30-60x at K = 512..2048, three meet it.  The
 // ops bound is then 2 M N K over 165 TFLOP/s (495 / 3), against 67 TFLOP/s
-// for the f32 FMAs the kernel used before.  The kernel reaches about a
-// third of it (PERF.md): mma.sync is not the full-rate path (one TF32
-// product instead of three runs at most 1.9x as fast, so the products
-// themselves hold it), and each element's split and each fragment's f32
-// adds cost instructions beside them.  wgmma, the full-rate path, takes
-// TF32 operands only K-major from shared memory, and B is N-major here.
+// for f32 FMAs.
 //
-// Design: a BM x BN output tile per block, BK = 32 deep steps, STAGES
+// f32, aligned operands (K % 4 == 0, N % 4 == 0, a, b and c 16-byte
+// aligned: every realization shape): gemm_wgmma_tf32x3, TF32 wgmma fed by
+// TMA, the full-rate path (mma.sync, the kernel below, reached about a
+// third of the bound: PERF.md).  TF32 wgmma reads both operands K-major
+// and B (K, N) row-major is N-major, so a first pass (split_transpose_tf32)
+// writes Bᵀ split into its TF32 parts, hi rounded and lo the rest, into
+// scratch (2, N, K) the caller provides: 12 bytes an element of B moved
+// once, where the split in shared memory would be redone by every block
+// row of the grid; the tensor core truncates a raw f32 pattern it reads as
+// TF32, so a copied tile is never a hi part.  Then the bf16 route's ring
+// (below): TMA fills STAGES shared-memory stages of BK = 32 (128 bytes,
+// one swizzle row) of A, Bᵀ hi and Bᵀ lo, each completing on an mbarrier,
+// one producer warp issues the loads, and one or two consumer warpgroups
+// of 64 rows read A's m16n8k8 fragments from the swizzled stage into
+// registers, split them (tf32x3::split), and issue per k8 step
+// wgmma.m64nBNk8 lo_a.hi_b, hi_a.lo_b, hi_a.hi_b (mma3's order) with A
+// from registers and B through descriptors.  The tensor core rounds its
+// sum toward zero, so a stage's 4 k8 steps (12 products) go into an
+// accumulator started at zero, which is added to the f32 sum in registers
+// once they are done (tests/test_torch_kernels.py emulates the depth at K
+// = 2048: 1.5e-4 against 4.3e-3 with the whole of K in the tensor core);
+// two accumulators a thread rule out the bf16 route's 128 x 256 tile.  Tile
+// by grid fill (wgmma_tf32_tile): 128 x 128 or 128 x 64 with two consumer
+// warpgroups, else 64 x 64 with one, 4 stages; TMA writes zeros past M, N
+// and K, and the epilogue stores pairs straight from the fragments, masking
+// M and N.  No split-K and no atomics: each output is one sum in a fixed
+// order, so the result is deterministic.
+//
+// f32, ragged operands (K or N % 4 != 0, or an unaligned pointer), and
+// the kernel the wgmma route replaced (tiled_matmul_sync_f32 forces it):
+// gemm_3xtf32, mma.sync.
+//
+// mma.sync design: a BM x BN output tile per block, BK = 32 deep steps, STAGES
 // shared-memory stages filled by cp.async so that the copies of the next
 // two steps are in flight while one step is multiplied (the Pallas
 // kernel's VMEM double buffering, one stage deeper).  Each warp owns a
@@ -81,6 +109,7 @@
 #include <cuda_runtime.h>
 
 #include "bf16_tc.cuh"
+#include "tf32_wgmma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -391,6 +420,176 @@ gemm_wgmma_bf16(const __grid_constant__ CUtensorMap ta,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32, aligned: 3xTF32 on wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+// B (K, N) -> its transpose split into TF32 parts, out (2, N, K): out[0] the
+// hi parts (rounded, tf32x3::split), out[1] the lo parts, both K-major as
+// TF32 wgmma reads B.  32 x 32 tiles through shared memory, so that both
+// the reads and the writes are coalesced.  No product: it moves 12 bytes an
+// element of B.
+__global__ void __launch_bounds__(256)
+split_transpose_tf32(const float* __restrict__ B, float* __restrict__ out,
+                     int K, int N) {
+  __shared__ float tile[32][33];
+  const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = ty; i < 32; i += 8) {
+    const int k = k0 + i, n = n0 + tx;
+    tile[i][tx] = k < K && n < N ? B[size_t(k) * N + n] : 0.f;
+  }
+  __syncthreads();
+  float* lo_out = out + size_t(N) * K;
+#pragma unroll
+  for (int i = ty; i < 32; i += 8) {
+    const int n = n0 + i, k = k0 + tx;
+    if (n >= N || k >= K) continue;
+    uint32_t hi, lo;
+    split(tile[tx][i], hi, lo);
+    out[size_t(n) * K + k] = __uint_as_float(hi);
+    lo_out[size_t(n) * K + k] = __uint_as_float(lo);
+  }
+}
+
+template <int BM_, int BN_, int STAGES_>
+struct Wt {
+  static constexpr int BM = BM_, BN = BN_, STAGES = STAGES_;
+  static constexpr int BK = 32;               // 128 bytes: one swizzle row
+  static constexpr int KSTEPS = BK / 8;       // k8 steps a stage: the depth
+                                              // of a sum in the tensor core
+  static constexpr int CONSUMERS = BM / 64;   // warpgroups of 64 rows
+  static constexpr int THREADS = 128 * CONSUMERS + 32;   // + the producer
+  static constexpr int A_BYTES = BM * BK * 4;
+  static constexpr int B_BYTES = BN * BK * 4;  // each of B's hi and lo
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  // the stages, 1024-byte aligned (the swizzle atom), then the barriers
+  static constexpr size_t bytes =
+      1024 + size_t(STAGES) * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t);
+};
+using WtBig = Wt<128, 128, 4>;    // 193 KB: one block an SM
+using WtMid = Wt<128, 64, 4>;     // 129 KB: one
+using WtSmall = Wt<64, 64, 4>;    // 97 KB: two
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  if constexpr (BN == 128) {
+    tf32wg::wgmma_rs_m64n128k8(d, a, b, accumulate);
+  } else {
+    tf32wg::wgmma_rs_m64n64k8(d, a, b, accumulate);
+  }
+}
+
+// C (M, N) = A (M, K) @ B (K, N), f32, through the tensor maps ta (A: K
+// innermost, boxes of 32 x BM) and tb (B's split transpose (2, N, K): boxes
+// of 32 x BN x 1), in 3xTF32: per k8 step lo_a.hi_b, hi_a.lo_b, hi_a.hi_b
+// (tf32x3::mma3's order), a stage's KSTEPS steps summed in the tensor core
+// from zero and added to the f32 accumulator.
+template <class W>
+__global__ void __launch_bounds__(W::THREADS, 1)
+gemm_wgmma_tf32x3(const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tb,
+                  float* __restrict__ C, int M, int N, int K) {
+  using namespace bf16tc;
+  extern __shared__ __align__(1024) unsigned char wt_smem[];
+  const uint32_t raw = smem_u32(wt_smem);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* tiles = wt_smem + pad;   // stage s: A, B hi, B lo
+  const uint32_t tiles_u32 = raw + pad;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      tiles + W::STAGES * W::STAGE_BYTES);
+  uint64_t* empty = full + W::STAGES;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = blockIdx.y * W::BM, n0 = blockIdx.x * W::BN;
+  const int KT = (K + W::BK - 1) / W::BK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * W::CONSUMERS);   // one arrival a warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * W::CONSUMERS) {     // the producer warp
+    if (lane == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % W::STAGES;
+        if (kt >= W::STAGES)          // the stage's previous step is done
+          mbar_wait(&empty[s], (kt / W::STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        const uint32_t a_s = tiles_u32 + s * W::STAGE_BYTES;
+        tma_load_2d(a_s, &ta, &full[s], kt * W::BK, m0);
+        tf32wg::tma_load_3d(a_s + W::A_BYTES, &tb, &full[s], kt * W::BK, n0,
+                            0);
+        tf32wg::tma_load_3d(a_s + W::A_BYTES + W::B_BYTES, &tb, &full[s],
+                            kt * W::BK, n0, 1);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;            // this warpgroup's 64 rows
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp % 4) * 16 + g; // the A fragment's rows r0, r0 + 8
+  float acc[W::BN / 2], d[W::BN / 2];
+#pragma unroll
+  for (int i = 0; i < W::BN / 2; ++i) acc[i] = d[i] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % W::STAGES;
+    mbar_wait(&full[s], (kt / W::STAGES) & 1);
+    // A's fragments of the stage's k8 steps, split into TF32 parts
+    const unsigned char* a_s = tiles + s * W::STAGE_BYTES + wg * 64 * 128;
+    uint32_t ahi[W::KSTEPS][4], alo[W::KSTEPS][4];
+#pragma unroll
+    for (int kk = 0; kk < W::KSTEPS; ++kk) {
+      const int c = 8 * kk + t;
+      const float x[4] = {
+          *reinterpret_cast<const float*>(a_s + tf32wg::swz128(r0, c)),
+          *reinterpret_cast<const float*>(a_s + tf32wg::swz128(r0 + 8, c)),
+          *reinterpret_cast<const float*>(a_s + tf32wg::swz128(r0, c + 4)),
+          *reinterpret_cast<const float*>(
+              a_s + tf32wg::swz128(r0 + 8, c + 4))};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(x[e], ahi[kk][e], alo[kk][e]);
+    }
+    const uint32_t bhi_s = tiles_u32 + s * W::STAGE_BYTES + W::A_BYTES;
+    const uint32_t blo_s = bhi_s + W::B_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < W::KSTEPS; ++kk) {  // 32 bytes on in B's rows
+      const uint64_t bhi = wgmma_desc(bhi_s + 32 * kk, 16, 1024);
+      const uint64_t blo = wgmma_desc(blo_s + 32 * kk, 16, 1024);
+      wgmma_tf32<W::BN>(d, alo[kk], bhi, kk > 0);
+      wgmma_tf32<W::BN>(d, ahi[kk], blo, 1);
+      wgmma_tf32<W::BN>(d, ahi[kk], bhi, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+    if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int i = 0; i < W::BN / 2; ++i) acc[i] += d[i];
+  }
+
+  // straight from the fragments: a thread's two columns are adjacent and N
+  // % 4 == 0, so a pair is wholly in or out
+#pragma unroll
+  for (int j = 0; j < W::BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wg * 64 + r0 + 8 * h, col = n0 + 8 * j + 2 * t;
+      if (row < M && col < N)
+        *reinterpret_cast<float2*>(C + size_t(row) * N + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -442,48 +641,14 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cuTensorMapEncodeTiled, a driver-API function, fetched once through the
-// runtime (no -lcuda on the link line).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A row-major (rows, cols) bf16 matrix at `base` as boxes of (box_rows,
 // 64) elements in 128-byte swizzle, zeros out of bounds.
 bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
                 int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(cols) * 2};
   const cuuint32_t box[2] = {64, cuuint32_t(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tmap::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, 2, dims,
+                      box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <class W>
@@ -518,9 +683,70 @@ WgTile wgmma_tile(int M, int N, int device) {
   return WgTile::Small;
 }
 
+enum class WtTile { Big, Mid, Small };
+
+// The TF32 wgmma tile: 128 x 128, then 128 x 64, whichever first gives at
+// least 31/32 of the SMs a block, else 64 x 64 (a sum of two accumulators a
+// thread leaves no room for the bf16 route's 128 x 256).
+WtTile wgmma_tf32_tile(int M, int N, int device) {
+  const long fill = sm_count(device) * 31L / 32;
+  auto blocks = [&](int bm, int bn) {
+    return long((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+  };
+  if (blocks(128, 128) >= fill) return WtTile::Big;
+  if (blocks(128, 64) >= fill) return WtTile::Mid;
+  return WtTile::Small;
+}
+
+// B's split transpose into `bt` (2 N K floats), then the wgmma kernel.
+template <class W>
+int launch_wgmma_tf32(const void* a, const void* b, void* bt, void* c, int M,
+                      int N, int K, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_wgmma_tf32x3<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(W::bytes));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap ta, tb;
+  const cuuint64_t a_dims[2] = {cuuint64_t(K), cuuint64_t(M)};
+  const cuuint32_t a_box[2] = {W::BK, W::BM};
+  const cuuint64_t b_dims[3] = {cuuint64_t(K), cuuint64_t(N), 2};
+  const cuuint32_t b_box[3] = {W::BK, W::BN, 1};
+  if (!tmap::encode(&ta, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a, 2, a_dims,
+                    a_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap::encode(&tb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bt, 3, b_dims,
+                    b_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  split_transpose_tf32<<<dim3((N + 31) / 32, (K + 31) / 32), 256, 0,
+                         stream>>>(static_cast<const float*>(b),
+                                   static_cast<float*>(bt), K, N);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((N + W::BN - 1) / W::BN, (M + W::BM - 1) / W::BM);
+  gemm_wgmma_tf32x3<W><<<grid, W::THREADS, W::bytes, stream>>>(
+      ta, tb, static_cast<float*>(c), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mma.sync kernel (gemm_3xtf32) for these operands: 16-byte copies
+// where vec_copies allows them.
 template <class T>
-int launch_t(const void* a, const void* b, void* c, int M, int N, int K,
-             int device, void* stream) {
+int launch_sync(const void* a, const void* b, void* c, int M, int N, int K,
+                int device, cudaStream_t st) {
+  const bool big = big_tiles(M, N, device);
+  if constexpr (sizeof(T) == 4) {
+    if (vec_copies(N, K, sizeof(T), a, b, c))
+      return big ? launch<Big<T>, true>(a, b, c, M, N, K, st)
+                 : launch<Small<T>, true>(a, b, c, M, N, K, st);
+  }
+  return big ? launch<Big<T>, false>(a, b, c, M, N, K, st)
+             : launch<Small<T>, false>(a, b, c, M, N, K, st);
+}
+
+// `bt`: scratch of 2 N K floats, which an aligned f32 launch (the wgmma
+// route) needs and any other ignores; without it that launch is refused.
+template <class T>
+int launch_t(const void* a, const void* b, void* bt, void* c, int M, int N,
+             int K, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -534,17 +760,20 @@ int launch_t(const void* a, const void* b, void* c, int M, int N, int K,
         default: return launch_wgmma<WgSmall>(a, b, c, M, N, K, st);
       }
     }
-    return big_tiles(M, N, device)
-               ? launch<Big<T>, false>(a, b, c, M, N, K, st)
-               : launch<Small<T>, false>(a, b, c, M, N, K, st);
   } else {
-    const bool big = big_tiles(M, N, device);
-    if (vec)
-      return big ? launch<Big<T>, true>(a, b, c, M, N, K, st)
-                 : launch<Small<T>, true>(a, b, c, M, N, K, st);
-    return big ? launch<Big<T>, false>(a, b, c, M, N, K, st)
-               : launch<Small<T>, false>(a, b, c, M, N, K, st);
+    if (vec) {
+      if (bt == nullptr || !aligned16(bt))
+        return static_cast<int>(cudaErrorInvalidValue);
+      switch (wgmma_tf32_tile(M, N, device)) {
+        case WtTile::Big:
+          return launch_wgmma_tf32<WtBig>(a, b, bt, c, M, N, K, st);
+        case WtTile::Mid:
+          return launch_wgmma_tf32<WtMid>(a, b, bt, c, M, N, K, st);
+        default: return launch_wgmma_tf32<WtSmall>(a, b, bt, c, M, N, K, st);
+      }
+    }
   }
+  return launch_sync<T>(a, b, c, M, N, K, device, st);
 }
 
 }  // namespace
@@ -553,24 +782,40 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t from the caller) and return the
 // launch's cudaError_t: 0 when the kernel was accepted.  f32 operands and
-// output, or bf16 operands and output (f32 arithmetic either way).
-int tiled_matmul_f32(const void* a, const void* b, void* c, int M, int N,
-                     int K, int device, void* stream) {
-  return launch_t<float>(a, b, c, M, N, K, device, stream);
+// output (`bt`: scratch of 2 N K floats, 16-byte aligned, for the wgmma
+// route: K % 4 == 0, N % 4 == 0, a, b and c 16-byte aligned; null
+// otherwise), or bf16 operands and output (f32 arithmetic either way).
+int tiled_matmul_f32(const void* a, const void* b, void* bt, void* c, int M,
+                     int N, int K, int device, void* stream) {
+  return launch_t<float>(a, b, bt, c, M, N, K, device, stream);
 }
 
 int tiled_matmul_bf16(const void* a, const void* b, void* c, int M, int N,
                       int K, int device, void* stream) {
-  return launch_t<__nv_bfloat16>(a, b, c, M, N, K, device, stream);
+  return launch_t<__nv_bfloat16>(a, b, nullptr, c, M, N, K, device, stream);
+}
+
+// f32 through the mma.sync kernel whatever the alignment: the route of
+// ragged operands, and the kernel the wgmma route replaced, which a
+// measurement times beside it.
+int tiled_matmul_sync_f32(const void* a, const void* b, void* c, int M, int N,
+                          int K, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_sync<float>(a, b, c, M, N, K, device,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // The configuration a launch takes for these operands of `elem_bytes`
-// bytes an element (the output taken as 16-byte aligned), e.g.
-// "128x128 cp.async16"; bf16 routes end in " bf16": the wgmma kernel's
-// tile for aligned operands ("128x64 wgmma tma bf16"), else the 3xTF32
-// kernel's with one-element copies by plain loads ("64x64 ld2 bf16").
+// bytes an element (the output taken as 16-byte aligned): for aligned
+// operands the wgmma kernel's tile, "128x128 wgmma tma tf32x3" (f32) or
+// "128x64 wgmma tma bf16"; else the mma.sync kernel's, "128x128 cp.async4"
+// (f32) or with one-element copies by plain loads, "64x64 ld2 bf16".
+// `sync`: the mma.sync kernel's route whatever the alignment
+// (tiled_matmul_sync_f32's), "128x128 cp.async16" where 16-byte copies.
 const char* tiled_matmul_route(int M, int N, int K, const void* a,
-                               const void* b, int device, int elem_bytes) {
+                               const void* b, int device, int elem_bytes,
+                               int sync) {
   const bool big = big_tiles(M, N, device);
   const bool vec = vec_copies(N, K, elem_bytes, a, b, nullptr);
   if (elem_bytes == 2) {
@@ -583,6 +828,13 @@ const char* tiled_matmul_route(int M, int N, int K, const void* a,
       }
     }
     return big ? "128x128 ld2 bf16" : "64x64 ld2 bf16";
+  }
+  if (vec && !sync) {
+    switch (wgmma_tf32_tile(M, N, device)) {
+      case WtTile::Big: return "128x128 wgmma tma tf32x3";
+      case WtTile::Mid: return "128x64 wgmma tma tf32x3";
+      default: return "64x64 wgmma tma tf32x3";
+    }
   }
   if (vec) return big ? "128x128 cp.async16" : "64x64 cp.async16";
   return big ? "128x128 cp.async4" : "64x64 cp.async4";

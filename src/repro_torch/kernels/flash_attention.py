@@ -3,14 +3,19 @@
 
 ``flash_attention_mha(q, k, v, causal, q_offset)`` launches a CUDA kernel
 of ``csrc/flash_attention.cu`` for tensors on the card: for f32 operands
-one in 3xTF32 on the tensor cores (f32 accuracy), for bf16 operands one
-on bf16 ``mma.sync.m16n8k16`` products with the probabilities split into
-two bf16 parts (f32 arithmetic either way; the output of the operands'
-type, as the reference; with ``return_stats`` also each row's softmax
-statistics (m, l), as the reference's flash path returns them) and runs the plain version
+one in 3xTF32 on the tensor cores (f32 accuracy): TF32 ``wgmma`` fed by TMA
+at head dims 64 and 128 with 16-byte aligned operands, ``mma.sync``
+otherwise (a route chosen by shape, not a fallback: a failed launch
+raises); for bf16 operands one on bf16 ``mma.sync.m16n8k16`` products with
+the probabilities split into two bf16 parts (f32 arithmetic either way;
+the output of the operands' type, as the reference; with ``return_stats``
+also each row's softmax statistics (m, l), as the reference's flash path
+returns them) and runs the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`) for tensors on the CPU.  A
 CUDA tensor never falls back: what the kernel does not take raises.
-``flash_attention_mha.launches`` counts kernel launches;
+``flash_attention_mha.launches`` counts kernel launches, and
+``flash_attention_mha.wgmma_f32_launches`` those of f32 operands on the
+wgmma kernel;
 :func:`kernel_route` names the head-dim template and copy width a launch
 takes.
 """
@@ -25,6 +30,8 @@ from . import _build
 from .ref import NEG_INF, attention_ref
 
 MAX_HEAD_DIM = 256
+# the head dims the f32 wgmma kernel takes
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,20 +93,33 @@ def flash_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out.data_ptr(), *tail)
     _build.check(lib, "flash_attention_mha", code)
     flash_attention_mha.launches += 1
+    if suffix == "f32" and D in WGMMA_HEAD_DIMS \
+            and all(x.data_ptr() % 16 == 0 for x in (q, k, v, out)):
+        flash_attention_mha.wgmma_f32_launches += 1
     return (out, m, l) if return_stats else out
 
 
 flash_attention_mha.launches = 0
+# of those, the f32 launches that took the TF32 wgmma kernel (the kernel's
+# own rule, csrc/flash_attention.cu::wgmma_route: D 64 or 128, 16-byte
+# aligned operands)
+flash_attention_mha.wgmma_f32_launches = 0
 
 
-def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 sync: bool = False) -> str:
     """The kernel configuration ``flash_attention_mha(q, k, v)`` launches
-    for these CUDA tensors, e.g. ``"D128 kv64 cp.async16"``: the head-dim
-    template, its kv tile, and the copy width (16 bytes where D is a
-    multiple of 4 f32 or 8 bf16 elements and q, k, v are 16-byte aligned,
-    else one element: ``cp.async4`` for f32, ``ld2`` for bf16).  bf16
-    routes also name the query rows a block and the product, and end in
-    `` bf16``: ``"D64 q64 kv64 m16n8k16 cp.async16 bf16"``."""
+    for these CUDA tensors.  f32 at head dim 64 or 128 with 16-byte copies
+    (D a multiple of 4, q, k, v 16-byte aligned): the ``wgmma`` kernel,
+    ``"D128 q64 kv32 wgmma tma tf32x3"``; other f32 launches the
+    ``mma.sync`` kernel's head-dim template, kv tile and copy width,
+    ``"D32 kv64 cp.async16"`` or, with one-element copies, ``cp.async4``.
+    bf16 routes name the query rows a block and the product, and end in
+    `` bf16``: ``"D64 q64 kv64 m16n8k16 cp.async16 bf16"`` (one-element
+    copies ``ld2``).  ``sync``: the route of the ``mma.sync`` kernel forced
+    for f32 (``flash_attention_sync_f32``, the kernel the wgmma route
+    replaced)."""
     lib = _build.load("flash_attention")
     return lib.flash_attention_route(q.shape[3], q.data_ptr(), k.data_ptr(),
-                                     v.data_ptr(), q.element_size()).decode()
+                                     v.data_ptr(), q.element_size(),
+                                     int(sync)).decode()

@@ -2,15 +2,20 @@
 (``src/repro/kernels/tiled_matmul.py:51``).
 
 ``tiled_matmul(a, b)`` launches a CUDA kernel of ``csrc/tiled_matmul.cu``
-for tensors on the card: for f32 operands one in 3xTF32 on the tensor
-cores (f32 accuracy); for bf16 operands ``wgmma`` fed by TMA where K and N
-are multiples of 8 and both operands 16-byte aligned, else the 3xTF32
-kernel on bf16 tiles (f32 arithmetic either way; the output of the
-operands' type, as the reference) and runs
-the plain version (:func:`repro_torch.kernels.ref.matmul_ref`) for tensors
-on the CPU.  A CUDA tensor never falls back: what the kernel does not take
-raises.  ``tiled_matmul.launches`` counts kernel launches;
-:func:`kernel_route` names the tile and copy configuration a launch takes.
+for tensors on the card.  Operands whose K and N are multiples of 16 bytes'
+worth of elements (4 f32, 8 bf16), both 16-byte aligned, take ``wgmma`` fed
+by TMA: for f32 in 3xTF32 (f32 accuracy; B's transpose, split into its TF32
+parts, is written first into scratch this wrapper allocates), for bf16 in
+bf16 products.  Other operands take the ``mma.sync`` kernel in 3xTF32 (on
+bf16 tiles for bf16).  Choosing that route by shape is not a fallback: a
+failed build or launch raises.  f32 arithmetic either way; the output of
+the operands' type, as the reference.  For tensors on the CPU it runs the
+plain version (:func:`repro_torch.kernels.ref.matmul_ref`).  A CUDA tensor
+never falls back: what the kernel does not take raises.
+``tiled_matmul.launches`` counts calls that launch, and
+``tiled_matmul.wgmma_f32_launches`` those of f32 operands that took the
+wgmma kernel; :func:`kernel_route` names the tile and copy configuration a
+launch takes.
 """
 
 from __future__ import annotations
@@ -46,28 +51,51 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), device=a.device, dtype=a.dtype)
     lib = _build.load("tiled_matmul")
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    launch = getattr(lib, f"tiled_matmul_{suffix}")
-    code = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-                  a.device.index or 0, stream)
+    tail = (M, N, K, a.device.index or 0, stream)
+    wgmma = suffix == "f32" and _wgmma_operands(a, b)
+    if suffix == "f32":
+        # the wgmma route's scratch: B's split transpose (2, N, K); the
+        # kernel's own rule (vec_copies) decides, this one only sizes it
+        scratch = torch.empty((2, N, K), device=a.device) if wgmma else None
+        code = lib.tiled_matmul_f32(
+            a.data_ptr(), b.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), *tail)
+    else:
+        code = lib.tiled_matmul_bf16(a.data_ptr(), b.data_ptr(),
+                                     out.data_ptr(), *tail)
     _build.check(lib, "tiled_matmul", code)
     tiled_matmul.launches += 1
+    tiled_matmul.wgmma_f32_launches += wgmma
     return out
 
 
 tiled_matmul.launches = 0
+# of those, the f32 launches that took the TF32 wgmma kernel
+tiled_matmul.wgmma_f32_launches = 0
 
 
-def kernel_route(a: torch.Tensor, b: torch.Tensor) -> str:
+def _wgmma_operands(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether f32 operands take the wgmma kernel: K and N multiples of 4,
+    both operands 16-byte aligned (the output, a fresh allocation, is)."""
+    K, N = b.shape
+    return K % 4 == 0 and N % 4 == 0 and a.data_ptr() % 16 == 0 \
+        and b.data_ptr() % 16 == 0
+
+
+def kernel_route(a: torch.Tensor, b: torch.Tensor,
+                 sync: bool = False) -> str:
     """The kernel configuration ``tiled_matmul(a, b)`` launches for these
-    CUDA operands, e.g. ``"128x128 cp.async16"``: the block tile (chosen
-    from M and N) and the copy width (16 bytes where K and N are multiples
-    of 4 f32 or 8 bf16 elements and both operands are 16-byte aligned,
-    else one element: ``cp.async4`` for f32).  bf16 routes end in
-    `` bf16``: the ``wgmma`` kernel's tile where the copies would be 16
-    bytes (``"128x256 wgmma tma bf16"``), else the 3xTF32 kernel's with
-    one-element loads (``"64x64 ld2 bf16"``)."""
+    CUDA operands: where K and N are multiples of 4 f32 or 8 bf16 elements
+    and both operands are 16-byte aligned, the ``wgmma`` kernel's tile
+    (chosen from M and N): ``"128x128 wgmma tma tf32x3"`` for f32,
+    ``"128x256 wgmma tma bf16"`` for bf16; else the ``mma.sync`` kernel's
+    tile and one-element copies, ``"64x64 cp.async4"`` for f32, ``"64x64
+    ld2 bf16"`` for bf16.  ``sync``: the route of the ``mma.sync`` kernel
+    forced for f32 (``tiled_matmul_sync_f32``, the kernel the f32 wgmma
+    route replaced), ``"128x128 cp.async16"`` with 16-byte copies."""
     M, K = a.shape
     lib = _build.load("tiled_matmul")
     return lib.tiled_matmul_route(M, b.shape[1], K, a.data_ptr(),
                                   b.data_ptr(), a.device.index or 0,
-                                  a.element_size()).decode()
+                                  a.element_size(), int(sync)).decode()

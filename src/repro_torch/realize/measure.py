@@ -45,7 +45,10 @@ What the rest counts depends on the program's mode:
   are not counted as ICI; that would be a model of traffic, not a
   measurement.  So no stage has a ``noc_bytes`` ratio, and the fitted
   ``f_noc`` stays 1.0 by ``fit_overlay``'s rule for an axis with no
-  evidence.
+  evidence.  ``arg_bytes`` are the stage's argument bytes (its inputs and
+  weights, the reference's ``argument_size_in_bytes`` of a one-device
+  stage) and ``temp_bytes`` its scratch at the card's allocator peak (0 on
+  the CPU), both taken outside the timed window.
 * **Mesh mode** (``build_program(mesh=pool)``): ``flops`` and
   ``hbm_bytes`` sum :func:`launch_cost` over the launches every rank of the
   stage makes on its slice (``StageProgram.rank_launches``), what ran, as
@@ -305,12 +308,12 @@ def measure_candidate(cand: RealizeCandidate, prog: RealizedProgram,
             sr.wall_s = run["wall_s"][i]
             sr.dci_bytes = float(run["dci_bytes"][i]) \
                 * sr.expected_scale.get("d2d_bytes", 1.0)
+            sr.arg_bytes = run["arg_bytes"][i]
+            sr.temp_bytes = run["temp_bytes"][i]
             if "ici_bytes" in run:
                 sr.ici_bytes = run["ici_bytes"][i] \
                     * sr.expected_scale.get("noc_bytes", 1.0)
                 sr.coll_by_kind = run["coll_by_kind"][i]
-                sr.arg_bytes = run["arg_bytes"][i]
-                sr.temp_bytes = run["temp_bytes"][i]
     return RealizationReport(
         key=cand.key, workload=cand.workload, arch_label=cand.arch.label(),
         tech=cand.arch.tech.name, batch_unit=prog.batch_unit,

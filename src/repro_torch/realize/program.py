@@ -339,9 +339,14 @@ class RealizedProgram:
         """Run the pipeline once (one batch-unit pass).
 
         Returns per-stage wall seconds, the DCI bytes billed between stage
-        grids, and every stage's exported cubes (``out_layers``); in mesh
-        mode the cubes on rank 0 only, and each stage's collective bytes
-        (:meth:`_execute_mesh`)."""
+        grids, each stage's argument bytes (its inputs and weights,
+        ``arg_bytes``) and scratch (``temp_bytes``: the card's allocator
+        peak beyond what the stage found and what its outputs hold; 0 on
+        the CPU, whose allocator keeps no peak), both taken outside the
+        timed window, and every stage's exported cubes (``out_layers``); in
+        mesh mode the cubes on rank 0 only, and each stage's collective
+        bytes (:meth:`_execute_mesh`)."""
+        from ..launch.costs import local_bytes
         if self.pool is not None:
             return self._execute_mesh(seed)
         args = stage_args_from_numpy(draw_stage_arrays(self, seed),
@@ -350,6 +355,8 @@ class RealizedProgram:
         layouts: Dict[str, Layout] = {}
         wall: List[float] = []
         dci_bytes: List[float] = []
+        arg_bytes: List[float] = []
+        temp_bytes: List[float] = []
         # no cyclic garbage collection while the stages are timed: a full
         # collection of the host's objects landed inside a stage's wall
         # and added 0.1-0.16 s to it on an H100's host (PERF.md)
@@ -362,16 +369,21 @@ class RealizedProgram:
                 for name, x in zip(sp.ext_inputs, ext):
                     if layouts[name] != sp.layout(tuple(x.shape)):
                         moved += x.numel() * x.element_size()
+                base = _peak_from_here(self.device)
                 outs, secs = _elapsed(lambda: sp.fn(*ext, *own), self.device)
                 wall.append(secs)
                 dci_bytes.append(moved)
+                arg_bytes.append(float(local_bytes(ext + list(own))))
+                temp_bytes.append(_scratch_bytes(self.device, base, outs))
                 for name, x in zip(sp.out_layers, outs):
                     outputs[name] = x
                     layouts[name] = sp.layout(tuple(x.shape))
         finally:
             if collecting:
                 gc.enable()
-        return {"wall_s": wall, "dci_bytes": dci_bytes, "outputs": outputs}
+        return {"wall_s": wall, "dci_bytes": dci_bytes,
+                "arg_bytes": arg_bytes, "temp_bytes": temp_bytes,
+                "outputs": outputs}
 
     def _whole(self, sp: StageProgram, name: str,
                local: Optional[torch.Tensor]) -> torch.Tensor:

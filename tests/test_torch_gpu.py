@@ -10,7 +10,10 @@ for the f32 GEMM, 2e-5 for f32 attention, 1e-4 for the SSD chunk kernel and
 2e-4 for the chunked SSD; for bf16 operands, GEMM atol 0.5 / rtol 5e-2 and
 attention 2e-2 against the plain version on the upcast inputs (the SSD
 kernel returns f32 and keeps 1e-4).  TF32 is off for the plain versions.
-The three kernels compute in 3xTF32 on the tensor cores for f32 operands;
+The three kernels compute in 3xTF32 on the tensor cores for f32 operands,
+the GEMM and flash on TF32 wgmma fed by TMA where the operands are aligned
+(flash at head dims 64 and 128), checked at every main-path f32 shape
+beside the mma.sync kernels they replaced, their bits repeated;
 for bf16 operands the GEMM runs wgmma fed by TMA (the 3xTF32 kernel on
 ragged K or N) and flash bf16 m16n8k16 products, each bit-reproducible
 over 50 launches.  Each tile or head-dim configuration and copy width is
@@ -59,6 +62,19 @@ def cuda():
     return torch.device("cuda")
 
 
+# the route of each shape of test_tiled_matmul_kernel_vs_plain on an H100
+# (132 SMs): aligned f32 operands take the TF32 wgmma kernel, its tile by
+# grid fill; K or N % 4 != 0 the mma.sync kernel with 4-byte copies
+_MM_ROUTES = {(2048, 512, 512): "128x64 wgmma tma tf32x3",
+              (2048, 512, 2048): "128x128 wgmma tma tf32x3",
+              (2048, 2048, 512): "128x64 wgmma tma tf32x3",
+              (4096, 1024, 4384): "128x128 wgmma tma tf32x3",
+              (4096, 2048, 1024): "128x128 wgmma tma tf32x3",
+              (100, 300, 50): "64x64 cp.async4",
+              (257, 129, 65): "64x64 cp.async4",
+              (1000, 77, 3): "64x64 cp.async4"}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N", [(2048, 512, 512), (2048, 512, 2048),
                                    (2048, 2048, 512), (4096, 1024, 4384),
@@ -68,6 +84,7 @@ def test_tiled_matmul_kernel_vs_plain(cuda, M, K, N):
     rng = np.random.default_rng(M * K + N)
     a = torch.from_numpy(_randn(rng, (M, K))).to(cuda)
     b = torch.from_numpy(_randn(rng, (K, N))).to(cuda)
+    assert mm.kernel_route(a, b) == _MM_ROUTES[(M, K, N)]
     n0 = tiled_matmul.launches
     got = tiled_matmul(a, b)
     torch.cuda.synchronize()
@@ -86,8 +103,8 @@ def _on_card(rng, shape, device, offset=False):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N,offset,route", [
-    (2048, 512, 512, False, "64x64 cp.async16"),    # 64 big tiles: small
-    (2048, 512, 2048, False, "128x128 cp.async16"),
+    (2048, 512, 512, False, "128x64 wgmma tma tf32x3"),   # 64 big tiles
+    (2048, 512, 2048, False, "128x128 wgmma tma tf32x3"),
     (1000, 77, 3, False, "64x64 cp.async4"),        # K, N % 4 != 0
     (2048, 130, 2050, False, "128x128 cp.async4"),
     (512, 256, 512, True, "64x64 cp.async4"),       # A a float off 16 B
@@ -101,8 +118,11 @@ def test_tiled_matmul_routes_vs_plain(cuda, M, K, N, offset, route):
     b = _on_card(rng, (K, N), cuda)
     assert a.is_contiguous()
     assert mm.kernel_route(a, b) == route
+    w0 = tiled_matmul.wgmma_f32_launches
     got = tiled_matmul(a, b)
     torch.cuda.synchronize()
+    # the wrapper's tally of wgmma launches follows the kernel's own rule
+    assert tiled_matmul.wgmma_f32_launches - w0 == route.endswith("tf32x3")
     torch.testing.assert_close(got, ref.matmul_ref(a, b),
                                atol=1e-3, rtol=1e-4)
 
@@ -110,8 +130,8 @@ def test_tiled_matmul_routes_vs_plain(cuda, M, K, N, offset, route):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,Sq,Sk,D,causal,offset,route", [
     (1, 2, 128, 256, 32, True, False, "D32 kv64 cp.async16"),
-    (2, 2, 192, 100, 64, True, False, "D64 kv64 cp.async16"),   # Sq > Sk
-    (4, 4, 512, 512, 128, True, False, "D128 kv64 cp.async16"),
+    (2, 2, 192, 100, 64, True, False, "D64 q64 kv64 wgmma tma tf32x3"),
+    (4, 4, 512, 512, 128, True, False, "D128 q64 kv32 wgmma tma tf32x3"),
     (1, 2, 96, 200, 256, True, False, "D256 kv32 cp.async16"),  # Sq < Sk
     (2, 2, 130, 70, 256, False, False, "D256 kv32 cp.async16"),
     (1, 3, 80, 90, 33, True, False, "D64 kv64 cp.async4"),      # D % 4 != 0
@@ -127,8 +147,12 @@ def test_flash_attention_routes_vs_plain(cuda, B, H, Sq, Sk, D, causal,
     k = _on_card(rng, (B, H, Sk, D), cuda)
     v = _on_card(rng, (B, H, Sk, D), cuda)
     assert flash_attention.kernel_route(q, k, v) == route
+    w0 = flash_attention_mha.wgmma_f32_launches
     got = flash_attention_mha(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    # the wrapper's tally of wgmma launches follows the kernel's own rule
+    assert flash_attention_mha.wgmma_f32_launches - w0 \
+        == route.endswith("tf32x3")
     torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=causal),
                                atol=2e-5, rtol=2e-5)
 
@@ -136,14 +160,98 @@ def test_flash_attention_routes_vs_plain(cuda, B, H, Sq, Sk, D, causal,
 @pytest.mark.gpu
 def test_gemm_and_flash_kernels_are_deterministic(cuda):
     """No split-K, no atomics, a fixed merge order: two launches on the same
-    inputs agree to the bit."""
+    inputs agree to the bit, on the TF32 wgmma kernels (each GEMM tile,
+    flash at head dims 128 and 64) and on the mma.sync ones."""
     rng = np.random.default_rng(5)
-    a = _on_card(rng, (2048, 512), cuda)
-    b = _on_card(rng, (512, 2048), cuda)
-    assert torch.equal(tiled_matmul(a, b), tiled_matmul(a, b))
-    q, k, v = (_on_card(rng, (4, 4, 512, 128), cuda) for _ in range(3))
-    assert torch.equal(flash_attention_mha(q, k, v, causal=True),
-                       flash_attention_mha(q, k, v, causal=True))
+    for M, K, N, offset in [(2048, 512, 2048, False), (2048, 512, 512, False),
+                            (1024, 512, 64, False), (2048, 512, 2048, True)]:
+        a = _on_card(rng, (M, K), cuda, offset)
+        b = _on_card(rng, (K, N), cuda)
+        assert ("wgmma tma tf32x3" in mm.kernel_route(a, b)) != offset
+        assert torch.equal(tiled_matmul(a, b), tiled_matmul(a, b))
+    for shape, offset in [((4, 4, 512, 128), False), ((2, 4, 300, 64), False),
+                          ((2, 2, 100, 128), True)]:
+        q = _on_card(rng, shape, cuda, offset)
+        k, v = (_on_card(rng, shape, cuda) for _ in range(2))
+        assert ("wgmma tma tf32x3" in flash_attention.kernel_route(q, k, v)) \
+            != offset
+        assert torch.equal(flash_attention_mha(q, k, v, causal=True),
+                           flash_attention_mha(q, k, v, causal=True))
+
+
+# the realization paths' f32 GEMM shapes (chip_smoke.MM_PATH): tf-paper,
+# mamba2-370m, granite-moe-3b-a800m (router N = 40, experts, attention
+# output, qkv), mla-paper (low-rank projections, output, FFN); then ragged
+# M and N (multiples of 4, off every tile)
+_MM_F32_PATH = [(2048, 512, 512), (2048, 512, 2048), (2048, 2048, 512),
+                (4096, 1024, 4384), (4096, 2048, 1024), (4096, 1536, 40),
+                (4096, 1536, 1024), (4096, 512, 1536), (4096, 1536, 1536),
+                (4096, 1536, 2560), (1024, 512, 64), (1024, 512, 128),
+                (1024, 64, 512), (1024, 128, 512), (1024, 512, 512),
+                (1024, 512, 2048), (1024, 1024, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", _MM_F32_PATH + [(1000, 512, 1020),
+                                                  (333, 260, 68),
+                                                  (4100, 1532, 36)])
+def test_tiled_matmul_wgmma_route_at_the_path_shapes(cuda, M, K, N):
+    """Every main-path f32 GEMM shape, and ragged M and N, takes the TF32
+    wgmma kernel and meets atol 1e-3 / rtol 1e-4; the mma.sync kernel it
+    replaced (``tiled_matmul_sync_f32``, 16-byte copies) meets it too."""
+    rng = np.random.default_rng(M + 3 * K + 7 * N)
+    a, b = _on_card(rng, (M, K), cuda), _on_card(rng, (K, N), cuda)
+    route = mm.kernel_route(a, b)
+    assert route.endswith("wgmma tma tf32x3"), route
+    n0, w0 = tiled_matmul.launches, tiled_matmul.wgmma_f32_launches
+    got = tiled_matmul(a, b)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == n0 + 1
+    assert tiled_matmul.wgmma_f32_launches == w0 + 1
+    want = ref.matmul_ref(a, b)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    assert mm.kernel_route(a, b, sync=True).endswith("cp.async16")
+    from repro_torch.kernels import _build
+    sync = torch.empty_like(want)
+    code = _build.load("tiled_matmul").tiled_matmul_sync_f32(
+        a.data_ptr(), b.data_ptr(), sync.data_ptr(), M, N, K,
+        cuda.index or 0, torch.cuda.current_stream().cuda_stream)
+    assert code == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sync, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Sq,Sk,D,q_offset", [
+    (4, 4, 512, 512, 128, 0),        # tf-paper
+    (1, 12, 4096, 4096, 128, 0),     # granite-moe-3b-a800m
+    (2, 4, 512, 512, 128, 0),        # mla-paper
+    (2, 2, 192, 100, 128, 0),        # ragged Sk below Sq
+    (2, 3, 70, 45, 64, 0),           # ragged Sq and Sk
+    (1, 2, 100, 300, 64, 200),       # the cache mode's q_offset
+    (2, 4, 130, 1000, 128, 870),
+])
+def test_flash_wgmma_route_with_stats_at_the_path_shapes(cuda, B, H, Sq, Sk,
+                                                         D, q_offset):
+    """The realization paths' f32 flash shapes, ragged Sq and Sk and
+    ``q_offset`` take the TF32 wgmma kernel: output, m and l within 2e-5
+    of the plain version's, causal and not."""
+    rng = np.random.default_rng(B + H + Sq + Sk + D + q_offset)
+    q, k, v = (_on_card(rng, (B, H, S, D), cuda)
+               for S in (Sq, Sk, Sk))
+    assert flash_attention.kernel_route(q, k, v).endswith("wgmma tma tf32x3")
+    for causal in (True, False):
+        n0 = flash_attention_mha.launches
+        w0 = flash_attention_mha.wgmma_f32_launches
+        got = flash_attention_mha(q, k, v, causal=causal, q_offset=q_offset,
+                                  return_stats=True)
+        torch.cuda.synchronize()
+        assert flash_attention_mha.launches == n0 + 1
+        assert flash_attention_mha.wgmma_f32_launches == w0 + 1
+        want = ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                 return_stats=True)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.gpu
@@ -160,6 +268,12 @@ def test_flash_attention_kernel_vs_plain(cuda, B, H, Sq, Sk, D, causal):
     q = torch.from_numpy(_randn(rng, (B, H, Sq, D))).to(cuda)
     k = torch.from_numpy(_randn(rng, (B, H, Sk, D))).to(cuda)
     v = torch.from_numpy(_randn(rng, (B, H, Sk, D))).to(cuda)
+    # f32 at head dims 64 and 128 takes the TF32 wgmma kernel, every other
+    # head dim the mma.sync kernel's template
+    assert flash_attention.kernel_route(q, k, v) == {
+        128: "D128 q64 kv32 wgmma tma tf32x3",
+        64: "D64 q64 kv64 wgmma tma tf32x3", 32: "D32 kv64 cp.async16",
+        100: "D128 kv64 cp.async16", 256: "D256 kv32 cp.async16"}[D]
     n0 = flash_attention_mha.launches
     got = flash_attention_mha(q, k, v, causal=causal)
     torch.cuda.synchronize()

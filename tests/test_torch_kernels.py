@@ -14,6 +14,7 @@ bf16 GEMM, 1e-4 for the SSD chunk kernel and 2e-4 for the chunked SSD.
 
 import math
 import shutil
+from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
@@ -577,22 +578,28 @@ def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
 
 
-def _mm_3xtf32_steps(a: torch.Tensor, b: torch.Tensor, in_tensor_core):
-    """a @ b as the GEMM kernel issues it: k8 steps of three TF32 products,
-    each ``mma`` adding its exact products to its accumulator with one
-    rounding toward zero (the tensor core's).  ``in_tensor_core``: the
-    running sum stays in the mma accumulator; else each step's three
-    products go into a zeroed fragment that is added to the sum in f32,
-    rounded to nearest (``tf32x3::mma3``)."""
+def _mm_3xtf32_steps(a: torch.Tensor, b: torch.Tensor,
+                     depth: Optional[int]):
+    """a (..., M, K) @ b (..., K, N) as the tensor-core kernels issue it: k8
+    steps of three TF32 products (lo.hi, hi.lo, hi.hi), each ``mma`` or
+    ``wgmma`` adding its exact products to its accumulator with one
+    rounding toward zero (the tensor core's).  ``depth``: the k8 steps
+    summed in one accumulator started at zero before it is added to the
+    sum in f32, rounded to nearest (1: ``tf32x3::mma3`` then ``drain``, the
+    ``mma.sync`` kernels; 4: a stage of the TF32 wgmma GEMM); None: the
+    whole of K in the tensor core."""
     (ahi, alo), (bhi, blo) = _split(a), _split(b)
-    acc = torch.zeros(a.shape[0], b.shape[1])
-    for k in range(0, a.shape[1], 8):
-        ks = slice(k, k + 8)
-        d = acc if in_tensor_core else torch.zeros_like(acc)
+    K = a.shape[-1]
+    depth = depth or -(-K // 8)
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for i, k in enumerate(range(0, K, 8)):
+        if i % depth == 0:
+            d = torch.zeros_like(acc)
         for x, y in ((alo, bhi), (ahi, blo), (ahi, bhi)):
-            d = _round_toward_zero(d.double()
-                                   + x[:, ks].double() @ y[ks].double())
-        acc = d if in_tensor_core else acc + d
+            d = _round_toward_zero(d.double() + x[..., k:k + 8].double()
+                                   @ y[..., k:k + 8, :].double())
+        if i % depth == depth - 1 or k + 8 >= K:
+            acc = acc + d
     return acc
 
 
@@ -604,10 +611,62 @@ def test_tensor_core_accumulation_drifts_so_each_step_is_added_in_f32():
     a = torch.from_numpy(_randn(rng, (256, 2048)))
     b = torch.from_numpy(_randn(rng, (2048, 256)))
     want = ref.matmul_ref(a, b)
-    torch.testing.assert_close(_mm_3xtf32_steps(a, b, False), want,
+    torch.testing.assert_close(_mm_3xtf32_steps(a, b, 1), want,
                                atol=1e-3, rtol=1e-4)
-    assert not torch.allclose(_mm_3xtf32_steps(a, b, True), want,
+    assert not torch.allclose(_mm_3xtf32_steps(a, b, None), want,
                               atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("depth", [4])
+def test_wgmma_gemm_depth_of_tensor_core_sums_meets_the_gemm_tolerance(
+        depth):
+    """The TF32 wgmma GEMM (``gemm_wgmma_tf32x3``) sums a stage's ``depth``
+    k8 steps (12 products) in the tensor core from zero, then adds them in
+    f32: at K = 2048 that stays within atol 1e-3 / rtol 1e-4 (about 1.5e-4
+    at most, against 1.4e-4 step by step and 4.3e-3 all in the core)."""
+    rng = np.random.default_rng(2048)
+    a = torch.from_numpy(_randn(rng, (256, 2048)))
+    b = torch.from_numpy(_randn(rng, (2048, 256)))
+    torch.testing.assert_close(_mm_3xtf32_steps(a, b, depth),
+                               ref.matmul_ref(a, b), atol=1e-3, rtol=1e-4)
+
+
+def _flash_wgmma_emulated(q, k, v, bkv: int):
+    """Causal attention as ``flash_fwd_wgmma_tf32x3`` computes it: S = q kᵀ
+    with all of D summed in the tensor core from zero (3xTF32, rounding
+    toward zero), scaled to log2 units, -1e30 masking; the online softmax
+    over kv tiles of ``bkv`` keys, each tile's P V summed in the tensor core
+    from zero and added as o = o . alpha + pv in f32; o / l."""
+    S, D = q.shape[-2], q.shape[-1]
+    s = _mm_3xtf32_steps(q, k.transpose(-1, -2), None)
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(keep, s * (math.log2(math.e) / math.sqrt(D)),
+                    torch.full_like(s, -1e30))
+    m = torch.full((*s.shape[:-1], 1), -1e30)
+    l, o = torch.zeros_like(m), torch.zeros_like(q)
+    for j in range(0, S, bkv):
+        st = s[..., j:j + bkv]
+        mn = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - mn)
+        p = torch.where(st > -1e30, torch.exp2(st - mn), torch.zeros(()))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _mm_3xtf32_steps(p, v[..., j:j + bkv, :], None)
+        m = mn
+    return o / l.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("D,bkv", [(128, 32), (64, 64)])
+def test_wgmma_flash_tensor_core_sums_meet_the_attention_tolerance(D, bkv):
+    """At the tf-paper path's shape (4, 4, 512, D), causal: flash's scores
+    summed over all of D in the tensor core and each kv tile's P V (bkv
+    keys: 32 at D = 128, 64 at D = 64, the wgmma kernel's tiles) summed
+    there too stay within 2e-5 of the plain version (about 4e-6)."""
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(_randn(rng, (4, 4, 512, D)))
+               for _ in range(3))
+    torch.testing.assert_close(_flash_wgmma_emulated(q, k, v, bkv),
+                               ref.attention_ref(q, k, v, causal=True),
+                               atol=2e-5, rtol=2e-5)
 
 
 def test_3xtf32_attention_meets_the_f32_tolerance_and_one_product_does_not():
@@ -985,6 +1044,13 @@ _SASS = """
         /*0300*/                   HMMA.1688.F32.TF32 R8, R12, R16, R8 ;       /* 0x000000100c08723c */
 \t\tFunction : _ZN12_GLOBAL__N_113ssd_state_scanEPKfS1_S1_S1_Pfiiiiiii
         /*0100*/                   FFMA R8, R12, R16, R8 ;                     /* 0x000000100c087223 */
+\t\tFunction : _ZN12_GLOBAL__N_122flash_fwd_wgmma_tf32x3ILi128ELb0EEEv14CUtensorMap_stS1_S1_PfS2_S2_iiiif
+        /*0b00*/                   HGMMA.64x32x8.F32.TF32 R24, gdesc[UR4], RZ, !UPT ;      /* 0x0000000418187df0 */
+        /*0c00*/                   HGMMA.64x128x8.F32.TF32 R88, R152, gdesc[UR8], RZ, !UPT ;  /* 0x0000000898587df0 */
+\t\tFunction : _ZN12_GLOBAL__N_117gemm_wgmma_tf32x3INS_2WtILi128ELi128ELi4EEEEEv14CUtensorMap_stS3_Pfiii
+        /*0c00*/                   HGMMA.64x128x8.F32.TF32 R88, R152, gdesc[UR8], R88, gsb0 ;  /* 0x0000000898587df0 */
+\t\tFunction : _ZN12_GLOBAL__N_120split_transpose_tf32EPKfPfii
+        /*0100*/                   STS [R3], R8 ;                              /* 0x0000000803007388 */
 """
 
 
@@ -995,7 +1061,8 @@ def test_tensor_core_counts_by_function_and_kind():
     counts = _build.tensor_core_counts(_SASS)
     by = {fn.split("_GLOBAL__N_1")[1][:18]: c for fn, c in counts.items()}
     assert list(by.values()) == [{"HMMA.BF16": 2}, {"HGMMA.BF16": 2},
-                                 {"HMMA.TF32": 1}, {}]
+                                 {"HMMA.TF32": 1}, {}, {"HGMMA.TF32": 2},
+                                 {"HGMMA.TF32": 1}, {}]
     assert _build.tensor_core_counts("no functions\nHMMA.1688.F32.TF32") \
         == {}
 
@@ -1023,13 +1090,48 @@ def test_tensor_core_gate_holds_the_bf16_kernels_to_bf16_products():
     # the bf16 kernel absent, a gated function without HMMA
     only_tf32 = {fn: c for fn, c in gemm.items() if "3xtf32" in fn}
     assert _build.tensor_core_faults("tiled_matmul", only_tf32) == [
-        "tiled_matmul: no function named gemm_wgmma_bf16"]
+        "tiled_matmul: no function named gemm_wgmma_bf16",
+        "tiled_matmul: no function named gemm_wgmma_tf32x3"]
     assert any("has no HMMA" in f for f in _build.tensor_core_faults(
         "ssd_state", counts, gated=("ssd_state_scan",)))
     assert _build.tensor_core_faults("ssd_state", counts,
                                      gated=("ssd_state_walk",)) == [
         "ssd_state: no kernel function",
         "ssd_state: no function named ssd_state_walk"]
+
+
+def test_tensor_core_gate_holds_the_tf32_wgmma_kernels_to_hgmma_tf32():
+    """The f32 wgmma functions (``_build.TF32_WGMMA_KERNELS``) must hold
+    HGMMA with TF32 operands and no bf16 product; ``mma.sync`` in their
+    place, a bf16 product beside it, or the function missing fails the
+    gate; the GEMM's split transpose of B (``NO_PRODUCT_KERNELS``) does no
+    product and is not gated."""
+    source = {"flash_attention": ("flash",),
+              "tiled_matmul": ("gemm", "split_transpose")}
+
+    def of(name, sass):
+        return {fn: c for fn, c in _build.tensor_core_counts(sass).items()
+                if any(p in fn for p in source[name])}
+
+    sync = _SASS.replace("HGMMA.64x128x8.F32.TF32", "HMMA.1688.F32.TF32") \
+        .replace("HGMMA.64x32x8.F32.TF32", "HMMA.1688.F32.TF32")
+    for name, part in _build.TF32_WGMMA_KERNELS.items():
+        assert _build.tensor_core_faults(name, of(name, _SASS)) == []
+        faults = _build.tensor_core_faults(name, of(name, sync))
+        assert len(faults) == 1 and part in faults[0] \
+            and "takes 3xTF32 products as HGMMA.TF32 only" in faults[0]
+        bf16 = {fn: {**c, "HGMMA.BF16": 1} if part in fn else c
+                for fn, c in of(name, _SASS).items()}
+        faults = _build.tensor_core_faults(name, bf16)
+        assert len(faults) == 1 and "HGMMA.TF32 only" in faults[0]
+        gone = {fn: c for fn, c in of(name, _SASS).items() if part not in fn}
+        assert _build.tensor_core_faults(name, gone) == [
+            f"{name}: no function named {part}"]
+    # the split transpose alone: nothing gated is left
+    split = {fn: c for fn, c in of("tiled_matmul", _SASS).items()
+             if "split_transpose" in fn}
+    assert split and _build.tensor_core_faults("tiled_matmul", split)[0] \
+        == "tiled_matmul: no kernel function"
 
 
 _SSD_SASS = """

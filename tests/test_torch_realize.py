@@ -19,6 +19,7 @@
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -593,6 +594,46 @@ def test_execute_times_its_stages_with_garbage_collection_paused(
         assert not gc.isenabled()
     finally:
         gc.enable()
+
+
+def _one_device_plans(g, bridge):
+    """A plan of ``bridge``'s classes that puts every layer of ``g`` in a
+    stage of its own on device 0, batch unit 2."""
+    return bridge.MeshPlan(stages=[
+        bridge.StagePlan(layers=(n,), devices=(0,), parts={n: (1, 1, 1, 1)},
+                         cgs={n: (0,)}) for n in g.topo_order()],
+        batch_unit=2)
+
+
+def test_logical_mode_arg_bytes_equal_the_reference_argument_sizes(
+        tmp_path):
+    """Logical mode records each stage's argument bytes, equal to the
+    reference's compiled ``argument_size_in_bytes`` for the same one-device
+    plan (jax on the CPU fills it), and its scratch as 0 on the CPU; a
+    logical-mode report from ``measure_candidate`` carries both for every
+    stage, taken outside the timed window (the walls are the executor's)."""
+    from repro.core import bridge as ref_bridge
+    from repro.realize.program import build_program as ref_build
+    from repro_torch.core import bridge
+    from repro_torch.realize.measure import measure_candidate
+    g, pg = ref_workload(SMALL_SPEC), make_workload(SMALL_SPEC)
+    rprog = ref_build(g, _one_device_plans(g, ref_bridge), use_pallas=False)
+    want = [float(sp.lower_and_compile().memory_analysis()
+                  .argument_size_in_bytes) for sp in rprog.stages]
+    prog = build_program(pg, _one_device_plans(pg, bridge), device="cpu")
+    run = prog.execute(seed=0)
+    assert run["arg_bytes"] == want and all(b > 0 for b in want)
+    assert run["temp_bytes"] == [0.0] * len(want)
+    arg_bytes = lambda prog: [4.0 * sum(math.prod(s) for s in sp.arg_shapes)
+                              for sp in prog.stages]
+    assert run["arg_bytes"] == arg_bytes(prog)
+    cand, plan = plans_for(load_realize_candidates(
+        _keep_ckpt(tmp_path), {"TF": pg}, verbose=False))[0]
+    prog = build_program(pg, plan, device="cpu")
+    rep = measure_candidate(cand, prog, execute=True)
+    assert [st.arg_bytes for st in rep.stages] == arg_bytes(prog)
+    assert all(st.arg_bytes > 0 and st.temp_bytes == 0.0
+               for st in rep.stages)
 
 
 def test_simba_arch_matches_reference():
