@@ -41,6 +41,7 @@ route does.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -52,6 +53,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
 
+from .. import obs
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import model_api
 from ..nn.params import (Axes, ShardingRules, abstract_init, default_rules,
@@ -116,43 +118,60 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     and the mean of their NLLs), then :func:`adamw_update` in place.
     ``loss`` is the NLL without the MoE auxiliary term, as the
     reference's.  ``zero1`` needs a mesh, and raises here: it is
-    :func:`make_train_bundle`'s."""
+    :func:`make_train_bundle`'s.
+
+    Each call keeps the span ``train.step`` (key: the call's index, from
+    0) holding ``train.forward`` (``loss_fn``) and ``train.backward``
+    (``autograd.grad``, remat's recompute included) for each micro-batch
+    (key: its index), ``train.accumulate`` (the gradients' sum) from the
+    second on, and ``train.optimizer`` (:func:`adamw_update`); all but
+    ``train.step`` carry the device clock on a CUDA device
+    (:func:`repro_torch.obs.kept_span`)."""
     if zero1:
         raise ValueError(
             "zero1 shards the optimizer state over a mesh's data axis: build "
             "the step with make_train_bundle(cfg, shape, mesh, zero1=True)")
     opt_cfg = opt_cfg or AdamWConfig()
     api = model_api(cfg)
+    calls = itertools.count()
 
-    def grads_of(model: nn.Module, plist, batch):
-        loss, m = api.loss_fn(model, batch, use_kernels=False)
+    def grads_of(model: nn.Module, plist, batch, micro: int, dev):
+        with obs.kept_span("train.forward", key=micro, device=dev):
+            loss, m = api.loss_fn(model, batch, use_kernels=False)
         # a parameter off the loss's graph (the token embedding of a
         # frontend fed embeddings) gets zeros, as jax.grad gives it
-        return torch.autograd.grad(loss, plist, allow_unused=True,
-                                   materialize_grads=True), \
-            m["nll"].detach()
+        with obs.kept_span("train.backward", key=micro, device=dev):
+            grads = torch.autograd.grad(loss, plist, allow_unused=True,
+                                        materialize_grads=True)
+        return grads, m["nll"].detach()
 
     def train_step(state: State, batch: Dict[str, torch.Tensor]):
         model, opt = state["params"], state["opt"]
         named = dict(model.named_parameters())
         plist = list(named.values())
-        if n_micro > 1:
-            mb = {k: v.reshape((n_micro, v.shape[0] // n_micro)
-                               + tuple(v.shape[1:])) for k, v in batch.items()}
-            gsum, nll = grads_of(model, plist, {k: v[0]
-                                                for k, v in mb.items()})
-            gsum = list(gsum)
-            for i in range(1, n_micro):
-                g, n = grads_of(model, plist, {k: v[i]
-                                               for k, v in mb.items()})
-                torch._foreach_add_(gsum, g)
-                nll = nll + n
-            grads = torch._foreach_div(gsum, float(n_micro))
-            nll = nll / n_micro
-        else:
-            grads, nll = grads_of(model, plist, batch)
-        _, opt, om = adamw_update(opt_cfg, named, dict(zip(named, grads)),
-                                  opt)
+        dev = plist[0].device
+        with obs.kept_span("train.step", key=next(calls)):
+            if n_micro > 1:
+                mb = {k: v.reshape((n_micro, v.shape[0] // n_micro)
+                                   + tuple(v.shape[1:]))
+                      for k, v in batch.items()}
+                gsum, nll = grads_of(model, plist,
+                                     {k: v[0] for k, v in mb.items()}, 0, dev)
+                gsum = list(gsum)
+                for i in range(1, n_micro):
+                    g, n = grads_of(model, plist,
+                                    {k: v[i] for k, v in mb.items()}, i, dev)
+                    with obs.kept_span("train.accumulate", key=i,
+                                       device=dev):
+                        torch._foreach_add_(gsum, g)
+                        nll = nll + n
+                grads = torch._foreach_div(gsum, float(n_micro))
+                nll = nll / n_micro
+            else:
+                grads, nll = grads_of(model, plist, batch, 0, dev)
+            with obs.kept_span("train.optimizer", device=dev):
+                _, opt, om = adamw_update(opt_cfg, named,
+                                          dict(zip(named, grads)), opt)
         return {"params": model, "opt": opt}, {"loss": nll, **om}
 
     return train_step

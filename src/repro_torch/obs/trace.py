@@ -27,18 +27,37 @@ reads those, so per-iteration hot paths can use :func:`timed` (histogram
 only, no event line) without flooding the trace file.
 
 Copy of ``src/repro/obs/trace.py``: the same switch, event schema and
-functions.
+functions, plus the port's own *kept spans*.
+
+**Kept spans** (:func:`kept_span`, read back by :func:`kept_spans`) are on
+whatever the switch says, for a handful of coarse regions per serve
+decode step or train step, never one per layer or kernel.  Each closed
+span is a :class:`KeptSpan` (name, ``t0`` / ``t1`` on ``perf_counter``,
+its parent's id, a key) in a process-wide ``deque`` of at most
+:data:`KEPT_MAX` records, so a long run keeps the newest ones at a fixed
+memory ceiling.  Given a CUDA ``device``, a span also records two timing
+events on that device's current stream (:mod:`repro_torch.obs.device`);
+its device milliseconds are resolved only when read, after the work.
+While a ``torch.profiler`` records, a span also opens a
+``record_function`` of its name, so the program's regions sit on the
+trace's clock.  With the switch on, a kept span also feeds its
+``phase.<name>`` histogram and writes a span event, as :func:`span` does.
 """
 
 from __future__ import annotations
 
 import atexit
+import itertools
 import json
 import os
+import threading
 import time
+from collections import deque
 from pathlib import Path
 from time import perf_counter
-from typing import Any, Dict, Optional
+from typing import Any, Deque, Dict, List, Optional
+
+from . import device as _device
 
 _TRUTHY = ("1", "true", "on", "yes")
 
@@ -170,17 +189,23 @@ class _Span:
         return self
 
     def __exit__(self, et, ev, tb) -> bool:
-        dur = perf_counter() - self.t0
-        from . import metrics as _metrics
-        _metrics.histogram("phase." + self.name).observe(dur)
-        e: Dict[str, Any] = {"ev": "span", "name": self.name,
-                             "pid": os.getpid(), "t0": self.t0, "dur": dur}
-        if self.attrs:
-            e["attrs"] = self.attrs
-        if et is not None:
-            e["err"] = getattr(et, "__name__", str(et))
-        emit(e)
+        _span_event(self.name, self.t0, perf_counter() - self.t0,
+                    self.attrs, et)
         return False
+
+
+def _span_event(name: str, t0: float, dur: float,
+                attrs: Optional[Dict[str, Any]], et) -> None:
+    """A closed span's ``phase.<name>`` observation and its event line."""
+    from . import metrics as _metrics
+    _metrics.histogram("phase." + name).observe(dur)
+    e: Dict[str, Any] = {"ev": "span", "name": name, "pid": os.getpid(),
+                         "t0": t0, "dur": dur}
+    if attrs:
+        e["attrs"] = attrs
+    if et is not None:
+        e["err"] = getattr(et, "__name__", str(et))
+    emit(e)
 
 
 class _Timed:
@@ -215,6 +240,128 @@ def timed(name: str):
     if not _ENABLED:
         return _NULL_SPAN
     return _Timed(name)
+
+
+# ---------------------------------------------------------------------------
+# Kept spans: always on, bounded, read back in-process
+# ---------------------------------------------------------------------------
+
+KEPT_MAX = 1 << 15
+"""Most kept spans held.  A serve decode step keeps four and a wave four
+more (itself, its prefill, the prefill's issue and wait); a train step
+four, and three more for each micro-batch after the first: a 45 s window
+of serving or training keeps a few thousand at most.  A record is a
+fixed set of slots whose key is shared with its parent, so the store
+stays under a few MiB of host memory (and two CUDA events a device-timed
+span)."""
+
+_KEPT: Deque["KeptSpan"] = deque(maxlen=KEPT_MAX)
+_SIDS = itertools.count()
+_LOCAL = threading.local()          # each thread's stack of open spans
+
+
+def _open_stack() -> List["KeptSpan"]:
+    st = getattr(_LOCAL, "stack", None)
+    if st is None:
+        st = _LOCAL.stack = []
+    return st
+
+
+class KeptSpan:
+    """One region of the program, kept after it closes.
+
+    ``sid`` numbers spans in the order they opened; ``parent`` is the
+    ``sid`` of the span open around this one on the same thread (None at
+    the top); ``key`` is the caller's (a serve wave's request ids, a train
+    step's index), else the parent's.  ``t0`` / ``t1`` are
+    ``perf_counter`` seconds; ``events`` the (start, end) CUDA events of a
+    device-timed span, else None."""
+
+    __slots__ = ("name", "sid", "parent", "key", "attrs", "device", "t0",
+                 "t1", "events", "_note")
+
+    def __init__(self, name: str, key: Any, device: Any,
+                 attrs: Optional[Dict[str, Any]]):
+        self.name = name
+        self.key = key
+        self.attrs = attrs
+        self.device = device
+        self.t1 = None
+        self.events = None
+
+    @property
+    def host_s(self) -> float:
+        """Seconds between enter and exit on ``perf_counter``."""
+        return self.t1 - self.t0
+
+    def device_ms(self) -> Optional[float]:
+        """Milliseconds between the span's two events on the device, once
+        the end event has completed (waits for it); None without events."""
+        return _device.elapsed_ms(self.events)
+
+    def __enter__(self) -> "KeptSpan":
+        stack = _open_stack()
+        self.sid = next(_SIDS)
+        if stack:
+            top = stack[-1]
+            self.parent = top.sid
+            if self.key is None:
+                self.key = top.key
+        else:
+            self.parent = None
+        stack.append(self)
+        self._note = _device.annotate(self.name)
+        start = _device.record(self.device)
+        if start is not None:
+            self.events = (start, None)        # the end comes at exit
+        self.t0 = perf_counter()
+        return self
+
+    def __exit__(self, et, ev, tb) -> bool:
+        self.t1 = perf_counter()
+        if self.events is not None:
+            self.events = (self.events[0], _device.record(self.device))
+        if self._note is not None:
+            self._note.__exit__(None, None, None)
+            self._note = None
+        stack = _open_stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        _KEPT.append(self)
+        if _ENABLED:
+            attrs = dict(self.attrs or {})
+            if self.key is not None:
+                attrs["key"] = self.key
+            _span_event(self.name, self.t0, self.t1 - self.t0, attrs, et)
+        return False
+
+
+def kept_span(name: str, key: Any = None, device: Any = None,
+              **attrs: Any) -> KeptSpan:
+    """``with kept_span("serve.decode"):`` -- a region kept in memory
+    whatever the switch says (see the module docstring); ``device`` (a
+    ``torch.device``) adds the device clock where it is a CUDA device."""
+    return KeptSpan(name, key, device, attrs or None)
+
+
+def kept_spans(name: Optional[str] = None) -> List[KeptSpan]:
+    """The kept spans, oldest first (those named ``name``, if given)."""
+    if name is None:
+        return list(_KEPT)
+    return [s for s in _KEPT if s.name == name]
+
+
+def last_kept(name: str) -> Optional[KeptSpan]:
+    """The newest kept span named ``name``, or None."""
+    for s in reversed(_KEPT):
+        if s.name == name:
+            return s
+    return None
+
+
+def clear_kept() -> None:
+    """Forget every kept span."""
+    _KEPT.clear()
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ its token budget.  Finished slots are masked out (their tokens ignored).
 measured :class:`~repro_torch.serve.harness.WaveCost` per wave) are the
 transport-agnostic pieces; :class:`Server` is the shim over both that
 ``examples/serve_lm.py`` uses.  The model runs on the device of its
-parameters; a wave's wall times end in a synchronize of that device.
+parameters; a wave's prefill and decode times end in a synchronize of
+that device, and are read from the wave's kept spans (``serve.*``,
+:meth:`ModelWaveExecutor.run_wave`) on ``perf_counter``.
 
 Timing contract: ``Result.latency_s`` is the **per-request** queueing +
 service time ``finish_t - enqueue_t``.  Slots in the same wave finish at
@@ -34,6 +36,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs.base import ModelConfig
 from ..models import model_api
 from ..serve.harness import WaveCost
@@ -94,8 +97,8 @@ class ModelWaveExecutor:
     Satisfies the ``WaveExecutor`` protocol: ``execute(wave)`` accepts
     requests (prompt tokens given, from ``prompt_fn``, or synthesized
     deterministically from the rid) and returns a measured
-    :class:`WaveCost`, wall-clock prefill and per-decode-step durations
-    with per-slot token counts.
+    :class:`WaveCost`, prefill and per-decode-step durations on
+    ``perf_counter`` with per-slot token counts.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
@@ -138,48 +141,76 @@ class ModelWaveExecutor:
             torch.cuda.synchronize(self.device)
 
     # -- core wave execution -----------------------------------------
+    def _take(self, cur: torch.Tensor, t: int, out: np.ndarray,
+              ntok: np.ndarray, done: np.ndarray,
+              budgets: np.ndarray) -> None:
+        """Copy the wave's ``t``-th tokens to the host and mark the slots
+        that end with them (at EOS or at their budget)."""
+        tok = cur[:, 0].cpu().numpy()
+        live = ~done
+        out[live, t] = tok[live]
+        ntok[live] += 1
+        done |= tok == self.eos_id
+        done |= (t + 1) >= budgets
+
     def run_wave(self, wave: Sequence[object]
                  ) -> Tuple[np.ndarray, np.ndarray, WaveCost]:
         """Execute one wave; returns (out_tokens, n_tokens, cost).
 
         ``out_tokens`` is (B, max_budget) with finished slots masked
-        (budget-exceeding steps are never written)."""
+        (budget-exceeding steps are never written).
+
+        Each wave keeps the spans (:func:`repro_torch.obs.kept_span`)
+        ``serve.wave`` (key: the requests' rids; attributes B and the
+        padded length L) holding ``serve.prefill`` (``.issue``: the cache,
+        the tokens' copy to the device, the prefill and its argmax;
+        ``.wait``: the synchronize) and one ``serve.decode`` a decode step
+        (``.issue``: the step and its argmax; ``.wait``: the synchronize;
+        ``.readback``: the token's copy to the host and the done mask).
+        The cost is read from them: ``prefill_s`` is ``serve.prefill``'s
+        duration, ``step_s[t]`` step ``t``'s issue plus wait."""
         prompts = [self._prompt_of(r) for r in wave]
         budgets = np.array([int(r.max_new) for r in wave], np.int32)
         toks = self._pad_wave(prompts)
         B, L = toks.shape
-        t0 = time.time()
-        cache = self.api.init_cache(B, self.max_seq, self.cache_len,
-                                    device=self.device)
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-        if self.cfg.frontend in ("patch", "audio"):
-            batch["embeds"] = torch.zeros((B, L, self.cfg.d_model),
-                                          dtype=torch.bfloat16,
-                                          device=self.device)
-        logits, cache = self.api.prefill(self.params, batch, cache)
-        cur = logits.argmax(dim=-1).to(torch.int32)[:, None]
-        self._sync()
-        prefill_s = time.time() - t0
+        rids = tuple(getattr(r, "rid", None) for r in wave)
         max_new = int(budgets.max())
         out = np.full((B, max_new), self.eos_id, np.int32)
         done = np.zeros((B,), bool)
         ntok = np.zeros((B,), np.int32)
         step_s: List[float] = []
-        for t in range(max_new):
-            tok = cur[:, 0].cpu().numpy()
-            live = ~done
-            out[live, t] = tok[live]
-            ntok[live] += 1
-            done |= tok == self.eos_id
-            done |= (t + 1) >= budgets
-            if done.all():
-                break
-            ts = time.time()
-            logits, cache = self.api.decode_step(self.params, cur, cache)
-            cur = logits.argmax(dim=-1).to(torch.int32)[:, None]
-            self._sync()
-            step_s.append(time.time() - ts)
-        cost = WaveCost(prefill_s=prefill_s, step_s=step_s,
+        with obs.kept_span("serve.wave", key=rids, B=B, L=L):
+            with obs.kept_span("serve.prefill") as prefill:
+                with obs.kept_span("serve.prefill.issue"):
+                    cache = self.api.init_cache(B, self.max_seq,
+                                                self.cache_len,
+                                                device=self.device)
+                    batch = {"tokens": torch.from_numpy(toks).to(
+                        self.device)}
+                    if self.cfg.frontend in ("patch", "audio"):
+                        batch["embeds"] = torch.zeros(
+                            (B, L, self.cfg.d_model), dtype=torch.bfloat16,
+                            device=self.device)
+                    logits, cache = self.api.prefill(self.params, batch,
+                                                     cache)
+                    cur = logits.argmax(dim=-1).to(torch.int32)[:, None]
+                with obs.kept_span("serve.prefill.wait"):
+                    self._sync()
+            self._take(cur, 0, out, ntok, done, budgets)
+            for t in range(1, max_new):
+                if done.all():
+                    break
+                with obs.kept_span("serve.decode"):
+                    with obs.kept_span("serve.decode.issue") as issue:
+                        logits, cache = self.api.decode_step(
+                            self.params, cur, cache)
+                        cur = logits.argmax(dim=-1).to(torch.int32)[:, None]
+                    with obs.kept_span("serve.decode.wait") as wait:
+                        self._sync()
+                    with obs.kept_span("serve.decode.readback"):
+                        self._take(cur, t, out, ntok, done, budgets)
+                step_s.append(issue.host_s + wait.host_s)
+        cost = WaveCost(prefill_s=prefill.host_s, step_s=step_s,
                         slot_tokens=[int(n) for n in ntok],
                         tokens=[out[i, :ntok[i]] for i in range(B)])
         return out, ntok, cost

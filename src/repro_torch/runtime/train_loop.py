@@ -9,6 +9,13 @@ the data pipeline resumes bit-exactly (batches are a pure function of
 step).  Log lines, the resume rule and the returned dict are the
 reference's.
 
+A step's time, which the watchdog and the log read, is the host duration
+of the step function's kept ``train.step`` span
+(:func:`repro_torch.obs.kept_span`, ``perf_counter``).  On a card that
+is the time to issue the step, which the launch queue holds near the
+device's for a step of thousands of kernels; the loss's copy to the
+host, which waits for the rest, lies outside it.
+
 The loop runs on one explicit ``device`` (default the card; a CUDA device
 with no card raises) with no mesh.  Parameters come from the port's
 ``init_params`` with ``torch.Generator(device).manual_seed(tcfg.seed)``,
@@ -21,13 +28,13 @@ the working directory.
 from __future__ import annotations
 
 import json
-import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..checkpoint.ckpt import CheckpointManager
 from ..configs.base import ModelConfig
 from ..data.pipeline import (DataConfig, Prefetcher, make_batch,
@@ -108,11 +115,10 @@ class Trainer:
         try:
             for step in range(start, self.tcfg.steps):
                 _, batch = pf.next()
-                t0 = time.time()
                 state, metrics = self.step_fn(
                     state, to_device(batch, self.device))
                 loss = float(metrics["loss"])
-                dt = time.time() - t0
+                dt = obs.last_kept("train.step").host_s
                 slow = self.watchdog.observe(dt)
                 losses.append(loss)
                 if slow:

@@ -65,6 +65,12 @@ class WaveCost:
     tokens slot ``i`` actually produced (1 from prefill + one per decode
     step it was active in), so slot ``i`` finishes at
     ``start + prefill_s + sum(step_s[:slot_tokens[i] - 1])``.
+
+    :class:`repro_torch.runtime.serve_loop.ModelWaveExecutor` gives
+    ``perf_counter`` durations read from its kept spans: ``prefill_s`` is
+    ``serve.prefill`` (issue to synchronize), ``step_s[t]`` is step
+    ``t``'s ``serve.decode.issue`` plus ``serve.decode.wait``; the token's
+    copy to the host (``serve.decode.readback``) lies outside ``step_s``.
     """
     prefill_s: float
     step_s: List[float]
