@@ -18,7 +18,9 @@ applications, "pos"}), with ``pos`` a host int.  ``prefill`` and
 ``decode_step`` write the new entries into the cache's tensors in place
 and return the cache with ``pos`` advanced (the reference returns new
 arrays); ``forward`` with a cache and without ``update_cache`` works on a
-copy.
+copy.  A decode step on the card without a mesh and with a cache without
+KV pages (the ssm family's) replays a CUDA graph of the same step
+(:mod:`.decode_graph`), whose own cache it writes and returns.
 
 ``use_kernels`` (default True) routes CUDA tensors through the port's
 kernels (flash attention, the SSD chunk kernel and state pass); False
@@ -38,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
@@ -47,6 +50,7 @@ from ..nn.layers import (Embedding, Linear, dtype_of, gelu, make_norm,
 from ..nn.mamba2 import Mamba2, init_ssm_cache
 from ..nn.moe import MoE
 from ..nn.params import ShardingRules, shard_constraint
+from . import decode_graph
 
 Cache = Dict[str, Any]
 
@@ -328,7 +332,30 @@ def decode_step(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
                 cache: Cache, use_kernels: bool = True,
                 rules: Optional[ShardingRules] = None
                 ) -> Tuple[torch.Tensor, Cache]:
-    """tokens: (B, 1) -> (logits (B, vocab), new cache)."""
+    """tokens: (B, 1) -> (logits (B, vocab), new cache).  On a CUDA device,
+    without a mesh and with a cache without KV pages, the step replays a
+    CUDA graph of :func:`_decode_eager` (:mod:`.decode_graph`: the same
+    bits; the returned cache is then the graph's, and the tensors of the
+    cache passed in are left as they were); any other step runs it."""
+    table = params.embed.embedding
+    if decode_graph.takes_graph(
+            (tokens.device, table.device),
+            isinstance(tokens, DTensor) or isinstance(table, DTensor),
+            rules, cache):
+        key = (tokens.shape[0], tokens.dtype, cfg, use_kernels)
+        return decode_graph.step(
+            params, key, lambda t, c: _decode_eager(cfg, params, t, c,
+                                                    use_kernels),
+            tokens, cache)
+    return _decode_eager(cfg, params, tokens, cache, use_kernels, rules)
+
+
+@torch.no_grad()
+def _decode_eager(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
+                  cache: Cache, use_kernels: bool = True,
+                  rules: Optional[ShardingRules] = None
+                  ) -> Tuple[torch.Tensor, Cache]:
+    """The decode step, op by op: the cache's tensors written in place."""
     logits, _, new_cache = forward(cfg, params, {"tokens": tokens},
                                    cache=cache, update_cache=True,
                                    mode="decode", use_kernels=use_kernels,

@@ -247,13 +247,13 @@ def timed(name: str):
 # ---------------------------------------------------------------------------
 
 KEPT_MAX = 1 << 15
-"""Most kept spans held.  A serve decode step keeps four and a wave four
-more (itself, its prefill, the prefill's issue and wait); a train step
-four, and three more for each micro-batch after the first: a 45 s window
-of serving or training keeps a few thousand at most.  A record is a
-fixed set of slots whose key is shared with its parent, so the store
-stays under a few MiB of host memory (and two CUDA events a device-timed
-span)."""
+"""Most kept spans held.  A serve decode step keeps four (five where it
+replays a decode graph) and a wave four more (itself, its prefill, the
+prefill's issue and wait); a train step four, and three more for each
+micro-batch after the first: a 45 s window of serving or training keeps
+some thousands at most.  A record is a fixed set of slots whose key is
+shared with its parent, so the store stays under a few MiB of host
+memory (and two CUDA events a device-timed span)."""
 
 _KEPT: Deque["KeptSpan"] = deque(maxlen=KEPT_MAX)
 _SIDS = itertools.count()

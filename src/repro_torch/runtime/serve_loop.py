@@ -167,6 +167,9 @@ class ModelWaveExecutor:
         ``.wait``: the synchronize) and one ``serve.decode`` a decode step
         (``.issue``: the step and its argmax; ``.wait``: the synchronize;
         ``.readback``: the token's copy to the host and the done mask).
+        A step that replays a decode graph keeps ``decode.graph.replay``
+        (and on its first call ``decode.graph.capture``) inside its
+        ``.issue`` (:mod:`repro_torch.models.decode_graph`).
         The cost is read from them: ``prefill_s`` is ``serve.prefill``'s
         duration, ``step_s[t]`` step ``t``'s issue plus wait."""
         prompts = [self._prompt_of(r) for r in wave]

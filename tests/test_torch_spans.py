@@ -1,6 +1,7 @@
 """The port's kept spans (``repro_torch.obs.kept_span``): the tree a serve
-wave and a train step keep, the costs the serve loop reads from them, the
-store's bound, the profiler's marks, and the ``REPRO_OBS`` switch.
+wave and a train step keep (with the decode graph's, through a stand-in
+runner), the costs the serve loop reads from them, the store's bound, the
+profiler's marks, and the ``REPRO_OBS`` switch.
 
 On the CPU a span has no device clock: its device milliseconds are None.
 """
@@ -16,7 +17,7 @@ from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch import steps
-from repro_torch.models import model_api
+from repro_torch.models import decode_graph, model_api
 from repro_torch.optim import adamw
 from repro_torch.runtime.serve_loop import ModelWaveExecutor, Request
 from repro_torch.runtime.train_loop import TrainConfig, Trainer
@@ -88,6 +89,29 @@ def test_a_wave_keeps_its_span_tree_and_its_cost_reads_it():
                                           "serve.decode.wait",
                                           "serve.decode.readback"]
         assert all(a.t1 <= b.t0 for a, b in zip(kids, kids[1:]))
+
+
+def test_decode_graph_spans_nest_in_the_decode_issue(graph_stand_in):
+    """Through the graph route (a stand-in runner on the CPU), each decode
+    step's ``serve.decode.issue`` holds one ``decode.graph.replay``, the
+    first also the ``decode.graph.capture`` (attribute B), both carrying
+    the wave's key."""
+    ex = _executor()
+    ex.run_wave(_wave())
+    by_sid = _by_sid()
+    issues = obs.kept_spans("serve.decode.issue")
+    replays = obs.kept_spans("decode.graph.replay")
+    (capture,) = obs.kept_spans("decode.graph.capture")
+    assert len(replays) == len(issues) == 4
+    assert capture.attrs == {"B": 3}
+    assert sorted(r.parent for r in replays) == [i.sid for i in issues]
+    assert capture.parent == issues[0].sid
+    for s in replays + [capture]:
+        parent = by_sid[s.parent]
+        assert s.key == parent.key == (10, 11, 12)
+        assert parent.t0 <= s.t0 <= s.t1 <= parent.t1
+    assert capture.t1 <= replays[0].t0
+    decode_graph.drop(ex.params)
 
 
 def _tiny_train_cfg():
